@@ -1,0 +1,52 @@
+"""CUDA wrappers of the diagonal chain kernels (``csrc/chain_diag.cu``).
+
+Ports of ``chain_diag_1d`` and ``chain_diag_batch_2d`` from the JAX
+package's ``kernels/affine/affine.py``.  Each wrapper checks its tensors
+(CUDA, float32, contiguous, d in {2, 3}, matching shapes), allocates the
+output, launches on the current stream and counts the launch.  An empty
+input launches nothing.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import CudaKernel, check_operands
+
+_DIAG_1D = CudaKernel("chain_diag", "chain_diag_1d", n_ptrs=4, n_sizes=2)
+_DIAG_BATCH = CudaKernel("chain_diag", "chain_diag_batch_2d", n_ptrs=4,
+                         n_sizes=3)
+
+
+def chain_diag_1d(flat: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+                  *, d: int) -> torch.Tensor:
+    """y = s[c] * x[j] + t[c], c = j mod d, over the flat (N*d,) buffer of
+    an (N, d) point array; ``s``/``t`` are (d,)."""
+    check_operands(flat, s, t, d=d)
+    if flat.dim() != 1 or flat.numel() % d or s.shape != (d,) or t.shape != (d,):
+        raise ValueError(f"chain_diag_1d wants flat (N*{d},), s and t "
+                         f"({d},); got {tuple(flat.shape)}, "
+                         f"{tuple(s.shape)}, {tuple(t.shape)}")
+    out = torch.empty_like(flat)
+    if flat.numel():
+        _DIAG_1D(flat.device, out.data_ptr(), flat.data_ptr(), s.data_ptr(),
+                 t.data_ptr(), flat.numel(), d)
+    return out
+
+
+def chain_diag_batch_2d(pts3: torch.Tensor, s: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+    """q[b] = s[b] (.) p[b] + t[b] for a packed (B, L, d) batch and
+    (B, d) per-request parameters: one launch for the whole batch."""
+    if pts3.dim() != 3:
+        raise ValueError(f"chain_diag_batch_2d wants (B, L, d) points, got "
+                         f"{tuple(pts3.shape)}")
+    bsz, length, d = pts3.shape
+    check_operands(pts3, s, t, d=d)
+    if s.shape != (bsz, d) or t.shape != (bsz, d):
+        raise ValueError(f"s and t must be ({bsz}, {d}); got "
+                         f"{tuple(s.shape)}, {tuple(t.shape)}")
+    out = torch.empty_like(pts3)
+    if pts3.numel():
+        _DIAG_BATCH(pts3.device, out.data_ptr(), pts3.data_ptr(),
+                    s.data_ptr(), t.data_ptr(), bsz, length, d)
+    return out
