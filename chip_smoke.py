@@ -8,33 +8,50 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 
   1. the card's name and power limit, from nvidia-smi;
   2. build every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``;
-  3. serve: the main path.  1024 requests from the affine template pool
+  3. serve (affine): 1024 requests from the affine template pool
      (lognormal sizes from 1024 to 262144 points, median 16384) through
      ``GeometryServer`` on the GPU -- one warm flush, then three rounds
      of submitting all 1024 and one timed flush (submit and flush timed
      apart) -- then every request through per-request
-     ``TransformChain.apply``.
-     Kernel launch counts are zeroed just before and read just after.
-     Every served result must be bitwise equal to the same request served
-     with ``backend="ref"`` (the plain PyTorch versions) on the card and to
-     per-request ``apply``, and within 4 float32 epsilons of a float64
-     evaluation of its fold;
-  4. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
+     ``TransformChain.apply``.  Kept as it was, so its series stays
+     comparable;
+  4. serve (mixed): the main path, the same run over the full
+     ``TEMPLATES`` pool -- the JAX launcher's default mix, about 3/11 of
+     the requests projective -- with per-request ``project`` for the
+     projective requests and ``apply`` for the rest;
+  5. graphics: one ``viewing_chain`` (camera, perspective, cull,
+     viewport) projects a 2**20-point cloud in one launch, then 64 frames
+     of 65536 points with the camera stepped around an orbit serve as one
+     ``GeometryServer`` flush, one projective bucket;
+     In phases 3-5 kernel launch counts are zeroed just before the phase
+     and read just after.  Every served or projected result must be
+     bitwise equal to the same request run with ``backend="ref"`` (the
+     plain PyTorch versions) on the card and to per-request
+     ``apply``/``project``, masks included, and within the float64 bound
+     of its fold: 4 eps32 (sum_m |p_m A_mc| + |t_c|) for affine plans,
+     4 eps32 [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| +
+     |H_dd|)] / |w| for projective ones, whose masks must equal the
+     float64 mask wherever every margin exceeds that bound;
+  6. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
-     served workload -- the sizes per-request ``apply`` hands them -- and
-     the batch kernels at the largest served bucket of each plan kind):
-     bitwise equal to its
-     plain version on the same inputs, timed with CUDA events (median of
-     25 runs, L2 flushed between runs and the device kept busy while the
-     host enqueues, so the time is the device's) and its host cost per
-     call, beside its plain version, one
-     PyTorch library call (``torch.addcmul`` / ``torch.baddbmm``, a
-     yardstick only -- the port never calls it) and its memory bound;
-  5. the ``kernels`` line, then the device line last.
+     served workload -- the sizes per-request ``apply``/``project`` hand
+     them -- and the batch kernels at the largest served bucket of each
+     plan kind): bitwise equal to its plain version on the same inputs
+     (points and mask), timed with CUDA events (median of 25 runs, L2
+     flushed between runs and the device kept busy while the host
+     enqueues, so the time is the device's) and its host cost per call,
+     beside its plain version, one PyTorch library call
+     (``torch.addcmul`` / ``torch.baddbmm``; for the projective kernels,
+     which no single call computes, a composite of ``addmm``/``baddbmm``,
+     a divide and two compares) -- a yardstick only, the port never calls
+     it -- and its bound;
+  7. the ``kernels`` line (launches from the mixed serve), then the
+     device line last.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,12 +62,14 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch import serving  # noqa: E402
+from repro_torch import graphics, serving  # noqa: E402
 from repro_torch.kernels import _build, opcount  # noqa: E402
 from repro_torch.kernels.affine import affine as diag_k  # noqa: E402
 from repro_torch.kernels.affine import ref as diag_ref  # noqa: E402
 from repro_torch.kernels.matmul import matmul as matrix_k  # noqa: E402
 from repro_torch.kernels.matmul import ref as matrix_ref  # noqa: E402
+from repro_torch.kernels.projective import projective as proj_k  # noqa: E402
+from repro_torch.kernels.projective import ref as proj_ref  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
@@ -63,6 +82,10 @@ REPS = 25
 SPIN_CYCLES = 2_000_000
 EPS32 = float(np.finfo(np.float32).eps)
 SEED = 0
+#: the graphics phase: one cloud projected in one launch, then frames
+#: of one orbiting camera served as one bucket
+CLOUD_POINTS = 1 << 20
+FRAMES, FRAME_POINTS = 64, 65536
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_diag_1d": ("src/repro_torch/kernels/csrc/chain_diag.cu",
@@ -74,7 +97,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_matrix_batch_2d": ("src/repro_torch/kernels/csrc/chain_matrix.cu",
                               "src/repro/kernels/matmul/matmul.py:158",
                               "matrix"),
+    "chain_project_1d": ("src/repro_torch/kernels/csrc/chain_project.cu",
+                         "src/repro/kernels/projective/projective.py:82",
+                         "projective"),
+    "chain_project_batch_2d": ("src/repro_torch/kernels/csrc/chain_project.cu",
+                               "src/repro/kernels/projective/projective.py:152",
+                               "projective"),
 }
+FLAT = {"diag": "chain_diag_1d", "matrix": "chain_matrix_1d",
+        "projective": "chain_project_1d"}
+BATCH = {"diag": "chain_diag_batch_2d", "matrix": "chain_matrix_batch_2d",
+         "projective": "chain_project_batch_2d"}
 
 
 def emit(obj: dict) -> None:
@@ -94,7 +127,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-# -- the main path -----------------------------------------------------------
+def require_launched(counts: dict, names, phase: str) -> None:
+    for name in names:
+        if counts[name] == 0:
+            raise SystemExit(f"{name} was never launched in the {phase} run")
+
+
+# -- the float64 oracles ---------------------------------------------------------
 
 def fold_oracle_ok(chain, pts: np.ndarray, out: np.ndarray) -> bool:
     """``out`` within 4 float32 epsilons per term of the float64 value of
@@ -111,17 +150,75 @@ def fold_oracle_ok(chain, pts: np.ndarray, out: np.ndarray) -> bool:
                 and (np.abs(got - q) <= 4 * EPS32 * mag).all())
 
 
-def serve_phase(device: str = "cuda", n_requests: int = 1024,
-                min_points: int = 1024,
-                max_points: int = 262144) -> tuple[dict, dict, dict, tuple]:
-    """Drive the main path; returns (kernel launch counts of the run,
+def project_oracle_ok(folded, pts: np.ndarray, out: np.ndarray,
+                      mask: np.ndarray) -> tuple[bool, int]:
+    """A projective result against the float64 value of its float32 fold
+    (H, lo, hi): every element within
+
+        4 eps [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| + |H_dd|)] / |w|
+
+    (4 eps (sum_m |p_m H_mc| + |H_dc|) where w <= 0) wherever w's margin
+    to 0 exceeds its own bound, and the mask equal to the float64 mask
+    wherever every margin exceeds the bound.  Returns (ok, points whose
+    margins lie within the bound -- not held to the float64 mask)."""
+    d = pts.shape[-1]
+    p = pts.reshape(-1, d).astype(np.float64)
+    h, lo, hi = (f.astype(np.float64) for f in folded)
+    qh = p @ h[:d] + h[d]
+    mag = np.abs(p) @ np.abs(h[:d]) + np.abs(h[d])
+    w = qh[:, d]
+    w_ok = w > 0
+    safe = np.where(w_ok, w, 1.0)[:, None]
+    v = qh[:, :d] / safe
+    bound = 4 * EPS32 * np.where(w_ok[:, None],
+                                 (mag[:, :d] + np.abs(v) * mag[:, d:]) / safe,
+                                 mag[:, :d])
+    w_clear = np.abs(w) > 4 * EPS32 * mag[:, d]
+    got = out.reshape(-1, d).astype(np.float64)
+    values_ok = np.isfinite(got).all() \
+        and bool((np.abs(got - v) <= bound)[w_clear].all())
+    inside64 = w_ok & np.all((v >= lo) & (v <= hi), axis=-1)
+    clear = w_clear & np.all((np.abs(v - lo) > bound)
+                             & (np.abs(v - hi) > bound), axis=-1)
+    mask_ok = bool((mask.reshape(-1) == inside64)[clear].all())
+    return values_ok and mask_ok, int((~clear).sum())
+
+
+def check_result(i, chain, pts, out, ref, per_request, per_request_mask):
+    """Hold one served result to the plain path's, to per-request
+    ``apply``/``project`` and to the float64 oracle; returns the points
+    left out of the mask comparison."""
+    if out.shape != pts.shape or not np.isfinite(out).all():
+        raise SystemExit(f"request {i}: bad result shape/values")
+    if not bitwise_equal(out, ref):
+        raise SystemExit(f"request {i}: kernel != plain version on the card")
+    if not bitwise_equal(out, per_request):
+        raise SystemExit(f"request {i}: packed != per-request apply/project")
+    if not chain.is_projective:
+        if not fold_oracle_ok(chain, pts, out):
+            raise SystemExit(f"request {i}: outside 4 eps of the float64 fold")
+        return 0
+    for other in (ref.mask, per_request_mask):
+        if not bitwise_equal(out.mask, other):
+            raise SystemExit(f"request {i}: mask != plain/per-request mask")
+    ok, undecided = project_oracle_ok(chain.fold(), pts, out, out.mask)
+    if not ok:
+        raise SystemExit(f"request {i}: outside the float64 projective bound")
+    return undecided
+
+
+# -- the serving paths -------------------------------------------------------------
+
+def serve_phase(phase: str, templates, device: str = "cuda",
+                n_requests: int = 1024, min_points: int = 1024,
+                max_points: int = 262144) -> tuple[dict, dict, dict, dict]:
+    """Drive one serving path; returns (kernel launch counts of the run,
     the serving summary, the largest served bucket shape per plan kind,
-    the median and the largest request's point count)."""
+    the median and the largest request's point count per plan kind)."""
     reqs = workload.random_workload(
-        seed=SEED, n_requests=n_requests,
-        templates=workload.AFFINE_TEMPLATES, min_points=min_points,
-        max_points=max_points)
-    n_diag = sum(c.is_diagonal for c, _ in reqs)
+        seed=SEED, n_requests=n_requests, templates=templates,
+        min_points=min_points, max_points=max_points)
+    n_kind = {k: sum(c.plan_kind == k for c, _ in reqs) for k in FLAT}
 
     serving.reset_stats()
     _build.reset_launch_counts()
@@ -138,8 +235,14 @@ def serve_phase(device: str = "cuda", n_requests: int = 1024,
         submit_s.append(t1 - t0)
         timings.append(srv.last_timing)
     t0 = time.perf_counter()
-    applied = [c.apply(torch.from_numpy(p).to(device)).cpu().numpy()
-               for c, p in reqs]
+    singles = []
+    for c, p in reqs:
+        x = torch.from_numpy(p).to(device)
+        if c.is_projective:
+            q, m = c.project(x)
+            singles.append((q.cpu().numpy(), m.cpu().numpy()))
+        else:
+            singles.append((c.apply(x).cpu().numpy(), None))
     apply_s = time.perf_counter() - t0
     counts = _build.launch_counts()
     stats = dict(serving.stats)
@@ -149,29 +252,29 @@ def serve_phase(device: str = "cuda", n_requests: int = 1024,
     if stats["launches"] != stats["buckets"] or stats["buckets"] != flushes * buckets:
         raise SystemExit(f"launches {stats['launches']} != buckets "
                          f"{stats['buckets']} ({flushes} x {buckets})")
-    batched = counts["chain_diag_batch_2d"] + counts["chain_matrix_batch_2d"]
+    batched = sum(counts[name] for name in BATCH.values())
     if batched != stats["launches"]:
         raise SystemExit(f"batch kernels launched {batched} times, serving "
                          f"counted {stats['launches']} launches")
-    if counts["chain_diag_1d"] != n_diag \
-            or counts["chain_matrix_1d"] != len(reqs) - n_diag:
-        raise SystemExit(f"per-request applies launched {counts}, expected "
-                         f"{n_diag} diag and {len(reqs) - n_diag} matrix")
+    for kind, name in FLAT.items():
+        if counts[name] != n_kind[kind]:
+            raise SystemExit(f"per-request calls launched {name} "
+                             f"{counts[name]} times for {n_kind[kind]} "
+                             f"{kind} requests")
+    used = [k for k in FLAT if n_kind[k]]
+    require_launched(counts, [FLAT[k] for k in used]
+                     + [BATCH[k] for k in used], phase)
 
     ref_outs = serving.GeometryServer(device=device, backend="ref").serve(reqs)
+    undecided = 0
     for i, ((chain, pts), out) in enumerate(zip(reqs, outs)):
-        if out.shape != pts.shape or not np.isfinite(out).all():
-            raise SystemExit(f"request {i}: bad result shape/values")
-        if not bitwise_equal(out, ref_outs[i]):
-            raise SystemExit(f"request {i}: kernel != plain version on the card")
-        if not bitwise_equal(out, applied[i]):
-            raise SystemExit(f"request {i}: packed != per-request apply")
-        if not fold_oracle_ok(chain, pts, out):
-            raise SystemExit(f"request {i}: outside 4 eps of the float64 fold")
+        undecided += check_result(i, chain, pts, out, ref_outs[i],
+                                  *singles[i])
 
     med = {k: float(np.median([t[k] for t in timings])) for k in timings[0]}
     summary = {
-        "phase": "serve", "requests": len(reqs), "buckets": buckets,
+        "phase": phase, "requests": len(reqs), "requests_by_kind": n_kind,
+        "buckets": buckets,
         "launches_per_flush": stats["launches"] // flushes,
         "payload_points": stats["payload_points"] // flushes,
         "padded_points": stats["padded_points"] // flushes,
@@ -186,17 +289,94 @@ def serve_phase(device: str = "cuda", n_requests: int = 1024,
         "pack_ms": med["pack_s"] * 1e3, "dispatch_ms": med["dispatch_s"] * 1e3,
         "unpack_ms": med["unpack_s"] * 1e3,
         "device_span_ms": med.get("device_ms"),
-        "per_request_apply_ms": apply_s * 1e3,
-        "bitwise_vs_ref": True, "bitwise_vs_apply": True, "fold_oracle": True,
+        "per_request_ms": apply_s * 1e3,
+        "bitwise_vs_ref": True, "bitwise_vs_per_request": True,
+        "fold_oracle": True, "mask_points_within_bound": undecided,
     }
     largest = {}
     for rep in srv.last_report:
         if rep.padded_points > largest.get(rep.kind, (0, 0, 0, 0))[3]:
             largest[rep.kind] = (rep.requests, rep.lpad,
                                  int(rep.structure[0]), rep.padded_points)
-    sizes = sorted(p.shape[0] for _, p in reqs)
-    return counts, summary, {k: v[:3] for k, v in largest.items()}, \
-        (sizes[len(sizes) // 2], sizes[-1])
+    sizes = {}
+    for kind in used:
+        n = sorted(p.shape[0] for c, p in reqs if c.plan_kind == kind)
+        sizes[kind] = (n[len(n) // 2], n[-1])
+    sizes["all"] = (sorted(p.shape[0] for _, p in reqs)[len(reqs) // 2],
+                    max(p.shape[0] for _, p in reqs))
+    return counts, summary, {k: v[:3] for k, v in largest.items()}, sizes
+
+
+def orbit_camera(k: int) -> graphics.Camera:
+    """Frame k of the orbit: the camera of (3, 2, 6) stepped 2 pi k /
+    FRAMES around the y axis, looking at the origin."""
+    radius, angle = math.hypot(3.0, 6.0), math.atan2(6.0, 3.0)
+    a = angle + 2 * math.pi * k / FRAMES
+    return graphics.Camera(eye=(radius * math.cos(a), 2.0,
+                                radius * math.sin(a)),
+                           target=(0.0, 0.0, 0.0), fov_y=math.pi / 3,
+                           aspect=16 / 9, near=0.5, far=50.0)
+
+
+def graphics_phase(device: str = "cuda") -> tuple[dict, dict]:
+    """The graphics front door: one viewing chain projects a 2**20-point
+    cloud (one ``chain_project_1d`` launch), then FRAMES frames of one
+    orbiting camera serve as one flush (one ``chain_project_batch_2d``
+    launch).  Returns (launch counts of the run, the summary)."""
+    viewport = graphics.Viewport(0, 0, 1920, 1080, (0, 1))
+    chain = graphics.viewing_chain(camera=orbit_camera(0), viewport=viewport)
+    rng = np.random.default_rng(SEED)
+    cloud = (rng.standard_normal((CLOUD_POINTS, 3)) * 4).astype(np.float32)
+    frames = [(graphics.viewing_chain(camera=orbit_camera(k),
+                                      viewport=viewport),
+               (rng.standard_normal((FRAME_POINTS, 3)) * 4)
+               .astype(np.float32)) for k in range(FRAMES)]
+    cloud_dev = torch.from_numpy(cloud).to(device)
+    torch.cuda.synchronize()
+
+    serving.reset_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, mask = chain.project(cloud_dev)
+    torch.cuda.synchronize()
+    project_s = time.perf_counter() - t0
+    srv = serving.GeometryServer(device=device)
+    t0 = time.perf_counter()
+    served = srv.serve(frames)                       # submit + one flush
+    flush_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    stats = dict(serving.stats)
+    if counts["chain_project_1d"] != 1 or counts["chain_project_batch_2d"] != 1 \
+            or stats["launches"] != 1 or stats["buckets"] != 1:
+        raise SystemExit(f"graphics: expected one flat and one batch launch, "
+                         f"got {counts}, {stats['launches']} launches in "
+                         f"{stats['buckets']} buckets")
+
+    out, mask = out.cpu().numpy(), mask.cpu().numpy()
+    ref, ref_mask = (t.cpu().numpy() for t in
+                     chain.project(cloud_dev, backend="ref"))
+    if not (bitwise_equal(out, ref) and bitwise_equal(mask, ref_mask)):
+        raise SystemExit("graphics: projected cloud != plain version")
+    ok, undecided = project_oracle_ok(chain.fold(), cloud, out, mask)
+    if not ok:
+        raise SystemExit("graphics: cloud outside the float64 bound")
+    ref_frames = serving.GeometryServer(device=device, backend="ref") \
+        .serve(frames)
+    for i, ((c, pts), got) in enumerate(zip(frames, served)):
+        q, m = c.project(torch.from_numpy(pts).to(device))
+        undecided += check_result(f"frame {i}", c, pts, got, ref_frames[i],
+                                  q.cpu().numpy(), m.cpu().numpy())
+    summary = {"phase": "graphics", "structure": srv.last_report[0].structure,
+               "cloud_points": CLOUD_POINTS,
+               "cloud_inside": int(mask.sum()),
+               "project_ms": project_s * 1e3,
+               "frames": FRAMES, "frame_points": FRAME_POINTS,
+               "frames_inside": int(sum(int(r.mask.sum()) for r in served)),
+               "serve_ms": flush_s * 1e3,
+               "device_span_ms": srv.last_timing.get("device_ms"),
+               "bitwise_vs_ref": True, "bitwise_vs_per_request": True,
+               "fold_oracle": True, "mask_points_within_bound": undecided}
+    return counts, summary
 
 
 # -- per-kernel checks and timings ---------------------------------------------
@@ -229,6 +409,61 @@ def time_ms(fn) -> tuple[float, float]:
     return float(np.median(times)), float(np.median(host)) * 1e6
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-for-bit equality of two tensors on the card (-0.0 != 0.0)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def projective_case(shape: tuple, rng: np.random.Generator, dev):
+    """(run, plain, library, bytes, ops) for a projective kernel at
+    ``shape``: a workload-style homography and cull bounds per chain."""
+    d = shape[-1]
+    batched = len(shape) == 3
+    lead = shape[:1] if batched else ()
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    hs = [workload.random_projective(rng, d) for _ in range(lead[0] if lead else 1)]
+    h = torch.from_numpy(np.stack(hs) if batched else hs[0]).to(dev)
+    lo = torch.from_numpy(rng.uniform(-6, -3, lead + (d,)).astype(np.float32)).to(dev)
+    hi = torch.from_numpy(rng.uniform(3, 6, lead + (d,)).astype(np.float32)).to(dev)
+    if batched:
+        def run():
+            return proj_k.chain_project_batch_2d(x, h, lo, hi)
+
+        def plain():
+            return proj_ref.chain_project_batch(x, h, lo, hi)
+
+        def lib():
+            qh = torch.baddbmm(h[:, d:d + 1], x, h[:, :d])
+            w = qh[..., d]
+            ok = w > 0
+            v = qh[..., :d] / torch.where(ok, w, 1.0)[..., None]
+            return v, ok & ((v >= lo[:, None]) & (v <= hi[:, None])).all(-1)
+    else:
+        def run():
+            out, mask = proj_k.chain_project_1d(x.reshape(-1), h, lo, hi, d=d)
+            return out.reshape(shape), mask
+
+        def plain():
+            return proj_ref.chain_project(x, h, lo, hi)
+
+        def lib():
+            qh = torch.addmm(h[d], x, h[:d])
+            w = qh[:, d]
+            ok = w > 0
+            v = qh[:, :d] / torch.where(ok, w, 1.0)[:, None]
+            return v, ok & ((v >= lo) & (v <= hi)).all(-1)
+    n_points = x.numel() // d
+    n_chains = lead[0] if lead else 1
+    # the bytes the kernel really moves: points in and out, one mask byte
+    # per point, the parameters once
+    nbytes = 8 * x.numel() + n_points \
+        + 4 * n_chains * opcount.chain_param_words(d, "projective")
+    ops = (2 * d * (d + 1) + 3 * d) * n_points
+    return run, plain, lib, nbytes, ops
+
+
 def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
                 size: str) -> dict:
     """Check and time one kernel at one shape: (N, d) flat or (B, L, d);
@@ -238,38 +473,47 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
     batched = len(shape) == 3
     lead = shape[:1] if batched else ()
     dev = torch.device("cuda")
-    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
-    t = torch.from_numpy(rng.uniform(-3, 3, lead + (d,)).astype(np.float32)).to(dev)
-    if kind == "diag":
-        p = torch.from_numpy(rng.uniform(0.2, 2, lead + (d,)).astype(np.float32)).to(dev)
-        if batched:
-            run = lambda: diag_k.chain_diag_batch_2d(x, p, t)   # noqa: E731
-            plain = lambda: diag_ref.chain_diag_batch(x, p, t)  # noqa: E731
-            lib = lambda: torch.addcmul(t[:, None], x, p[:, None])  # noqa: E731
-        else:
-            run = lambda: diag_k.chain_diag_1d(x.reshape(-1), p, t, d=d).reshape(shape)  # noqa: E731
-            plain = lambda: diag_ref.chain_diag(x, p, t)  # noqa: E731
-            lib = lambda: torch.addcmul(t, x, p)  # noqa: E731
-        ops = 2 * x.numel()
+    library = "composite" if kind == "projective" \
+        else "addcmul" if kind == "diag" else "baddbmm"
+    if kind == "projective":
+        run, plain, lib, nbytes, ops = projective_case(shape, rng, dev)
     else:
-        p = torch.from_numpy(rng.uniform(-1, 1, lead + (d, d)).astype(np.float32)).to(dev)
-        if batched:
-            run = lambda: matrix_k.chain_matrix_batch_2d(x, p, t)   # noqa: E731
-            plain = lambda: matrix_ref.chain_matrix_batch(x, p, t)  # noqa: E731
-            lib = lambda: torch.baddbmm(t[:, None], x, p)  # noqa: E731
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        t = torch.from_numpy(rng.uniform(-3, 3, lead + (d,)).astype(np.float32)).to(dev)
+        if kind == "diag":
+            p = torch.from_numpy(rng.uniform(0.2, 2, lead + (d,)).astype(np.float32)).to(dev)
+            if batched:
+                run = lambda: diag_k.chain_diag_batch_2d(x, p, t)   # noqa: E731
+                plain = lambda: diag_ref.chain_diag_batch(x, p, t)  # noqa: E731
+                lib = lambda: torch.addcmul(t[:, None], x, p[:, None])  # noqa: E731
+            else:
+                run = lambda: diag_k.chain_diag_1d(x.reshape(-1), p, t, d=d).reshape(shape)  # noqa: E731
+                plain = lambda: diag_ref.chain_diag(x, p, t)  # noqa: E731
+                lib = lambda: torch.addcmul(t, x, p)  # noqa: E731
+            ops = 2 * x.numel()
         else:
-            run = lambda: matrix_k.chain_matrix_1d(x.reshape(-1), p, t, d=d).reshape(shape)  # noqa: E731
-            plain = lambda: matrix_ref.chain_matrix(x, p, t)  # noqa: E731
-            lib = lambda: torch.baddbmm(t.view(1, 1, d), x.view(1, -1, d), p.view(1, d, d)).view(shape)  # noqa: E731
-        ops = 2 * d * x.numel()
+            p = torch.from_numpy(rng.uniform(-1, 1, lead + (d, d)).astype(np.float32)).to(dev)
+            if batched:
+                run = lambda: matrix_k.chain_matrix_batch_2d(x, p, t)   # noqa: E731
+                plain = lambda: matrix_ref.chain_matrix_batch(x, p, t)  # noqa: E731
+                lib = lambda: torch.baddbmm(t[:, None], x, p)  # noqa: E731
+            else:
+                run = lambda: matrix_k.chain_matrix_1d(x.reshape(-1), p, t, d=d).reshape(shape)  # noqa: E731
+                plain = lambda: matrix_ref.chain_matrix(x, p, t)  # noqa: E731
+                lib = lambda: torch.baddbmm(t.view(1, 1, d), x.view(1, -1, d), p.view(1, d, d)).view(shape)  # noqa: E731
+            ops = 2 * d * x.numel()
+        n_points = x.numel() // d
+        nbytes = opcount.packed_chain_bytes(shape[0], shape[1], d, kind=kind) \
+            if batched else opcount.fused_chain_bytes(n_points, d, kind=kind)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if kind == "projective":
+        (got, got_mask), (want, want_mask) = got, want
+        if not same_bits(got_mask, want_mask):
+            raise SystemExit(f"{name} {shape}: kernel mask != plain version")
+    if not same_bits(got, want):
         raise SystemExit(f"{name} {shape}: kernel != plain version")
-    err = float((got - want).abs().max())
-    n_points = x.numel() // d
-    nbytes = opcount.packed_chain_bytes(shape[0], shape[1], d, kind=kind) \
-        if batched else opcount.fused_chain_bytes(n_points, d, kind=kind)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
         time_ms(run), time_ms(plain), time_ms(lib)
@@ -277,8 +521,19 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
            "max_abs_err": err, "ms": ms, "bytes": nbytes,
            "GB/s": nbytes / ms / 1e6, "bound_ms": max(byte_ms, op_ms),
            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-           "plain_ms": plain_ms, "library_ms": lib_ms, "host_us": host_us,
-           "plain_host_us": plain_us, "library_host_us": lib_us}
+           "plain_ms": plain_ms,
+           # no single PyTorch call computes project + divide + cull: the
+           # composite's time is kept apart from library_ms
+           "library_ms": None if library == "composite" else lib_ms,
+           "composite_ms": lib_ms if library == "composite" else None,
+           "library": library,
+           "host_us": host_us, "plain_host_us": plain_us,
+           "library_host_us": lib_us}
+    if kind == "projective":
+        n_points = math.prod(shape[:-1])
+        row["opcount_bytes"] = opcount.packed_chain_bytes(
+            shape[0], shape[1], d, kind=kind) if batched \
+            else opcount.fused_chain_bytes(n_points, d, kind=kind)
     emit(row)
     return row
 
@@ -297,33 +552,47 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": _build.sources()})
 
-    counts, summary, largest, (median_n, max_n) = serve_phase()
+    _, summary, largest_affine, sizes_affine = serve_phase(
+        "serve", workload.AFFINE_TEMPLATES)
+    emit(summary)
+    counts, summary, largest, sizes = serve_phase(
+        "serve (mixed)", workload.TEMPLATES)
+    emit(summary)
+    require_launched(counts, KERNELS, "mixed serve")
+    graphics_counts, summary = graphics_phase()
     emit(summary)
 
     rng = np.random.default_rng(SEED)
     rows = {}
     for d in (2, 3):
-        for name in ("chain_diag_1d", "chain_matrix_1d"):
+        for name in ("chain_diag_1d", "chain_matrix_1d", "chain_project_1d"):
             rows[name] = kernel_case(name, (N_FLAT, d), rng, "flat 2**24")
-    for size, n in (("median request", median_n), ("largest request", max_n)):
+    for i, size in enumerate(("median request", "largest request")):
         for d in (2, 3):
             for name in ("chain_diag_1d", "chain_matrix_1d"):
-                kernel_case(name, (n, d), rng, size)
+                kernel_case(name, (sizes_affine["all"][i], d), rng, size)
+            kernel_case("chain_project_1d", (sizes["projective"][i], d), rng,
+                        f"{size} (projective, mixed serve)")
     for name, kind in (("chain_diag_batch_2d", "diag"),
                        ("chain_matrix_batch_2d", "matrix")):
-        rows[name] = kernel_case(name, largest[kind], rng, "largest bucket")
+        rows[name] = kernel_case(name, largest_affine[kind], rng,
+                                 "largest bucket")
+    rows["chain_project_batch_2d"] = kernel_case(
+        "chain_project_batch_2d", largest["projective"], rng,
+        "largest bucket (mixed serve)")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
-        if counts[name] == 0:
-            raise SystemExit(f"{name} was never launched on the main path")
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
+                        "launches_graphics": graphics_counts[name],
                         "shape": r["shape"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "composite_ms": r["composite_ms"],
+                        "library": r["library"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

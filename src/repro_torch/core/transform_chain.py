@@ -12,19 +12,19 @@ same small compiler:
      JAX package's, copied verbatim, so a chain folds to bit-identical
      parameters in both packages.
   3. **Lower** -- the folded chain runs as ONE fused kernel over the flat
-     point buffer: ``kernels.chain_diag`` for diagonal plans and
-     ``kernels.chain_apply`` for general plans -- hand-written CUDA on a
+     point buffer: ``kernels.chain_diag`` for diagonal plans,
+     ``kernels.chain_apply`` for general plans and
+     ``kernels.chain_project`` for projective plans (homogeneous product,
+     in-kernel perspective divide and cull mask) -- hand-written CUDA on a
      CUDA tensor, the plain PyTorch version on a CPU tensor.
   4. **Plan cache** -- plans are cached by chain structure + backend; a
      plan takes the folded values as arguments, so a hot path with one
      chain shape and fresh parameters builds nothing.
 
-Not in this slice: projective plans execute in the graphics slice
-(``apply``/``project`` on a projective chain raise ``NotImplementedError``;
-the projective FOLD is here, because serving validation needs it), the
-Qm.n fixed-point lane (``dtype=``) comes with the int16 kernels, and the
-carry-fold API with the scene graph.  There is no traced-parameter fold:
-PyTorch runs eagerly and parameters are concrete values.
+Not in this slice: the Qm.n fixed-point lane (``dtype=``) comes with the
+int16 kernels, and the carry-fold API with the scene graph.  There is no
+traced-parameter fold: PyTorch runs eagerly and parameters are concrete
+values.
 
 Byte economy vs. sequential primitive dispatch (k-long chain over N points
 of dim d, itemsize 4): sequential moves ~2*k*N*d*4 bytes; the fused plan
@@ -41,6 +41,7 @@ import torch
 from repro_torch import convert, errors
 from repro_torch.kernels import chain_apply as _k_chain_apply
 from repro_torch.kernels import chain_diag as _k_chain_diag
+from repro_torch.kernels import chain_project as _k_chain_project
 from repro_torch.kernels import dispatch, opcount
 
 # primitive kinds: T translate, S scale, R rotate, A affine(s, t), M matrix,
@@ -60,9 +61,6 @@ stats = {"compiles": 0, "hits": 0, "traces": 0}
 _PLAN_CACHE: dict[tuple, "Plan"] = {}
 
 #: what this slice leaves to later ones
-PROJECTIVE_LATER = ("projective chains execute in the graphics slice of "
-                    "the port (the chain_project kernels); only their fold "
-                    "is ported so far")
 QLANE_LATER = ("the Qm.n fixed-point lane (dtype=) comes with the int16 "
                "kernels in a later slice of the port")
 
@@ -321,9 +319,10 @@ def fold_structure(structure: tuple, params) -> tuple[np.ndarray, ...]:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A chain plan: ``fn(folded, flat_points_2d) -> out``, where
-    ``folded`` is the host-folded (s, t) / (A, t) tuple as tensors on the
-    points' device."""
-    kind: str                      # "diag" | "matrix"
+    ``folded`` is the host-folded (s, t) / (A, t) / (H, lo, hi) tuple as
+    tensors on the points' device.  Projective plans return
+    ``(projected, mask)``."""
+    kind: str                      # "diag" | "matrix" | "projective"
     dim: int
     backend: str
     fn: typing.Callable
@@ -343,7 +342,10 @@ def _compile(structure: tuple, backend: str) -> Plan:
             a, t = folded
             return _k_chain_apply(pts2, a, t, backend=backend)
     else:
-        raise NotImplementedError(PROJECTIVE_LATER)
+        def fn(folded, pts2):
+            """Homography apply + perspective divide + cull over (N, dim)."""
+            h, lo, hi = folded
+            return _k_chain_project(pts2, h, lo, hi, backend=backend)
     return Plan(kind=kind, dim=dim, backend=backend, fn=fn)
 
 
@@ -482,6 +484,30 @@ class TransformChain:
 
     # -- execution -----------------------------------------------------------
 
+    def _run(self, points, backend: str | None,
+             device: str | torch.device):
+        """The shared body of ``apply`` and ``project``: the boundary
+        check, the move to ``device`` of anything that is not a tensor,
+        then ONE plan launch over the flat points with its HBM bytes
+        recorded.  Returns (points tensor, plan output) -- the output is
+        None for an empty chain."""
+        errors.check_points(points, self.dim)
+        if not isinstance(points, torch.Tensor):
+            points = torch.as_tensor(points,
+                                     device=dispatch.resolve_device(device))
+        if not self.kinds:
+            return points, None
+        d = points.shape[-1]
+        flat = points.reshape(-1, d)
+        plan = _get_plan(self.structure,
+                         dispatch.backend_for(points.device, backend))
+        opcount.record(f"chain_fused_{plan.kind}",
+                       opcount.fused_chain_bytes(flat.shape[0], d,
+                                                 kind=plan.kind,
+                                                 itemsize=flat.element_size()))
+        return points, plan.fn(convert.folded_to_torch(self.fold(),
+                                                       points.device), flat)
+
     def apply(self, points, *, backend: str | None = None,
               dtype: str | None = None,
               device: str | torch.device = "cuda") -> torch.Tensor:
@@ -491,44 +517,39 @@ class TransformChain:
         CPU tensor runs the plain version (``backend="ref"`` asks for the
         plain version on the card).  Anything else (a numpy array) is
         copied to ``device`` first -- the GPU unless the caller passes
-        ``device="cpu"``; without a GPU that default raises.
+        ``device="cpu"``; without a GPU that default raises.  Projective
+        chains return the projected points; use ``project`` to also get
+        the frustum-cull mask.
 
         Malformed points raise the typed ``repro_torch.errors`` taxonomy
         at this boundary (``ShapeError`` / ``EmptyPointsError`` /
-        ``DtypeError``).  Projective chains and ``dtype=`` (the Qm.n
-        lane) raise ``NotImplementedError``: later slices bring them."""
+        ``DtypeError``).  ``dtype=`` (the Qm.n lane) raises
+        ``NotImplementedError``: a later slice brings it."""
         if dtype is not None:
             raise NotImplementedError(QLANE_LATER)
-        errors.check_points(points, self.dim)
-        if not isinstance(points, torch.Tensor):
-            points = torch.as_tensor(points,
-                                     device=dispatch.resolve_device(device))
-        if not self.kinds:
+        points, out = self._run(points, backend, device)
+        if out is None:
             return points
         if self.is_projective:
-            raise NotImplementedError(PROJECTIVE_LATER)
-        d = points.shape[-1]
-        flat = points.reshape(-1, d)
-        plan = _get_plan(self.structure,
-                         dispatch.backend_for(points.device, backend))
-        opcount.record(f"chain_fused_{plan.kind}",
-                       opcount.fused_chain_bytes(flat.shape[0], d,
-                                                 kind=plan.kind,
-                                                 itemsize=flat.element_size()))
-        out = plan.fn(convert.folded_to_torch(self.fold(), points.device), flat)
+            out = out[0]
         return out.reshape(points.shape)
 
     def project(self, points, *, backend: str | None = None,
                 dtype: str | None = None,
-                device: str | torch.device = "cuda"):
-        """The projected points and the frustum-cull mask.  Affine chains
-        project trivially (``apply``, mask all True); projective chains
-        execute in the graphics slice and raise ``NotImplementedError``."""
-        if self.is_projective:
-            raise NotImplementedError(PROJECTIVE_LATER)
-        out = self.apply(points, backend=backend, dtype=dtype, device=device)
-        return out, torch.ones(out.shape[:-1], dtype=torch.bool,
-                               device=out.device)
+                device: str | torch.device = "cuda"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Apply the chain and return ``(projected (..., d), inside (...,)
+        bool)`` -- the perspective-divided points plus the frustum-cull
+        mask, still ONE fused kernel launch (the divide, the cull test and
+        the per-point mask all happen in-kernel).  Affine chains project
+        trivially: the same result as ``apply``, mask all True."""
+        if dtype is not None or not self.is_projective:
+            out = self.apply(points, backend=backend, dtype=dtype,
+                             device=device)
+            return out, torch.ones(out.shape[:-1], dtype=torch.bool,
+                                   device=out.device)
+        points, (out, mask) = self._run(points, backend, device)
+        return out.reshape(points.shape), mask.reshape(points.shape[:-1])
 
     def apply_many(self, points, *, backend: str | None = None,
                    dtype: str | None = None,

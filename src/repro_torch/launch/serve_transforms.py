@@ -1,18 +1,18 @@
 """Driver for the port's batched transform-serving engine.
 
-Generates a seeded synthetic workload from the affine template pool
-(bounded structure pool, random parameters and point counts -- the
-serving hot path), serves it through ``GeometryServer`` on the GPU, and
-prints the per-bucket schedule plus a comparison against per-request
-dispatch:
+Generates a seeded synthetic workload (bounded structure pool, random
+parameters and point counts -- the serving hot path), serves it through
+``GeometryServer`` on the GPU, and prints the per-bucket schedule plus a
+comparison against per-request dispatch:
 
     PYTHONPATH=src python -m repro_torch.launch.serve_transforms --requests 64
     PYTHONPATH=src python -m repro_torch.launch.serve_transforms --smoke
 
 ``--device cpu`` runs the plain PyTorch path on the CPU instead; without
-it the driver needs a CUDA device and raises when there is none.  Only the
-affine pool (``--templates affine``) is served in this slice: projective
-chains wait for the graphics slice.
+it the launcher needs a CUDA device and raises when there is none.  The
+default pool, ``--templates all``, is every ``TEMPLATES`` structure --
+affine and projective, the JAX launcher's mix; ``--templates affine`` keeps
+to the affine structures.
 """
 from __future__ import annotations
 
@@ -24,11 +24,12 @@ from repro_torch import serving
 from repro_torch.serving import workload
 from repro_torch.serving.workload import timed as _timed
 
-TEMPLATE_POOLS = {"affine": workload.AFFINE_TEMPLATES}
+TEMPLATE_POOLS = {"all": workload.TEMPLATES,
+                  "affine": workload.AFFINE_TEMPLATES}
 
 
 def run_workload(requests: int, *, device: str = "cuda",
-                 backend: str | None = None, templates: str = "affine",
+                 backend: str | None = None, templates: str = "all",
                  waste_cap: float | None = None, max_points: int,
                  max_points_per_launch: int | None, seed: int,
                  compare: bool = True) -> dict:
@@ -93,9 +94,10 @@ def main(argv=None) -> None:
                     help="unset: the kernels on cuda, the plain versions "
                          "on cpu; ref on cuda runs the plain versions on "
                          "the card")
-    ap.add_argument("--templates", default="affine",
+    ap.add_argument("--templates", default="all",
                     choices=sorted(TEMPLATE_POOLS),
-                    help="template pool (affine: the slice the port serves)")
+                    help="template pool: all (affine and projective "
+                         "structures) or affine")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--waste-cap", type=float, default=None,
                     help="explicit padding-waste cap (default grid if unset)")

@@ -9,8 +9,9 @@ side copy stream and CUDA events).  See ``serving.engine``.
 from repro_torch.serving import errors
 from repro_torch.serving.bucketing import padded_length, waste_fraction
 from repro_torch.serving.engine import (BatchPlan, BucketReport,
-                                        GeometryServer, clear_plan_cache,
-                                        get_batch_plan, reset_stats, stats)
+                                        GeometryServer, Projected,
+                                        clear_plan_cache, get_batch_plan,
+                                        reset_stats, stats)
 from repro_torch.serving.errors import (CorruptionError, LaunchError,
                                         RequestError, is_error)
 from repro_torch.serving.workload import (AFFINE_TEMPLATES, TEMPLATES,
@@ -19,7 +20,8 @@ from repro_torch.serving.workload import (AFFINE_TEMPLATES, TEMPLATES,
 
 __all__ = [
     "AFFINE_TEMPLATES", "BatchPlan", "BucketReport", "CorruptionError",
-    "GeometryServer", "LaunchError", "RequestError", "TEMPLATES",
+    "GeometryServer", "LaunchError", "Projected", "RequestError",
+    "TEMPLATES",
     "chain_for", "clear_plan_cache", "errors", "get_batch_plan",
     "is_error", "mixed_lane_workload", "padded_length", "random_workload",
     "reset_stats", "stats", "waste_fraction",

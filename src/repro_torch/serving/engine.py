@@ -14,7 +14,9 @@ is the server loop, built from the paper's M1 execution discipline:
      host fold (computed once at submit, the SAME numpy fold ``apply``
      uses) stacks into the batch parameters.
   3. **Launch** -- the whole bucket runs as ONE kernel launch
-     (``kernels.chain_diag_batch`` / ``chain_apply_batch``).  Buckets
+     (``kernels.chain_diag_batch`` / ``chain_apply_batch`` /
+     ``chain_project_batch`` -- the last for projective viewing chains,
+     whose per-point cull mask comes back as ``Projected.mask``).  Buckets
      whose packed batch exceeds ``max_points_per_launch`` split into
      shards along the batch axis.
   4. **Overlap** -- the frame-buffer set-0/set-1 discipline on the GPU:
@@ -23,21 +25,22 @@ is the server loop, built from the paper's M1 execution discipline:
      event before the kernel (set 0, the array computing), and the
      device buffers are ``record_stream``-ed to the compute stream.  So
      bucket k+1's copy overlaps bucket k's kernel.  Each launch's result
-     comes back in ONE device->host copy into pinned memory; unpacking is
-     numpy slicing, and results are numpy arrays, as in the reference.
+     comes back in ONE device->host copy into pinned memory (a projective
+     launch adds a second copy for its mask); unpacking is numpy slicing,
+     and results are numpy arrays, as in the reference.
 
 Equality contract: a request's fold is bit-identical however it is
 dispatched (one shared host fold), and every kernel and plain version
 runs the per-request arithmetic in separately rounded ops in one order.
-So packed results equal per-request ``apply`` BITWISE on every plan kind
-of this slice, on the card and on the CPU, and padded rows never touch
-payload rows.
+So packed results equal per-request ``apply``/``project`` BITWISE on
+every plan kind, masks included, on the card and on the CPU, and padded
+rows never touch payload rows.
 
 Not in this slice: the recovery ladder (retry, backend degradation,
 bisection), fault injection, ``submit_scene``, tracing and the
 per-server metrics registry come with their own slices; the fault
-counters below stay 0.  A projective chain or ``qformat=`` at ``submit``
-raises ``NotImplementedError``.
+counters below stay 0.  ``qformat=`` at ``submit`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ import torch
 from repro_torch import errors
 from repro_torch.core import transform_chain as tc
 from repro_torch.kernels import (chain_apply_batch, chain_diag_batch,
-                                 dispatch, opcount)
+                                 chain_project_batch, dispatch, opcount)
 from repro_torch.serving import bucketing
 
 #: serving statistics (observable by tests, benchmarks and the driver):
@@ -93,13 +96,50 @@ def clear_plan_cache() -> None:
     _BATCH_PLANS.clear()
 
 
+class Projected(np.ndarray):
+    """A projective request's serving result: the projected points as a
+    plain ndarray (shape-compatible with ``TransformChain.apply``
+    everywhere), with the per-point frustum-cull mask attached as
+    ``.mask`` (bool, the request's leading shape; True = inside).  The
+    mask rides along so existing consumers that treat results as arrays
+    keep working unchanged.  ``.mask`` describes EXACTLY the array
+    ``flush`` returned: derived arrays (slices, transposes, sorts, any
+    indexing -- same-shaped or not) read ``.mask`` as ``None`` rather
+    than inheriting a mask whose rows may no longer line up with
+    theirs.  Slice the mask alongside the points instead:
+    ``pts[sel], res.mask[sel]``."""
+
+    def __array_finalize__(self, obj):
+        # derived arrays NEVER inherit: a shape check cannot detect
+        # same-shape reorderings (r[::-1], fancy indexing), so the only
+        # honest mask is the one _projected() attaches explicitly
+        self._mask = None
+
+    @property
+    def mask(self) -> np.ndarray | None:
+        """The cull mask ``_projected()`` attached, or None on a view."""
+        return self._mask
+
+    @mask.setter
+    def mask(self, value: np.ndarray | None) -> None:
+        """Attach a cull mask (only ``_projected()`` should set this)."""
+        self._mask = value
+
+
+def _projected(points: np.ndarray, mask: np.ndarray) -> Projected:
+    out = np.ascontiguousarray(points).view(Projected)
+    out.mask = mask
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchPlan:
     """A bucket executor: ``fn(folded_batch, pts3) -> out``, where
     ``folded_batch`` stacks the bucket's host-folded per-request
-    parameters as tensors on the points' device -- (s (B,d), t (B,d)) or
-    (A (B,d,d), t (B,d))."""
-    kind: str                      # "diag" | "matrix"
+    parameters as tensors on the points' device -- (s (B,d), t (B,d)),
+    (A (B,d,d), t (B,d)) or (H (B,d+1,d+1), lo (B,d), hi (B,d)).
+    Projective plans return ``(projected (B,L,d), inside (B,L))``."""
+    kind: str                      # "diag" | "matrix" | "projective"
     dim: int
     backend: str
     fn: typing.Callable
@@ -119,7 +159,10 @@ def _compile_batch(structure: tuple, backend: str) -> BatchPlan:
             a, t = folded
             return chain_apply_batch(pts3, a, t, backend=backend)
     else:
-        raise NotImplementedError(tc.PROJECTIVE_LATER)
+        def fn(folded, pts3):
+            """Projective transform + cull over a (B, L) bucket."""
+            h, lo, hi = folded
+            return chain_project_batch(pts3, h, lo, hi, backend=backend)
     return BatchPlan(kind=kind, dim=dim, backend=backend, fn=fn)
 
 
@@ -156,6 +199,7 @@ class _Launch:
     reqs: list
     report: "BucketReport"
     host_out: torch.Tensor | None = None
+    host_mask: torch.Tensor | None = None   # projective launches only
     done: torch.cuda.Event | None = None
 
 
@@ -164,7 +208,7 @@ class BucketReport:
     """Per-bucket accounting for one flush (the driver prints these).
     The recovery ladder's fields join with the fault-tolerance slice."""
     structure: str                 # e.g. "2D:TSRT"
-    kind: str                      # plan kind: diag | matrix
+    kind: str                      # plan kind: diag | matrix | projective
     lpad: int                      # padded points per request
     requests: int
     payload_points: int
@@ -198,7 +242,9 @@ class GeometryServer:
     ``submit`` validates and records the request on the host; ``flush``
     buckets, packs, stages and launches.  Results come back in submission
     order as host numpy arrays with each request's original shape,
-    bitwise equal to ``chain_i.apply(points_i)`` on the same device.
+    bitwise equal to ``chain_i.apply(points_i)`` on the same device;
+    a projective request's result is a ``Projected`` whose ``.mask``
+    equals the mask of ``chain_i.project(points_i)``.
 
     ``device`` defaults to CUDA and raises without a GPU; ``backend``
     defaults to the kernels on CUDA and the plain versions on the CPU
@@ -242,8 +288,8 @@ class GeometryServer:
         Submit is the isolation boundary: a malformed request (bad shape,
         empty point set, float64, NaN/Inf points or parameters) raises a
         typed ``RequestError`` carrying its ticket HERE, before it can
-        reach a packed bucket.  ``qformat=`` and projective chains raise
-        ``NotImplementedError`` (later slices)."""
+        reach a packed bucket.  ``qformat=`` raises
+        ``NotImplementedError`` (a later slice)."""
         return self.enqueue(self.validate(chain, points, qformat=qformat))
 
     def validate(self, chain: tc.TransformChain, points, *,
@@ -254,8 +300,6 @@ class GeometryServer:
         is never reused."""
         if qformat is not None:
             raise NotImplementedError(tc.QLANE_LATER)
-        if chain.is_projective:
-            raise NotImplementedError(tc.PROJECTIVE_LATER)
         ticket = self._ticket
         self._ticket += 1
         try:
@@ -298,7 +342,9 @@ class GeometryServer:
         fold = None
         if len(chain):
             fold = chain.fold()
-            if not all(np.isfinite(f).all() for f in fold):
+            # projective folds legitimately carry +/-inf cull bounds
+            parts = fold[:1] if chain.is_projective else fold
+            if not all(np.isfinite(f).all() for f in parts):
                 raise errors.NonFiniteError(
                     "chain parameters fold to NaN/Inf", ticket=ticket)
         return _Pending(ticket, chain, pts, pts.size // chain.dim, fold=fold)
@@ -362,22 +408,32 @@ class GeometryServer:
         return params, pts, ready
 
     def _launch(self, L: _Launch, staged) -> None:
-        """Run one launch on the compute stream (set 0) and queue its one
-        device->host copy; on the CPU the result is already on the host."""
+        """Run one launch on the compute stream (set 0) and queue its
+        device->host copies -- the points, and for a projective launch its
+        (B, L) mask -- under one ``done`` event; on the CPU the result is
+        already on the host."""
         params, pts, ready = staged
         self._count_launch(L)
-        if not self._cuda:
-            L.host_out = L.plan.fn(params, pts)
-            return
-        compute = torch.cuda.current_stream(self.device)
-        compute.wait_event(ready)
-        for tensor in (pts, *params):
-            tensor.record_stream(compute)
-        out = L.plan.fn(params, pts)
-        L.host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        L.host_out.copy_(out, non_blocking=True)
-        L.done = torch.cuda.Event()
-        L.done.record(compute)
+        if self._cuda:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(ready)
+            for tensor in (pts, *params):
+                tensor.record_stream(compute)
+        outs = L.plan.fn(params, pts)
+        if L.plan.kind != "projective":
+            outs = (outs,)
+        if self._cuda:
+            hosts = []
+            for out in outs:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                hosts.append(host)
+            outs = hosts
+            L.done = torch.cuda.Event()
+            L.done.record(compute)
+        L.host_out = outs[0]
+        L.host_mask = outs[1] if len(outs) > 1 else None
 
     def _count_launch(self, L: _Launch) -> None:
         """Bookkeeping for one dispatched launch: the ONE place
@@ -461,11 +517,17 @@ class GeometryServer:
 
     @staticmethod
     def _unpack(L: _Launch, results: dict) -> None:
-        """Unpack one launch: wait for its device->host copy, then numpy
+        """Unpack one launch: wait for its device->host copies, then numpy
         slicing.  Each result is a payload-sized COPY, so no result pins
-        the padded batch buffer."""
+        the padded batch buffer.  A projective launch's results carry
+        their rows of the cull mask as ``Projected.mask``."""
         if L.done is not None:
             L.done.synchronize()
         host = L.host_out.numpy()
+        mask = None if L.host_mask is None else L.host_mask.numpy()
         for i, r in enumerate(L.reqs):
-            results[r.ticket] = np.array(host[i, :r.n].reshape(r.points.shape))
+            out = np.array(host[i, :r.n].reshape(r.points.shape))
+            if mask is not None:
+                out = _projected(out, np.array(
+                    mask[i, :r.n].reshape(r.points.shape[:-1])))
+            results[r.ticket] = out

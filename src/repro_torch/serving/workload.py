@@ -51,8 +51,7 @@ TEMPLATES: tuple[tuple[int, str], ...] = (
 )
 
 #: the affine-only template subset: structures the fixed-point (Qm.n)
-#: lane can execute (projective primitives P/C have no q form), and the
-#: pool this port serves end to end on the CUDA kernels so far
+#: lane can execute (projective primitives P/C have no q form)
 AFFINE_TEMPLATES: tuple[tuple[int, str], ...] = tuple(
     t for t in TEMPLATES if not set(t[1]) & {"P", "C"})
 

@@ -25,6 +25,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "repro"
              or k.startswith("repro."))
 print(len(names), ",".join(bad))
+print(" ".join(names))
 """
 
 
@@ -35,9 +36,18 @@ def test_import_loads_no_jax_or_repro():
     res = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    n_modules, bad = res.stdout.split()[0], res.stdout.split()[1:]
+    counts, names = res.stdout.splitlines()
+    n_modules, bad = counts.split()[0], counts.split()[1:]
     assert int(n_modules) >= 20
     assert bad == [], f"imported {bad}"
+    for module in ("repro_torch.graphics", "repro_torch.graphics.camera",
+                   "repro_torch.graphics.pipeline",
+                   "repro_torch.graphics.viewport",
+                   "repro_torch.kernels.projective",
+                   "repro_torch.kernels.projective.ops",
+                   "repro_torch.kernels.projective.projective",
+                   "repro_torch.kernels.projective.ref"):
+        assert module in names.split(), module
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -61,13 +71,19 @@ def test_default_device_entry_points_raise_without_cuda():
         chain.apply(np.ones((4, 2), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_transforms.main(["--smoke", "--no-compare"])
+    from repro_torch import graphics
+    view = graphics.viewing_chain(camera=graphics.Camera())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        view.project(np.ones((4, 3), np.float32))
 
 
 def test_cuda_backend_on_cpu_tensor_raises():
     """A CPU tensor never reaches a kernel by accident, and a kernel
     wrapper never runs its plain version in its place."""
-    from repro_torch.kernels import chain_apply, chain_diag
+    from repro_torch.kernels import chain_apply, chain_diag, chain_project, \
+        chain_project_batch
     from repro_torch.kernels.affine import affine
+    from repro_torch.kernels.projective import projective
     x = torch.ones(5, 2)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         chain_diag(x, 1.0, 0.0, backend="cuda")
@@ -77,3 +93,10 @@ def test_cuda_backend_on_cpu_tensor_raises():
         affine.chain_diag_1d(x.reshape(-1), torch.ones(2), torch.zeros(2), d=2)
     with pytest.raises(ValueError, match="backend must be"):
         chain_diag(x, 1.0, 0.0, backend="interpret")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        chain_project(x, torch.eye(3), backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        chain_project_batch(x[None], torch.eye(3), backend="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        projective.chain_project_1d(x.reshape(-1), torch.eye(3),
+                                    torch.zeros(2), torch.ones(2), d=2)

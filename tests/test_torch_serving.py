@@ -1,12 +1,15 @@
 """The port's serving engine against the JAX package's.
 
 Workloads come from the same numpy seeds through both packages'
-``random_workload``.  Deterministic counters (launches, buckets, shards,
-payload and padded points) must EQUAL the reference's live counters;
-served results must be within |port - jax| <= 4 eps32 (sum_m |p_m A_mc|
-+ |t_c|) per element of the reference's served results (XLA:CPU contracts
-some multiply-adds; the port never does); and within the port, packed
-results must equal per-request ``apply`` BITWISE.
+``random_workload``, over the affine pool and over the full ``TEMPLATES``
+pool (projective structures included).  Deterministic counters (launches,
+buckets, shards, payload and padded points, launch bytes) must EQUAL the
+reference's live counters; served results must be within
+|port - jax| <= 4 eps32 (sum_m |p_m A_mc| + |t_c|) per element of the
+reference's served results for affine plans (XLA:CPU contracts some
+multiply-adds; the port never does), and within the projective float
+contract of ``torch_bounds.py`` for projective plans, masks included.  Within the port, packed results equal
+per-request ``apply``/``project`` BITWISE, masks included.
 """
 import numpy as np
 import pytest
@@ -15,12 +18,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro import serving as jserving
+from repro.core import transform_chain as jtc
 from repro.serving import bucketing as jbucketing
 from repro.serving import workload as jworkload
 from repro_torch import errors, serving
 from repro_torch.core import transform_chain as tc
 from repro_torch.kernels import opcount
 from repro_torch.serving import bucketing, workload
+from torch_bounds import check_projective
 
 EPS32 = float(np.finfo(np.float32).eps)
 COUNTERS = ("launches", "buckets", "shards", "payload_points",
@@ -52,13 +57,22 @@ def _bound(chain, pts):
     return (4 * EPS32 * (mag + folded[1])).reshape(pts.shape)
 
 
-def _affine_workload(seed=1904, n=64, max_points=1024):
+POOLS = {"affine": (workload.AFFINE_TEMPLATES, jworkload.AFFINE_TEMPLATES),
+         "all": (workload.TEMPLATES, jworkload.TEMPLATES)}
+
+
+def _workload(seed, n, max_points, pool):
+    port_pool, ref_pool = POOLS[pool]
     return (workload.random_workload(seed=seed, n_requests=n,
-                                     templates=workload.AFFINE_TEMPLATES,
+                                     templates=port_pool,
                                      max_points=max_points),
             jworkload.random_workload(seed=seed, n_requests=n,
-                                      templates=jworkload.AFFINE_TEMPLATES,
+                                      templates=ref_pool,
                                       max_points=max_points))
+
+
+def _affine_workload(seed=1904, n=64, max_points=1024):
+    return _workload(seed, n, max_points, "affine")
 
 
 @pytest.mark.parametrize("affine_only", [True, False])
@@ -103,11 +117,16 @@ def test_bucketing_matches_reference():
         bucketing.padded_length(5, waste_cap=1.0)
 
 
-@pytest.mark.parametrize("max_points_per_launch", [None, 256])
-def test_counters_equal_reference(max_points_per_launch):
-    """Seed 1904, 64 affine requests: the reference's live counters (35
-    launches and 3576 padded points without a launch cap)."""
-    port_reqs, ref_reqs = _affine_workload()
+@pytest.mark.parametrize("max_points_per_launch, pool", [
+    pytest.param(None, "affine", id="None"),
+    pytest.param(256, "affine", id="256"),
+    pytest.param(None, "all", id="None-all"),
+    pytest.param(256, "all", id="256-all")])
+def test_counters_equal_reference(max_points_per_launch, pool):
+    """Seed 1904, 64 requests: the reference's live counters (for the
+    affine pool 35 launches and 3576 padded points without a launch
+    cap)."""
+    port_reqs, ref_reqs = _workload(1904, 64, 1024, pool)
     srv = _server(max_points_per_launch=max_points_per_launch)
     srv.serve(port_reqs)
     jsrv = _jax_server(max_points_per_launch=max_points_per_launch)
@@ -118,32 +137,58 @@ def test_counters_equal_reference(max_points_per_launch):
             for r in srv.last_report] == \
         [(r.structure, r.kind, r.lpad, r.requests, r.launches)
          for r in jsrv.last_report]
-    if max_points_per_launch is None:
+    if max_points_per_launch is None and pool == "affine":
         assert serving.stats["launches"] == 35
         assert serving.stats["padded_points"] == 3576
-    else:
+    elif max_points_per_launch is not None:
         assert serving.stats["shards"] > 0
     assert serving.stats["launches"] == sum(r.launches for r in srv.reports)
 
 
-def test_served_results_match_reference():
-    port_reqs, ref_reqs = _affine_workload(seed=11, n=48, max_points=300)
+def _check_served_results(pool):
+    port_reqs, ref_reqs = _workload(11, 48, 300, pool)
     outs = _server().serve(port_reqs)
     jouts = _jax_server().serve(ref_reqs)
     for (chain, pts), out, jout in zip(port_reqs, outs, jouts):
         assert isinstance(out, np.ndarray) and out.shape == pts.shape
-        assert np.all(np.abs(out.astype(np.float64) - np.asarray(jout))
-                      <= _bound(chain, pts))
+        if chain.is_projective:
+            assert isinstance(out, serving.Projected)
+            assert out.mask.shape == pts.shape[:-1]
+            check_projective(pts, chain.fold(), out, out.mask, jout, jout.mask)
+        else:
+            assert np.all(np.abs(out.astype(np.float64) - np.asarray(jout))
+                          <= _bound(chain, pts))
+    return port_reqs
 
 
-@pytest.mark.parametrize("seed", [11, 1904])
-def test_packed_equals_per_request_apply_bitwise(seed):
-    """Diag AND matrix plans: no last-ULP daylight within the port."""
-    reqs, _ = _affine_workload(seed=seed, n=48, max_points=300)
-    assert {c.plan_kind for c, _ in reqs} == {"diag", "matrix"}
+def test_served_results_match_reference():
+    _check_served_results("affine")
+
+
+def test_served_results_match_reference_full_pool():
+    reqs = _check_served_results("all")
+    assert {c.plan_kind for c, _ in reqs} == {"diag", "matrix", "projective"}
+
+
+@pytest.mark.parametrize("seed, pool", [
+    pytest.param(11, "affine", id="11"),
+    pytest.param(1904, "affine", id="1904"),
+    pytest.param(11, "all", id="11-all"),
+    pytest.param(1904, "all", id="1904-all")])
+def test_packed_equals_per_request_apply_bitwise(seed, pool):
+    """Every plan kind of the pool: no last-ULP daylight within the
+    port; projective results carry the mask of per-request
+    ``project``."""
+    reqs, _ = _workload(seed, 48, 300, pool)
+    kinds = {"diag", "matrix"} | ({"projective"} if pool == "all" else set())
+    assert {c.plan_kind for c, _ in reqs} == kinds
     outs = _server().serve(reqs)
     for (chain, pts), out in zip(reqs, outs):
         assert _same_bits(out, chain.apply(torch.from_numpy(pts)).numpy())
+        if chain.is_projective:
+            got, mask = chain.project(torch.from_numpy(pts))
+            assert _same_bits(out, got.numpy())
+            assert _same_bits(out.mask, mask.numpy())
 
 
 def test_padding_never_contaminates_payload():
@@ -196,13 +241,38 @@ def test_submit_validation_and_later_slices():
     with pytest.raises(errors.NonFiniteError):
         srv.submit(tc.TransformChain.identity(2).scale(np.inf), np.ones(
             (3, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="graphics slice"):
-        srv.submit(workload.chain_for(rng, 3, "MPC"),
-                   np.ones((3, 3), np.float32))
+    ticket = srv.submit(workload.chain_for(rng, 3, "MPC"),
+                        np.ones((3, 3), np.float32))   # projective: accepted
     with pytest.raises(NotImplementedError, match="Qm.n"):
         srv.submit(chain, np.ones((3, 2), np.float32), qformat="q8.7")
-    assert serving.stats["rejected_requests"] == 4
-    assert srv.pending == 0
+    assert serving.stats["rejected_requests"] == 4    # the typed errors
+    assert srv.pending == 1 and ticket == 4
+    (out,) = srv.flush()
+    assert isinstance(out, serving.Projected) and out.mask.shape == (3,)
+
+
+def test_projective_fold_with_infinite_bounds_is_accepted():
+    """A TSP chain folds to lo = -inf, hi = +inf (no cull): only H is
+    held finite at submit, as in the reference, which serves it."""
+    chain = workload.chain_for(np.random.default_rng(12), 2, "TSP")
+    _, lo, hi = chain.fold()
+    assert np.isneginf(lo).all() and np.isposinf(hi).all()
+    pts = np.random.default_rng(13).standard_normal((40, 2)).astype(
+        np.float32)
+    srv = _server()
+    srv.submit(chain, pts)
+    jsrv = _jax_server()
+    jsrv.submit(jtc.TransformChain(chain.dim, chain.kinds, chain.params),
+                pts)
+    (out,), (jout,) = srv.flush(), jsrv.flush()
+    assert serving.stats["rejected_requests"] == 0
+    assert isinstance(out, serving.Projected)
+    check_projective(pts, chain.fold(), out, out.mask, jout, jout.mask)
+    got, mask = chain.project(torch.from_numpy(pts))
+    assert _same_bits(out, got.numpy()) and _same_bits(out.mask, mask.numpy())
+    with pytest.raises(errors.NonFiniteError):
+        srv.submit(tc.TransformChain.identity(2).projective(
+            np.full((3, 3), np.inf, np.float32)), pts)
 
 
 def test_submitted_points_are_copied_and_shapes_round_trip():
@@ -237,8 +307,8 @@ def test_oversized_bucket_shards_and_matches():
         assert _same_bits(out, chain.apply(torch.from_numpy(pts)).numpy())
 
 
-def test_launch_bytes_and_plan_cache_match_reference():
-    port_reqs, ref_reqs = _affine_workload(seed=43, n=32, max_points=200)
+def _check_launch_bytes_and_plan_cache(pool):
+    port_reqs, ref_reqs = _workload(43, 32, 200, pool)
     srv = _server()
     with opcount.counting() as got:
         srv.serve(port_reqs)
@@ -254,6 +324,16 @@ def test_launch_bytes_and_plan_cache_match_reference():
     assert serving.stats["launches"] == sum(r.launches for r in srv.reports)
     srv.reset_stats()
     assert srv.reports == [] and serving.stats["launches"] == 0
+    return got
+
+
+def test_launch_bytes_and_plan_cache_match_reference():
+    _check_launch_bytes_and_plan_cache("affine")
+
+
+def test_launch_bytes_and_plan_cache_match_reference_full_pool():
+    records = _check_launch_bytes_and_plan_cache("all")
+    assert any(op == "serve_bucket_projective" for op, _ in records)
 
 
 def test_cpu_server_times_its_phases():

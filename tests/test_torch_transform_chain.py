@@ -79,6 +79,24 @@ def test_folded_to_torch_keeps_bits():
                for t, f in zip(tensors, folded))
 
 
+@pytest.mark.parametrize("dim, kinds", [(2, "TSP"), (3, "TSRP"), (3, "MPC")])
+def test_folded_to_torch_keeps_projective_bounds(dim, kinds):
+    """(H, lo, hi) crosses over bit for bit, +-inf bounds (no cull)
+    included, single and stacked over a batch."""
+    rng = np.random.default_rng(len(kinds))
+    folds = [workload.chain_for(rng, dim, kinds).fold() for _ in range(3)]
+    for folded in (folds[0], tuple(np.stack(p) for p in zip(*folds))):
+        tensors = convert.folded_to_torch(folded, "cpu")
+        assert len(tensors) == 3
+        assert all(t.dtype == torch.float32 and _same_bits(t.numpy(), f)
+                   for t, f in zip(tensors, folded))
+    _, lo, hi = convert.folded_to_torch(folds[0], "cpu")
+    if "C" in kinds:
+        assert torch.isfinite(lo).all() and torch.isfinite(hi).all()
+    else:
+        assert torch.isneginf(lo).all() and torch.isposinf(hi).all()
+
+
 def test_plan_cache_counts_match_reference():
     rng = np.random.default_rng(21)
     reqs = [(dim, kinds, rng.standard_normal((int(rng.integers(1, 40)), dim))
@@ -158,18 +176,26 @@ def test_boundary_errors_match_reference_taxonomy():
         assert ei.value.code == code and isinstance(ei.value, ValueError)
 
 
-def test_projective_and_q_lane_raise_not_implemented():
+def test_projective_executes_and_q_lane_raises_not_implemented():
+    """A projective chain applies and projects (the projected points of
+    ``apply`` are ``project``'s, bitwise; the mask is one bool per point;
+    its parity with the reference is ``test_torch_projective.py``'s);
+    the Qm.n lane still waits for its slice."""
     rng = np.random.default_rng(3)
-    pts = torch.from_numpy(rng.standard_normal((5, 3)).astype(np.float32))
+    pts_np = rng.standard_normal((5, 3)).astype(np.float32)
+    pts = torch.from_numpy(pts_np)
     proj = workload.chain_for(rng, 3, "MPC")
     assert proj.plan_kind == "projective"
-    with pytest.raises(NotImplementedError, match="graphics slice"):
-        proj.apply(pts)
-    with pytest.raises(NotImplementedError, match="graphics slice"):
-        proj.project(pts)
+    out, mask = proj.project(pts)
+    assert out.shape == pts.shape and out.dtype == torch.float32
+    assert mask.shape == (5,) and mask.dtype == torch.bool
+    assert torch.equal(proj.apply(pts), out)
+    assert torch.equal(proj.apply(pts_np, device="cpu"), out)
     affine = workload.chain_for(rng, 3, "SAT")
     with pytest.raises(NotImplementedError, match="Qm.n"):
         affine.apply(pts, dtype="q8.7")
+    with pytest.raises(NotImplementedError, match="Qm.n"):
+        proj.project(pts, dtype="q8.7")
 
 
 def test_builder_validation_matches_reference():
