@@ -23,8 +23,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      viewport) projects a 2**20-point cloud in one launch, then 64 frames
      of 65536 points with the camera stepped around an orbit serve as one
      ``GeometryServer`` flush, one projective bucket;
-     In phases 3-5 kernel launch counts are zeroed just before the phase
-     and read just after.  Every served or projected result must be
+  6. serve (q-mixed): the mixed serve's workload with every affine
+     request submitted with ``qformat="q8.7"`` -- the odd ones (by index
+     k among the affine requests) as int16 words, the even ones as
+     float32, and every 16th (k = 0 mod 16) scaled by 512 so that it
+     cannot fit and the default ``on_q_overflow="fallback"`` reroutes it
+     to the float lane (47 a flush); projective requests go without a
+     format.  Every q-lane result must be bitwise equal to the plain
+     path on the card, to per-request ``apply(dtype="q8.7")`` and to the
+     numpy Q oracle on the quantised points and fold, and a float
+     submission's within ``quantize.error_bound`` of the float64 chain;
+     int16 in gives int16 out, float in float32; each fallback bitwise
+     equal to the float lane's ``apply``; the q buckets' launch bytes
+     exactly half of what the same buckets move at 4 bytes a word.
+     In phases 3-6 kernel launch counts are zeroed just before the phase
+     and read just after.  Every served or projected float result must be
      bitwise equal to the same request run with ``backend="ref"`` (the
      plain PyTorch versions) on the card and to per-request
      ``apply``/``project``, masks included, and within the float64 bound
@@ -32,21 +45,24 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      4 eps32 [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| +
      |H_dd|)] / |w| for projective ones, whose masks must equal the
      float64 mask wherever every margin exceeds that bound;
-  6. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
+  7. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
      them -- and the batch kernels at the largest served bucket of each
      plan kind): bitwise equal to its plain version on the same inputs
-     (points and mask), timed with CUDA events (median of 25 runs, L2
+     (points and mask; the int16 kernels at full-range words and at
+     n_frac 0, 7 and 15), timed with CUDA events (median of 25 runs, L2
      flushed between runs and the device kept busy while the host
      enqueues, so the time is the device's) and its host cost per call,
      beside its plain version, one PyTorch library call
-     (``torch.addcmul`` / ``torch.baddbmm``; for the projective kernels,
-     which no single call computes, a composite of ``addmm``/``baddbmm``,
-     a divide and two compares) -- a yardstick only, the port never calls
+     (``torch.addcmul`` / ``torch.baddbmm``; for the projective and the
+     int16 kernels, which no single call computes, a composite: for the
+     projective ones ``addmm``/``baddbmm``, a divide and two compares,
+     for the int16 ones a float64 ``addcmul``/``addmm``/``baddbmm``, then
+     an int64 rounding shift) -- a yardstick only, the port never calls
      it -- and its bound;
-  7. the ``kernels`` line (launches from the mixed serve), then the
-     device line last.
+  8. the ``kernels`` line (launches from the mixed serve, and for the
+     int16 kernels from the q-mixed serve), then the device line last.
 """
 from __future__ import annotations
 
@@ -62,10 +78,12 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch import graphics, serving  # noqa: E402
+from repro_torch import graphics, quantize, serving  # noqa: E402
 from repro_torch.kernels import _build, opcount  # noqa: E402
 from repro_torch.kernels.affine import affine as diag_k  # noqa: E402
 from repro_torch.kernels.affine import ref as diag_ref  # noqa: E402
+from repro_torch.kernels.fixedpoint import fixedpoint as q_k  # noqa: E402
+from repro_torch.kernels.fixedpoint import ref as q_ref  # noqa: E402
 from repro_torch.kernels.matmul import matmul as matrix_k  # noqa: E402
 from repro_torch.kernels.matmul import ref as matrix_ref  # noqa: E402
 from repro_torch.kernels.projective import projective as proj_k  # noqa: E402
@@ -75,6 +93,9 @@ from repro_torch.serving import workload  # noqa: E402
 #: H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: int32 multiply-adds run on half as many lanes as float32 ones (64
+#: INT32 against 128 FP32 lanes an SM, Hopper architecture white paper)
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 N_FLAT = 1 << 24
 REPS = 25
 #: GPU cycles (~1 ms) the device spins before each timed run, so the
@@ -86,6 +107,12 @@ SEED = 0
 #: of one orbiting camera served as one bucket
 CLOUD_POINTS = 1 << 20
 FRAMES, FRAME_POINTS = 64, 65536
+Q8_7 = quantize.Q8_7
+#: the q-mixed serve: every FALLBACK_EVERY-th affine request is scaled
+#: by FALLBACK_SCALE, out of q8.7's range
+FALLBACK_EVERY, FALLBACK_SCALE = 16, np.float32(512.0)
+#: the fraction-bit counts the int16 kernels are checked at
+Q_FRACS = (0, 7, 15)
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_diag_1d": ("src/repro_torch/kernels/csrc/chain_diag.cu",
@@ -103,11 +130,26 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_project_batch_2d": ("src/repro_torch/kernels/csrc/chain_project.cu",
                                "src/repro/kernels/projective/projective.py:152",
                                "projective"),
+    "chain_diag_1d_q": ("src/repro_torch/kernels/csrc/chain_fixedpoint.cu",
+                        "src/repro/kernels/fixedpoint/fixedpoint.py:52",
+                        "diag"),
+    "chain_matrix_1d_q": ("src/repro_torch/kernels/csrc/chain_fixedpoint.cu",
+                          "src/repro/kernels/fixedpoint/fixedpoint.py:97",
+                          "matrix"),
+    "chain_diag_batch_2d_q": ("src/repro_torch/kernels/csrc/chain_fixedpoint.cu",
+                              "src/repro/kernels/fixedpoint/fixedpoint.py:140",
+                              "diag"),
+    "chain_matrix_batch_2d_q": ("src/repro_torch/kernels/csrc/chain_fixedpoint.cu",
+                                "src/repro/kernels/fixedpoint/fixedpoint.py:183",
+                                "matrix"),
 }
 FLAT = {"diag": "chain_diag_1d", "matrix": "chain_matrix_1d",
         "projective": "chain_project_1d"}
 BATCH = {"diag": "chain_diag_batch_2d", "matrix": "chain_matrix_batch_2d",
          "projective": "chain_project_batch_2d"}
+Q_FLAT = {"diag": "chain_diag_1d_q", "matrix": "chain_matrix_1d_q"}
+Q_BATCH = {"diag": "chain_diag_batch_2d_q", "matrix": "chain_matrix_batch_2d_q"}
+FLOAT_KERNELS = [k for k in KERNELS if not k.endswith("_q")]
 
 
 def emit(obj: dict) -> None:
@@ -223,17 +265,8 @@ def serve_phase(phase: str, templates, device: str = "cuda",
     serving.reset_stats()
     _build.reset_launch_counts()
     srv = serving.GeometryServer(device=device)
-    srv.serve(reqs)                                  # warm flush
-    submit_s, flush_s, timings, outs = [], [], [], None
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for chain, pts in reqs:
-            srv.submit(chain, pts)
-        t1 = time.perf_counter()
-        outs = srv.flush()                           # numpy results: synced
-        flush_s.append(time.perf_counter() - t1)
-        submit_s.append(t1 - t0)
-        timings.append(srv.last_timing)
+    outs, submit_s, flush_s, timings, _ = timed_serve(
+        srv, [(c, p, None) for c, p in reqs])
     t0 = time.perf_counter()
     singles = []
     for c, p in reqs:
@@ -271,14 +304,53 @@ def serve_phase(phase: str, templates, device: str = "cuda",
         undecided += check_result(i, chain, pts, out, ref_outs[i],
                                   *singles[i])
 
-    med = {k: float(np.median([t[k] for t in timings])) for k in timings[0]}
     summary = {
         "phase": phase, "requests": len(reqs), "requests_by_kind": n_kind,
         "buckets": buckets,
+        **flush_summary(stats, flushes, submit_s, flush_s, timings),
+        "payload_MB": sum(p.nbytes for _, p in reqs) / 1e6,
+        "per_request_ms": apply_s * 1e3,
+        "bitwise_vs_ref": True, "bitwise_vs_per_request": True,
+        "fold_oracle": True, "mask_points_within_bound": undecided,
+    }
+    largest = largest_buckets(srv.last_report)
+    sizes = {}
+    for kind in used:
+        n = sorted(p.shape[0] for c, p in reqs if c.plan_kind == kind)
+        sizes[kind] = (n[len(n) // 2], n[-1])
+    sizes["all"] = (sorted(p.shape[0] for _, p in reqs)[len(reqs) // 2],
+                    max(p.shape[0] for _, p in reqs))
+    return counts, summary, largest, sizes
+
+
+def timed_serve(srv, subs) -> tuple:
+    """One warm flush of the (chain, points, qformat) submissions, then
+    three rounds of submitting them all and one flush, submit and flush
+    timed apart.  Returns (the last flush's results, submit seconds,
+    flush seconds, the server's phase timings, the last flush's opcount
+    records)."""
+    submit_s, flush_s, timings, outs, records = [], [], [], None, None
+    for k in range(4):
+        t0 = time.perf_counter()
+        for chain, pts, q in subs:
+            srv.submit(chain, pts, qformat=q)
+        t1 = time.perf_counter()
+        with opcount.counting() as records:
+            outs = srv.flush()                       # numpy results: synced
+        if k:                                        # the first one warms
+            flush_s.append(time.perf_counter() - t1)
+            submit_s.append(t1 - t0)
+            timings.append(srv.last_timing)
+    return outs, submit_s, flush_s, timings, records
+
+
+def flush_summary(stats, flushes, submit_s, flush_s, timings) -> dict:
+    """The per-flush counters and the host and device times of a serve."""
+    med = {k: float(np.median([t[k] for t in timings])) for k in timings[0]}
+    return {
         "launches_per_flush": stats["launches"] // flushes,
         "payload_points": stats["payload_points"] // flushes,
         "padded_points": stats["padded_points"] // flushes,
-        "payload_MB": sum(p.nbytes for _, p in reqs) / 1e6,
         "submit_ms": [s * 1e3 for s in submit_s],
         "flush_ms": [s * 1e3 for s in flush_s],
         "flush_ms_median": float(np.median(flush_s)) * 1e3,
@@ -289,22 +361,173 @@ def serve_phase(phase: str, templates, device: str = "cuda",
         "pack_ms": med["pack_s"] * 1e3, "dispatch_ms": med["dispatch_s"] * 1e3,
         "unpack_ms": med["unpack_s"] * 1e3,
         "device_span_ms": med.get("device_ms"),
-        "per_request_ms": apply_s * 1e3,
-        "bitwise_vs_ref": True, "bitwise_vs_per_request": True,
-        "fold_oracle": True, "mask_points_within_bound": undecided,
     }
+
+
+def largest_buckets(reports) -> dict:
+    """The (requests, lpad, d) of the largest bucket of each plan kind."""
     largest = {}
-    for rep in srv.last_report:
+    for rep in reports:
         if rep.padded_points > largest.get(rep.kind, (0, 0, 0, 0))[3]:
             largest[rep.kind] = (rep.requests, rep.lpad,
                                  int(rep.structure[0]), rep.padded_points)
-    sizes = {}
-    for kind in used:
-        n = sorted(p.shape[0] for c, p in reqs if c.plan_kind == kind)
-        sizes[kind] = (n[len(n) // 2], n[-1])
-    sizes["all"] = (sorted(p.shape[0] for _, p in reqs)[len(reqs) // 2],
-                    max(p.shape[0] for _, p in reqs))
-    return counts, summary, {k: v[:3] for k, v in largest.items()}, sizes
+    return {k: v[:3] for k, v in largest.items()}
+
+
+def q_submissions(reqs) -> list:
+    """(chain, submitted points, qformat) for the q-mixed serve: affine
+    request k (in submission order) goes with q8.7, as int16 words when k
+    is odd and as float32 when it is even, scaled out of range when
+    k = 0 mod FALLBACK_EVERY; projective requests go without a format."""
+    subs, k = [], 0
+    for chain, pts in reqs:
+        if chain.is_projective:
+            subs.append((chain, pts, None))
+            continue
+        if k % 2:
+            pts = Q8_7.quantize(pts)
+        elif k % FALLBACK_EVERY == 0:
+            pts = pts * FALLBACK_SCALE
+        subs.append((chain, pts, Q8_7.name))
+        k += 1
+    return subs
+
+
+def q_oracle(chain, pts: np.ndarray) -> np.ndarray:
+    """The numpy Q oracle's result for one q-lane request: the points
+    quantised (int16 words pass as they are), the fold quantised by
+    ``quantize_fold``, dequantised back for a float submission."""
+    words = pts if pts.dtype == np.int16 else Q8_7.quantize(pts)
+    folded_q = quantize.quantize_fold(chain.fold(), chain.plan_kind, Q8_7)
+    oracle = q_ref.np_chain_diag_q if chain.is_diagonal \
+        else q_ref.np_chain_matrix_q
+    out = oracle(words.reshape(-1, chain.dim), *folded_q, Q8_7.n)
+    out = out.reshape(pts.shape)
+    return out if pts.dtype == np.int16 else Q8_7.dequantize(out)
+
+
+def q_bound_ok(chain, pts: np.ndarray, out: np.ndarray) -> bool:
+    """A float submission's q result within ``quantize.error_bound`` of
+    the float64 value of the chain's float32 fold."""
+    folded = chain.fold()
+    p = pts.reshape(-1, chain.dim).astype(np.float64)
+    f64 = [f.astype(np.float64) for f in folded]
+    exact = p * f64[0] + f64[1] if chain.is_diagonal else p @ f64[0] + f64[1]
+    bound = quantize.error_bound(folded, chain.plan_kind, Q8_7,
+                                 float(np.abs(pts).max()))
+    got = out.reshape(-1, chain.dim).astype(np.float64)
+    return bool((np.abs(got - exact) <= bound).all())
+
+
+def q_mixed_phase(device: str = "cuda") -> tuple[dict, dict, dict, tuple]:
+    """The q-mixed serve (see the module docstring); returns (kernel launch
+    counts of the run, the summary, the largest q bucket shape per plan
+    kind, the median and the largest q-lane request's point count)."""
+    reqs = workload.random_workload(
+        seed=SEED, n_requests=1024, templates=workload.TEMPLATES,
+        min_points=1024, max_points=262144)
+    subs = q_submissions(reqs)
+    affine = [i for i, (_, _, q) in enumerate(subs) if q]
+    fallback = set(affine[::FALLBACK_EVERY])
+    q_lane = [i for i in affine if i not in fallback]
+
+    serving.reset_stats()
+    _build.reset_launch_counts()
+    srv = serving.GeometryServer(device=device)
+    outs, submit_s, flush_s, timings, records = timed_serve(srv, subs)
+    t0 = time.perf_counter()
+    singles = []
+    for i, (c, p, q) in enumerate(subs):
+        x = torch.from_numpy(p).to(device)
+        if c.is_projective:
+            out, mask = c.project(x)
+            singles.append((out.cpu().numpy(), mask.cpu().numpy()))
+        else:
+            out = c.apply(x, dtype=None if i in fallback else q)
+            singles.append((out.cpu().numpy(), None))
+    apply_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    stats = dict(serving.stats)
+    flushes = 4
+
+    buckets = len(srv.last_report)
+    q_reports = [rep for (op, _), rep in zip(records, srv.last_report)
+                 if op.endswith("_q")]
+    if len(records) != buckets or stats["launches"] != stats["buckets"] \
+            or stats["buckets"] != flushes * buckets:
+        raise SystemExit(f"q-mixed: launches {stats['launches']} != buckets "
+                         f"{stats['buckets']} ({flushes} x {buckets})")
+    batched = sum(counts[name] for name in [*BATCH.values(),
+                                            *Q_BATCH.values()])
+    q_batched = sum(counts[name] for name in Q_BATCH.values())
+    if batched != stats["launches"] or q_batched != flushes * len(q_reports):
+        raise SystemExit(f"q-mixed: batch kernels launched {batched} times "
+                         f"({q_batched} q) for {stats['launches']} launches "
+                         f"({flushes} x {len(q_reports)} q buckets)")
+    n_fallback = sum(rep.q_fallback_requests for rep in srv.last_report)
+    if stats["q_fallbacks"] != flushes * len(fallback) \
+            or n_fallback != len(fallback):
+        raise SystemExit(f"q-mixed: {stats['q_fallbacks']} q fallbacks over "
+                         f"{flushes} flushes, {n_fallback} in the last, "
+                         f"expected {len(fallback)} a flush")
+    for kind in ("diag", "matrix"):
+        n_q = sum(subs[i][0].plan_kind == kind for i in q_lane)
+        if counts[Q_FLAT[kind]] != n_q:
+            raise SystemExit(f"q-mixed: {Q_FLAT[kind]} launched "
+                             f"{counts[Q_FLAT[kind]]} times for {n_q} "
+                             f"per-request {kind} q calls")
+    require_launched(counts, [*Q_FLAT.values(), *Q_BATCH.values()],
+                     "q-mixed serve")
+    for (op, nbytes), rep in zip(records, srv.last_report):
+        if op.endswith("_q") and 2 * nbytes != opcount.packed_chain_bytes(
+                rep.requests, rep.lpad, int(rep.structure[0]), itemsize=4,
+                kind=rep.kind):
+            raise SystemExit(f"q-mixed: {op} recorded {nbytes} bytes, not "
+                             "half the float32 bytes of its bucket")
+
+    ref_srv = serving.GeometryServer(device=device, backend="ref")
+    for c, p, q in subs:
+        ref_srv.submit(c, p, qformat=q)
+    ref_outs = ref_srv.flush()
+    undecided, int16_in = 0, 0
+    for i, ((chain, pts, q), out) in enumerate(zip(subs, outs)):
+        if i not in q_lane:          # projective, or rerouted to float32
+            if i in fallback and out.dtype != np.float32:
+                raise SystemExit(f"q-mixed request {i}: fallback not float32")
+            undecided += check_result(i, chain, pts, out, ref_outs[i],
+                                      *singles[i])
+            continue
+        want_dtype = np.int16 if pts.dtype == np.int16 else np.float32
+        int16_in += pts.dtype == np.int16
+        if out.dtype != want_dtype or out.shape != pts.shape:
+            raise SystemExit(f"q-mixed request {i}: {pts.dtype} in, "
+                             f"{out.dtype} {out.shape} out")
+        for other, what in ((ref_outs[i], "the plain version on the card"),
+                            (singles[i][0], "per-request apply(dtype=)"),
+                            (q_oracle(chain, pts), "the numpy Q oracle")):
+            if not bitwise_equal(out, other):
+                raise SystemExit(f"q-mixed request {i}: != {what}")
+        if want_dtype == np.float32 and not q_bound_ok(chain, pts, out):
+            raise SystemExit(f"q-mixed request {i}: outside error_bound")
+
+    summary = {
+        "phase": "serve (q-mixed)", "requests": len(subs),
+        "q_requests": len(affine), "q_lane": len(q_lane),
+        "int16_submissions": int16_in,
+        "float_submissions": len(q_lane) - int16_in,
+        "q_fallbacks_per_flush": stats["q_fallbacks"] // flushes,
+        "buckets": buckets, "q_buckets": len(q_reports),
+        **flush_summary(stats, flushes, submit_s, flush_s, timings),
+        "q_bucket_bytes": sum(b for op, b in records if op.endswith("_q")),
+        "per_request_ms": apply_s * 1e3,
+        "bitwise_vs_ref": True, "bitwise_vs_per_request": True,
+        "bitwise_vs_q_oracle": True, "error_bound": True,
+        "q_bytes_half_of_float32": True,
+        "mask_points_within_bound": undecided,
+    }
+    n = sorted(subs[i][1].shape[0] for i in q_lane)
+    return counts, summary, largest_buckets(q_reports), \
+        (n[len(n) // 2], n[-1])
 
 
 def orbit_camera(k: int) -> graphics.Camera:
@@ -538,6 +761,101 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
     return row
 
 
+def q_case(shape: tuple, kind: str, rng: np.random.Generator, dev):
+    """(run, plain, composite, bytes, ops) of an int16 kernel at ``shape``
+    on full-range words, each a function of n_frac.  The composite (no
+    single PyTorch call requantises a Qm.n chain, and ``torch.matmul`` has
+    no integer path on CUDA) is a float64 ``addcmul``/``addmm``/
+    ``baddbmm`` -- exact: |acc| < 2**32 -- then an int64 rounding shift
+    and the narrowing to int16."""
+    d = shape[-1]
+    batched = len(shape) == 3
+    lead = shape[:1] if batched else ()
+
+    def words(s):
+        return torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, s)
+                                .astype(np.int16)).to(dev)
+
+    x = words(shape)
+    p = words(lead + ((d,) if kind == "diag" else (d, d)))
+    t = words(lead + (d,))
+    n_points = x.numel() // d
+
+    def requant(acc, n):
+        acc = acc.to(torch.int64)
+        return ((acc + (1 << (n - 1))) >> n if n else acc).to(torch.int16)
+
+    if kind == "diag":
+        wrap = q_k.chain_diag_batch_2d_q if batched else q_k.chain_diag_1d_q
+        plain_fn = q_ref.chain_diag_batch_q if batched else q_ref.chain_diag_q
+        tb, pb = (t[:, None], p[:, None]) if batched else (t, p)
+
+        def lib(n):
+            return requant(torch.addcmul(tb.double() * (1 << n), x.double(),
+                                         pb.double()), n)
+        ops = 5 * x.numel()           # multiply, shift t, two adds, shift
+    else:
+        wrap = q_k.chain_matrix_batch_2d_q if batched else q_k.chain_matrix_1d_q
+        plain_fn = q_ref.chain_matrix_batch_q if batched \
+            else q_ref.chain_matrix_q
+
+        def lib(n):
+            if batched:
+                acc = torch.baddbmm(t.double()[:, None] * (1 << n), x.double(),
+                                    p.double())
+            else:
+                acc = torch.addmm(t.double() * (1 << n), x.double(), p.double())
+            return requant(acc, n)
+        ops = (2 * d + 3) * x.numel()  # d multiply-adds, shift t, round, shift
+
+    def run(n):
+        if batched:
+            return wrap(x, p, t, n_frac=n)
+        return wrap(x.reshape(-1), p, t, d=d, n_frac=n).reshape(shape)
+
+    def plain(n):
+        return plain_fn(x, p, t, n)
+
+    nbytes = opcount.packed_chain_bytes(shape[0], shape[1], d, itemsize=2,
+                                        kind=kind) if batched \
+        else opcount.fused_chain_bytes(n_points, d, itemsize=2, kind=kind)
+    return run, plain, lib, nbytes, ops
+
+
+def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
+                  size: str) -> dict:
+    """Check one int16 kernel at one shape against its plain version at
+    every n_frac of Q_FRACS, on full-range words; time it at q8.7's."""
+    d = shape[-1]
+    run, plain, lib, nbytes, ops = q_case(shape, KERNELS[name][2], rng,
+                                          torch.device("cuda"))
+    composite_equal = True
+    for n in Q_FRACS:
+        got, want, comp = run(n), plain(n), lib(n)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int16 or not same_bits(got, want):
+            raise SystemExit(f"{name} {shape} n_frac={n}: kernel != plain "
+                             "version")
+        composite_equal &= same_bits(got, comp)
+    err = float((got.int() - want.int()).abs().max()) if got.numel() else 0.0
+    n = Q8_7.n
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
+        time_ms(lambda: run(n)), time_ms(lambda: plain(n)), \
+        time_ms(lambda: lib(n))
+    row = {"kernel": name, "size": size, "shape": list(shape), "d": d,
+           "n_frac_checked": list(Q_FRACS), "timed_n_frac": n, "equal": True,
+           "max_abs_err": err, "ms": ms, "bytes": nbytes,
+           "GB/s": nbytes / ms / 1e6, "bound_ms": max(byte_ms, op_ms),
+           "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+           "plain_ms": plain_ms, "library_ms": None, "composite_ms": lib_ms,
+           "library": "composite", "composite_equal": composite_equal,
+           "host_us": host_us, "plain_host_us": plain_us,
+           "library_host_us": lib_us}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -558,8 +876,10 @@ def main() -> int:
     counts, summary, largest, sizes = serve_phase(
         "serve (mixed)", workload.TEMPLATES)
     emit(summary)
-    require_launched(counts, KERNELS, "mixed serve")
+    require_launched(counts, FLOAT_KERNELS, "mixed serve")
     graphics_counts, summary = graphics_phase()
+    emit(summary)
+    q_counts, summary, largest_q, sizes_q = q_mixed_phase()
     emit(summary)
 
     rng = np.random.default_rng(SEED)
@@ -580,12 +900,28 @@ def main() -> int:
     rows["chain_project_batch_2d"] = kernel_case(
         "chain_project_batch_2d", largest["projective"], rng,
         "largest bucket (mixed serve)")
+    for d in (2, 3):
+        for name in Q_FLAT.values():
+            rows[name] = kernel_case_q(name, (N_FLAT, d), rng, "flat 2**24")
+    for i, size in enumerate(("median q request", "largest q request")):
+        for d in (2, 3):
+            for name in Q_FLAT.values():
+                kernel_case_q(name, (sizes_q[i], d), rng, size)
+    for kind, name in Q_BATCH.items():
+        rows[name] = kernel_case_q(name, largest_q[kind], rng,
+                                   "largest q bucket")
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = rows[name]
+        # each kernel's launches come from the path that runs it: the
+        # mixed serve for the float kernels, the q-mixed serve for the
+        # int16 ones
+        launches = q_counts[name] if name.endswith("_q") else counts[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches,
+                        "launches_mixed": counts[name],
+                        "launches_q_mixed": q_counts[name],
                         "launches_graphics": graphics_counts[name],
                         "shape": r["shape"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -26,8 +26,10 @@ def chain_from_reference(dim: int, kinds, params):
     return TransformChain(chain.dim, kinds, params)
 
 
-def folded_to_torch(folded, device: str | torch.device) -> tuple[torch.Tensor, ...]:
+def folded_to_torch(folded, device: str | torch.device,
+                    dtype=np.float32) -> tuple[torch.Tensor, ...]:
     """Folded numpy parameters -- (s, t), (A, t) or (H, lo, hi), single
-    or stacked over a batch -- as float32 tensors on ``device``."""
-    return tuple(torch.as_tensor(np.ascontiguousarray(f, np.float32),
+    or stacked over a batch -- as tensors on ``device``: float32, or the
+    int16 Qm.n words of ``quantize_fold`` with ``dtype=np.int16``."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(f, dtype),
                                  device=device) for f in folded)

@@ -17,14 +17,20 @@ same small compiler:
      ``kernels.chain_project`` for projective plans (homogeneous product,
      in-kernel perspective divide and cull mask) -- hand-written CUDA on a
      CUDA tensor, the plain PyTorch version on a CPU tensor.
-  4. **Plan cache** -- plans are cached by chain structure + backend; a
-     plan takes the folded values as arguments, so a hot path with one
-     chain shape and fresh parameters builds nothing.
+  4. **Plan cache** -- plans are cached by chain structure + backend
+     (+ the Qm.n format name for the fixed-point lane); a plan takes the
+     folded values as arguments, so a hot path with one chain shape and
+     fresh parameters builds nothing.
 
-Not in this slice: the Qm.n fixed-point lane (``dtype=``) comes with the
-int16 kernels, and the carry-fold API with the scene graph.  There is no
-traced-parameter fold: PyTorch runs eagerly and parameters are concrete
-values.
+``apply(..., dtype="q8.7")`` runs the M1-faithful int16 fixed-point lane:
+the same host fold, quantised once per request by
+``quantize.quantize_fold``, lowered to ``kernels.chain_diag_q`` /
+``chain_apply_q`` (int32 accumulation, one requantising shift, int16
+wrap), at half the bytes per point.  Affine chains only.
+
+Not in this slice: the carry-fold API comes with the scene graph.  There
+is no traced-parameter fold: PyTorch runs eagerly and parameters are
+concrete values.
 
 Byte economy vs. sequential primitive dispatch (k-long chain over N points
 of dim d, itemsize 4): sequential moves ~2*k*N*d*4 bytes; the fused plan
@@ -38,9 +44,11 @@ import typing
 import numpy as np
 import torch
 
-from repro_torch import convert, errors
+from repro_torch import convert, errors, quantize
 from repro_torch.kernels import chain_apply as _k_chain_apply
+from repro_torch.kernels import chain_apply_q as _k_chain_apply_q
 from repro_torch.kernels import chain_diag as _k_chain_diag
+from repro_torch.kernels import chain_diag_q as _k_chain_diag_q
 from repro_torch.kernels import chain_project as _k_chain_project
 from repro_torch.kernels import dispatch, opcount
 
@@ -59,10 +67,6 @@ _AXES = {"x": 0, "y": 1, "z": 2}
 stats = {"compiles": 0, "hits": 0, "traces": 0}
 
 _PLAN_CACHE: dict[tuple, "Plan"] = {}
-
-#: what this slice leaves to later ones
-QLANE_LATER = ("the Qm.n fixed-point lane (dtype=) comes with the int16 "
-               "kernels in a later slice of the port")
 
 
 def clear_plan_cache() -> None:
@@ -321,11 +325,37 @@ class Plan:
     """A chain plan: ``fn(folded, flat_points_2d) -> out``, where
     ``folded`` is the host-folded (s, t) / (A, t) / (H, lo, hi) tuple as
     tensors on the points' device.  Projective plans return
-    ``(projected, mask)``."""
+    ``(projected, mask)``.  Fixed-point plans (``qformat`` set) take
+    int16 Qm.n words instead -- the folded parameters quantised once per
+    request by ``quantize.quantize_fold`` -- and return int16."""
     kind: str                      # "diag" | "matrix" | "projective"
     dim: int
     backend: str
     fn: typing.Callable
+    qformat: str | None = None     # Qm.n name for fixed-point plans
+
+
+def _compile_q(structure: tuple, backend: str, qname: str) -> Plan:
+    """A fixed-point plan: one fused int16 ``chain_*_q`` kernel with the
+    format's fraction count as the requantising shift.  Only affine
+    structures get here -- ``TransformChain`` rejects projective + dtype
+    before the lookup."""
+    dim, _ = structure
+    kind = plan_kind_of(structure)
+    fmt = quantize.as_qformat(qname)
+    if kind == "diag":
+        def fn(folded_q, pts2):
+            """Q-format diagonal scale+translate over (N, dim)."""
+            s, t = folded_q
+            return _k_chain_diag_q(pts2, s, t, n_frac=fmt.n, backend=backend)
+    else:
+        def fn(folded_q, pts2):
+            """Q-format fused matmul+translate over (N, dim)."""
+            a, t = folded_q
+            return _k_chain_apply_q(pts2, a, t, n_frac=fmt.n,
+                                    backend=backend)
+    return Plan(kind=kind, dim=dim, backend=backend, fn=fn,
+                qformat=fmt.name)
 
 
 def _compile(structure: tuple, backend: str) -> Plan:
@@ -349,12 +379,14 @@ def _compile(structure: tuple, backend: str) -> Plan:
     return Plan(kind=kind, dim=dim, backend=backend, fn=fn)
 
 
-def _get_plan(structure: tuple, backend: str) -> Plan:
-    key = (structure, backend)
+def _get_plan(structure: tuple, backend: str,
+              qname: str | None = None) -> Plan:
+    key = (structure, backend, qname)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
         stats["compiles"] += 1
-        plan = _PLAN_CACHE[key] = _compile(structure, backend)
+        plan = _PLAN_CACHE[key] = _compile_q(structure, backend, qname) \
+            if qname is not None else _compile(structure, backend)
     else:
         stats["hits"] += 1
     return plan
@@ -484,29 +516,62 @@ class TransformChain:
 
     # -- execution -----------------------------------------------------------
 
-    def _run(self, points, backend: str | None,
-             device: str | torch.device):
-        """The shared body of ``apply`` and ``project``: the boundary
-        check, the move to ``device`` of anything that is not a tensor,
-        then ONE plan launch over the flat points with its HBM bytes
-        recorded.  Returns (points tensor, plan output) -- the output is
-        None for an empty chain."""
-        errors.check_points(points, self.dim)
-        if not isinstance(points, torch.Tensor):
-            points = torch.as_tensor(points,
-                                     device=dispatch.resolve_device(device))
-        if not self.kinds:
-            return points, None
-        d = points.shape[-1]
-        flat = points.reshape(-1, d)
-        plan = _get_plan(self.structure,
-                         dispatch.backend_for(points.device, backend))
-        opcount.record(f"chain_fused_{plan.kind}",
-                       opcount.fused_chain_bytes(flat.shape[0], d,
+    @staticmethod
+    def _tensor(points, device: str | torch.device) -> torch.Tensor:
+        """``points`` as a tensor: a tensor stays where it lies, anything
+        else (a numpy array) is copied to ``device``."""
+        if isinstance(points, torch.Tensor):
+            return points
+        return torch.as_tensor(points, device=dispatch.resolve_device(device))
+
+    def _plan(self, points: torch.Tensor, backend: str | None,
+              qname: str | None = None) -> Plan:
+        return _get_plan(self.structure,
+                         dispatch.backend_for(points.device, backend), qname)
+
+    @staticmethod
+    def _record_fused(plan: Plan, flat: torch.Tensor) -> None:
+        # one shared table (opcount) for parameter words and HBM passes
+        # per plan kind, the same the serving engine records per packed
+        # launch; fixed-point plans move 2-byte words throughout (the
+        # suffix keeps the lanes separately countable)
+        suffix = "_q" if plan.qformat else ""
+        opcount.record(f"chain_fused_{plan.kind}{suffix}",
+                       opcount.fused_chain_bytes(flat.shape[0], flat.shape[1],
                                                  kind=plan.kind,
                                                  itemsize=flat.element_size()))
-        return points, plan.fn(convert.folded_to_torch(self.fold(),
-                                                       points.device), flat)
+
+    def _run(self, points: torch.Tensor, backend: str | None):
+        """The shared body of ``apply`` and ``project`` on the float lane:
+        ONE plan launch over the flat points with its HBM bytes recorded."""
+        flat = points.reshape(-1, points.shape[-1])
+        plan = self._plan(points, backend)
+        self._record_fused(plan, flat)
+        return plan.fn(convert.folded_to_torch(self.fold(), points.device),
+                       flat)
+
+    def _apply_q(self, points: torch.Tensor, fmt,
+                 backend: str | None) -> torch.Tensor:
+        """The fixed-point lane of ``apply``: fold in float (the SAME host
+        fold), quantise the folded parameters once, and run the int16
+        ``chain_*_q`` plan.  Float points are quantised where they lie
+        (saturating, ``QFormat.quantize_torch`` -- bit-identical to the
+        host quantiser) and the result is dequantised back to float32;
+        int16 points are taken as Qm.n words and come back as int16."""
+        fmt = quantize.as_qformat(fmt)
+        quantize.reject_projective(self.is_projective)
+        # the shared numpy intake rule, on the tensor's numpy dtype
+        from_float = quantize.points_need_quantize(
+            torch.empty(0, dtype=points.dtype).numpy().dtype)
+        pts_q = fmt.quantize_torch(points) if from_float else points
+        flat = pts_q.reshape(-1, points.shape[-1])
+        plan = self._plan(points, backend, fmt.name)
+        self._record_fused(plan, flat)
+        folded_q = quantize.quantize_fold(self.fold(), plan.kind, fmt)
+        out = plan.fn(convert.folded_to_torch(folded_q, points.device,
+                                              np.int16),
+                      flat).reshape(points.shape)
+        return fmt.dequantize_torch(out) if from_float else out
 
     def apply(self, points, *, backend: str | None = None,
               dtype: str | None = None,
@@ -521,15 +586,23 @@ class TransformChain:
         chains return the projected points; use ``project`` to also get
         the frustum-cull mask.
 
+        ``dtype`` selects the execution lane: ``None`` is the float32
+        lane; a Qm.n name ("q8.7") runs the M1-faithful int16 fixed-point
+        lane -- same fold, parameters quantised once per request, half the
+        bytes per point.  Float points come back dequantised float32,
+        int16 points (Qm.n words) as int16.  Affine chains only: a
+        projective chain with ``dtype`` raises ``ValueError``.
+
         Malformed points raise the typed ``repro_torch.errors`` taxonomy
         at this boundary (``ShapeError`` / ``EmptyPointsError`` /
-        ``DtypeError``).  ``dtype=`` (the Qm.n lane) raises
-        ``NotImplementedError``: a later slice brings it."""
-        if dtype is not None:
-            raise NotImplementedError(QLANE_LATER)
-        points, out = self._run(points, backend, device)
-        if out is None:
+        ``DtypeError``)."""
+        errors.check_points(points, self.dim)
+        points = self._tensor(points, device)
+        if not self.kinds:
             return points
+        if dtype is not None:
+            return self._apply_q(points, dtype, backend)
+        out = self._run(points, backend)
         if self.is_projective:
             out = out[0]
         return out.reshape(points.shape)
@@ -542,13 +615,18 @@ class TransformChain:
         bool)`` -- the perspective-divided points plus the frustum-cull
         mask, still ONE fused kernel launch (the divide, the cull test and
         the per-point mask all happen in-kernel).  Affine chains project
-        trivially: the same result as ``apply``, mask all True."""
+        trivially: the same result as ``apply``, mask all True.  ``dtype``
+        (the fixed-point lane) is affine-only, exactly as in ``apply``: a
+        projective chain with ``dtype`` is rejected by the delegated
+        ``apply`` -- one intake rule, one spelling."""
         if dtype is not None or not self.is_projective:
             out = self.apply(points, backend=backend, dtype=dtype,
                              device=device)
             return out, torch.ones(out.shape[:-1], dtype=torch.bool,
                                    device=out.device)
-        points, (out, mask) = self._run(points, backend, device)
+        errors.check_points(points, self.dim)
+        points = self._tensor(points, device)
+        out, mask = self._run(points, backend)
         return out.reshape(points.shape), mask.reshape(points.shape[:-1])
 
     def apply_many(self, points, *, backend: str | None = None,

@@ -69,7 +69,7 @@ class NonFiniteError(RequestError):
 
 class QRangeError(RequestError):
     """The fixed-point error bound predicts int16 wrap-around for a
-    request (the Qm.n lane; raised once that lane is ported)."""
+    request (the Qm.n lane under ``on_q_overflow="reject"``)."""
     code = "q-range"
 
 

@@ -134,17 +134,19 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_operands(x: torch.Tensor, *params: torch.Tensor, d: int) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on
-    x's device and d is a dimension the kernels are built for."""
+def check_operands(x: torch.Tensor, *params: torch.Tensor, d: int,
+                   dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
+    (float32 for the float lane, int16 for the Qm.n lane) on x's device
+    and d is a dimension the kernels are built for."""
     if d not in (2, 3):
         raise ValueError(f"the chain kernels take d in (2, 3), got {d}")
     for a in (x, *params):
         if not a.is_cuda or a.device != x.device:
             raise ValueError(f"kernel operands must lie on one CUDA device, "
                              f"got {a.device} beside {x.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"kernel operands must be float32, got {a.dtype}")
+        if a.dtype != dtype:
+            raise TypeError(f"kernel operands must be {dtype}, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
 

@@ -5,7 +5,9 @@ The port of ``repro/serving/engine.py``.  Dispatching each request through
 is the server loop, built from the paper's M1 execution discipline:
 
   1. **Bucket** -- pending requests group by
-     ``(TransformChain.structure, backend, dtype, padded_length)``.
+     ``(TransformChain.structure, backend, dtype, padded_length)``, where
+     a fixed-point request's dtype is its format name (a float-submitted
+     and an int16-submitted q8.7 request pack into one int16 batch).
      Structure + backend pick one cached batch plan; the size-bucketing
      policy (``bucketing.padded_length``) picks the padded length so the
      padding waste per request stays below the cap.
@@ -36,11 +38,20 @@ So packed results equal per-request ``apply``/``project`` BITWISE on
 every plan kind, masks included, on the card and on the CPU, and padded
 rows never touch payload rows.
 
+The fixed-point lane: ``submit(..., qformat="q8.7")`` packs int16 Qm.n
+words (float points quantised at pack time, int16 points taken as words)
+with each fold quantised by ``quantize.quantize_fold``, and runs the
+int16 batch kernels; results come back dequantised float32 for float
+submissions and int16 for int16 ones, bitwise equal to per-request
+``apply(dtype=...)``.  ``FaultConfig.on_q_overflow`` decides what happens
+to a request whose fold ``quantize.fits`` says would wrap: reroute it to
+the float lane (the default, counted in ``q_fallbacks``), reject it with
+``QRangeError``, or serve the wrapped words.
+
 Not in this slice: the recovery ladder (retry, backend degradation,
 bisection), fault injection, ``submit_scene``, tracing and the
-per-server metrics registry come with their own slices; the fault
-counters below stay 0.  ``qformat=`` at ``submit`` raises
-``NotImplementedError``.
+per-server metrics registry come with their own slices; their counters
+below stay 0.
 """
 from __future__ import annotations
 
@@ -51,9 +62,10 @@ import typing
 import numpy as np
 import torch
 
-from repro_torch import errors
+from repro_torch import errors, quantize
 from repro_torch.core import transform_chain as tc
-from repro_torch.kernels import (chain_apply_batch, chain_diag_batch,
+from repro_torch.kernels import (chain_apply_batch, chain_apply_batch_q,
+                                 chain_diag_batch, chain_diag_batch_q,
                                  chain_project_batch, dispatch, opcount)
 from repro_torch.serving import bucketing
 
@@ -67,6 +79,7 @@ from repro_torch.serving import bucketing
 #:   shards        -- extra launches from splitting oversized buckets
 #:   payload_points / padded_points -- real vs padded points moved
 #:   rejected_requests -- submissions refused with a typed RequestError
+#:   q_fallbacks   -- q requests rerouted to the float lane (would wrap)
 #: the rest are the fault-tolerance and continuous-batching counters of
 #: the JAX package; they stay 0 until those slices are ported.
 _STAT_KEYS = ("plan_compiles", "plan_hits", "traces", "launches",
@@ -138,11 +151,39 @@ class BatchPlan:
     ``folded_batch`` stacks the bucket's host-folded per-request
     parameters as tensors on the points' device -- (s (B,d), t (B,d)),
     (A (B,d,d), t (B,d)) or (H (B,d+1,d+1), lo (B,d), hi (B,d)).
-    Projective plans return ``(projected (B,L,d), inside (B,L))``."""
+    Projective plans return ``(projected (B,L,d), inside (B,L))``.
+    Fixed-point plans (``qformat`` set) take int16 Qm.n words -- each
+    request's fold quantised by ``quantize.quantize_fold`` at pack time
+    -- and return int16."""
     kind: str                      # "diag" | "matrix" | "projective"
     dim: int
     backend: str
     fn: typing.Callable
+    qformat: str | None = None     # Qm.n name for fixed-point plans
+
+
+def _compile_batch_q(structure: tuple, backend: str,
+                     qname: str) -> BatchPlan:
+    """A fixed-point bucket executor: the int16 batch kernels with the
+    format's fraction count as the requantising shift.  Projective
+    structures never get here (``submit`` rejects chain + qformat)."""
+    dim, _ = structure
+    kind = tc.plan_kind_of(structure)
+    fmt = quantize.as_qformat(qname)
+    if kind == "diag":
+        def fn(folded, pts3):
+            """Q-format diagonal transform over a (B, L) bucket."""
+            s, t = folded
+            return chain_diag_batch_q(pts3, s, t, n_frac=fmt.n,
+                                      backend=backend)
+    else:
+        def fn(folded, pts3):
+            """Q-format matrix transform over a (B, L) bucket."""
+            a, t = folded
+            return chain_apply_batch_q(pts3, a, t, n_frac=fmt.n,
+                                       backend=backend)
+    return BatchPlan(kind=kind, dim=dim, backend=backend, fn=fn,
+                     qformat=fmt.name)
 
 
 def _compile_batch(structure: tuple, backend: str) -> BatchPlan:
@@ -166,17 +207,58 @@ def _compile_batch(structure: tuple, backend: str) -> BatchPlan:
     return BatchPlan(kind=kind, dim=dim, backend=backend, fn=fn)
 
 
-def get_batch_plan(structure: tuple, backend: str) -> BatchPlan:
-    """The cached batch plan for ``structure`` on ``backend``; mirrors
-    ``transform_chain._get_plan`` and counts into the serving stats."""
-    key = (structure, backend)
+def get_batch_plan(structure: tuple, backend: str,
+                   qname: str | None = None) -> BatchPlan:
+    """The cached batch plan for ``structure`` on ``backend`` (``qname``
+    selects the fixed-point lane: a distinct plan, as a distinct dtype
+    would be); mirrors ``transform_chain._get_plan`` and counts into the
+    serving stats."""
+    key = (structure, backend, qname)
     plan = _BATCH_PLANS.get(key)
     if plan is None:
         stats["plan_compiles"] += 1
-        plan = _BATCH_PLANS[key] = _compile_batch(structure, backend)
+        plan = _BATCH_PLANS[key] = \
+            _compile_batch_q(structure, backend, qname) \
+            if qname is not None else _compile_batch(structure, backend)
     else:
         stats["plan_hits"] += 1
     return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Fault policy knobs for one ``GeometryServer`` (the JAX package's
+    fields and validation).
+
+    ``on_q_overflow`` decides what happens when ``quantize.fits`` says a
+    q-lane request would wrap int16:
+
+      * ``"fallback"`` (default) -- serve the request through the float32
+        lane instead (int16 submissions come back requantised int16, so
+        the caller's contract holds); counted in ``stats["q_fallbacks"]``
+        and ``BucketReport.q_fallback_requests``.
+      * ``"reject"``  -- raise ``QRangeError`` at submit.
+      * ``"wrap"``    -- the M1's semantics: no check, arithmetic wraps.
+
+    ``validate_finite`` gates the NaN/Inf checks at submit.  The retry and
+    backoff fields and ``validate_outputs`` keep their reference meaning
+    for the recovery ladder, which comes with its own slice; until then
+    they act on nothing.
+    """
+    max_launch_attempts: int = 3   # per ladder rung, first attempt included
+    backoff_base_s: float = 0.002  # sleep before retry k: base * factor**k
+    backoff_factor: float = 2.0
+    backoff_cap_s: float = 0.25
+    validate_finite: bool = True   # reject NaN/Inf points/folds at submit
+    validate_outputs: bool = True  # non-finite launch output => corruption
+    on_q_overflow: str = "fallback"
+
+    def __post_init__(self):
+        if self.on_q_overflow not in ("fallback", "reject", "wrap"):
+            raise ValueError(f"on_q_overflow must be fallback|reject|wrap, "
+                             f"got {self.on_q_overflow!r}")
+        if self.max_launch_attempts < 1:
+            raise ValueError("max_launch_attempts must be >= 1")
 
 
 @dataclasses.dataclass
@@ -186,6 +268,10 @@ class _Pending:
     points: np.ndarray             # original-shape host copy
     n: int                         # flattened point count
     fold: tuple | None = None      # host fold, computed once at submit
+    qformat: quantize.QFormat | None = None   # fixed-point lane request
+    dequantize: bool = False       # float submitted -> float32 back
+    q_fallback: bool = False       # q request rerouted to the float lane
+    requant: quantize.QFormat | None = None   # int16 caller: requantise out
 
 
 @dataclasses.dataclass
@@ -215,6 +301,8 @@ class BucketReport:
     padded_points: int
     launches: int = 0              # dispatched: 1 unless sharded
     backend: str = ""              # the backend the bucket ran on
+    q_fallback_requests: int = 0   # q requests served through this float
+    #                                bucket because the bound predicted wrap
 
     @property
     def waste(self) -> float:
@@ -249,15 +337,19 @@ class GeometryServer:
     ``device`` defaults to CUDA and raises without a GPU; ``backend``
     defaults to the kernels on CUDA and the plain versions on the CPU
     (``backend="ref"`` on CUDA runs the plain versions on the card).
+    ``fault_config`` holds the q-overflow policy (see ``FaultConfig``).
     """
 
     def __init__(self, *, device: str | torch.device = "cuda",
                  backend: str | None = None,
                  min_len: int | None = None,
                  waste_cap: float | None = None,
-                 max_points_per_launch: int | None = None):
+                 max_points_per_launch: int | None = None,
+                 fault_config: FaultConfig | None = None):
         self.device = dispatch.resolve_device(device)
         self.backend = dispatch.backend_for(self.device, backend)
+        #: fault policy (the q-overflow arm acts in this slice)
+        self.fault_config = fault_config or FaultConfig()
         self.min_len, self.waste_cap, self.grid_source = bucketing.grid_for(
             min_len=min_len, waste_cap=waste_cap)
         #: shard cap: a bucket whose packed B*L exceeds this splits into
@@ -285,11 +377,20 @@ class GeometryServer:
         """Queue one request; returns its ticket.  The next flush()
         returns results ordered by submission, one per queued request.
 
+        ``qformat`` (a Qm.n name like "q8.7") routes the request through
+        the fixed-point lane: it buckets under the format (not the
+        submitted dtype), packs as int16 words (float points are
+        quantised at pack time, int16 points are taken as Qm.n words),
+        and the result comes back dequantised float32 for float
+        submissions, int16 for int16 ones.  Affine chains only --
+        projective chains are rejected here, exactly as in
+        ``TransformChain.apply``.
+
         Submit is the isolation boundary: a malformed request (bad shape,
-        empty point set, float64, NaN/Inf points or parameters) raises a
-        typed ``RequestError`` carrying its ticket HERE, before it can
-        reach a packed bucket.  ``qformat=`` raises
-        ``NotImplementedError`` (a later slice)."""
+        empty point set, float64, NaN/Inf points or parameters, a
+        q-format that would wrap under ``on_q_overflow="reject"``) raises
+        a typed ``RequestError`` carrying its ticket HERE, before it can
+        reach a packed bucket."""
         return self.enqueue(self.validate(chain, points, qformat=qformat))
 
     def validate(self, chain: tc.TransformChain, points, *,
@@ -298,12 +399,10 @@ class GeometryServer:
         validation boundary, and return the queue entry WITHOUT queueing
         it.  Rejected submissions burn their id: the id in a typed error
         is never reused."""
-        if qformat is not None:
-            raise NotImplementedError(tc.QLANE_LATER)
         ticket = self._ticket
         self._ticket += 1
         try:
-            return self._validate(chain, points, ticket)
+            return self._validate(chain, points, qformat, ticket)
         except errors.RequestError:
             stats["rejected_requests"] += 1
             raise
@@ -322,21 +421,33 @@ class GeometryServer:
         self.reports = []
         self.last_report = []
 
-    def _validate(self, chain: tc.TransformChain, points,
+    def _validate(self, chain: tc.TransformChain, points, qformat,
                   ticket: int) -> _Pending:
         """Build the queue entry, raising the typed taxonomy on anything
-        the packed lane could choke on later."""
+        the packed lane could choke on later, and apply the q-overflow
+        policy to fixed-point requests."""
+        cfg = self.fault_config
         if isinstance(points, torch.Tensor):
             points = points.detach().cpu().numpy()
         # a real copy, not a view: the queue must be immune to callers
         # mutating their buffer between submit and flush
         pts = np.array(points, copy=True)
         errors.check_points(pts, chain.dim, ticket=ticket)
-        if pts.dtype != np.float32:
+        fmt = None
+        dequant = False
+        if qformat is not None:
+            fmt = quantize.as_qformat(qformat)
+            quantize.reject_projective(chain.is_projective)
+            try:
+                dequant = quantize.points_need_quantize(pts.dtype)
+            except TypeError as e:
+                raise errors.DtypeError(str(e), ticket=ticket) from None
+        elif pts.dtype != np.float32:
             raise errors.DtypeError(
                 f"serving float lane is float32, got {pts.dtype}; cast "
-                "before submit", ticket=ticket)
-        if not np.isfinite(pts).all():
+                "before submit (or pass qformat= for int16)", ticket=ticket)
+        if cfg.validate_finite and np.issubdtype(pts.dtype, np.floating) \
+                and not np.isfinite(pts).all():
             raise errors.NonFiniteError("points contain NaN/Inf",
                                         ticket=ticket)
         fold = None
@@ -344,10 +455,32 @@ class GeometryServer:
             fold = chain.fold()
             # projective folds legitimately carry +/-inf cull bounds
             parts = fold[:1] if chain.is_projective else fold
-            if not all(np.isfinite(f).all() for f in parts):
+            if cfg.validate_finite \
+                    and not all(np.isfinite(f).all() for f in parts):
                 raise errors.NonFiniteError(
                     "chain parameters fold to NaN/Inf", ticket=ticket)
-        return _Pending(ticket, chain, pts, pts.size // chain.dim, fold=fold)
+        q_fallback = False
+        requant = None
+        if fmt is not None and fold is not None \
+                and cfg.on_q_overflow != "wrap":
+            kind = tc.plan_kind_of(chain.structure)
+            x_vals = pts if dequant else fmt.dequantize(pts)
+            x_max = float(np.abs(x_vals).max())
+            if cfg.on_q_overflow == "reject":
+                quantize.ensure_fits(fold, kind, fmt, x_max, ticket=ticket)
+            elif not quantize.fits(fold, kind, fmt, x_max):
+                # degrade, don't wrap: reroute through the float32 lane;
+                # int16 callers still get int16 back (requantised)
+                stats["q_fallbacks"] += 1
+                q_fallback = True
+                if not dequant:
+                    pts = fmt.dequantize(pts)
+                    requant = fmt
+                fmt = None
+                dequant = False
+        return _Pending(ticket, chain, pts, pts.size // chain.dim, fold=fold,
+                        qformat=fmt, dequantize=dequant,
+                        q_fallback=q_fallback, requant=requant)
 
     def serve(self, items, *, qformat=None) -> list:
         """Convenience: submit an iterable of (chain, points), then flush."""
@@ -365,21 +498,32 @@ class GeometryServer:
     def _bucket_key(self, p: _Pending) -> tuple:
         lpad = bucketing.padded_length(p.n, min_len=self.min_len,
                                        waste_cap=self.waste_cap)
-        return (p.chain.structure, self.backend, p.points.dtype.str, lpad)
+        # fixed-point requests bucket under the FORMAT, not the submitted
+        # dtype: float- and int16-submitted q8.7 requests share one batch
+        dt = p.qformat.name if p.qformat is not None else p.points.dtype.str
+        return (p.chain.structure, self.backend, dt, lpad)
 
     def _pack(self, reqs: list[_Pending], lpad: int, plan: BatchPlan):
         """Pack one launch: the (B, lpad, d) zero-padded points and the
         stack of each request's host fold, in pinned host memory when the
-        server runs on CUDA (so the copy to the device is asynchronous)."""
+        server runs on CUDA (so the copy to the device is asynchronous).
+        Fixed-point launches pack int16 Qm.n words -- float submissions
+        quantise here -- and each fold quantises through the same
+        ``quantize.quantize_fold`` the chain compiler's q lane uses."""
         dim = plan.dim
-        packed = torch.empty((len(reqs), lpad, dim), dtype=torch.float32,
+        fmt = quantize.as_qformat(plan.qformat) if plan.qformat else None
+        packed = torch.empty((len(reqs), lpad, dim),
+                             dtype=torch.int16 if fmt else torch.float32,
                              pin_memory=self._cuda)
         view = packed.numpy()
         for i, r in enumerate(reqs):
-            view[i, :r.n] = r.points.reshape(-1, dim)
-            view[i, r.n:] = 0.0
+            pts = r.points.reshape(-1, dim)
+            view[i, :r.n] = fmt.quantize(pts) if fmt and r.dequantize else pts
+            view[i, r.n:] = 0
+        folds = [quantize.quantize_fold(r.fold, plan.kind, fmt)
+                 for r in reqs] if fmt else [r.fold for r in reqs]
         stacked = tuple(torch.from_numpy(np.stack(part))
-                        for part in zip(*(r.fold for r in reqs)))
+                        for part in zip(*folds))
         if self._cuda:
             stacked = tuple(p.pin_memory() for p in stacked)
         return stacked, packed
@@ -437,8 +581,11 @@ class GeometryServer:
 
     def _count_launch(self, L: _Launch) -> None:
         """Bookkeeping for one dispatched launch: the ONE place
-        ``stats["launches"]`` moves, with the packed HBM bytes it moves."""
-        opcount.record(f"serve_bucket_{L.plan.kind}",
+        ``stats["launches"]`` moves, with the packed HBM bytes it moves
+        (the _q suffix keeps the lanes separately countable, as in
+        ``TransformChain``)."""
+        suffix = "_q" if L.plan.qformat else ""
+        opcount.record(f"serve_bucket_{L.plan.kind}{suffix}",
                        opcount.packed_chain_bytes(
                            len(L.reqs), L.lpad, L.plan.dim,
                            itemsize=L.packed.element_size(),
@@ -461,13 +608,16 @@ class GeometryServer:
         launches: list[_Launch] = []
         self.last_report = []
         for (structure, bk, _dt, lpad), reqs in buckets.items():
-            plan = get_batch_plan(structure, bk)
+            qname = reqs[0].qformat.name if reqs[0].qformat is not None \
+                else None
+            plan = get_batch_plan(structure, bk, qname)
             chunks = self._chunks(len(reqs), lpad)
             payload = sum(r.n for r in reqs)
             report = BucketReport(
                 structure=_structure_tag(structure), kind=plan.kind,
                 lpad=lpad, requests=len(reqs), payload_points=payload,
-                padded_points=len(reqs) * lpad, backend=bk)
+                padded_points=len(reqs) * lpad, backend=bk,
+                q_fallback_requests=sum(r.q_fallback for r in reqs))
             for sl in chunks:
                 stacked, packed = self._pack(reqs[sl], lpad, plan)
                 launches.append(_Launch(plan=plan, lpad=lpad,
@@ -520,14 +670,23 @@ class GeometryServer:
         """Unpack one launch: wait for its device->host copies, then numpy
         slicing.  Each result is a payload-sized COPY, so no result pins
         the padded batch buffer.  A projective launch's results carry
-        their rows of the cull mask as ``Projected.mask``."""
+        their rows of the cull mask as ``Projected.mask``; a fixed-point
+        result is dequantised for a float submission, and a float-lane
+        fallback requantised for an int16 one."""
         if L.done is not None:
             L.done.synchronize()
         host = L.host_out.numpy()
         mask = None if L.host_mask is None else L.host_mask.numpy()
+        fmt = quantize.as_qformat(L.plan.qformat) if L.plan.qformat else None
         for i, r in enumerate(L.reqs):
             out = np.array(host[i, :r.n].reshape(r.points.shape))
             if mask is not None:
                 out = _projected(out, np.array(
                     mask[i, :r.n].reshape(r.points.shape[:-1])))
+            elif fmt is not None and r.dequantize:
+                out = fmt.dequantize(out)
+            elif r.requant is not None:
+                # q -> float fallback for an int16 caller: requantise so
+                # the submit contract (int16 in -> int16 out) holds
+                out = r.requant.quantize(out)
             results[r.ticket] = out

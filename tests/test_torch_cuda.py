@@ -1,7 +1,9 @@
 """The port on the card: every CUDA kernel bitwise equal to its plain
 PyTorch version on the GPU and on the CPU (the projective kernels' masks
-included), the launch counters, and the GPU server bitwise equal to the
-CPU server, to the plain path and to per-request ``apply``/``project``.
+included; the int16 Qm.n kernels at full-range inputs, where the int32
+accumulator and the int16 store wrap, and at n_frac 0, 7 and 15), the
+launch counters, and the GPU server bitwise equal to the CPU server, to
+the plain path and to per-request ``apply``/``project``.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -17,13 +19,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import graphics, serving
 from repro_torch.kernels import _build, chain_apply, chain_apply_batch, \
-    chain_diag, chain_diag_batch, chain_project, chain_project_batch
+    chain_apply_batch_q, chain_apply_q, chain_diag, chain_diag_batch, \
+    chain_diag_batch_q, chain_diag_q, chain_project, chain_project_batch
 from repro_torch.kernels.affine import affine as diag_k
 from repro_torch.kernels.affine import ref as diag_ref
+from repro_torch.kernels.fixedpoint import fixedpoint as q_k
+from repro_torch.kernels.fixedpoint import ref as q_ref
 from repro_torch.kernels.matmul import matmul as matrix_k
 from repro_torch.kernels.matmul import ref as matrix_ref
 from repro_torch.kernels.projective import projective as proj_k
 from repro_torch.kernels.projective import ref as proj_ref
+from repro_torch.quantize import Q8_7
 from repro_torch.serving import workload
 
 pytestmark = pytest.mark.cuda
@@ -279,3 +285,133 @@ def test_eager_division_on_card_is_ieee_round_to_nearest(cuda_device):
            / torch.from_numpy(b).to(cuda_device)).cpu().numpy()
     finite = np.isfinite(want)
     assert _same_bits(got[finite], want[finite])
+
+
+# -- the int16 Qm.n lane ----------------------------------------------------
+
+Q_OPS = {("diag", False): (chain_diag_q, q_ref.chain_diag_q),
+         ("diag", True): (chain_diag_batch_q, q_ref.chain_diag_batch_q),
+         ("matrix", False): (chain_apply_q, q_ref.chain_matrix_q),
+         ("matrix", True): (chain_apply_batch_q, q_ref.chain_matrix_batch_q)}
+
+
+def _words(rng, shape):
+    return rng.integers(-(1 << 15), 1 << 15, shape).astype(np.int16)
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("kind", ["diag", "matrix"])
+def test_q_kernel_equals_plain_on_card_and_cpu(cuda_device, kind, d, batched,
+                                               n_frac):
+    """Full-range int16 words (products up to 2**30, sums that wrap
+    int32): the kernel, the plain version on the card, the plain version
+    on the CPU and the numpy oracle give the same words."""
+    rng = np.random.default_rng([18, d, batched, n_frac])
+    op, plain = Q_OPS[kind, batched]
+    shapes = ((1, 8), (5, 13), (3, 40_000), (1500, 16)) if batched \
+        else ((1,), (37,), (100_003,))
+    for lead in shapes:
+        plead = lead[:1] if batched else ()
+        pts = _words(rng, (*lead, d))
+        par = _words(rng, (*plead, d) if kind == "diag" else (*plead, d, d))
+        t = _words(rng, (*plead, d))
+        host = [torch.from_numpy(a) for a in (pts, par, t)]
+        dev = [a.to(cuda_device) for a in host]
+        got = op(*dev, n_frac=n_frac)
+        assert got.dtype == torch.int16
+        assert torch.equal(got, plain(*dev, n_frac)), lead
+        assert _same_bits(got.cpu().numpy(),
+                          op(*host, n_frac=n_frac).numpy()), lead
+        oracle = q_ref.np_chain_diag_q if kind == "diag" \
+            else q_ref.np_chain_matrix_q
+        for i in range(lead[0] if batched else 1):
+            rows = (pts[i], par[i], t[i]) if batched else (pts, par, t)
+            want = oracle(*rows, n_frac)
+            assert _same_bits(got[i].cpu().numpy() if batched
+                              else got.cpu().numpy(), want), lead
+
+
+def test_q_wrappers_count_launches_and_check_operands(cuda_device):
+    _build.reset_launch_counts()
+    x = torch.ones(4, 3, dtype=torch.int16, device=cuda_device)
+    s = torch.ones(3, dtype=torch.int16, device=cuda_device)
+    t = torch.zeros(3, dtype=torch.int16, device=cuda_device)
+    a = torch.eye(3, device=cuda_device).to(torch.int16)
+    q_k.chain_diag_1d_q(x.reshape(-1), s, t, d=3, n_frac=7)
+    q_k.chain_diag_1d_q(x.reshape(-1)[:0], s, t, d=3, n_frac=7)  # no launch
+    q_k.chain_matrix_1d_q(x.reshape(-1), a, t, d=3, n_frac=0)
+    q_k.chain_diag_batch_2d_q(x[None], s[None], t[None], n_frac=15)
+    q_k.chain_matrix_batch_2d_q(x[None, :0], a[None], t[None], n_frac=7)
+    counts = _build.launch_counts()
+    assert counts["chain_diag_1d_q"] == counts["chain_matrix_1d_q"] \
+        == counts["chain_diag_batch_2d_q"] == 1
+    assert counts["chain_matrix_batch_2d_q"] == 0
+    with pytest.raises(TypeError):                        # float operands
+        q_k.chain_diag_1d_q(x.reshape(-1).float(), s.float(), t.float(), d=3,
+                            n_frac=7)
+    with pytest.raises(TypeError):
+        chain_diag_q(x.float(), s, t, n_frac=7)
+    with pytest.raises(ValueError):                       # not contiguous
+        q_k.chain_diag_1d_q(x.reshape(-1)[::2], s, t, d=3, n_frac=7)
+    with pytest.raises(ValueError):
+        q_k.chain_matrix_batch_2d_q(x[None].transpose(1, 2).contiguous()
+                                    .transpose(1, 2), a[None], t[None],
+                                    n_frac=7)
+    with pytest.raises(ValueError):
+        q_k.chain_diag_1d_q(x.reshape(-1), s, t, d=3, n_frac=16)
+    assert _build.launch_counts()["chain_diag_1d_q"] == 1
+
+
+def test_apply_dtype_on_card_uses_flat_q_kernels(cuda_device):
+    """``apply(dtype="q8.7")`` on the card: one flat q kernel launch a
+    call, float points in gives float32 out and int16 words give int16,
+    bitwise equal to the CPU."""
+    rng = np.random.default_rng(19)
+    _build.reset_launch_counts()
+    n_kind = {"diag": 0, "matrix": 0}
+    for dim, kinds in workload.AFFINE_TEMPLATES:
+        chain = workload.chain_for(rng, dim, kinds)
+        pts = rng.uniform(-4, 4, (1000, dim)).astype(np.float32)
+        for sub in (pts, Q8_7.quantize(pts)):
+            dev = chain.apply(sub, dtype="q8.7")          # numpy -> the GPU
+            cpu = chain.apply(torch.from_numpy(sub), dtype="q8.7")
+            assert dev.is_cuda
+            assert dev.dtype == (torch.float32 if sub.dtype == np.float32
+                                 else torch.int16)
+            assert _same_bits(dev.cpu().numpy(), cpu.numpy())
+            n_kind[chain.plan_kind] += 1
+    counts = _build.launch_counts()
+    assert counts["chain_diag_1d_q"] == n_kind["diag"] > 0
+    assert counts["chain_matrix_1d_q"] == n_kind["matrix"] > 0
+    assert counts["chain_diag_1d"] == counts["chain_matrix_1d"] == 0
+
+
+def test_q_server_on_card_equals_cpu_server_bitwise(cuda_device):
+    """The mixed-lane workload on the card: q buckets run the q batch
+    kernels, and every result equals the CPU server's and the plain
+    path's on the card, bit for bit."""
+    reqs = workload.mixed_lane_workload(7, 96, max_points=4096)
+    assert any(q for _, _, q in reqs)
+
+    def serve(srv):
+        for chain, pts, q in reqs:
+            srv.submit(chain, pts, qformat=q)
+        return srv.flush()
+
+    serving.reset_stats()
+    cpu = serve(serving.GeometryServer(device="cpu"))
+    serving.reset_stats()
+    _build.reset_launch_counts()
+    gpu = serve(serving.GeometryServer(device=cuda_device))
+    counts = _build.launch_counts()
+    assert sum(counts[k] for k in ("chain_diag_batch_2d", "chain_matrix_batch_2d",
+                                   "chain_project_batch_2d",
+                                   "chain_diag_batch_2d_q",
+                                   "chain_matrix_batch_2d_q")) \
+        == serving.stats["launches"] == serving.stats["buckets"]
+    assert counts["chain_diag_batch_2d_q"] + counts["chain_matrix_batch_2d_q"] > 0
+    ref = serve(serving.GeometryServer(device=cuda_device, backend="ref"))
+    for c, g, r in zip(cpu, gpu, ref, strict=True):
+        assert _same_bits(c, g) and _same_bits(g, r)

@@ -46,8 +46,37 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.kernels.projective",
                    "repro_torch.kernels.projective.ops",
                    "repro_torch.kernels.projective.projective",
-                   "repro_torch.kernels.projective.ref"):
+                   "repro_torch.kernels.projective.ref",
+                   "repro_torch.quantize", "repro_torch.quantize.chains",
+                   "repro_torch.quantize.qformat",
+                   "repro_torch.kernels.fixedpoint",
+                   "repro_torch.kernels.fixedpoint.fixedpoint",
+                   "repro_torch.kernels.fixedpoint.ops",
+                   "repro_torch.kernels.fixedpoint.ref"):
         assert module in names.split(), module
+
+
+_Q_PROBE = r"""
+import sys
+from repro_torch import quantize
+from repro_torch.kernels import fixedpoint
+w = quantize.Q8_7.quantize([1.5, -300.0])
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(w.tolist(), ",".join(bad))
+"""
+
+
+def test_q_lane_modules_load_no_jax_or_repro():
+    """The fixed-point lane on its own -- ``repro_torch.quantize`` and
+    ``repro_torch.kernels.fixedpoint`` imported first in a fresh
+    interpreter -- pulls in neither jax nor ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _Q_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["[192,", "-32768]"]
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -75,6 +104,8 @@ def test_default_device_entry_points_raise_without_cuda():
     view = graphics.viewing_chain(camera=graphics.Camera())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         view.project(np.ones((4, 3), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain.apply(np.ones((4, 2), np.float32), dtype="q8.7")
 
 
 def test_cuda_backend_on_cpu_tensor_raises():
@@ -100,3 +131,16 @@ def test_cuda_backend_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA device"):
         projective.chain_project_1d(x.reshape(-1), torch.eye(3),
                                     torch.zeros(2), torch.ones(2), d=2)
+    from repro_torch.kernels import chain_apply_q, chain_diag_batch_q
+    from repro_torch.kernels.fixedpoint import fixedpoint
+    w = torch.ones(5, 2, dtype=torch.int16)
+    w2 = torch.ones(2, dtype=torch.int16)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        chain_apply_q(w, torch.eye(2).to(torch.int16), w2, n_frac=7,
+                      backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        chain_diag_batch_q(w[None], w2[None], w2[None], n_frac=7,
+                           backend="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fixedpoint.chain_matrix_1d_q(w.reshape(-1), torch.eye(2).to(
+            torch.int16), w2, d=2, n_frac=7)

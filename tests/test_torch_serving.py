@@ -9,7 +9,9 @@ reference's live counters; served results must be within
 reference's served results for affine plans (XLA:CPU contracts some
 multiply-adds; the port never does), and within the projective float
 contract of ``torch_bounds.py`` for projective plans, masks included.  Within the port, packed results equal
-per-request ``apply``/``project`` BITWISE, masks included.
+per-request ``apply``/``project`` BITWISE, masks included.  Results of the
+int16 Qm.n lane (``qformat=``) equal the reference's BITWISE, wrapped
+words included: its arithmetic is integer, exact and order-independent.
 """
 import numpy as np
 import pytest
@@ -19,11 +21,14 @@ torch = pytest.importorskip("torch")
 
 from repro import serving as jserving
 from repro.core import transform_chain as jtc
+from repro.errors import QRangeError as JQRangeError
 from repro.serving import bucketing as jbucketing
 from repro.serving import workload as jworkload
 from repro_torch import errors, serving
 from repro_torch.core import transform_chain as tc
 from repro_torch.kernels import opcount
+from repro_torch.kernels.fixedpoint import ref as q_ref
+from repro_torch.quantize import Q8_7, quantize_fold
 from repro_torch.serving import bucketing, workload
 from torch_bounds import check_projective
 
@@ -42,6 +47,16 @@ def _jax_server(**kw):
     jserving.reset_stats()
     jserving.clear_plan_cache()
     return jserving.GeometryServer(backend="ref", **kw)
+
+
+@pytest.fixture
+def reference_q_plans():
+    """Tests that serve the JAX package's q lane compile its plans; drop
+    them AFTER the test, so a reference test later in the same worker
+    that counts q8.7 plan compiles finds the caches as it would alone."""
+    yield
+    jserving.clear_plan_cache()
+    jtc.clear_plan_cache()
 
 
 def _same_bits(a, b) -> bool:
@@ -243,12 +258,13 @@ def test_submit_validation_and_later_slices():
             (3, 2), np.float32))
     ticket = srv.submit(workload.chain_for(rng, 3, "MPC"),
                         np.ones((3, 3), np.float32))   # projective: accepted
-    with pytest.raises(NotImplementedError, match="Qm.n"):
-        srv.submit(chain, np.ones((3, 2), np.float32), qformat="q8.7")
+    q_ticket = srv.submit(chain, np.ones((3, 2), np.float32),
+                          qformat="q8.7")              # the Qm.n lane too
     assert serving.stats["rejected_requests"] == 4    # the typed errors
-    assert srv.pending == 1 and ticket == 4
-    (out,) = srv.flush()
+    assert srv.pending == 2 and (ticket, q_ticket) == (4, 5)
+    out, q_out = srv.flush()
     assert isinstance(out, serving.Projected) and out.mask.shape == (3,)
+    assert q_out.dtype == np.float32 and q_out.shape == (3, 2)
 
 
 def test_projective_fold_with_infinite_bounds_is_accepted():
@@ -342,3 +358,208 @@ def test_cpu_server_times_its_phases():
     srv.serve(reqs)
     assert set(srv.last_timing) == {"pack_s", "dispatch_s", "unpack_s"}
     assert all(v >= 0 for v in srv.last_timing.values())
+
+
+# -- the int16 Qm.n lane ----------------------------------------------------
+
+def _q_oracle(chain, words):
+    folded_q = quantize_fold(chain.fold(), chain.plan_kind, Q8_7)
+    oracle = q_ref.np_chain_diag_q if chain.is_diagonal \
+        else q_ref.np_chain_matrix_q
+    return oracle(words.reshape(-1, chain.dim), *folded_q,
+                  Q8_7.n).reshape(words.shape)
+
+
+def _serve_triples(srv, reqs):
+    for chain, pts, q in reqs:
+        srv.submit(chain, pts, qformat=q)
+    return srv.flush()
+
+
+def _reports(srv):
+    return [(r.structure, r.kind, r.lpad, r.requests, r.launches,
+             r.q_fallback_requests) for r in srv.last_report]
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_mixed_lane_workload_matches_reference(seed, reference_q_plans):
+    """``mixed_lane_workload(seed, 128)``: float affine, projective and
+    q8.7 requests in one flush.  The q results equal the reference's and
+    the numpy Q oracle's bit for bit, the float ones lie within the float
+    contract, and the counters, bucket reports and launch bytes are the
+    reference's."""
+    reqs = workload.mixed_lane_workload(seed, 128)
+    jreqs = jworkload.mixed_lane_workload(seed, 128)
+    srv, jsrv = _server(), _jax_server()
+    with opcount.counting() as got:
+        outs = _serve_triples(srv, reqs)
+    from repro.kernels import opcount as jopcount
+    with jopcount.counting() as want:
+        jouts = _serve_triples(jsrv, jreqs)
+    assert got == want
+    assert any(op.endswith("_q") for op, _ in got)
+    for key in (*COUNTERS, "q_fallbacks", "plan_compiles", "plan_hits"):
+        assert serving.stats[key] == jserving.stats[key], key
+    assert _reports(srv) == [(r.structure, r.kind, r.lpad, r.requests,
+                              r.launches, r.q_fallback_requests)
+                             for r in jsrv.last_report]
+    n_q = 0
+    for (chain, pts, q), out, jout in zip(reqs, outs, jouts, strict=True):
+        if q is not None:
+            n_q += 1
+            assert _same_bits(out, np.asarray(jout))
+            assert _same_bits(out, Q8_7.dequantize(
+                _q_oracle(chain, Q8_7.quantize(pts))))
+        elif chain.is_projective:
+            check_projective(pts, chain.fold(), out, out.mask, jout,
+                             jout.mask)
+        else:
+            assert np.all(np.abs(out.astype(np.float64) - np.asarray(jout))
+                          <= _bound(chain, pts))
+    assert n_q > 0
+
+
+def test_q_packed_equals_per_request_apply_and_shares_buckets(
+        reference_q_plans):
+    """A float-submitted and an int16-submitted q8.7 request of one
+    structure pack into ONE int16 bucket (the key is the format, not the
+    submitted dtype), apart from the float lane's bucket; each result is
+    bitwise the per-request ``apply(dtype=)``, float in float32 out and
+    int16 in int16 out."""
+    rng = np.random.default_rng(50)
+    chain = workload.chain_for(rng, 2, "TSRT")
+    pts = rng.uniform(-3, 3, (20, 2)).astype(np.float32)
+    words = Q8_7.quantize(pts)
+    reqs = [(chain, pts, "q8.7"), (chain, words, "q8.7"), (chain, pts, None)]
+    srv = _server()
+    out_f, out_q, out_float = _serve_triples(srv, reqs)
+    jsrv = _jax_server()
+    jouts = _serve_triples(jsrv, [(jtc.TransformChain(chain.dim, chain.kinds,
+                                                      chain.params), p, q)
+                                  for _, p, q in reqs])
+    assert serving.stats["buckets"] == serving.stats["launches"] == 2
+    assert jserving.stats["buckets"] == 2
+    assert out_f.dtype == np.float32 and out_q.dtype == np.int16
+    assert _same_bits(out_f, chain.apply(torch.from_numpy(pts),
+                                         dtype="q8.7").numpy())
+    assert _same_bits(out_q, chain.apply(torch.from_numpy(words),
+                                         dtype="q8.7").numpy())
+    assert _same_bits(Q8_7.quantize(out_f), out_q)
+    assert _same_bits(out_f, np.asarray(jouts[0]))
+    assert _same_bits(out_q, np.asarray(jouts[1]))
+    assert _same_bits(out_float, chain.apply(torch.from_numpy(pts)).numpy())
+
+
+def _overflowing():
+    """A chain q8.7 cannot hold (its scale saturates at 255.99) and
+    points in and out of range, as float32 and as int16 words."""
+    chain = tc.TransformChain.identity(2).scale(1000.0).translate(0.5, -1.0)
+    pts = np.random.default_rng(51).uniform(-3, 3, (30, 2)).astype(
+        np.float32)
+    return chain, jtc.TransformChain(chain.dim, chain.kinds, chain.params), \
+        pts, Q8_7.quantize(pts)
+
+
+def test_q_overflow_reject_raises_with_ticket(reference_q_plans):
+    chain, jchain, pts, words = _overflowing()
+    cfg = serving.FaultConfig(on_q_overflow="reject")
+    srv = _server(fault_config=cfg)
+    jsrv = _jax_server(fault_config=jserving.FaultConfig(
+        on_q_overflow="reject"))
+    srv.submit(chain, pts)                               # float lane: fine
+    jsrv.submit(jchain, pts)
+    for sub in (pts, words):
+        with pytest.raises(errors.QRangeError) as got:
+            srv.submit(chain, sub, qformat="q8.7")
+        with pytest.raises(JQRangeError) as want:
+            jsrv.submit(jchain, sub, qformat="q8.7")
+        assert (got.value.code, got.value.ticket, str(got.value)) \
+            == (want.value.code, want.value.ticket, str(want.value))
+    assert got.value.ticket == 2
+    assert serving.stats["rejected_requests"] \
+        == jserving.stats["rejected_requests"] == 2
+    assert srv.pending == 1
+
+
+def test_q_overflow_wrap_serves_wrapped_words(reference_q_plans):
+    """``"wrap"``: no check -- the lane's int32 accumulator and int16
+    store wrap, and the served words are the numpy oracle's and the
+    reference's, bit for bit."""
+    chain, jchain, pts, words = _overflowing()
+    srv = _server(fault_config=serving.FaultConfig(on_q_overflow="wrap"))
+    jsrv = _jax_server(fault_config=jserving.FaultConfig(
+        on_q_overflow="wrap"))
+    full = np.random.default_rng(52).integers(
+        -(1 << 15), 1 << 15, (40, 2)).astype(np.int16)
+    reqs = [(pts, "q8.7"), (words, "q8.7"), (full, "q8.7")]
+    outs = _serve_triples(srv, [(chain, p, q) for p, q in reqs])
+    jouts = _serve_triples(jsrv, [(jchain, p, q) for p, q in reqs])
+    for out, jout in zip(outs, jouts):
+        assert _same_bits(out, np.asarray(jout))
+    wrapped = _q_oracle(chain, words)
+    assert _same_bits(outs[1], wrapped)
+    assert _same_bits(outs[2], _q_oracle(chain, full))
+    assert _same_bits(outs[0], Q8_7.dequantize(wrapped))
+    # the words did wrap: the exact values lie far outside the format
+    assert np.abs(pts * 255.9921875).max() > 256
+    assert serving.stats["q_fallbacks"] == 0
+
+
+def test_q_overflow_fallback_reroutes_and_requantises(reference_q_plans):
+    """The default ``"fallback"``: the request is served on the float lane
+    (counted in ``q_fallbacks`` and the bucket's ``q_fallback_requests``),
+    a float caller gets float32 and an int16 caller requantised int16 --
+    the reference's counters and words."""
+    chain, jchain, pts, words = _overflowing()
+    srv, jsrv = _server(), _jax_server()
+    reqs = [(pts, "q8.7"), (words, "q8.7"), (pts, None)]
+    out_f, out_q, out_float = _serve_triples(
+        srv, [(chain, p, q) for p, q in reqs])
+    jouts = _serve_triples(jsrv, [(jchain, p, q) for p, q in reqs])
+    assert serving.stats["q_fallbacks"] == jserving.stats["q_fallbacks"] == 2
+    assert _reports(srv) == [(r.structure, r.kind, r.lpad, r.requests,
+                              r.launches, r.q_fallback_requests)
+                             for r in jsrv.last_report]
+    assert sum(r.q_fallback_requests for r in srv.last_report) == 2
+    assert out_f.dtype == np.float32 and out_q.dtype == np.int16
+    assert _same_bits(out_f, out_float)
+    assert _same_bits(out_f, chain.apply(torch.from_numpy(pts)).numpy())
+    deq = torch.from_numpy(Q8_7.dequantize(words))
+    assert _same_bits(out_q, Q8_7.quantize(chain.apply(deq).numpy()))
+    assert _same_bits(out_q, np.asarray(jouts[1]))
+    assert np.all(np.abs(out_f.astype(np.float64) - np.asarray(jouts[0]))
+                  <= _bound(chain, pts))
+
+
+def test_q_intake_matches_reference(reference_q_plans):
+    """FaultConfig validation, and the q intake's refusals: a projective
+    chain, a bad format, int32 points; identity q requests pass through."""
+    assert serving.FaultConfig() == serving.FaultConfig(on_q_overflow="fallback")
+    assert {f: getattr(serving.FaultConfig(), f) for f in (
+        "max_launch_attempts", "backoff_base_s", "backoff_factor",
+        "backoff_cap_s", "validate_finite", "validate_outputs",
+        "on_q_overflow")} == {f: getattr(jserving.FaultConfig(), f) for f in (
+            "max_launch_attempts", "backoff_base_s", "backoff_factor",
+            "backoff_cap_s", "validate_finite", "validate_outputs",
+            "on_q_overflow")}
+    with pytest.raises(ValueError, match="on_q_overflow"):
+        serving.FaultConfig(on_q_overflow="explode")
+    with pytest.raises(ValueError, match="max_launch_attempts"):
+        serving.FaultConfig(max_launch_attempts=0)
+    rng = np.random.default_rng(53)
+    srv = _server()
+    pts = rng.uniform(-1, 1, (6, 3)).astype(np.float32)
+    with pytest.raises(ValueError, match="fixed-point"):
+        srv.submit(workload.chain_for(rng, 3, "MPC"), pts, qformat="q8.7")
+    chain = workload.chain_for(rng, 3, "SAT")
+    with pytest.raises(ValueError, match="not a fixed-point format"):
+        srv.submit(chain, pts, qformat="float32")
+    with pytest.raises(errors.DtypeError) as ei:
+        srv.submit(chain, pts.astype(np.int32), qformat="q8.7")
+    assert ei.value.ticket == 2
+    assert serving.stats["rejected_requests"] == 1
+    ident = srv.submit(tc.TransformChain.identity(3), Q8_7.quantize(pts),
+                       qformat="q8.7")
+    (out,) = srv.flush()
+    assert ident == 3 and _same_bits(out, Q8_7.quantize(pts))
+    assert serving.stats["launches"] == 0

@@ -4,7 +4,9 @@ Folds are compared BITWISE (both packages run the same numpy fold);
 applied results within |port - jax| <= 4 eps32 (sum_m |p_m A_mc| + |t_c|)
 per element, against the reference's ``ref`` and ``interpret`` backends
 (XLA:CPU contracts some multiply-adds into FMAs; the port never does).
-Inputs come from numpy seeds through both packages' ``chain_for``.
+The int16 Qm.n lane (``dtype=``) is compared BITWISE: its arithmetic is
+integer, exact and order-independent.  Inputs come from numpy seeds
+through both packages' ``chain_for``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,9 +21,21 @@ from repro.serving import workload as jworkload
 from repro_torch import convert, errors
 from repro_torch.core import transform_chain as tc
 from repro_torch.kernels import opcount
+from repro_torch.kernels.fixedpoint import ref as q_ref
+from repro_torch.quantize import Q8_7, quantize_fold
 from repro_torch.serving import workload
 
 EPS32 = float(np.finfo(np.float32).eps)
+
+
+@pytest.fixture
+def reference_q_plans():
+    """Tests that run the JAX package's q lane compile its plans; drop
+    them AFTER the test, so a reference test later in the same worker
+    that counts its own q8.7 plan compiles (``tests/test_fixedpoint.py``)
+    finds the cache as it would alone."""
+    yield
+    jtc.clear_plan_cache()
 
 
 def _same_bits(a, b) -> bool:
@@ -179,8 +193,10 @@ def test_boundary_errors_match_reference_taxonomy():
 def test_projective_executes_and_q_lane_raises_not_implemented():
     """A projective chain applies and projects (the projected points of
     ``apply`` are ``project``'s, bitwise; the mask is one bool per point;
-    its parity with the reference is ``test_torch_projective.py``'s);
-    the Qm.n lane still waits for its slice."""
+    its parity with the reference is ``test_torch_projective.py``'s).
+    The Qm.n half once asserted ``NotImplementedError``; the lane is
+    ported now, so it asserts that an affine chain executes on it and a
+    projective chain is refused with the reference's ``ValueError``."""
     rng = np.random.default_rng(3)
     pts_np = rng.standard_normal((5, 3)).astype(np.float32)
     pts = torch.from_numpy(pts_np)
@@ -192,9 +208,9 @@ def test_projective_executes_and_q_lane_raises_not_implemented():
     assert torch.equal(proj.apply(pts), out)
     assert torch.equal(proj.apply(pts_np, device="cpu"), out)
     affine = workload.chain_for(rng, 3, "SAT")
-    with pytest.raises(NotImplementedError, match="Qm.n"):
-        affine.apply(pts, dtype="q8.7")
-    with pytest.raises(NotImplementedError, match="Qm.n"):
+    got = affine.apply(pts, dtype="q8.7")
+    assert got.dtype == torch.float32 and got.shape == pts.shape
+    with pytest.raises(ValueError, match="fixed-point"):
         proj.project(pts, dtype="q8.7")
 
 
@@ -211,3 +227,117 @@ def test_builder_validation_matches_reference():
     persp[0, 2] = 0.5
     with pytest.raises(ValueError, match="projective"):
         tc.TransformChain.identity(2).matrix(persp).fold()
+
+
+# -- the int16 Qm.n lane ----------------------------------------------------
+
+def _q_oracle(chain, words):
+    folded_q = quantize_fold(chain.fold(), chain.plan_kind, Q8_7)
+    oracle = q_ref.np_chain_diag_q if chain.is_diagonal \
+        else q_ref.np_chain_matrix_q
+    return oracle(words.reshape(-1, chain.dim), *folded_q,
+                  Q8_7.n).reshape(words.shape)
+
+
+@pytest.mark.parametrize("backend", ["ref", "interpret"])
+@pytest.mark.parametrize("template", workload.AFFINE_TEMPLATES,
+                         ids=lambda t: f"{t[0]}D-{t[1]}")
+def test_apply_q_matches_reference_bitwise(template, backend,
+                                           reference_q_plans):
+    """Float points in, float32 out; int16 words in, int16 out; both
+    bitwise equal to the reference's lane and to the numpy Q oracle, and
+    ``project(dtype=)`` returns the same points with an all-True mask."""
+    dim, kinds = template
+    rng = np.random.default_rng([32, dim, len(kinds)])
+    for n in (1, 45, 300):
+        chain = workload.chain_for(rng, dim, kinds)
+        ref = jtc.TransformChain(chain.dim, chain.kinds, chain.params)
+        pts = rng.uniform(-6, 6, (n, dim)).astype(np.float32)
+        words = Q8_7.quantize(pts)
+        for sub in (pts, words):
+            got = chain.apply(torch.from_numpy(sub), dtype="q8.7")
+            want = np.asarray(ref.apply(jnp.asarray(sub), dtype="q8.7",
+                                        backend=backend))
+            assert _same_bits(got.numpy(), want)
+        assert _same_bits(got.numpy(), _q_oracle(chain, words))
+        out, mask = chain.project(torch.from_numpy(words), dtype="q8.7")
+        assert torch.equal(out, got) and mask.dtype == torch.bool
+        assert bool(mask.all()) and mask.shape == (n,)
+        fgot = chain.apply(torch.from_numpy(pts), dtype="q8.7").numpy()
+        assert _same_bits(fgot, Q8_7.dequantize(_q_oracle(chain, words)))
+
+
+def test_apply_q_keeps_shape_and_wraps_like_reference(reference_q_plans):
+    """A leading batch axis through ``apply_many``, numpy input to the
+    CPU, and points far out of range: float points saturate at the
+    boundary, int16 words wrap in the lane, both as the reference does."""
+    rng = np.random.default_rng(33)
+    chain = workload.chain_for(rng, 2, "TSRT")
+    ref = jtc.TransformChain(chain.dim, chain.kinds, chain.params)
+    big = rng.uniform(-600, 600, (3, 17, 2)).astype(np.float32)
+    words = rng.integers(-(1 << 15), 1 << 15, (3, 17, 2)).astype(np.int16)
+    for sub in (big, words):
+        got = chain.apply_many(torch.from_numpy(sub), dtype="q8.7")
+        assert got.shape == sub.shape
+        want = ref.apply(jnp.asarray(sub), dtype="q8.7", backend="ref")
+        assert _same_bits(got.numpy(), np.asarray(want))
+        assert _same_bits(chain.apply(sub, dtype="q8.7", device="cpu")
+                          .numpy(), got.numpy())
+    ident = tc.TransformChain.identity(2)
+    assert _same_bits(ident.apply(torch.from_numpy(big), dtype="q8.7")
+                      .numpy(), big)
+
+
+def test_q_plan_cache_and_bytes_match_reference(reference_q_plans):
+    """The q lane compiles its own plan per (structure, backend, format),
+    beside the float lane's, and records ``chain_fused_*_q`` bytes at two
+    bytes a word -- the reference's counters and records exactly."""
+    rng = np.random.default_rng(34)
+    pts = rng.uniform(-3, 3, (77, 3)).astype(np.float32)
+    jtc.clear_plan_cache()
+    jtc.reset_stats()
+    tc.clear_plan_cache()
+    tc.reset_stats()
+    crng, jrng = np.random.default_rng(5), np.random.default_rng(5)
+    plans, calls = set(), 0
+    with opcount.counting() as got, jopcount.counting() as want:
+        for kinds in ("SAT", "TRS", "SAT", "TRS"):
+            chain = workload.chain_for(crng, 3, kinds)
+            ref = jworkload.chain_for(jrng, 3, kinds)
+            for dtype in ("q8.7", "q8.7", None, "q4.11"):
+                chain.apply(torch.from_numpy(pts), dtype=dtype)
+                ref.apply(jnp.asarray(pts), dtype=dtype, backend="ref")
+                plans.add((chain.structure, dtype))
+                calls += 1
+    assert got == want
+    assert {op for op, _ in got} == {"chain_fused_diag_q",
+                                     "chain_fused_matrix_q",
+                                     "chain_fused_diag", "chain_fused_matrix"}
+    q_bytes = [b for op, b in got if op == "chain_fused_matrix_q"]
+    f_bytes = [b for op, b in got if op == "chain_fused_matrix"]
+    assert 2 * q_bytes[0] == f_bytes[0]
+    assert tc.stats["compiles"] == jtc.stats["compiles"]
+    assert tc.stats["hits"] == jtc.stats["hits"]
+    assert tc.stats["compiles"] == len(plans)
+    assert tc.stats["hits"] == calls - len(plans)
+
+
+def test_q_lane_rejects_projective_and_bad_formats(reference_q_plans):
+    rng = np.random.default_rng(35)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (5, 3)).astype(np.float32))
+    proj = tc.TransformChain.identity(3).projective(
+        np.eye(4, dtype=np.float32)).cull()
+    jproj = jtc.TransformChain(proj.dim, proj.kinds, proj.params)
+    for call in (proj.apply, proj.project):
+        with pytest.raises(ValueError, match="fixed-point") as got:
+            call(pts, dtype="q8.7")
+    with pytest.raises(ValueError) as want:
+        jproj.apply(jnp.asarray(pts.numpy()), dtype="q8.7")
+    assert str(got.value) == str(want.value)
+    affine = workload.chain_for(rng, 3, "SAT")
+    with pytest.raises(ValueError, match="not a fixed-point format"):
+        affine.apply(pts, dtype="float32")
+    with pytest.raises(TypeError, match="float .* or int16"):
+        affine.apply(pts.to(torch.int32), dtype="q8.7")
+    with pytest.raises(errors.DtypeError):
+        affine.apply(pts.double(), dtype="q8.7")
