@@ -36,7 +36,24 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      int16 in gives int16 out, float in float32; each fallback bitwise
      equal to the float lane's ``apply``; the q buckets' launch bytes
      exactly half of what the same buckets move at 4 bytes a word.
-     In phases 3-6 kernel launch counts are zeroed just before the phase
+  7. primitives: the paper's own routines -- translation and scaling at
+     n = 8 and 64, the 8x8 matmul and Composite II on the port's M1
+     emulator (host numpy), values equal to the int16 oracles, cycles
+     beside the paper's Table 5 with the match flags the emulator's tests
+     expect; then the eager primitives of ``core/transform_engine.py``
+     (translate, scale, affine, rotate, vecadd) on a 2**20-point cloud
+     (d = 2, and d = 3 for translate and scale), each bitwise equal to
+     the same call with ``backend="ref"`` on the card and within its
+     float64 bound; then the paper's comparison: kernel_bench.py's
+     sequential pipeline translate(t2), scale(s), rotate(0.3),
+     translate(t1) -- four launches, ``affine_2d`` x3 and ``matmul_2d``
+     x1 -- against the same ``Transform2D`` chain's one
+     ``chain_matrix_1d`` launch, with both results within 4 eps32 mag_c
+     of the exact transform, mag_c = sum_m (|p_m| + |t2_m|) |s_m| |R_mc|
+     + |t1_c| (so within 8 eps32 mag_c of each other), their opcount
+     bytes and CUDA-event times of the calls as a user makes them (the
+     kernels alone are summed from phase 8's rows at the cloud shape).
+     In phases 3-7 kernel launch counts are zeroed just before each path
      and read just after.  Every served or projected float result must be
      bitwise equal to the same request run with ``backend="ref"`` (the
      plain PyTorch versions) on the card and to per-request
@@ -45,7 +62,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      4 eps32 [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| +
      |H_dd|)] / |w| for projective ones, whose masks must equal the
      float64 mask wherever every margin exceeds that bound;
-  7. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
+  8. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
      them -- and the batch kernels at the largest served bucket of each
@@ -60,9 +77,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      projective ones ``addmm``/``baddbmm``, a divide and two compares,
      for the int16 ones a float64 ``addcmul``/``addmm``/``baddbmm``, then
      an int64 rounding shift) -- a yardstick only, the port never calls
-     it -- and its bound;
-  8. the ``kernels`` line (launches from the mixed serve, and for the
-     int16 kernels from the q-mixed serve), then the device line last.
+     it -- and its bound; the eager kernels at the shapes of
+     kernel_bench.py and of the primitives phase: ``affine_2d`` and
+     ``vecadd_2d`` at (1024, 1024) float32 and bfloat16 and at (2**20, 2),
+     ``matmul_2d`` at 1024**3 bfloat16 and float32 and at (2**20, 2) @
+     (2, 2), against ``torch.addcmul`` / ``torch.add`` / ``torch.matmul``,
+     and ``chain_matrix_1d`` at (2**20, 2); then the paper's comparison
+     of the kernels alone: three ``affine_2d`` and one ``matmul_2d`` row
+     medians at the cloud shape, summed, against ``chain_matrix_1d``'s;
+  9. the ``kernels`` line (launches from the mixed serve, for the int16
+     kernels from the q-mixed serve, for the eager ones from the
+     primitives phase), then the device line last.
 """
 from __future__ import annotations
 
@@ -79,6 +104,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import graphics, quantize, serving  # noqa: E402
+from repro_torch.core import analysis  # noqa: E402
+from repro_torch.core import transform_engine as te  # noqa: E402
+from repro_torch.core.morphosys import intel, programs  # noqa: E402
 from repro_torch.kernels import _build, opcount  # noqa: E402
 from repro_torch.kernels.affine import affine as diag_k  # noqa: E402
 from repro_torch.kernels.affine import ref as diag_ref  # noqa: E402
@@ -113,6 +141,15 @@ Q8_7 = quantize.Q8_7
 FALLBACK_EVERY, FALLBACK_SCALE = 16, np.float32(512.0)
 #: the fraction-bit counts the int16 kernels are checked at
 Q_FRACS = (0, 7, 15)
+#: H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
+#: the primitives phase: kernel_bench.py's sequential pipeline
+#: translate(T2), scale(SV), rotate(THETA), translate(T1)
+T1, T2, SV, THETA = (3.0, 2.0), (-1.0, 5.0), (1.3, 0.8), 0.3
+#: Table 5's M1 rows the emulator reproduces exactly; the two matrix
+#: routines have no published listing and the reconstruction is faster
+EMULATOR_EXACT = {("translation", 8), ("translation", 64),
+                  ("scaling", 8), ("scaling", 64)}
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_diag_1d": ("src/repro_torch/kernels/csrc/chain_diag.cu",
@@ -142,6 +179,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_matrix_batch_2d_q": ("src/repro_torch/kernels/csrc/chain_fixedpoint.cu",
                                 "src/repro/kernels/fixedpoint/fixedpoint.py:183",
                                 "matrix"),
+    "affine_2d": ("src/repro_torch/kernels/csrc/affine_2d.cu",
+                  "src/repro/kernels/affine/affine.py:52", "eager"),
+    "vecadd_2d": ("src/repro_torch/kernels/csrc/affine_2d.cu",
+                  "src/repro/kernels/affine/affine.py:165", "eager"),
+    "matmul_2d": ("src/repro_torch/kernels/csrc/matmul_2d.cu",
+                  "src/repro/kernels/matmul/matmul.py:40", "eager"),
 }
 FLAT = {"diag": "chain_diag_1d", "matrix": "chain_matrix_1d",
         "projective": "chain_project_1d"}
@@ -149,7 +192,9 @@ BATCH = {"diag": "chain_diag_batch_2d", "matrix": "chain_matrix_batch_2d",
          "projective": "chain_project_batch_2d"}
 Q_FLAT = {"diag": "chain_diag_1d_q", "matrix": "chain_matrix_1d_q"}
 Q_BATCH = {"diag": "chain_diag_batch_2d_q", "matrix": "chain_matrix_batch_2d_q"}
-FLOAT_KERNELS = [k for k in KERNELS if not k.endswith("_q")]
+FLOAT_KERNELS = [k for k, v in KERNELS.items()
+                 if v[2] != "eager" and not k.endswith("_q")]
+EAGER_KERNELS = [k for k, v in KERNELS.items() if v[2] == "eager"]
 
 
 def emit(obj: dict) -> None:
@@ -602,6 +647,194 @@ def graphics_phase(device: str = "cuda") -> tuple[dict, dict]:
     return counts, summary
 
 
+# -- the paper's primitives ------------------------------------------------------
+
+def emulator_phase() -> dict:
+    """The paper's routines on the port's M1 emulator, run as
+    ``benchmarks/paper_tables.py::_emulator_cycles`` runs them (the same
+    seed and draws): every value equal to its int16 oracle, every M1
+    cycle count beside Table 5's, matching exactly where the paper prints
+    a listing (``EMULATOR_EXACT``) and not elsewhere."""
+    rng = np.random.default_rng(0)
+    cycles = {}
+    for n in (8, 64):
+        u = rng.integers(-1000, 1000, n)
+        v = rng.integers(-1000, 1000, n)
+        rt = programs.run_translation(u, v)
+        rs = programs.run_scaling(u, 5)
+        if not (np.array_equal(rt.values, programs.oracle_translation(u, v))
+                and np.array_equal(rs.values, programs.oracle_scaling(u, 5))):
+            raise SystemExit(f"emulator: n={n} values != int16 oracles")
+        cycles["translation", n], cycles["scaling", n] = rt.cycles, rs.cycles
+    a = rng.integers(-100, 100, (8, 8))
+    b = rng.integers(-1000, 1000, (8, 8))
+    rm = programs.run_matmul(a, b)
+    pts = rng.integers(-100, 100, (2, 8))
+    rr = programs.run_rotation_points((3, 4), pts)
+    if not (np.array_equal(rm.values, programs.oracle_matmul(a, b))
+            and np.array_equal(rr.values, programs.oracle_matmul(
+                np.array([[3, -4], [4, 3]]), pts))):
+        raise SystemExit("emulator: matmul / composite II != int16 oracle")
+    cycles["rotation_matmul", 64] = rm.cycles
+    cycles["composite_ii", 16] = rr.cycles
+    rows, perf_rows = [], []
+    for row in intel.PAPER_TABLE5:
+        if row.system != "m1":
+            continue
+        key = (row.algorithm, row.n_elements)
+        match = cycles[key] == row.cycles
+        if match != (key in EMULATOR_EXACT):
+            raise SystemExit(f"emulator: {key} {cycles[key]} cycles against "
+                             f"the paper's {row.cycles}: match={match}")
+        rows.append({"algorithm": row.algorithm, "n": row.n_elements,
+                     "cycles": cycles[key], "paper_cycles": row.cycles,
+                     "match": match})
+        perf_rows.append(analysis.derive(row.algorithm, "m1", row.n_elements,
+                                         cycles[key], source="emulator"))
+    print(analysis.format_table(perf_rows), flush=True)
+    return {"phase": "emulator", "values_equal_oracles": True, "m1": rows}
+
+
+def exact_pipeline(pts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(the float64 value of the exact pipeline ((p + T2) * SV) @ R(THETA)
+    + T1, and 4 eps32 mag_c with mag_c = sum_m (|p_m| + |T2_m|) |SV_m|
+    |R_mc| + |T1_c|): each primitive's rounding, the float32 fold and the
+    float32 cos/sin add at most eps32 / 2 to eps32 of mag_c each."""
+    p = pts.astype(np.float64)
+    t1, t2, s = (np.array(v, np.float64) for v in (T1, T2, SV))
+    c, sn = math.cos(THETA), math.sin(THETA)
+    r = np.array([[c, sn], [-sn, c]])
+    mag = ((np.abs(p) + np.abs(t2)) * np.abs(s)) @ np.abs(r) + np.abs(t1)
+    return ((p + t2) * s) @ r + t1, 4 * EPS32 * mag
+
+
+def sequential(x: torch.Tensor, t2, sv, t1,
+               backend: str | None = None) -> torch.Tensor:
+    """kernel_bench.py's sequential pipeline: four eager primitives."""
+    q = te.translate(x, t2, backend=backend)
+    q = te.scale(q, sv, backend=backend)
+    q = te.rotate(q, THETA, backend=backend)
+    return te.translate(q, t1, backend=backend)
+
+
+def primitives_phase(device: str = "cuda") -> tuple[dict, dict]:
+    """The eager primitives on a CLOUD_POINTS cloud, then the sequential
+    pipeline against the fused chain (see the module docstring).  Returns
+    (launch counts of the two eager runs, summed, the summary)."""
+    rng = np.random.default_rng(SEED)
+    pts = {d: (rng.standard_normal((CLOUD_POINTS, d)) * 4).astype(np.float32)
+           for d in (2, 3)}
+    other = rng.standard_normal((CLOUD_POINTS, 2)).astype(np.float32)
+    s = {d: rng.uniform(-2, 2, d).astype(np.float32) for d in (2, 3)}
+    t = {d: rng.uniform(-3, 3, d).astype(np.float32) for d in (2, 3)}
+    x = {d: torch.from_numpy(p).to(device) for d, p in pts.items()}
+    z = torch.from_numpy(other).to(device)
+    c, sn = math.cos(THETA), math.sin(THETA)
+    rot = np.array([[c, sn], [-sn, c]])
+    p64 = {d: p.astype(np.float64) for d, p in pts.items()}
+    s64 = {d: v.astype(np.float64) for d, v in s.items()}
+    t64 = {d: v.astype(np.float64) for d, v in t.items()}
+    # name -> (call(backend), float64 value, 4 eps32 x magnitude)
+    calls = {}
+    for d in (2, 3):
+        calls[f"translate d={d}"] = (
+            lambda b, d=d: te.translate(x[d], t[d], backend=b),
+            p64[d] + t64[d], np.abs(p64[d]) + np.abs(t64[d]))
+        calls[f"scale d={d}"] = (
+            lambda b, d=d: te.scale(x[d], s[d], backend=b),
+            p64[d] * s64[d], np.abs(p64[d] * s64[d]))
+    calls["affine d=2"] = (lambda b: te.affine(x[2], s[2], t[2], backend=b),
+                           p64[2] * s64[2] + t64[2],
+                           np.abs(p64[2] * s64[2]) + np.abs(t64[2]))
+    calls["rotate d=2"] = (lambda b: te.rotate(x[2], THETA, backend=b),
+                           p64[2] @ rot,
+                           np.abs(p64[2]).sum(-1, keepdims=True))
+    calls["vecadd d=2"] = (lambda b: te.vecadd(x[2], z, backend=b),
+                           p64[2] + other, np.abs(p64[2]) + np.abs(other))
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {name: call(None) for name, (call, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    want = {"affine_2d": 5, "matmul_2d": 1, "vecadd_2d": 1}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise SystemExit(f"primitives: launches {counts}, expected {want}")
+    for name, (call, exact, mag) in calls.items():
+        out = outs[name]
+        if not same_bits(out, call("ref")):
+            raise SystemExit(f"primitives: {name} != plain version on the card")
+        got = out.cpu().numpy().astype(np.float64)
+        if not (np.isfinite(got).all()
+                and (np.abs(got - exact) <= 4 * EPS32 * mag).all()):
+            raise SystemExit(f"primitives: {name} outside its float64 bound")
+
+    # the paper's comparison: four primitive passes against one fused pass
+    x2 = x[2]
+    # the pipeline's vectors staged on the card once, as a caller keeps
+    # them: param_tensor hands a tensor on x's device to the kernel as it is
+    params = [torch.tensor(v, dtype=torch.float32, device=device)
+              for v in (T2, SV, T1)]
+    chain = (te.Transform2D.identity(device=device).then_translate(*T2)
+             .then_scale(*SV).then_rotate(THETA).then_translate(*T1))
+    _build.reset_launch_counts()
+    with opcount.counting() as rec_seq:
+        seq = sequential(x2, *params)
+    torch.cuda.synchronize()
+    seq_counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    with opcount.counting() as rec_fused:
+        fused = chain.apply(x2)
+    torch.cuda.synchronize()
+    fused_counts = _build.launch_counts()
+    if {k: v for k, v in seq_counts.items() if v} != {"affine_2d": 3,
+                                                      "matmul_2d": 1}:
+        raise SystemExit(f"sequential: launches {seq_counts}")
+    if {k: v for k, v in fused_counts.items() if v} != {"chain_matrix_1d": 1}:
+        raise SystemExit(f"fused: launches {fused_counts}")
+    if not (same_bits(seq, sequential(x2, *params, backend="ref"))
+            and same_bits(fused, chain.apply(x2, backend="ref"))):
+        raise SystemExit("sequential / fused != plain version on the card")
+    exact, bound = exact_pipeline(pts[2])
+    got_seq = seq.cpu().numpy().astype(np.float64)
+    got_fused = fused.cpu().numpy().astype(np.float64)
+    for what, got in (("sequential", got_seq), ("fused", got_fused)):
+        if not (np.isfinite(got).all() and (np.abs(got - exact) <= bound).all()):
+            raise SystemExit(f"{what}: outside 4 eps32 mag of the exact value")
+    if not (np.abs(got_seq - got_fused) <= 2 * bound).all():
+        raise SystemExit("sequential and fused differ by more than 8 eps32 mag")
+    # the calls as a user makes them: each call stages its remaining
+    # parameters (translate's 1, scale's 0, the rotation matrix; the
+    # chain's folded A and t) with synchronous host-to-device copies, so
+    # the event window holds host time too; main() adds the kernels alone
+    # from the kernel rows at this shape
+    (seq_ms, seq_us), (fused_ms, fused_us) = \
+        time_ms(lambda: sequential(x2, *params)), \
+        time_ms(lambda: chain.apply(x2))
+    for k, v in seq_counts.items():
+        counts[k] += v
+    seq_bytes, fused_bytes = (opcount.total_bytes(r)
+                              for r in (rec_seq, rec_fused))
+    summary = {
+        "phase": "primitives", "cloud_points": CLOUD_POINTS,
+        "eager_calls": list(calls), "eager_first_calls_ms": eager_s * 1e3,
+        "bitwise_vs_ref": True, "float64_bound": True,
+        "sequential_launches": {k: v for k, v in seq_counts.items() if v},
+        "fused_launches": {k: v for k, v in fused_counts.items() if v},
+        "sequential_opcount": [op for op, _ in rec_seq],
+        "sequential_bytes": seq_bytes, "fused_bytes": fused_bytes,
+        "bytes_ratio": seq_bytes / fused_bytes,
+        "sequential_call_ms": seq_ms, "fused_call_ms": fused_ms,
+        "call_time_ratio": seq_ms / fused_ms,
+        "sequential_host_us": seq_us, "fused_host_us": fused_us,
+        "max_abs_diff_seq_fused": float(np.abs(got_seq - got_fused).max()),
+        "within_8eps_mag": True,
+    }
+    return counts, summary
+
+
 # -- per-kernel checks and timings ---------------------------------------------
 
 _L2_FLUSH = None
@@ -634,8 +867,12 @@ def time_ms(fn) -> tuple[float, float]:
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bit-for-bit equality of two tensors on the card (-0.0 != 0.0)."""
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -856,6 +1093,66 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
     return row
 
 
+def eager_case(name: str, shape: tuple, dtype: torch.dtype,
+               rng: np.random.Generator, size: str) -> dict:
+    """Check and time one eager kernel: ``affine_2d``/``vecadd_2d`` at
+    (M, N), ``matmul_2d`` at (M, K, N), inputs and output of ``dtype``;
+    the yardstick is one PyTorch call (``addcmul`` / ``add`` /
+    ``matmul``, TF32 off)."""
+    dev = torch.device("cuda")
+
+    def randn(*s):
+        return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)) \
+            .to(dev).to(dtype)
+
+    item = torch.empty((), dtype=dtype).element_size()
+    peak = BF16_OPS_PER_S if (dtype == torch.bfloat16
+                              and name == "matmul_2d") else FP32_OPS_PER_S
+    if name == "affine_2d":
+        m, n = shape
+        x, s, t = randn(m, n), randn(n), randn(n)
+        run = lambda: diag_k.affine_2d(x, s, t)   # noqa: E731
+        plain = lambda: diag_ref.affine(x, s, t)  # noqa: E731
+        lib, library = (lambda: torch.addcmul(t, x, s)), "addcmul"
+        nbytes, ops = (2 * m * n + 2 * n) * item, 2 * m * n
+    elif name == "vecadd_2d":
+        m, n = shape
+        x, z = randn(m, n), randn(m, n)
+        run = lambda: diag_k.vecadd_2d(x, z)   # noqa: E731
+        plain = lambda: diag_ref.vecadd(x, z)  # noqa: E731
+        lib, library = (lambda: torch.add(x, z)), "add"
+        nbytes, ops = 3 * m * n * item, m * n
+    else:
+        m, k, n = shape
+        x, y = randn(m, k), randn(k, n)
+        run = lambda: matrix_k.matmul_2d(x, y)   # noqa: E731
+        plain = lambda: matrix_ref.matmul(x, y)  # noqa: E731
+        lib, library = (lambda: torch.matmul(x, y)), "matmul"
+        nbytes, ops = (m * k + k * n + m * n) * item, 2 * m * k * n
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        raise SystemExit(f"{name} {shape} {dtype}: kernel != plain version")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    lib_err = float((got.float() - lib().float()).abs().max())
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
+        time_ms(run), time_ms(plain), time_ms(lib)
+    row = {"kernel": name, "size": size, "shape": list(shape),
+           "dtype": str(dtype).removeprefix("torch."), "equal": True,
+           "max_abs_err": err, "ms": ms, "bytes": nbytes, "ops": ops,
+           "GB/s": nbytes / ms / 1e6, "TFLOP/s": ops / ms / 1e9,
+           "bound_ms": max(byte_ms, op_ms),
+           "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+           "plain_ms": plain_ms, "library_ms": lib_ms, "composite_ms": None,
+           "library": library, "library_max_abs_diff": lib_err,
+           "host_us": host_us, "plain_host_us": plain_us,
+           "library_host_us": lib_us}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -881,6 +1178,10 @@ def main() -> int:
     emit(summary)
     q_counts, summary, largest_q, sizes_q = q_mixed_phase()
     emit(summary)
+    emit(emulator_phase())
+    eager_counts, summary = primitives_phase()
+    emit(summary)
+    require_launched(eager_counts, EAGER_KERNELS, "primitives")
 
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -911,19 +1212,46 @@ def main() -> int:
         rows[name] = kernel_case_q(name, largest_q[kind], rng,
                                    "largest q bucket")
 
+    bf16, f32 = torch.bfloat16, torch.float32
+    bench, cloud = "kernel_bench", "cloud"
+    # the last row of each kernel is the kernels line's
+    for name, shape, dtype, size in (
+            ("affine_2d", (1024, 1024), bf16, bench),
+            ("affine_2d", (CLOUD_POINTS, 2), f32, cloud),
+            ("affine_2d", (1024, 1024), f32, bench),
+            ("vecadd_2d", (1024, 1024), bf16, bench),
+            ("vecadd_2d", (CLOUD_POINTS, 2), f32, cloud),
+            ("vecadd_2d", (1024, 1024), f32, bench),
+            ("matmul_2d", (1024, 1024, 1024), f32, bench),
+            ("matmul_2d", (CLOUD_POINTS, 2, 2), f32, "rotate"),
+            ("matmul_2d", (1024, 1024, 1024), bf16, bench)):
+        rows[name] = eager_case(name, shape, dtype, rng, size)
+        rows[name, size] = rows[name]
+    # the primitives phase's comparison with the kernels alone: the
+    # sequential pipeline's four launches against the fused chain's one
+    fused = kernel_case("chain_matrix_1d", (CLOUD_POINTS, 2), rng, cloud)
+    seq_ms = (3 * rows["affine_2d", cloud]["ms"]
+              + rows["matmul_2d", "rotate"]["ms"])
+    emit({"phase": "primitives (kernels alone)", "points": CLOUD_POINTS,
+          "sequential_kernels_ms": seq_ms, "fused_kernel_ms": fused["ms"],
+          "kernel_time_ratio": seq_ms / fused["ms"]})
+
     kernels = []
-    for name, (source, replaces, _) in KERNELS.items():
+    for name, (source, replaces, kind) in KERNELS.items():
         r = rows[name]
         # each kernel's launches come from the path that runs it: the
-        # mixed serve for the float kernels, the q-mixed serve for the
-        # int16 ones
-        launches = q_counts[name] if name.endswith("_q") else counts[name]
+        # mixed serve for the float chain kernels, the q-mixed serve for
+        # the int16 ones, the primitives phase for the eager ones
+        launches = eager_counts[name] if kind == "eager" \
+            else q_counts[name] if name.endswith("_q") else counts[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_mixed": counts[name],
                         "launches_q_mixed": q_counts[name],
                         "launches_graphics": graphics_counts[name],
-                        "shape": r["shape"], "max_abs_err": r["max_abs_err"],
+                        "launches_primitives": eager_counts[name],
+                        "shape": r["shape"], "dtype": r.get("dtype", "float32"),
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],

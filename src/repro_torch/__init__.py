@@ -15,7 +15,15 @@ of ``repro/x/y.py``) and keeps its public names:
     ``chain_diag_q`` / ``chain_apply_q`` (and ``_batch_q``) -- the fused
     chain ops over hand-written CUDA kernels for ``sm_90a``;
   * ``repro_torch.graphics`` -- ``Camera`` / ``Viewport`` /
-    ``viewing_chain``: projective viewing pipelines as one chain.
+    ``viewing_chain``: projective viewing pipelines as one chain;
+  * ``repro_torch.core.transform_engine`` -- the paper's eager
+    primitives (``translate``/``scale``/``rotate``/``affine``/``vecadd``,
+    one launch each, over ``repro_torch.kernels.affine``/``scale``/
+    ``translate``/``vecadd``/``matmul``/``rotate2d``) and the
+    ``Transform2D``/``Transform3D`` composite builders;
+  * ``repro_torch.core.morphosys`` / ``repro_torch.core.analysis`` -- the
+    M1 emulator (the cycle oracle) and the paper's table arithmetic,
+    numpy copies of the JAX package's.
 
 Importing this package loads nothing but this docstring: the subpackages
 import ``torch`` and numpy only, and never ``jax`` or ``repro``.  Entry

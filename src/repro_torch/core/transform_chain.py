@@ -28,9 +28,13 @@ the same host fold, quantised once per request by
 ``chain_apply_q`` (int32 accumulation, one requantising shift, int16
 wrap), at half the bytes per point.  Affine chains only.
 
+``folded()`` and ``as_homogeneous()`` hand the host fold back as tensors
+(``Transform2D.matrix`` is ``as_homogeneous``).
+
 Not in this slice: the carry-fold API comes with the scene graph.  There
-is no traced-parameter fold: PyTorch runs eagerly and parameters are
-concrete values.
+is no traced-parameter fold (the JAX package's ``_fold_jnp``, which
+``folded`` takes for traced parameters): PyTorch runs eagerly and
+parameters are concrete values.
 
 Byte economy vs. sequential primitive dispatch (k-long chain over N points
 of dim d, itemsize 4): sequential moves ~2*k*N*d*4 bytes; the fused plan
@@ -514,15 +518,37 @@ class TransformChain:
         for projective ones."""
         return fold_structure(self.structure, self.params)
 
-    # -- execution -----------------------------------------------------------
+    def folded(self, device: str | torch.device = "cuda"
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The composed (A (d, d), t (d,)) pair of the host fold, float32 on
+        ``device`` (the GPU unless the caller passes ``device="cpu"``); a
+        diagonal fold's s becomes diag(s).  Projective chains have no
+        affine form -- use ``fold``/``as_homogeneous``."""
+        if self.is_projective:
+            raise ValueError("projective chains have no (A, t) form; use "
+                             "fold() or as_homogeneous()")
+        dev = dispatch.resolve_device(device)
+        return tuple(torch.as_tensor(f, device=dev)
+                     for f in self._affine_fold())
 
-    @staticmethod
-    def _tensor(points, device: str | torch.device) -> torch.Tensor:
-        """``points`` as a tensor: a tensor stays where it lies, anything
-        else (a numpy array) is copied to ``device``."""
-        if isinstance(points, torch.Tensor):
-            return points
-        return torch.as_tensor(points, device=dispatch.resolve_device(device))
+    def _affine_fold(self) -> tuple[np.ndarray, np.ndarray]:
+        """The host fold of an affine chain as (A, t); diag(s) for s."""
+        a, t = self.fold()
+        return (np.diag(a) if self.is_diagonal else a), t
+
+    def as_homogeneous(self, device: str | torch.device = "cuda"
+                       ) -> torch.Tensor:
+        """The composed (d+1, d+1) homogeneous float32 matrix (row-vector
+        form) on ``device``.  For projective chains this is the folded H
+        (the cull bounds are not representable in the matrix; see
+        ``fold``).  Built from the same numpy fold as the JAX package's,
+        so the two are bit for bit equal."""
+        dev = dispatch.resolve_device(device)
+        h = self.fold()[0] if self.is_projective \
+            else _homo(self.dim, *self._affine_fold())
+        return torch.as_tensor(h, device=dev)
+
+    # -- execution -----------------------------------------------------------
 
     def _plan(self, points: torch.Tensor, backend: str | None,
               qname: str | None = None) -> Plan:
@@ -597,7 +623,7 @@ class TransformChain:
         at this boundary (``ShapeError`` / ``EmptyPointsError`` /
         ``DtypeError``)."""
         errors.check_points(points, self.dim)
-        points = self._tensor(points, device)
+        points = dispatch.place(points, device)
         if not self.kinds:
             return points
         if dtype is not None:
@@ -625,7 +651,7 @@ class TransformChain:
             return out, torch.ones(out.shape[:-1], dtype=torch.bool,
                                    device=out.device)
         errors.check_points(points, self.dim)
-        points = self._tensor(points, device)
+        points = dispatch.place(points, device)
         out, mask = self._run(points, backend)
         return out.reshape(points.shape), mask.reshape(points.shape[:-1])
 

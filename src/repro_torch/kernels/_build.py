@@ -151,6 +151,28 @@ def check_operands(x: torch.Tensor, *params: torch.Tensor, d: int,
             raise ValueError("kernel operands must be contiguous")
 
 
+#: the float types of the eager-primitive kernels (affine_2d, vecadd_2d,
+#: matmul_2d) and the flag each kernel's C entry takes for them
+DENSE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_dense(*tensors: torch.Tensor) -> int:
+    """Raise unless every tensor is a contiguous CUDA tensor on the first
+    one's device, all of one dtype of ``DENSE_DTYPES``; returns that
+    dtype's flag (0 float32, 1 bfloat16)."""
+    first = tensors[0]
+    for a in tensors:
+        if not a.is_cuda or a.device != first.device:
+            raise ValueError(f"kernel operands must lie on one CUDA device, "
+                             f"got {a.device} beside {first.device}")
+        if a.dtype not in DENSE_DTYPES or a.dtype != first.dtype:
+            raise TypeError(f"kernel operands must all be float32 or all "
+                            f"bfloat16, got {a.dtype} beside {first.dtype}")
+        if not a.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    return DENSE_DTYPES[first.dtype]
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last reset, by kernel name."""
     return {name: k.launches for name, k in KERNELS.items()}

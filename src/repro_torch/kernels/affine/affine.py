@@ -1,20 +1,25 @@
-"""CUDA wrappers of the diagonal chain kernels (``csrc/chain_diag.cu``).
+"""CUDA wrappers of the affine-family kernels: the diagonal chain kernels
+(``csrc/chain_diag.cu``) and the eager primitives (``csrc/affine_2d.cu``).
 
-Ports of ``chain_diag_1d`` and ``chain_diag_batch_2d`` from the JAX
-package's ``kernels/affine/affine.py``.  Each wrapper checks its tensors
-(CUDA, float32, contiguous, d in {2, 3}, matching shapes), allocates the
-output, launches on the current stream and counts the launch.  An empty
-input launches nothing.
+Ports of ``chain_diag_1d``, ``chain_diag_batch_2d``, ``affine_2d`` and
+``vecadd_2d`` from the JAX package's ``kernels/affine/affine.py``.  Each
+wrapper checks its tensors (CUDA, contiguous, matching shapes; float32
+for the chain kernels with d in {2, 3}, float32 or bfloat16 for the
+eager ones), allocates the output, launches on the current stream and
+counts the launch.  An empty input launches nothing.  No wrapper falls
+back to the plain version: a CPU tensor raises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_operands
+from repro_torch.kernels._build import CudaKernel, check_dense, check_operands
 
 _DIAG_1D = CudaKernel("chain_diag", "chain_diag_1d", n_ptrs=4, n_sizes=2)
 _DIAG_BATCH = CudaKernel("chain_diag", "chain_diag_batch_2d", n_ptrs=4,
                          n_sizes=3)
+_AFFINE_2D = CudaKernel("affine_2d", "affine_2d", n_ptrs=4, n_sizes=3)
+_VECADD_2D = CudaKernel("affine_2d", "vecadd_2d", n_ptrs=3, n_sizes=2)
 
 
 def chain_diag_1d(flat: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
@@ -49,4 +54,33 @@ def chain_diag_batch_2d(pts3: torch.Tensor, s: torch.Tensor,
     if pts3.numel():
         _DIAG_BATCH(pts3.device, out.data_ptr(), pts3.data_ptr(),
                     s.data_ptr(), t.data_ptr(), bsz, length, d)
+    return out
+
+
+def affine_2d(x: torch.Tensor, s: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """y[i, j] = x[i, j] * s[j] + t[j] for x (M, N) and row parameters
+    ``s``/``t`` (N,), float32 or bfloat16 (one dtype for all three)."""
+    bf16 = check_dense(x, s, t)
+    if x.dim() != 2 or s.shape != (x.shape[1],) or t.shape != s.shape:
+        raise ValueError(f"affine_2d wants x (M, N), s and t (N,); got "
+                         f"{tuple(x.shape)}, {tuple(s.shape)}, "
+                         f"{tuple(t.shape)}")
+    out = torch.empty_like(x)
+    if x.numel():
+        _AFFINE_2D(x.device, out.data_ptr(), x.data_ptr(), s.data_ptr(),
+                   t.data_ptr(), x.shape[0], x.shape[1], bf16)
+    return out
+
+
+def vecadd_2d(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y = x + z for x, z (M, N), float32 or bfloat16 (one dtype)."""
+    bf16 = check_dense(x, z)
+    if x.dim() != 2 or z.shape != x.shape:
+        raise ValueError(f"vecadd_2d wants x and z of one (M, N) shape; got "
+                         f"{tuple(x.shape)}, {tuple(z.shape)}")
+    out = torch.empty_like(x)
+    if x.numel():
+        _VECADD_2D(x.device, out.data_ptr(), x.data_ptr(), z.data_ptr(),
+                   x.numel(), bf16)
     return out

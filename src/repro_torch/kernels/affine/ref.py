@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the diagonal chain kernels.
+"""Plain PyTorch versions of the affine-family kernels: the diagonal chain
+kernels and the eager primitives (``affine_2d``, ``vecadd_2d``).
 
 Eager torch, one separately rounded op at a time: a multiply, then an
 add -- never a fused multiply-add op, which would round once.  These run
@@ -23,3 +24,33 @@ def chain_diag_batch(p3: torch.Tensor, s: torch.Tensor,
     and (B, d) parameters: the per-request ``chain_diag`` broadcast over
     B, so each row is element for element the per-request arithmetic."""
     return chain_diag(p3, s[:, None, :], t[:, None, :])
+
+
+# -- the eager primitives (affine_2d, vecadd_2d) --------------------------------
+#
+# Each is one separately rounded eager op at a time: ``x * s``, then
+# ``+ t``.  For bfloat16 each op rounds to bfloat16, as eager torch does
+# (the product and the sum are formed in float and rounded after each op).
+
+
+def affine(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """y = s*x + t; ``s``/``t`` broadcast against x's trailing dim and are
+    cast to x's dtype first."""
+    return x * s.to(x.dtype) + t.to(x.dtype)
+
+
+def vecadd(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y = x + z elementwise, z cast to x's dtype first."""
+    return x + z.to(x.dtype)
+
+
+def translate(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """q = p + t as the ops run it: ``affine(p, 1, t)`` -- the multiply by
+    one is kept, so signed zeros behave as in the kernel."""
+    return affine(p, torch.ones((), dtype=p.dtype, device=p.device), t)
+
+
+def scale(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q = s (.) p as the ops run it: ``affine(p, s, 0)`` -- the add of zero
+    is kept, so x*s = -0.0 becomes +0.0, as in the JAX package."""
+    return affine(p, s, torch.zeros((), dtype=p.dtype, device=p.device))

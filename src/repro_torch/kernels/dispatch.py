@@ -39,6 +39,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def place(points, device: str | torch.device = "cuda") -> torch.Tensor:
+    """``points`` as a tensor: a tensor stays where it lies, anything else
+    (a numpy array, a list) is copied to ``device`` -- the GPU unless the
+    caller asks for the CPU."""
+    if isinstance(points, torch.Tensor):
+        return points
+    return torch.as_tensor(points, device=resolve_device(device))
+
+
 def backend_for(device: torch.device, backend: str | None = None) -> str:
     """The backend that runs on ``device`` (a tensor's or a server's): the
     kernel on CUDA, the plain version on the CPU, unless ``backend`` says

@@ -1,16 +1,55 @@
-"""Public entry points of the general (matrix) chain family.
+"""Public entry points of the matmul family: ``matmul``, ``rotate2d`` and
+the general (matrix) chain ops.  Backend dispatch as in ``affine/ops.py``.
 
-Only the chain functions are ported in this slice; ``matmul`` and
-``rotate2d`` of the JAX package's ``kernels/matmul/ops.py`` wait for the
-eager-primitive slice.  Backend dispatch as in ``affine/ops.py``.
+``matmul`` leaves out the JAX package's ``bm``/``bn``/``bk`` tile
+arguments and its tuning-cache lookup: they come with the autotune
+slice, as the CUDA kernel's launch parameters.  Tile choice never
+changes results there either.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, opcount
 from repro_torch.kernels.matmul import matmul as K
 from repro_torch.kernels.matmul import ref
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor, *, backend: str | None = None,
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """C = X @ Y with float32 accumulation; x (..., K) of rank >= 2 (the
+    leading dims are batched by reshape), y (K, N).  ``out_dtype`` is
+    x's dtype by default.  Operands of two dtypes are both widened to
+    the wider one first (exact for bfloat16 to float32).  Lowered to the
+    ``matmul_2d`` kernel."""
+    out_dtype = out_dtype or x.dtype
+    out_elems = x.shape[:-1].numel() * y.shape[-1]
+    opcount.record("matmul", x.nbytes + y.nbytes
+                   + out_elems * out_dtype.itemsize)
+    b = dispatch.backend_for(x.device, backend)
+    if b == "ref":
+        return ref.matmul(x, y, out_dtype=out_dtype)
+    if x.dtype != y.dtype:
+        common = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(common), y.to(common)
+    out = K.matmul_2d(x.contiguous().reshape(-1, x.shape[-1]),
+                      y.contiguous(), out_dtype=out_dtype)
+    return out.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def rotate2d(points: torch.Tensor, theta, *,
+             backend: str | None = None) -> torch.Tensor:
+    """Rotate (..., 2) points by angle ``theta`` -- the paper's rotation
+    as a 2x2 matmul, right-multiply form [[c, s], [-s, c]] in the points'
+    dtype.  c and s are computed in float64 and rounded once to float32
+    (XLA's float32 cos/sin may differ from them by an ulp)."""
+    c = np.float32(np.cos(np.float64(theta)))
+    s = np.float32(np.sin(np.float64(theta)))
+    rot = torch.tensor(np.array([[c, s], [-s, c]], np.float32),
+                       device=points.device).to(points.dtype)
+    out = matmul(points.reshape(-1, 2), rot, backend=backend)
+    return out.reshape(points.shape)
 
 
 def chain_apply(points: torch.Tensor, a, t, *,

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the general (matrix) chain kernels.
+"""Plain PyTorch versions of the general (matrix) chain kernels and of the
+tiled ``matmul_2d``.
 
 Eager torch, one separately rounded op at a time, in the reference
 oracle's order (``repro/kernels/matmul/ref.py``, ``chain_matrix``): for
@@ -33,3 +34,18 @@ def chain_matrix_batch(p3: torch.Tensor, a: torch.Tensor,
     (B, d, d) and (B, d) parameters: the per-request ``chain_matrix``
     broadcast over B."""
     return chain_matrix(p3, a[:, None], t[:, None])
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor,
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """C = X @ Y for x (..., K), y (K, N): a float32 accumulator, starting
+    at 0, adds the rounded product x[..., k] * y[k, :] for k ascending
+    from 0, every op separately rounded; then one cast to ``out_dtype``
+    (x's dtype by default).  bfloat16 inputs widen to float32 exactly,
+    and their products are exact in float32."""
+    out_dtype = out_dtype or x.dtype
+    acc = torch.zeros((*x.shape[:-1], y.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k:k + 1].float() * y[k:k + 1, :].float()
+    return acc.to(out_dtype)

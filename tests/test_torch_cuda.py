@@ -1,9 +1,10 @@
 """The port on the card: every CUDA kernel bitwise equal to its plain
 PyTorch version on the GPU and on the CPU (the projective kernels' masks
 included; the int16 Qm.n kernels at full-range inputs, where the int32
-accumulator and the int16 store wrap, and at n_frac 0, 7 and 15), the
-launch counters, and the GPU server bitwise equal to the CPU server, to
-the plain path and to per-request ``apply``/``project``.
+accumulator and the int16 store wrap, and at n_frac 0, 7 and 15; the
+eager ``affine_2d``/``vecadd_2d``/``matmul_2d`` in float32 and bfloat16),
+the launch counters, and the GPU server bitwise equal to the CPU server,
+to the plain path and to per-request ``apply``/``project``.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -415,3 +416,159 @@ def test_q_server_on_card_equals_cpu_server_bitwise(cuda_device):
     ref = serve(serving.GeometryServer(device=cuda_device, backend="ref"))
     for c, g, r in zip(cpu, gpu, ref, strict=True):
         assert _same_bits(c, g) and _same_bits(g, r)
+
+
+# -- the eager primitives (affine_2d, vecadd_2d, matmul_2d) ------------------
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits on the host (bfloat16 as its int16 words)."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _dense(rng, shape, dtype, device, low=None, high=None):
+    a = rng.uniform(low, high, shape) if low is not None \
+        else rng.standard_normal(shape)
+    return torch.from_numpy(a.astype(np.float32)).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_and_vecadd_kernels_equal_plain(cuda_device, dtype):
+    """``affine_2d`` and ``vecadd_2d`` against their plain versions on the
+    card and on the CPU, bit for bit: N = 1, 2, 3 (point clouds), ragged
+    and lane-wide shapes, and signed zeros (scale is x*s + 0)."""
+    rng = np.random.default_rng([51, dtype == torch.bfloat16])
+    for shape in ((1, 1), (1, 8), (17, 100), (5000, 2), (3001, 3),
+                  (1024, 1024), (70_001, 2), (0, 3)):
+        x = _dense(rng, shape, dtype, cuda_device)
+        z = _dense(rng, shape, dtype, cuda_device)
+        s = _dense(rng, shape[1:], dtype, cuda_device, -2, 2)
+        t = _dense(rng, shape[1:], dtype, cuda_device, -3, 3)
+        got = diag_k.affine_2d(x, s, t)
+        assert got.dtype == dtype and got.shape == x.shape
+        for want in (diag_ref.affine(x, s, t),
+                     diag_ref.affine(x.cpu(), s.cpu(), t.cpu())):
+            assert _same_bits(_bits(got), _bits(want)), shape
+        got = diag_k.vecadd_2d(x, z)
+        for want in (diag_ref.vecadd(x, z), diag_ref.vecadd(x.cpu(), z.cpu())):
+            assert _same_bits(_bits(got), _bits(want)), shape
+    x = torch.tensor([[-1.0, 2.0, -0.0, 0.0]], dtype=dtype,
+                     device=cuda_device)
+    s = torch.tensor([0.0, -0.0, 1.0, -1.0], dtype=dtype, device=cuda_device)
+    zero = torch.zeros(4, dtype=dtype, device=cuda_device)
+    out = diag_k.affine_2d(x, s, zero)
+    assert not torch.signbit(out).any()
+    assert _same_bits(_bits(out), _bits(diag_ref.scale(x.cpu(), s.cpu())))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_equals_plain(cuda_device, dtype, out):
+    """``matmul_2d`` against the plain version (k ascending, one rounded
+    multiply and add a step) on the card and on the CPU, bit for bit, at
+    ragged edges, K past one panel, K = 0 and the rotate shape."""
+    rng = np.random.default_rng([52, dtype == torch.bfloat16, out == "bfloat16"])
+    out_dtype = getattr(torch, out)
+    for m, k, n in ((17, 100, 33), (1, 8, 1), (1, 1, 1), (65, 17, 63),
+                    (130, 1024, 70), (1 << 16, 2, 2), (3000, 3, 3),
+                    (5, 0, 4)):
+        x = _dense(rng, (m, k), dtype, cuda_device)
+        y = _dense(rng, (k, n), dtype, cuda_device)
+        got = matrix_k.matmul_2d(x, y, out_dtype=out_dtype)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        for want in (matrix_ref.matmul(x, y, out_dtype),
+                     matrix_ref.matmul(x.cpu(), y.cpu(), out_dtype)):
+            assert _same_bits(_bits(got), _bits(want)), (m, k, n)
+
+
+def test_primitive_ops_on_card_equal_cpu(cuda_device):
+    """The dispatching ops and the engine: a CUDA tensor launches the
+    kernels, one per call, and equals the CPU bit for bit; numpy goes to
+    the GPU by default."""
+    from repro_torch import kernels
+    from repro_torch.core import transform_engine as te
+    rng = np.random.default_rng(53)
+    pts = rng.standard_normal((10_000, 2)).astype(np.float32)
+    host = torch.from_numpy(pts)
+    dev = host.to(cuda_device)
+    _build.reset_launch_counts()
+    for op in (lambda p: kernels.translate(p, torch.tensor([1.0, -2.0],
+                                                           device=p.device)),
+               lambda p: kernels.scale(p, 0.5),
+               lambda p: kernels.affine(p, 2.0, 1.0),
+               lambda p: kernels.rotate2d(p, 0.3),
+               lambda p: kernels.vecadd(p, p),
+               lambda p: kernels.matmul(p.reshape(10, -1, 2),
+                                        torch.eye(2, device=p.device)),
+               # operands of two dtypes widen to float32 first
+               lambda p: kernels.matmul(p.bfloat16(),
+                                        torch.eye(2, device=p.device) * 0.3,
+                                        out_dtype=torch.float32)):
+        assert _same_bits(_bits(op(dev)), _bits(op(host)))
+    counts = _build.launch_counts()
+    assert counts["affine_2d"] == 3 and counts["matmul_2d"] == 3
+    assert counts["vecadd_2d"] == 1
+    out = te.rotate(pts, 0.3)                        # numpy -> the GPU
+    assert out.is_cuda
+    assert _same_bits(_bits(out), _bits(te.rotate(pts, 0.3, device="cpu")))
+
+
+def test_sequential_pipeline_on_card_launches_four_against_one(cuda_device):
+    from repro_torch.core import transform_engine as te
+    rng = np.random.default_rng(54)
+    pts = rng.standard_normal((50_000, 2)).astype(np.float32)
+    dev = torch.from_numpy(pts).to(cuda_device)
+    t1, t2 = np.array([3.0, 2.0], np.float32), np.array([-1.0, 5.0],
+                                                         np.float32)
+    _build.reset_launch_counts()
+    seq = te.translate(te.rotate(te.scale(te.translate(dev, t2), [1.3, 0.8]),
+                                 0.3), t1)
+    counts = _build.launch_counts()
+    assert counts["affine_2d"] == 3 and counts["matmul_2d"] == 1
+    assert sum(counts.values()) == 4
+    _build.reset_launch_counts()
+    fused = te.Transform2D.identity().then_translate(-1.0, 5.0) \
+        .then_scale(1.3, 0.8).then_rotate(0.3).then_translate(3.0, 2.0) \
+        .apply(dev)
+    counts = _build.launch_counts()
+    assert counts["chain_matrix_1d"] == 1 and sum(counts.values()) == 1
+    assert seq.is_cuda and fused.is_cuda
+    host = torch.from_numpy(pts)
+    cpu_seq = te.translate(te.rotate(te.scale(te.translate(host, t2),
+                                              [1.3, 0.8]), 0.3), t1)
+    assert _same_bits(_bits(seq), _bits(cpu_seq))
+
+
+def test_primitive_wrappers_count_launches_and_check_operands(cuda_device):
+    _build.reset_launch_counts()
+    x = torch.ones(4, 3, device=cuda_device)
+    s, t = torch.ones(3, device=cuda_device), torch.zeros(3, device=cuda_device)
+    diag_k.affine_2d(x, s, t)
+    diag_k.affine_2d(x[:0], s, t)                        # empty: no launch
+    diag_k.vecadd_2d(x, x)
+    matrix_k.matmul_2d(x, torch.ones(3, 2, device=cuda_device))
+    counts = _build.launch_counts()
+    assert counts["affine_2d"] == counts["vecadd_2d"] \
+        == counts["matmul_2d"] == 1
+    half = x.half()
+    with pytest.raises(TypeError):
+        diag_k.affine_2d(half, s.half(), t.half())
+    with pytest.raises(TypeError):
+        diag_k.vecadd_2d(half, half)
+    with pytest.raises(TypeError):
+        matrix_k.matmul_2d(half, half.t().contiguous())
+    with pytest.raises(TypeError):                       # mixed dtypes
+        diag_k.affine_2d(x, s.bfloat16(), t)
+    with pytest.raises(TypeError):
+        matrix_k.matmul_2d(x, x.t().contiguous(), out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        diag_k.affine_2d(x.cpu(), s.cpu(), t.cpu())
+    with pytest.raises(ValueError, match="CUDA device"):
+        matrix_k.matmul_2d(x, torch.ones(3, 2))          # mixed devices
+    with pytest.raises(ValueError):
+        diag_k.affine_2d(x, s[:2], t[:2])                # s, t not (N,)
+    with pytest.raises(ValueError):
+        matrix_k.matmul_2d(x, torch.ones(4, 2, device=cuda_device))
+    with pytest.raises(ValueError):
+        diag_k.vecadd_2d(x.t(), x.t())                   # not contiguous
+    assert _build.launch_counts()["affine_2d"] == 1

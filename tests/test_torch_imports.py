@@ -52,7 +52,14 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.kernels.fixedpoint",
                    "repro_torch.kernels.fixedpoint.fixedpoint",
                    "repro_torch.kernels.fixedpoint.ops",
-                   "repro_torch.kernels.fixedpoint.ref"):
+                   "repro_torch.kernels.fixedpoint.ref",
+                   "repro_torch.core.transform_engine",
+                   "repro_torch.core.analysis",
+                   "repro_torch.core.morphosys",
+                   "repro_torch.core.morphosys.rc_array",
+                   "repro_torch.core.morphosys.isa",
+                   "repro_torch.core.morphosys.programs",
+                   "repro_torch.core.morphosys.intel"):
         assert module in names.split(), module
 
 
@@ -77,6 +84,29 @@ def test_q_lane_modules_load_no_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["[192,", "-32768]"]
+
+
+_EMULATOR_PROBE = r"""
+import sys
+from repro_torch.core.morphosys import programs
+from repro_torch.core import analysis, transform_engine
+r = programs.run_scaling(list(range(8)), 5)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(r.cycles, int(r.values[-1]), ",".join(bad))
+"""
+
+
+def test_emulator_and_engine_load_no_jax_or_repro():
+    """The M1 emulator, the table arithmetic and the transform engine,
+    imported first in a fresh interpreter, pull in neither jax nor
+    ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _EMULATOR_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["14", "35"]
 
 
 def test_no_source_line_imports_jax_or_repro():
