@@ -62,7 +62,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      4 eps32 [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| +
      |H_dd|)] / |w| for projective ones, whose masks must equal the
      float64 mask wherever every margin exceeds that bound;
-  8. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
+  8. serve (hymba-1.5b): the model stack's serving path at full width
+     (1.59 B parameters, bfloat16, random weights from seed 0): batch 4,
+     2048-token prompts (numpy seed 0) and 16 generated tokens through
+     ``launch.serve.serve_batch``, with prefill and per-token decode ms
+     (CUDA events), tokens/s and peak memory; launch counts zeroed before
+     the serve and read after the prefill and after the decode, each of
+     ``rmsnorm_2d`` (5L+1 a pass), ``rope_3d`` (2L), ``flash_attention_3d``
+     and ``ssd_intra`` (L, prefill only) and ``vecadd_2d`` (2L) held to
+     its expected count; then the same model on the plain versions
+     (``dispatch.use_backend("ref")``) teacher-forced with the served
+     tokens, every step's logits within HYMBA_LOGITS_RTOL (relative RMS)
+     of the kernel path's, and the greedy-token agreement reported; the
+     distinct sizes each kernel was launched with in the serve are kept
+     for phase 9;
+  9. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
      them -- and the batch kernels at the largest served bucket of each
@@ -85,9 +99,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      and ``chain_matrix_1d`` at (2**20, 2); then the paper's comparison
      of the kernels alone: three ``affine_2d`` and one ``matmul_2d`` row
      medians at the cloud shape, summed, against ``chain_matrix_1d``'s;
-  9. the ``kernels`` line (launches from the mixed serve, for the int16
+     the model kernels at every shape the hymba serve gives them
+     (``rmsnorm_2d`` at (8192, 3200) and (4, 3200) float32, (4, 1600)
+     and (8192, 1600) bfloat16; ``rope_3d`` at (20 | 100, 2048, 64) from
+     position 0 and (20 | 100, 1, 64) at the last decode position,
+     bfloat16, bit for bit; ``flash_attention_3d`` checked at a
+     2000-token prompt with windows 1000 and 1024 and timed at 2048,
+     window 1024, group 5; ``ssd_intra`` at 32 chunks of 256, 50 heads
+     of 64, state 16; ``vecadd_2d`` at (8192, 1600) and (4, 1600)
+     bfloat16, bit for bit), each within its ``tests/torch_bounds.py``
+     bound of the plain version, against ``F.rms_norm``,
+     ``scaled_dot_product_attention`` with the same mask, ``torch.add``
+     or a composite (rotate-half RoPE; the bfloat16 masked-matmul SSD);
+     every size a kernel was launched with in the hymba serve must be
+     among the sizes these checks launched it with;
+ 10. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
-     primitives phase), then the device line last.
+     primitives phase, for the model kernels from the hymba serve;
+     ``vecadd_2d`` also carries its hymba prefill row), then the device
+     line last.
 """
 from __future__ import annotations
 
@@ -101,22 +131,39 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+#: the float bounds the checks hold the kernels to, shared with the tests
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-from repro_torch import graphics, quantize, serving  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch import configs, graphics, quantize, serving  # noqa: E402
 from repro_torch.core import analysis  # noqa: E402
 from repro_torch.core import transform_engine as te  # noqa: E402
 from repro_torch.core.morphosys import intel, programs  # noqa: E402
-from repro_torch.kernels import _build, opcount  # noqa: E402
+from repro_torch.kernels import _build, dispatch, opcount  # noqa: E402
 from repro_torch.kernels.affine import affine as diag_k  # noqa: E402
 from repro_torch.kernels.affine import ref as diag_ref  # noqa: E402
 from repro_torch.kernels.fixedpoint import fixedpoint as q_k  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa_k  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fixedpoint import ref as q_ref  # noqa: E402
 from repro_torch.kernels.matmul import matmul as matrix_k  # noqa: E402
 from repro_torch.kernels.matmul import ref as matrix_ref  # noqa: E402
 from repro_torch.kernels.projective import projective as proj_k  # noqa: E402
 from repro_torch.kernels.projective import ref as proj_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm as rms_k  # noqa: E402
+from repro_torch.kernels.rope import ref as rope_ref  # noqa: E402
+from repro_torch.kernels.rope import rope as rope_k  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd import ssd as ssd_k  # noqa: E402
+from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.models import build  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
+
+import torch_bounds as bounds  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -150,6 +197,21 @@ T1, T2, SV, THETA = (3.0, 2.0), (-1.0, 5.0), (1.3, 0.8), 0.3
 #: routines have no published listing and the reconstruction is faster
 EMULATOR_EXACT = {("translation", 8), ("translation", 64),
                   ("scaling", 8), ("scaling", 64)}
+#: the serve (hymba-1.5b) phase: full width, batch 4, 2048-token prompts
+HYMBA_ARCH, HYMBA_BATCH, HYMBA_PROMPT, HYMBA_GEN = "hymba-1.5b", 4, 2048, 16
+#: the kernel path's logits against the plain path's, relative RMS, a
+#: step -- an envelope, not the correctness check (phase 9 holds each
+#: kernel to its per-element bound at every shape of the path): about 6
+#: sites a layer round differently on the two paths (five rmsnorm_2d
+#: and one flash_attention_3d output, which may land one bfloat16 ulp
+#: apart, 2**-8 to 2**-7 relative; rope_3d and vecadd_2d are bitwise,
+#: SSD float32), so over 32 layers and the final norm
+#: sqrt(6 * 32 + 1) * 2**-7 = 0.109 if each is a full ulp at the top of
+#: the range and they add in quadrature (PERF.md)
+HYMBA_LOGITS_RTOL = math.sqrt(6 * 32 + 1) * 2.0 ** -7
+#: the kernels the hybrid serving path launches
+MODEL_PATH_KERNELS = ["rmsnorm_2d", "rope_3d", "flash_attention_3d",
+                      "ssd_intra", "vecadd_2d"]
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
     "chain_diag_1d": ("src/repro_torch/kernels/csrc/chain_diag.cu",
@@ -185,6 +247,15 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, plan kind)
                   "src/repro/kernels/affine/affine.py:165", "eager"),
     "matmul_2d": ("src/repro_torch/kernels/csrc/matmul_2d.cu",
                   "src/repro/kernels/matmul/matmul.py:40", "eager"),
+    "rmsnorm_2d": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                   "src/repro/kernels/rmsnorm/rmsnorm.py:33", "model"),
+    "rope_3d": ("src/repro_torch/kernels/csrc/rope.cu",
+                "src/repro/kernels/rope/rope.py:38", "model"),
+    "flash_attention_3d": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:92", "model"),
+    "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_intra.cu",
+                  "src/repro/kernels/ssd/ssd.py:59", "model"),
 }
 FLAT = {"diag": "chain_diag_1d", "matrix": "chain_matrix_1d",
         "projective": "chain_project_1d"}
@@ -193,7 +264,7 @@ BATCH = {"diag": "chain_diag_batch_2d", "matrix": "chain_matrix_batch_2d",
 Q_FLAT = {"diag": "chain_diag_1d_q", "matrix": "chain_matrix_1d_q"}
 Q_BATCH = {"diag": "chain_diag_batch_2d_q", "matrix": "chain_matrix_batch_2d_q"}
 FLOAT_KERNELS = [k for k, v in KERNELS.items()
-                 if v[2] != "eager" and not k.endswith("_q")]
+                 if v[2] not in ("eager", "model") and not k.endswith("_q")]
 EAGER_KERNELS = [k for k, v in KERNELS.items() if v[2] == "eager"]
 
 
@@ -835,6 +906,279 @@ def primitives_phase(device: str = "cuda") -> tuple[dict, dict]:
     return counts, summary
 
 
+# -- the model stack: serve (hymba-1.5b) ------------------------------------------
+
+def _tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def expected_launches(cfg, gen: int) -> tuple[dict, dict]:
+    """(prefill, decode) launches of the model kernels for a hybrid model
+    of L layers: a layer's prefill runs rmsnorm_2d 5 times (the attention
+    norm, the SSM's gated norm, the two branch gains, the MLP norm),
+    rope_3d twice (q, k), flash_attention_3d and ssd_intra once and
+    vecadd_2d twice (two residual adds); the final norm adds one
+    rmsnorm_2d.  A decode step is the same without flash attention and
+    SSD (``_cached_attention`` and the recurrent step are plain torch)."""
+    L = cfg.n_layers
+    step = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
+            "flash_attention_3d": 0, "ssd_intra": 0, "vecadd_2d": 2 * L}
+    prefill = dict(step, flash_attention_3d=L, ssd_intra=L)
+    return prefill, {k: gen * v for k, v in step.items()}
+
+
+def hymba_phase(device: str = "cuda") -> tuple[dict, dict, dict]:
+    """Serve hymba-1.5b at full width from random weights (seed 0): batch
+    HYMBA_BATCH, HYMBA_PROMPT-token prompts, HYMBA_GEN tokens through
+    ``serve_batch``, launch counts zeroed before it and read after the
+    prefill and after the decode; then the same model on the plain
+    versions (``use_backend("ref")``) teacher-forced with the kernel
+    path's tokens, every step's logits within HYMBA_LOGITS_RTOL (relative
+    RMS).  Returns (the launches of the served run, the distinct sizes of
+    those launches by kernel, the summary)."""
+    cfg = configs.get(HYMBA_ARCH)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _tree_numel(params)
+    # the analytic count leaves out conv_b and one of the three per-head
+    # SSM vectors (models/config.py): 0.007 % of hymba-1.5b
+    if abs(n_params - cfg.param_count()) > 1e-3 * cfg.param_count():
+        raise SystemExit(f"hymba: {n_params} parameters, param_count() "
+                         f"{cfg.param_count()}")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (HYMBA_BATCH, HYMBA_PROMPT)).astype(np.int32)
+    # warm-up (cuBLAS handles, the kernels' first launches), not counted
+    serve_batch(cfg, params, prompts[:, :64], gen_tokens=2, model=model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    trace = {}
+    t0 = time.perf_counter()
+    tokens = serve_batch(cfg, params, prompts, gen_tokens=HYMBA_GEN,
+                         model=model, trace=trace)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total, sizes = _build.launch_counts(), _build.launch_sizes()
+    pre = trace["launches_prefill"]
+    dec = {k: total[k] - pre[k] for k in total}
+    want_pre, want_dec = expected_launches(cfg, HYMBA_GEN)
+    for name in MODEL_PATH_KERNELS:
+        if pre[name] != want_pre[name] or dec[name] != want_dec[name]:
+            raise SystemExit(f"hymba: {name} launched {pre[name]} + "
+                             f"{dec[name]}, expected {want_pre[name]} + "
+                             f"{want_dec[name]}")
+    require_launched(total, MODEL_PATH_KERNELS, "hymba serve")
+    logits = trace["logits"]
+    if tokens.shape != (HYMBA_BATCH, HYMBA_GEN) or not all(
+            lg.shape == (HYMBA_BATCH, cfg.vocab_size)
+            and bool(torch.isfinite(lg).all()) for lg in logits):
+        raise SystemExit("hymba: bad tokens or non-finite logits")
+
+    # the plain path on the card, teacher-forced with the kernel path's tokens
+    tok = torch.from_numpy(tokens).long().to(device)
+    with dispatch.use_backend("ref"):
+        _build.reset_launch_counts()
+        cache = model.init_cache(HYMBA_BATCH, HYMBA_PROMPT + HYMBA_GEN,
+                                 device=device)
+        lg, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(prompts).long().to(device)},
+            cache)
+        ref_logits = [lg]
+        for i in range(HYMBA_GEN):
+            lg, cache = model.decode(params, tok[:, i], HYMBA_PROMPT + i,
+                                     cache)
+            ref_logits.append(lg)
+        torch.cuda.synchronize()
+        if any(_build.launch_counts().values()):
+            raise SystemExit("hymba: the plain path launched a kernel")
+    rel_rms, max_abs, agree = [], [], []
+    for a, b in zip(logits, ref_logits):
+        d = (a - b).double()
+        rel_rms.append(float(d.pow(2).mean().sqrt()
+                             / b.double().pow(2).mean().sqrt()))
+        max_abs.append(float(d.abs().max()))
+        agree.append(float((a.argmax(-1) == b.argmax(-1)).double().mean()))
+    if max(rel_rms) > HYMBA_LOGITS_RTOL:
+        raise SystemExit(f"hymba: logits {max(rel_rms)} (relative RMS) from "
+                         f"the plain path, above {HYMBA_LOGITS_RTOL}")
+    decode_ms = trace["decode_ms"]
+    summary = {
+        "phase": "serve (hymba-1.5b)", "arch": cfg.name,
+        "params": n_params, "param_count": cfg.param_count(),
+        "dtype": cfg.dtype, "batch": HYMBA_BATCH, "prompt": HYMBA_PROMPT,
+        "gen_tokens": HYMBA_GEN, "init_s": init_s,
+        "prefill_ms": trace["prefill_ms"],
+        "prefill_tokens_per_s": HYMBA_BATCH * HYMBA_PROMPT
+        / trace["prefill_ms"] * 1e3,
+        "decode_ms_per_token": float(np.median(decode_ms)),
+        "decode_ms_steps": decode_ms,
+        "decode_tokens_per_s": HYMBA_BATCH * len(decode_ms)
+        / sum(decode_ms) * 1e3,
+        "wall_s": wall_s,
+        "served_tokens_per_s": HYMBA_BATCH * HYMBA_GEN / wall_s,
+        "peak_memory_GB": peak / 1e9,
+        "launches_prefill": {k: pre[k] for k in MODEL_PATH_KERNELS},
+        "launches_decode": {k: dec[k] for k in MODEL_PATH_KERNELS},
+        "logits_rel_rms_vs_plain": rel_rms, "logits_rel_rms_max": max(rel_rms),
+        "logits_rtol": HYMBA_LOGITS_RTOL, "logits_max_abs_diff": max_abs,
+        "greedy_agreement": agree,
+        "greedy_agreement_mean": float(np.mean(agree)),
+        "tokens_first_row": tokens[0].tolist(),
+    }
+    del params, cache, logits, ref_logits
+    torch.cuda.empty_cache()
+    return total, sizes, summary
+
+
+def model_case(name: str, shape: tuple, dtype: torch.dtype,
+               rng: np.random.Generator, size: str, *, window=None,
+               pos0: int = 0, check_only: bool = False) -> dict:
+    """Check one model kernel against its plain version on the card at a
+    path shape (rope_3d bit for bit, its tables from position ``pos0``;
+    the others within ``torch_bounds``), then time it beside its plain
+    version, one
+    PyTorch call where one computes the function (``rms_norm``,
+    ``scaled_dot_product_attention`` with the same mask) or a composite
+    (RoPE, SSD), and its bound."""
+    dev = torch.device("cuda")
+    item = torch.empty((), dtype=dtype).element_size()
+
+    def randn(*s, scale=1.0, dt=dtype):
+        return (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                .to(dev) * scale).to(dt)
+
+    library = "composite"
+    if name == "rmsnorm_2d":
+        m, n = shape
+        x = randn(m, n, scale=3.0)
+        g = (torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+             .to(dev))
+        g_lib = g.to(dtype)
+        run = lambda: rms_k.rmsnorm_2d(x, g, eps=1e-5)   # noqa: E731
+        plain = lambda: rms_ref.rmsnorm(x, g, 1e-5)      # noqa: E731
+        lib = lambda: F.rms_norm(x, (n,), g_lib, 1e-5)   # noqa: E731
+        library = "rms_norm"
+        nbytes, ops, peak = 2 * m * n * item + 4 * n, 4 * m * n, FP32_OPS_PER_S
+
+        def bound(want):
+            return bounds.rmsnorm_bound(want, n)
+    elif name == "rope_3d":
+        bh, s, d = shape
+        x = randn(bh, s, d)
+        pos = torch.arange(pos0, pos0 + s, device=dev)
+        cos, sin = (t.to(dtype).contiguous()
+                    for t in rope_ref.rope_tables(pos, d))
+        cos_f, sin_f = (torch.cat([t, t], dim=-1) for t in (cos, sin))
+        run = lambda: rope_k.rope_3d(x, cos, sin)       # noqa: E731
+        plain = lambda: rope_ref.rope(x, cos, sin)      # noqa: E731
+
+        def lib():   # the rotate-half form: x cos + rotate_half(x) sin
+            x1, x2 = x[..., :d // 2], x[..., d // 2:]
+            return x * cos_f + torch.cat([-x2, x1], dim=-1) * sin_f
+        nbytes = 2 * bh * s * d * item + 2 * s * (d // 2) * item
+        ops, peak, bound = 6 * bh * s * (d // 2), FP32_OPS_PER_S, None
+    elif name == "flash_attention_3d":
+        bhq, bhkv, s, d = shape
+        t = s
+        q, k, v = randn(bhq, s, d), randn(bhkv, t, d), randn(bhkv, t, d)
+        scale = d ** -0.5
+        run = lambda: fa_k.flash_attention_3d(        # noqa: E731
+            q, k, v, scale=scale, causal=True, window=window)
+        plain = lambda: fa_ref.flash_attention(        # noqa: E731
+            q, k, v, scale=scale, causal=True, window=window)
+        b = HYMBA_BATCH if bhq % HYMBA_BATCH == 0 else 1
+        q4 = q.view(b, bhq // b, s, d)
+        k4, v4 = k.view(b, bhkv // b, t, d), v.view(b, bhkv // b, t, d)
+        qp, kp = torch.arange(s, device=dev), torch.arange(t, device=dev)
+        mask = kp[None, :] <= qp[:, None]
+        if window is not None:
+            mask &= kp[None, :] > qp[:, None] - window
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q4, k4, v4, attn_mask=mask, scale=scale, enable_gqa=True)
+        library = "scaled_dot_product_attention"
+        live = int(mask.sum()) * bhq
+        nbytes = (2 * bhq * s * d + 2 * bhkv * t * d) * item
+        ops, peak = 4 * d * live, BF16_OPS_PER_S
+
+        def bound(want):
+            return bounds.flash_bound(q, k, v, scale, want)
+    else:   # ssd_intra
+        bc, lc, h, p, n = shape
+        xdt = randn(bc, lc, h, p)
+        bb, cc = randn(bc, lc, n), randn(bc, lc, n)
+        a = -torch.from_numpy(rng.uniform(0.001, 0.1, (bc, lc, h))
+                              .astype(np.float32)).to(dev)
+        cum = torch.cumsum(a, dim=1)
+        run = lambda: ssd_k.ssd_intra(xdt, bb, cc, cum)   # noqa: E731
+        plain = lambda: ssd_ref.ssd_intra(xdt, bb, cc, cum)  # noqa: E731
+        tri = torch.tril(torch.ones(lc, lc, dtype=torch.bool, device=dev))
+
+        def lib():   # the JAX package's XLA path: bf16 att, bmm-shaped
+            g = torch.matmul(cc, bb.transpose(1, 2)).float()
+            diff = cum[:, :, None, :] - cum[:, None, :, :]
+            decay = torch.exp(diff.masked_fill(~tri[None, :, :, None],
+                                               float("-inf")))
+            att = (g[..., None] * decay).to(dtype)
+            y = torch.einsum("cijh,cjhp->cihp", att, xdt).float()
+            w = (xdt.float() * torch.exp(cum[:, -1:, :] - cum)[..., None])
+            s_c = torch.einsum("cjhp,cjn->chpn", w.to(dtype), bb).float()
+            return y, s_c
+        pairs = lc * (lc + 1) // 2
+        nbytes = (bc * lc * h * p + 2 * bc * lc * n) * item \
+            + 4 * bc * lc * h + 4 * bc * lc * h * p + 4 * bc * h * p * n
+        ops = bc * h * (pairs * (2 * n + 2 * p + 2) + 2 * lc * p * n)
+        peak = BF16_OPS_PER_S
+        bound = None
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if name == "rope_3d":
+        if not same_bits(got, want):
+            raise SystemExit(f"{name} {shape}: kernel != plain version")
+        err = float((got.float() - want.float()).abs().max())
+    elif name == "ssd_intra":
+        by, bs = bounds.ssd_bounds(xdt, bb, cc, cum, ssd_ref.ssd_intra)
+        if not (bool(((got[0] - want[0]).abs() <= by).all())
+                and bool(((got[1] - want[1]).abs() <= bs).all())):
+            raise SystemExit(f"{name} {shape}: kernel outside its bound")
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+    else:
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= bound(want)).all()) \
+                or not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"{name} {shape}: kernel outside its bound")
+        err = float(diff.max())
+    row = {"kernel": name, "size": size, "shape": list(shape),
+           "dtype": str(dtype).removeprefix("torch."), "window": window,
+           "pos0": pos0, "within_bound": True, "max_abs_err": err}
+    if check_only:
+        emit(row)
+        return row
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
+        time_ms(run), time_ms(plain), time_ms(lib)
+    composite = library == "composite"
+    row.update({"ms": ms, "bytes": nbytes, "ops": ops,
+                "GB/s": nbytes / ms / 1e6, "TFLOP/s": ops / ms / 1e9,
+                "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "plain_ms": plain_ms,
+                "library_ms": None if composite else lib_ms,
+                "composite_ms": lib_ms if composite else None,
+                "library": library, "host_us": host_us,
+                "plain_host_us": plain_us, "library_host_us": lib_us})
+    emit(row)
+    return row
+
+
 # -- per-kernel checks and timings ---------------------------------------------
 
 _L2_FLUSH = None
@@ -1094,8 +1438,10 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
 
 
 def eager_case(name: str, shape: tuple, dtype: torch.dtype,
-               rng: np.random.Generator, size: str) -> dict:
-    """Check and time one eager kernel: ``affine_2d``/``vecadd_2d`` at
+               rng: np.random.Generator, size: str, *,
+               check_only: bool = False) -> dict:
+    """Check one eager kernel bit for bit against its plain version, then
+    time it unless ``check_only``: ``affine_2d``/``vecadd_2d`` at
     (M, N), ``matmul_2d`` at (M, K, N), inputs and output of ``dtype``;
     the yardstick is one PyTorch call (``addcmul`` / ``add`` /
     ``matmul``, TF32 off)."""
@@ -1135,6 +1481,12 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
         raise SystemExit(f"{name} {shape} {dtype}: kernel != plain version")
     err = float((got.float() - want.float()).abs().max()) if got.numel() \
         else 0.0
+    if check_only:
+        row = {"kernel": name, "size": size, "shape": list(shape),
+               "dtype": str(dtype).removeprefix("torch."), "equal": True,
+               "max_abs_err": err}
+        emit(row)
+        return row
     lib_err = float((got.float() - lib().float()).abs().max())
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
@@ -1182,6 +1534,8 @@ def main() -> int:
     eager_counts, summary = primitives_phase()
     emit(summary)
     require_launched(eager_counts, EAGER_KERNELS, "primitives")
+    hymba_counts, hymba_sizes, summary = hymba_phase()
+    emit(summary)
 
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -1214,6 +1568,8 @@ def main() -> int:
 
     bf16, f32 = torch.bfloat16, torch.float32
     bench, cloud = "kernel_bench", "cloud"
+    # the sizes the eager and model kernels are checked at, from here on
+    _build.reset_launch_counts()
     # the last row of each kernel is the kernels line's
     for name, shape, dtype, size in (
             ("affine_2d", (1024, 1024), bf16, bench),
@@ -1227,6 +1583,50 @@ def main() -> int:
             ("matmul_2d", (1024, 1024, 1024), bf16, bench)):
         rows[name] = eager_case(name, shape, dtype, rng, size)
         rows[name, size] = rows[name]
+    # the residual adds of the hymba-1.5b serve (batch 4, prompt 2048:
+    # 8192 rows), prefill and decode, beside the kernels line's row
+    rows_n = HYMBA_BATCH * HYMBA_PROMPT
+    vecadd_hymba = eager_case("vecadd_2d", (rows_n, 1600), bf16, rng,
+                              "hymba prefill residual add")
+    eager_case("vecadd_2d", (HYMBA_BATCH, 1600), bf16, rng,
+               "hymba decode residual add", check_only=True)
+    # the model kernels at every shape the serve gives them; the last row
+    # of each kernel is the kernels line's
+    last = HYMBA_PROMPT + HYMBA_GEN - 1
+    for name, shape, dtype, size, window, pos0, only in (
+            ("rmsnorm_2d", (HYMBA_BATCH, 3200), f32,
+             "decode SSM gated norm", None, 0, True),
+            ("rmsnorm_2d", (rows_n, 3200), f32, "SSM gated norm", None, 0,
+             False),
+            ("rmsnorm_2d", (HYMBA_BATCH, 1600), bf16, "decode", None, 0,
+             False),
+            ("rmsnorm_2d", (rows_n, 1600), bf16, "prefill", None, 0, False),
+            ("rope_3d", (20, 1, 64), bf16, "decode k", None, last, True),
+            ("rope_3d", (100, 1, 64), bf16, "decode q", None, last, True),
+            ("rope_3d", (20, HYMBA_PROMPT, 64), bf16, "prefill k", None, 0,
+             False),
+            ("rope_3d", (100, HYMBA_PROMPT, 64), bf16, "prefill q", None, 0,
+             False),
+            ("flash_attention_3d", (100, 20, 2000, 64), bf16,
+             "prompt 2000, window edge inside a tile", 1000, 0, True),
+            ("flash_attention_3d", (100, 20, 2000, 64), bf16,
+             "prompt 2000", 1024, 0, True),
+            ("flash_attention_3d", (100, 20, HYMBA_PROMPT, 64), bf16,
+             "prefill", 1024, 0, False),
+            ("ssd_intra", (32, 256, 50, 64, 16), bf16, "prefill", None, 0,
+             False)):
+        rows[name] = model_case(name, shape, dtype, rng, size, window=window,
+                                pos0=pos0, check_only=only)
+    # every size the serve launched a kernel with was checked above
+    checked = _build.launch_sizes()
+    for name in MODEL_PATH_KERNELS:
+        missed = hymba_sizes[name] - checked[name]
+        if missed:
+            raise SystemExit(f"{name}: the hymba serve launched it with sizes "
+                             f"{sorted(missed)}, which no check held against "
+                             f"its plain version")
+    emit({"phase": "hymba shapes checked",
+          "sizes": {k: sorted(hymba_sizes[k]) for k in MODEL_PATH_KERNELS}})
     # the primitives phase's comparison with the kernels alone: the
     # sequential pipeline's four launches against the fused chain's one
     fused = kernel_case("chain_matrix_1d", (CLOUD_POINTS, 2), rng, cloud)
@@ -1241,8 +1641,10 @@ def main() -> int:
         r = rows[name]
         # each kernel's launches come from the path that runs it: the
         # mixed serve for the float chain kernels, the q-mixed serve for
-        # the int16 ones, the primitives phase for the eager ones
-        launches = eager_counts[name] if kind == "eager" \
+        # the int16 ones, the primitives phase for the eager ones, the
+        # hymba-1.5b serve (prefill and decode) for the model kernels
+        launches = hymba_counts[name] if kind == "model" \
+            else eager_counts[name] if kind == "eager" \
             else q_counts[name] if name.endswith("_q") else counts[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
@@ -1250,6 +1652,7 @@ def main() -> int:
                         "launches_q_mixed": q_counts[name],
                         "launches_graphics": graphics_counts[name],
                         "launches_primitives": eager_counts[name],
+                        "launches_hymba": hymba_counts[name],
                         "shape": r["shape"], "dtype": r.get("dtype", "float32"),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1257,6 +1660,10 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         "composite_ms": r["composite_ms"],
                         "library": r["library"]})
+    kernels[list(KERNELS).index("vecadd_2d")]["hymba_prefill"] = {
+        k: vecadd_hymba[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

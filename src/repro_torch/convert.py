@@ -1,11 +1,16 @@
 """Carry state across from the JAX package.
 
-This system has no model weights: a chain's recorded primitives and its
+The geometry stack has no weights: a chain's recorded primitives and its
 host fold are the state both packages must share.  A reference chain is
 handed over as its plain attributes (``dim``, ``kinds``, ``params`` --
 numbers, tuples, lists and numpy arrays), so this module never imports
 the JAX package; the folds then agree bit for bit, because both packages
 run the same numpy fold.
+
+The model stack's parameters come across with
+``model_params_from_reference``: the JAX parameter pytree as numpy
+arrays (``jax.tree.map(np.asarray, params)``), its layer axis unstacked
+into the port's list of per-layer dicts.
 """
 from __future__ import annotations
 
@@ -33,3 +38,35 @@ def folded_to_torch(folded, device: str | torch.device,
     int16 Qm.n words of ``quantize_fold`` with ``dtype=np.int16``."""
     return tuple(torch.as_tensor(np.ascontiguousarray(f, dtype),
                                  device=device) for f in folded)
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; bfloat16 arrays (numpy
+    holds them as an extension dtype) go across by their bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def model_params_from_reference(cfg, params, *,
+                                 device: str | torch.device = "cuda") -> dict:
+    """The port's parameters for a JAX ``Model.init`` pytree given as numpy
+    arrays: every leaf as a tensor of the same dtype on ``device`` (the
+    GPU unless the caller asks for the CPU), and ``params["layers"]`` --
+    stacked by ``jax.vmap`` with a leading axis of ``cfg.n_layers`` --
+    split into a list of one dict per layer."""
+    from repro_torch.kernels import dispatch
+    dev = dispatch.resolve_device(device)
+    out = {k: _tree(v, lambda a: _tensor(a, dev))
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = [_tree(params["layers"], lambda a, i=i: _tensor(a[i], dev))
+                     for i in range(cfg.n_layers)]
+    return out

@@ -12,7 +12,9 @@ This module depends on numpy only.  ``repro_torch.core`` (the chain
 compiler) and ``repro_torch.serving`` (the engine) both raise these;
 ``repro_torch.serving.errors`` re-exports the taxonomy.  The codes and
 messages are the same as the JAX package's, so logs from either read
-alike.
+alike.  ``NotPortedError`` stands apart: it marks a part of the model
+stack the port does not run yet and names the ROADMAP item that ports
+it.
 """
 from __future__ import annotations
 
@@ -104,3 +106,17 @@ def check_points(points, dim: int, *, ticket: int | None = None) -> None:
 def _is_float64(dtype) -> bool:
     # torch dtypes are not numpy dtypes; compare by name for both
     return str(dtype).rsplit(".", 1)[-1] == "float64"
+
+
+class NotPortedError(NotImplementedError):
+    """A part of the JAX package's model stack that the port does not run
+    yet: the MoE, encoder-decoder and VLM families (``models.build``) and
+    the int8 KV cache (``attention.cache_spec``).  ``roadmap`` names the
+    ROADMAP.md item that ports it; ``code`` is "not-ported"."""
+    code = "not-ported"
+
+    def __init__(self, what: str, roadmap: str):
+        self.what = what
+        self.roadmap = roadmap
+        super().__init__(f"{what} is not ported to PyTorch yet "
+                         f"(ROADMAP.md {roadmap})")

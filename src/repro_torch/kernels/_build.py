@@ -4,9 +4,13 @@ Each ``csrc/*.cu`` source has a plain C interface and builds on its own
 into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -split-compile=0 \\
+         -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
 
-at first use, from the sources in the checkout only.  The library name
+at first use, from the sources in the checkout only (``-split-compile=0``
+runs one source's optimisation passes on every core, so a source with
+many template instances, such as ``flash_attention.cu``, does not hold
+the build for long after the others).  The library name
 carries a hash of the sources, so an edited kernel is rebuilt and a
 stale build is never loaded.  ``build_all`` starts one ``nvcc`` per
 source, all together, and waits for them.  A failed build raises; no
@@ -15,7 +19,9 @@ caller falls back to the plain version.
 ``CudaKernel`` is one C entry point: it launches on PyTorch's current
 stream, raises when the C function reports a CUDA error, and counts its
 launches (``launch_counts``/``reset_launch_counts``), so a run can show
-that its path went through the kernels.
+that its path went through the kernels; it also keeps the size
+arguments of its launches (``launch_sizes``), so a run can show that
+each shape its path launched was held against the plain version.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -33,7 +40,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: the git-ignored build directory at the root of the checkout
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -114,7 +121,7 @@ class CudaKernel:
         self.source, self.name = source, name
         self.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * n_sizes
                          + [ctypes.c_void_p])
-        self.launches = 0
+        self.n_ptrs, self.launches, self.sizes = n_ptrs, 0, set()
         self._fn = None
         KERNELS[name] = self
 
@@ -132,6 +139,7 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.name}: {torch.cuda.CudaError(rc)}")
         self.launches += 1
+        self.sizes.add(args[self.n_ptrs:])
 
 
 def check_operands(x: torch.Tensor, *params: torch.Tensor, d: int,
@@ -173,12 +181,26 @@ def check_dense(*tensors: torch.Tensor) -> int:
     return DENSE_DTYPES[first.dtype]
 
 
+def f32_bits(v: float) -> int:
+    """A float as the int64 the C entry takes for it: its float32 bits
+    (the C side reads them back with ``repro::f32_from_bits``)."""
+    return struct.unpack("<i", struct.pack("<f", float(v)))[0]
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last reset, by kernel name."""
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def launch_sizes() -> dict[str, set[tuple]]:
+    """The distinct size arguments (everything after the pointers: shapes,
+    scalars' bits, the dtype flag) each kernel was launched with since the
+    last reset, by kernel name."""
+    return {name: set(k.sizes) for name, k in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 and forget its sizes."""
     for k in KERNELS.values():
         k.launches = 0
+        k.sizes.clear()

@@ -23,6 +23,15 @@ inline unsigned blocks_for(int64_t work, int64_t cap) {
   return static_cast<unsigned>(b < cap ? b : cap);
 }
 
+// A float handed over as the int64 of its float32 bits (the C entries
+// take pointers and int64 sizes only).
+inline float f32_from_bits(int64_t bits) {
+  const uint32_t u = static_cast<uint32_t>(bits);
+  float f;
+  __builtin_memcpy(&f, &u, sizeof f);
+  return f;
+}
+
 inline unsigned rows_for(int64_t rows) {
   return static_cast<unsigned>(rows < kMaxBlocksY ? rows : kMaxBlocksY);
 }

@@ -15,15 +15,38 @@ on a CUDA tensor is an explicit request (the on-card comparison in
 ``chip_smoke.py``); ``backend="cuda"`` on a CPU tensor raises.  There is
 no silent degrade from one to the other.
 
+``use_backend("ref")`` sets the default for every op called inside it,
+as the JAX package's global backend does: the model stack picks its
+kernels that way (``ssm._ssd_chunked`` reads no per-call backend), and
+``chip_smoke.py`` runs the whole model on the plain versions on the card
+to hold the kernel path against it.  A per-call ``backend`` still wins.
+
 ``device`` is the other half: entry points that create tensors default
 to ``"cuda"`` and raise when no GPU is present; they run on the CPU only
 when the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 BACKENDS = ("cuda", "ref")
+#: the backend every op takes when its call names none (None: by device)
+_BACKEND: str | None = None
+
+
+@contextlib.contextmanager
+def use_backend(name: str | None):
+    """Run every op inside on ``name`` unless its call names a backend."""
+    global _BACKEND
+    if name is not None and name not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {name!r}")
+    prev, _BACKEND = _BACKEND, name
+    try:
+        yield
+    finally:
+        _BACKEND = prev
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -51,7 +74,8 @@ def place(points, device: str | torch.device = "cuda") -> torch.Tensor:
 def backend_for(device: torch.device, backend: str | None = None) -> str:
     """The backend that runs on ``device`` (a tensor's or a server's): the
     kernel on CUDA, the plain version on the CPU, unless ``backend`` says
-    which."""
+    which (or ``use_backend`` set a default)."""
+    backend = backend or _BACKEND
     if backend is None:
         return "cuda" if device.type == "cuda" else "ref"
     if backend not in BACKENDS:

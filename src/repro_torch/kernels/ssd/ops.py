@@ -1,0 +1,26 @@
+"""Public SSD intra-chunk entry.
+
+Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
+launches ``ssd_intra``, a CPU tensor (or ``backend="ref"``, or
+``use_backend("ref")`` around the model) runs the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.ssd import ref
+from repro_torch.kernels.ssd import ssd as K
+
+
+def ssd_intra(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+              cum: torch.Tensor, *, backend: str | None = None):
+    """Mamba-2 SSD intra-chunk core: the within-chunk term of the
+    state-space dual (scores C B^T gated by the segment-sum decay ``cum``,
+    applied to ``xdt``) and the per-chunk state contribution.  Shapes as
+    in ``ref.ssd_intra``; both outputs float32."""
+    be = dispatch.backend_for(xdt.device, backend)
+    if be == "ref":
+        return ref.ssd_intra(xdt, b_in, c_in, cum)
+    return K.ssd_intra(xdt.contiguous(), b_in.contiguous(),
+                       c_in.contiguous(), cum.to(torch.float32).contiguous())

@@ -1,0 +1,187 @@
+"""GQA attention with RoPE, sliding windows and ring-buffer KV caches, the
+port of the JAX package's ``models/attention.py`` (its serving half).
+
+Two entry modes share one parameter set:
+  * ``prefill``     -- fills a cache (linear for full attention, ring
+                       buffer for SWA) and returns outputs for every
+                       position, through the ``flash_attention_3d`` kernel;
+  * ``decode_step`` -- one new token against the cache
+                       (``_cached_attention``, plain torch, as the JAX
+                       package's is plain jnp).
+
+q and k go through the ``rope_3d`` kernel as contiguous (B, H, S, D)
+buffers: ``_split_heads`` copies the heads out of the (B, S, H*D)
+product once, where the JAX package keeps a transposed view.  Caches are
+updated in place (the JAX package returns new arrays): a decode step
+writes one slot instead of copying the cache.  ``attend``,
+``cross_attend`` and ``encode_kv`` (training and the enc-dec family)
+come with later slices; the int8 KV cache raises ``NotPortedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.errors import NotPortedError
+from repro_torch.kernels import attention as k_attention
+from repro_torch.kernels import rope as k_rope
+from repro_torch.kernels.flash_attention import ref as attn_ref
+from repro_torch.kernels.rope import ref as rope_ref
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import normal
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    """wq (d, Hq*D), wk and wv (d, Hkv*D), wo (Hq*D, d), normal with the
+    JAX package's scales."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = d ** -0.5
+    return {
+        "wq": normal(generator, (d, hq * hd), scale, dtype),
+        "wk": normal(generator, (d, hkv * hd), scale, dtype),
+        "wv": normal(generator, (d, hkv * hd), scale, dtype),
+        "wo": normal(generator, (hq * hd, d), (hq * hd) ** -0.5, dtype),
+    }
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, hd).transpose(1, 2).contiguous()
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor, use_rope: bool):
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
+    if use_rope:
+        cos, sin = rope_ref.rope_tables(positions, cfg.head_dim,
+                                        cfg.rope_theta, torch.float32)
+        q = k_rope(q, cos, sin)
+        k = k_rope(k, cos, sin)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# KV cache (linear for full attention, ring buffer for SWA)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """The shape of one layer's KV cache."""
+
+    batch: int
+    n_kv_heads: int
+    length: int          # cache slots: T_max (full) or window (SWA)
+    head_dim: int
+    ring: bool           # True for SWA ring buffer
+    dtype: str = "bfloat16"
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> CacheSpec:
+    """A ring of ``window`` slots when the window is shorter than
+    ``max_len``, else ``max_len`` linear slots, in the activation dtype."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotPortedError("the int8 KV cache (kv_cache_dtype='int8')",
+                             "queue 1 item 10")
+    ring = cfg.window is not None and cfg.window < max_len
+    return CacheSpec(batch, cfg.n_kv_heads, cfg.window if ring else max_len,
+                     cfg.head_dim, ring, cfg.dtype)
+
+
+def init_cache(spec: CacheSpec, device: torch.device) -> dict:
+    """Zeroed k/v (B, Hkv, slots, D) and ``kpos`` (slots,) int32, the
+    absolute position held in each slot (-1 = empty)."""
+    shape = (spec.batch, spec.n_kv_heads, spec.length, spec.head_dim)
+    dt = getattr(torch, spec.dtype)
+    return {"kpos": torch.full((spec.length,), -1, dtype=torch.int32,
+                               device=device),
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                  start: int) -> dict:
+    s = k_new.shape[2]
+    cache["k"][:, :, start:start + s] = k_new.to(cache["k"].dtype)
+    cache["v"][:, :, start:start + s] = v_new.to(cache["v"].dtype)
+    cache["kpos"][start:start + s] = torch.arange(
+        start, start + s, dtype=torch.int32, device=cache["kpos"].device)
+    return cache
+
+
+def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                start: int, window: int) -> dict:
+    s = k_new.shape[2]
+    positions = torch.arange(start, start + s, dtype=torch.int32,
+                             device=cache["kpos"].device)
+    if s >= window:      # only the last `window` entries survive
+        k_new, v_new = k_new[:, :, -window:], v_new[:, :, -window:]
+        positions = positions[-window:]
+    slots = (positions % window).long()
+    cache["k"][:, :, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][:, :, slots] = v_new.to(cache["v"].dtype)
+    cache["kpos"][slots] = positions
+    return cache
+
+
+def _cached_attention(q: torch.Tensor, cache: dict, qpos: torch.Tensor,
+                      window: int | None) -> torch.Tensor:
+    """Attend q (B, Hq, S, D) over the cache slots by their absolute
+    positions (linear and ring layouts alike), in float32."""
+    kpos = cache["kpos"]
+    group = q.shape[1] // cache["k"].shape[1]
+    mask = (kpos >= 0)[None, :] & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    k = attn_ref._expand_kv(cache["k"], group)
+    v = attn_ref._expand_kv(cache["v"], group)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    logits = logits * (q.shape[-1] ** -0.5)
+    logits = torch.where(mask[None, None], logits,
+                         torch.full((), -1e30, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+            start: int = 0):
+    """Process a prompt x (B, S, d): fill the cache, return the
+    per-position outputs (B, S, d) and the cache."""
+    b, s, _ = x.shape
+    positions = torch.arange(start, start + s, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
+    out = k_attention(q, k, v, causal=True, window=cfg.window, q_offset=0)
+    ring = cfg.window is not None and cache["kpos"].shape[0] == cfg.window
+    if ring:
+        cache = _write_ring(cache, k, v, start, cfg.window)
+    else:
+        cache = _write_linear(cache, k.to(cfg.activation_dtype),
+                              v.to(cfg.activation_dtype), start)
+    return _merge_heads(out) @ params["wo"], cache
+
+
+def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+                pos: int):
+    """One token x (B, 1, d) at absolute position ``pos``: writes slot
+    ``pos % window`` of a ring (``pos`` of a linear cache) and attends."""
+    positions = torch.tensor([pos], device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
+    window = cfg.window
+    ring = window is not None and cache["kpos"].shape[0] == window
+    if ring:
+        slot = pos % window
+        cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+        cache["kpos"][slot] = pos
+    else:
+        cache = _write_linear(cache, k.to(cfg.activation_dtype),
+                              v.to(cfg.activation_dtype), pos)
+    out = _cached_attention(q, cache, positions, window)
+    return _merge_heads(out) @ params["wo"], cache

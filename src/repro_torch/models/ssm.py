@@ -1,0 +1,187 @@
+"""Mamba-2 (SSD, state-space duality) block -- arXiv:2405.21060; the port
+of the JAX package's ``models/ssm.py`` (its serving half).
+
+The SSD chunked algorithm evaluates the recurrence as blocked matrix
+algebra: an intra-chunk quadratic, attention-like term (the ``ssd_intra``
+kernel) and an inter-chunk recurrence on the compressed per-chunk states.
+
+Layout: d_inner = expand * d_model, heads h = d_inner / headdim, one
+B/C group, state size n = cfg.ssm_state.
+
+Cache (decode), per layer:
+    state (B, h, p, n)    -- the SSM state, float32
+    conv  (B, w-1, di+2n) -- the causal conv's tail
+
+Differences from the JAX package, none in the function computed:
+  * one code path: the kernel for CUDA tensors, its plain version on the
+    CPU or under ``dispatch.use_backend("ref")`` (the JAX package picks
+    between its kernel and an inline XLA path by the global backend);
+  * the inter-chunk scan is a sequential loop over the chunks where the
+    JAX package runs ``associative_scan``: the same products and sums,
+    added in another order, so the states agree to float32 rounding;
+  * the gated norm (float32 rows of width d_inner) runs through the
+    ``rmsnorm_2d`` op, the kernel on the card: it is the same function as
+    the JAX package's ``rmsnorm_ref`` call;
+  * the sharding constraints (no-ops on one device) are dropped.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rmsnorm as k_rmsnorm
+from repro_torch.kernels import ssd_intra
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import normal
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    """The block's parameters with the JAX package's scales and constants."""
+    d = cfg.d_model
+    di, n, h, w = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
+    dev = generator.device
+    proj_out = 2 * di + 2 * n + h          # z, xBC, dt
+    return {
+        "in_proj": normal(generator, (d, proj_out), d ** -0.5, dtype),
+        "conv_w": normal(generator, (w, di + 2 * n), w ** -0.5, dtype),
+        "conv_b": torch.zeros((di + 2 * n,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
+                                          device=dev)),
+        "D": torch.ones((h,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "norm_gain": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": normal(generator, (di, d), di ** -0.5, dtype),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: torch.Tensor | None = None):
+    """Depthwise causal conv over (B, S, Ch); tail (B, w-1, Ch) prepends
+    history.  Returns (silu(conv + b), new_tail), in xbc's dtype."""
+    width = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((xbc.shape[0], width - 1, xbc.shape[2]),
+                           dtype=xbc.dtype, device=xbc.device)
+    xfull = torch.cat([tail.to(xbc.dtype), xbc], dim=1)
+    out = sum(xfull[:, i:i + xbc.shape[1]] * w[i][None, None]
+              for i in range(width))
+    new_tail = xfull[:, -(width - 1):] if width > 1 else tail
+    return F.silu(out + b[None, None].to(out.dtype)), new_tail
+
+
+def _split(proj: torch.Tensor, cfg: ModelConfig):
+    di, n = cfg.ssm_inner, cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * n], proj[..., 2 * di + 2 * n:]
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad dim 1 (the sequence) of a (B, S, ...) tensor by ``pad``."""
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk: int):
+    """SSD as chunk-parallel matrix algebra plus a scan over the chunks.
+
+    x (B, S, h, p), dt (B, S, h), a_coef = dt*A (B, S, h) negative,
+    b_in/c_in (B, S, n).  Returns y (B, S, h, p) float32 and the final
+    state (B, h, p, n) float32."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    cdtype = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    pad = (-s) % chunk
+    if pad:
+        x, dt, a_coef, b_in, c_in = (_pad_seq(t, pad)
+                                     for t in (x, dt, a_coef, b_in, c_in))
+    sp = s + pad
+    nc, lc = sp // chunk, chunk
+    xc = x.reshape(bsz, nc, lc, h, p)
+    dtc = dt.float().reshape(bsz, nc, lc, h)
+    ac = a_coef.float().reshape(bsz, nc, lc, h)
+    bc = b_in.reshape(bsz, nc, lc, n)
+    cc = c_in.reshape(bsz, nc, lc, n)
+    cum = torch.cumsum(ac, dim=2)                          # (B, nc, lc, h)
+    xdt = (xc.float() * dtc[..., None]).to(cdtype)
+
+    y_flat, s_flat = ssd_intra(
+        xdt.reshape(bsz * nc, lc, h, p), bc.reshape(bsz * nc, lc, n),
+        cc.reshape(bsz * nc, lc, n), cum.reshape(bsz * nc, lc, h))
+    y_intra = y_flat.reshape(bsz, nc, lc, h, p)
+    s_c = s_flat.reshape(bsz, nc, h, p, n)
+
+    # -- inter-chunk: state_c = state_{c-1} * exp(cum_last_c) + S_c --------
+    decays = torch.exp(cum[:, :, -1, :])[..., None, None]  # (B, nc, h, 1, 1)
+    states = [s_c[:, 0]]
+    for c in range(1, nc):
+        states.append(states[-1] * decays[:, c] + s_c[:, c])
+    states = torch.stack(states, dim=1)
+    state_prev = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]],
+                           dim=1)
+    y_inter = torch.einsum("bcin,bchpn->bcihp", cc.float(), state_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, sp, h, p)[:, :s]
+    return y, states[:, -1]
+
+
+def forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+            conv_tail: torch.Tensor | None = None,
+            return_state: bool = False):
+    """Full-sequence SSD pass; x (B, S, d) -> y (B, S, d) (and the cache
+    {state, conv} with ``return_state``)."""
+    proj = x @ params["in_proj"]
+    z, xbc, dt_raw = _split(proj, cfg)
+    xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                 conv_tail)
+    di, n, h, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    xs = xbc[..., :di].reshape(*xbc.shape[:2], h, p)
+    b_in = xbc[..., di:di + n]
+    c_in = xbc[..., di + n:]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
+    a = -torch.exp(params["A_log"])[None, None]            # (1, 1, h)
+    y, state = _ssd_chunked(xs, dt, dt * a, b_in, c_in, cfg.ssm_chunk)
+    y = y + params["D"][None, None, :, None] * xs.float()
+    y = y.reshape(*x.shape[:2], di)
+    y = k_rmsnorm(y * F.silu(z.float()), params["norm_gain"], eps=cfg.norm_eps)
+    out = y.to(x.dtype) @ params["out_proj"]
+    if return_state:
+        return out, {"state": state, "conv": new_tail}
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, device: torch.device) -> dict:
+    """A zero state (B, h, p, n) float32 and conv tail (B, w-1, di+2n)."""
+    return {
+        "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_headdim,
+                              cfg.ssm_state), dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1,
+                             cfg.ssm_inner + 2 * cfg.ssm_state),
+                            dtype=cfg.activation_dtype, device=device),
+    }
+
+
+def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                cache: dict):
+    """One token x (B, 1, d) against the recurrent state."""
+    proj = x @ params["in_proj"]
+    z, xbc, dt_raw = _split(proj, cfg)
+    w = params["conv_w"]
+    xfull = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", xfull[:, -w.shape[0]:], w)
+    xbc1 = F.silu(conv_out + params["conv_b"][None].to(conv_out.dtype))
+    new_conv = xfull[:, 1:] if w.shape[0] > 1 else cache["conv"]
+
+    di, n, h, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    xs = xbc1[..., :di].reshape(-1, h, p).float()
+    b_in = xbc1[..., di:di + n].float()
+    c_in = xbc1[..., di + n:].float()
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"][None])  # (B, h)
+    a = -torch.exp(params["A_log"])[None]                  # (1, h)
+    decay = torch.exp(dt * a)                              # (B, h)
+    state = cache["state"] * decay[:, :, None, None] + \
+        torch.einsum("bhp,bn,bh->bhpn", xs, b_in, dt)
+    y = torch.einsum("bn,bhpn->bhp", c_in, state) + \
+        params["D"][None, :, None] * xs
+    y = y.reshape(-1, 1, di)
+    y = k_rmsnorm(y * F.silu(z.float()), params["norm_gain"], eps=cfg.norm_eps)
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out, {"state": state, "conv": new_conv}

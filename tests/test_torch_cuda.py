@@ -572,3 +572,184 @@ def test_primitive_wrappers_count_launches_and_check_operands(cuda_device):
     with pytest.raises(ValueError):
         diag_k.vecadd_2d(x.t(), x.t())                   # not contiguous
     assert _build.launch_counts()["affine_2d"] == 1
+
+
+# -- the model stack's kernels (rmsnorm_2d, rope_3d, flash_attention_3d,
+#    ssd_intra) and the serving path -------------------------------------
+
+def _model_kernels():
+    import torch_bounds as bounds
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms_k
+    from repro_torch.kernels.rope import ref as rope_ref
+    from repro_torch.kernels.rope import rope as rope_k
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd import ssd as ssd_k
+    return bounds, rms_k, rms_ref, rope_k, rope_ref, fa_k, fa_ref, ssd_k, \
+        ssd_ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_within_bound_of_plain(cuda_device, dtype):
+    """``rmsnorm_2d`` at row widths 64, 1600 and 3200 (none a power of
+    two, nothing padded) and ragged ones, within ``bounds.rmsnorm_bound``
+    of the plain version on the card and on the CPU."""
+    bounds, rms_k, rms_ref = _model_kernels()[:3]
+    rng = np.random.default_rng([61, dtype == torch.bfloat16])
+    for m, n in ((1, 1), (3, 64), (4, 1600), (257, 1600), (33, 3200),
+                 (5, 37), (2, 5000)):
+        x = _dense(rng, (m, n), dtype, cuda_device) * 3
+        g = _dense(rng, (n,), torch.float32, cuda_device, 0.5, 1.5)
+        got = rms_k.rmsnorm_2d(x, g, eps=1e-5)
+        assert got.dtype == dtype and got.shape == x.shape
+        for want in (rms_ref.rmsnorm(x, g, 1e-5),
+                     rms_ref.rmsnorm(x.cpu(), g.cpu(), 1e-5).to(cuda_device)):
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= bounds.rmsnorm_bound(want, n)).all()), (m, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kernel_equals_plain_bitwise(cuda_device, dtype):
+    """``rope_3d`` rounds after each op as eager torch does: bit for bit
+    the plain version on the card and on the CPU, head dims 16 and 64,
+    ragged sequence lengths."""
+    _, _, _, rope_k, rope_ref = _model_kernels()[:5]
+    rng = np.random.default_rng([62, dtype == torch.bfloat16])
+    for bh, s, d in ((1, 1, 2), (100, 37, 64), (20, 200, 64), (8, 48, 16)):
+        x = _dense(rng, (bh, s, d), dtype, cuda_device)
+        pos = torch.arange(1000, 1000 + s, device=cuda_device)
+        cos, sin = (t.to(dtype) for t in rope_ref.rope_tables(pos, d))
+        got = rope_k.rope_3d(x, cos, sin)
+        for want in (rope_ref.rope(x, cos, sin),
+                     rope_ref.rope(x.cpu(), cos.cpu(), sin.cpu())):
+            assert _same_bits(_bits(got), _bits(want)), (bh, s, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_within_bound_of_plain(cuda_device, dtype):
+    """``flash_attention_3d`` within ``bounds.flash_bound`` of its plain
+    version: GQA groups 1 and 5, causal with and without a window (an
+    edge on a tile boundary and one inside a tile), ``q_offset`` with
+    S < T (decode-like), non-causal, and S and T that are no multiple of
+    any tile."""
+    bounds = _model_kernels()[0]
+    fa_k, fa_ref = _model_kernels()[5:7]
+    rng = np.random.default_rng([63, dtype == torch.bfloat16])
+    for bhkv, group, s, t, d, causal, window, q_off in (
+            (2, 1, 37, 37, 64, True, None, 0),
+            (2, 5, 300, 300, 64, True, 128, 0),
+            (2, 5, 300, 300, 64, True, 100, 0),
+            (1, 5, 200, 200, 16, True, 32, 0),
+            (3, 2, 5, 261, 64, True, 64, 256),
+            (1, 4, 1, 77, 80, True, None, 76),
+            (2, 1, 50, 70, 96, False, None, 0),
+            (4, 5, 129, 129, 128, True, 1024, 0)):
+        q = _dense(rng, (bhkv * group, s, d), dtype, cuda_device)
+        k = _dense(rng, (bhkv, t, d), dtype, cuda_device)
+        v = _dense(rng, (bhkv, t, d), dtype, cuda_device)
+        scale = d ** -0.5
+        got = fa_k.flash_attention_3d(q, k, v, scale=scale, causal=causal,
+                                      window=window, q_offset=q_off)
+        want = fa_ref.flash_attention(q, k, v, scale=scale, causal=causal,
+                                      window=window, q_offset=q_off)
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err = (got.float() - want.float()).abs()
+        bound = bounds.flash_bound(q, k, v, scale, want)
+        assert bool((err <= bound).all()), (bhkv, group, s, t, d, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_within_bound_of_plain(cuda_device, dtype):
+    """``ssd_intra`` within ``bounds.ssd_bounds`` of its plain version at
+    lc = 16, 100 and 256, (p, n) = (16, 16), (64, 16) and (64, 128), with
+    strongly decaying ``cum`` (so masked exponents would overflow if
+    they were not masked before exp)."""
+    bounds = _model_kernels()[0]
+    ssd_k, ssd_ref = _model_kernels()[7:]
+    rng = np.random.default_rng([64, dtype == torch.bfloat16])
+    for bc, lc, h, p, n in ((3, 16, 4, 16, 16), (2, 256, 5, 64, 16),
+                            (2, 256, 3, 64, 128), (1, 100, 2, 64, 128)):
+        xdt = _dense(rng, (bc, lc, h, p), dtype, cuda_device)
+        b = _dense(rng, (bc, lc, n), dtype, cuda_device)
+        c = _dense(rng, (bc, lc, n), dtype, cuda_device)
+        a = -torch.from_numpy(rng.uniform(0.01, 2.0, (bc, lc, h))
+                              .astype(np.float32)).to(cuda_device)
+        cum = torch.cumsum(a, dim=1)
+        y, s_c = ssd_k.ssd_intra(xdt, b, c, cum)
+        wy, ws = ssd_ref.ssd_intra(xdt, b, c, cum)
+        by, bs = bounds.ssd_bounds(xdt, b, c, cum, ssd_ref.ssd_intra)
+        assert y.dtype == s_c.dtype == torch.float32
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_c).all())
+        assert bool(((y - wy).abs() <= by).all()), (bc, lc, h, p, n)
+        assert bool(((s_c - ws).abs() <= bs).all()), (bc, lc, h, p, n)
+
+
+def test_model_kernel_wrappers_check_operands(cuda_device):
+    bounds, rms_k, _, rope_k, _, fa_k, _, ssd_k, _ = _model_kernels()
+    x = torch.ones(4, 64, device=cuda_device)
+    g = torch.ones(64, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rms_k.rmsnorm_2d(x.cpu(), g.cpu())
+    with pytest.raises(TypeError):
+        rms_k.rmsnorm_2d(x, g.bfloat16())
+    with pytest.raises(ValueError, match="CUDA device"):
+        rope_k.rope_3d(x.cpu()[None], g.cpu()[None, :32].expand(4, 32)
+                       .contiguous(), g.cpu()[None, :32].expand(4, 32)
+                       .contiguous())
+    q = torch.ones(5, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        fa_k.flash_attention_3d(q, q[:2], q[:2], scale=0.125)   # 5 % 2
+    with pytest.raises(ValueError):
+        fa_k.flash_attention_3d(q[..., :48].contiguous(),
+                                q[:1, :, :48].contiguous(),
+                                q[:1, :, :48].contiguous(), scale=0.125)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa_k.flash_attention_3d(q.cpu(), q.cpu(), q.cpu(), scale=0.125)
+    xdt = torch.ones(1, 300, 2, 16, device=cuda_device)
+    bn = torch.ones(1, 300, 16, device=cuda_device)
+    with pytest.raises(ValueError):                       # lc > 256
+        ssd_k.ssd_intra(xdt, bn, bn, torch.zeros(1, 300, 2,
+                                                 device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_k.ssd_intra(xdt.cpu(), bn.cpu(), bn.cpu(),
+                        torch.zeros(1, 300, 2))
+
+
+def test_reduced_hymba_serves_on_card_through_the_kernels(cuda_device):
+    """The reduced hymba-1.5b serves on the card; its prefill launches
+    rmsnorm_2d 5L+1, rope_3d 2L, flash_attention_3d L, ssd_intra L and
+    vecadd_2d 2L times (L layers), each decode step the same without
+    flash attention and SSD; the tokens equal the plain path's on the
+    card (``use_backend("ref")``) and logits agree to float32 rounding."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    cfg = configs.get("hymba-1.5b").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = np.random.default_rng(65).integers(0, cfg.vocab_size, (4, 48))
+    L, gen = cfg.n_layers, 8
+    _build.reset_launch_counts()
+    trace = {}
+    toks = serve_batch(cfg, params, prompts, gen_tokens=gen, model=model,
+                       trace=trace)
+    pre, total = trace["launches_prefill"], _build.launch_counts()
+    assert pre["rmsnorm_2d"] == 5 * L + 1 and pre["rope_3d"] == 2 * L
+    assert pre["flash_attention_3d"] == L and pre["ssd_intra"] == L
+    assert pre["vecadd_2d"] == 2 * L
+    dec = {k: total[k] - pre[k] for k in pre}
+    assert dec["rmsnorm_2d"] == gen * (5 * L + 1)
+    assert dec["rope_3d"] == gen * 2 * L and dec["vecadd_2d"] == gen * 2 * L
+    assert dec["flash_attention_3d"] == dec["ssd_intra"] == 0
+    ref_trace = {}
+    with dispatch.use_backend("ref"):
+        _build.reset_launch_counts()
+        ref_toks = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                               model=model, trace=ref_trace)
+        assert sum(_build.launch_counts().values()) == 0
+    assert np.array_equal(toks, ref_toks)
+    for a, b in zip(trace["logits"], ref_trace["logits"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

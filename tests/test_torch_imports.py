@@ -59,7 +59,17 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.core.morphosys.rc_array",
                    "repro_torch.core.morphosys.isa",
                    "repro_torch.core.morphosys.programs",
-                   "repro_torch.core.morphosys.intel"):
+                   "repro_torch.core.morphosys.intel",
+                   "repro_torch.models", "repro_torch.models.attention",
+                   "repro_torch.models.blocks", "repro_torch.models.config",
+                   "repro_torch.models.layers", "repro_torch.models.ssm",
+                   "repro_torch.models.transformer", "repro_torch.configs",
+                   "repro_torch.configs.hymba_1_5b",
+                   "repro_torch.launch.serve",
+                   "repro_torch.kernels.rmsnorm.rmsnorm",
+                   "repro_torch.kernels.rope.rope",
+                   "repro_torch.kernels.flash_attention.flash_attention",
+                   "repro_torch.kernels.ssd.ssd"):
         assert module in names.split(), module
 
 
@@ -109,6 +119,35 @@ def test_emulator_and_engine_load_no_jax_or_repro():
     assert res.stdout.split() == ["14", "35"]
 
 
+_MODEL_PROBE = r"""
+import sys
+from repro_torch import configs
+from repro_torch.kernels import attention, rmsnorm, rope, ssd_intra
+from repro_torch.kernels.flash_attention import flash_attention, ref
+from repro_torch.kernels.rmsnorm import rmsnorm as rms_k
+from repro_torch.kernels.rope import rope as rope_k
+from repro_torch.kernels.ssd import ssd
+from repro_torch.launch import serve
+from repro_torch.models import build
+cfg = configs.get("hymba-1.5b")
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(cfg.param_count(), cfg.head_dim, ",".join(bad))
+"""
+
+
+def test_model_stack_loads_no_jax_or_repro():
+    """The model stack -- ``repro_torch.models``, ``.configs``,
+    ``.launch.serve`` and the four kernel families -- imported first in a
+    fresh interpreter pulls in neither jax nor ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _MODEL_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["1589616896", "64"]
+
+
 def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
     hits = [f"{p}:{i}" for p in sorted((SRC / "repro_torch").rglob("*.py"))
@@ -136,6 +175,13 @@ def test_default_device_entry_points_raise_without_cuda():
         view.project(np.ones((4, 3), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         chain.apply(np.ones((4, 2), np.float32), dtype="q8.7")
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "hymba-1.5b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(configs.get("mamba2-130m").reduced()).init_cache(1, 8)
 
 
 def test_cuda_backend_on_cpu_tensor_raises():
@@ -174,3 +220,45 @@ def test_cuda_backend_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA device"):
         fixedpoint.chain_matrix_1d_q(w.reshape(-1), torch.eye(2).to(
             torch.int16), w2, d=2, n_frac=7)
+    from repro_torch.kernels import attention, rmsnorm, rope, ssd_intra
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms_k
+    from repro_torch.kernels.rope import rope as rope_k
+    from repro_torch.kernels.ssd import ssd
+    h = torch.ones(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rmsnorm(x, torch.ones(2), backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rope(h, torch.ones(8, 8), torch.zeros(8, 8), backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        attention(h, h, h, backend="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssd_intra(torch.ones(1, 16, 2, 16), torch.ones(1, 16, 16),
+                  torch.ones(1, 16, 16), torch.zeros(1, 16, 2),
+                  backend="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        rms_k.rmsnorm_2d(x, torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA device"):
+        rope_k.rope_3d(h[0], torch.ones(8, 8), torch.zeros(8, 8))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention.flash_attention_3d(h[0], h[0], h[0], scale=0.25)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd.ssd_intra(torch.ones(1, 16, 2, 16), torch.ones(1, 16, 16),
+                      torch.ones(1, 16, 16), torch.zeros(1, 16, 2))
+
+
+def test_use_backend_sets_the_default_and_restores_it():
+    """``dispatch.use_backend`` routes every op without a per-call backend
+    (a CPU tensor under "cuda" raises, as the model stack would) and puts
+    the default back on exit; a per-call backend still wins."""
+    from repro_torch.kernels import dispatch, rmsnorm
+    from repro_torch.kernels.rmsnorm import ref
+    x, g = torch.arange(24.0).reshape(3, 8), torch.ones(8)
+    with dispatch.use_backend("cuda"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            rmsnorm(x, g)
+        assert torch.equal(rmsnorm(x, g, backend="ref"), ref.rmsnorm(x, g))
+    assert dispatch.backend_for(x.device) == "ref"
+    with pytest.raises(ValueError, match="backend must be"):
+        with dispatch.use_backend("interpret"):
+            pass

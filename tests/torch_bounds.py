@@ -1,8 +1,12 @@
-"""The projective float contract between the port and the JAX package,
-shared by the port's parity tests (a helper module, not a test file).
+"""Float bounds of the port's checks, in one place (a helper module, not a
+test file): the projective contract between the port and the JAX
+package, and the bounds between the model stack's kernels and their
+plain versions.  The parity tests import it, and so does
+``chip_smoke.py``, which holds the kernels to these bounds on the card.
 
-For a float32 fold (H, lo, hi) and (..., d) points p, with v and w the
-float64 values of the fold, each projected element may differ by
+The projective contract.  For a float32 fold (H, lo, hi) and (..., d)
+points p, with v and w the float64 values of the fold, each projected
+element may differ by
 
     4 eps32 [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| + |H_dd|)] / |w|
 
@@ -11,8 +15,20 @@ where w > 0, and by 4 eps32 (sum_m |p_m H_mc| + |H_dc|) where w <= 0
 the port's one-op-at-a-time version.  Values are compared wherever w's
 margin to 0 exceeds its own bound; masks wherever every margin (w to 0,
 each coordinate to lo and hi) exceeds the bound.
+
+The model kernels.  ``rmsnorm_2d``, ``flash_attention_3d`` and
+``ssd_intra`` sum in another order than their plain PyTorch versions (a
+strided and shuffled sum, an online softmax over tiles, a row loop in
+place of einsums), so each agrees with its plain version to a bound, not
+bit for bit.  ``rope_3d`` rounds as its plain version does and equals it
+bit for bit.  Each bound is per element, a worst case from the float32
+error of a sum of k terms, at most k * eps32 * (the sum of their
+magnitudes) for two summation orders, plus a few ulp for
+``rsqrtf``/``expf``; a bfloat16 output adds one bfloat16 ulp, the most
+a float32 difference that small can move a rounding.
 """
 import numpy as np
+import torch
 
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -53,3 +69,53 @@ def check_projective(pts, folded, out, mask, jout, jmask) -> int:
     assert np.array_equal(mask.reshape(-1)[clear],
                           np.asarray(jmask).reshape(-1)[clear])
     return int(clear.sum())
+
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each |v| (8 significand bits; normal range)."""
+    a = v.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _out_ulp(want: torch.Tensor) -> torch.Tensor | float:
+    return bf16_ulp(want) if want.dtype == torch.bfloat16 else 0.0
+
+
+def rmsnorm_bound(want: torch.Tensor, n: int) -> torch.Tensor:
+    """|kernel - plain| per element for rows of width n: the mean of n
+    squares in two orders differs by at most (n - 1) eps32 relative,
+    rsqrt halves that and adds 2 ulp, and the two products round once
+    each: (n / 2 + 4) eps32 |y|, plus one bfloat16 ulp of y."""
+    return (n / 2 + 4) * EPS32 * want.float().abs() + _out_ulp(want)
+
+
+def flash_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, want: torch.Tensor) -> torch.Tensor:
+    """|kernel - plain| per element of attention over T keys of width D:
+    a score, a sum of D products, differs by at most
+    ds = D eps32 scale max|q| max|k| (2-norms, Cauchy-Schwarz) between the
+    two orders; the probabilities then by 2 ds + 4 eps32 relative (exp and
+    the max shift), and the value sum and the denominator over T terms
+    by T eps32 each: (4 ds + (2 T + 8) eps32) max|v|, plus one bfloat16
+    ulp."""
+    d, t = q.shape[-1], k.shape[-2]
+    qn = q.float().norm(dim=-1).max()
+    kn = k.float().norm(dim=-1).max()
+    ds = d * EPS32 * scale * qn * kn
+    vmax = v.float().abs().max()
+    return (4 * ds + (2 * t + 8) * EPS32) * vmax + _out_ulp(want) \
+        + torch.zeros_like(want, dtype=torch.float32)
+
+
+def ssd_bounds(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+               cum: torch.Tensor, plain):
+    """(|dy| bound, |dS_c| bound) per element for chunks of lc rows and
+    state size n: each y element is a sum over lc rows of products whose
+    G factor is itself a sum of n, so (n + lc + 8) eps32 times the same
+    sums over the magnitudes (the plain version on |xdt|, |B|, |C|);
+    each S_c element a sum over lc rows: (lc + 8) eps32 times its
+    magnitude sum.  ``plain`` is the plain ``ssd_intra``."""
+    lc, n = xdt.shape[1], b_in.shape[-1]
+    y_abs, s_abs = plain(xdt.abs(), b_in.abs(), c_in.abs(), cum)
+    return (n + lc + 8) * EPS32 * y_abs, (lc + 8) * EPS32 * s_abs
