@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` source has a plain C interface and builds on its own
 into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -split-compile=0 \\
+         -Xcompiler -fPIC -split-compile=0 -Xptxas -v \\
          -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
 
 at first use, from the sources in the checkout only (``-split-compile=0``
@@ -14,7 +14,12 @@ the build for long after the others).  The library name
 carries a hash of the sources, so an edited kernel is rebuilt and a
 stale build is never loaded.  ``build_all`` starts one ``nvcc`` per
 source, all together, and waits for them.  A failed build raises; no
-caller falls back to the plain version.
+caller falls back to the plain version.  The compiler's report (``-Xptxas
+-v``: each kernel instance's registers, spills and shared memory) is kept
+beside the library; ``resource_usage`` reads it.  The sources include
+``csrc/hopper.cuh`` (TMA, mbarriers, wgmma) and ``csrc/launch.cuh``; no
+library links ``-lcuda`` (the tensor-map encoder comes through the CUDA
+runtime's driver entry point).
 
 ``CudaKernel`` is one C entry point: it launches on PyTorch's current
 stream, raises when the C function reports a CUDA error, and counts its
@@ -28,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -40,7 +46,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: the git-ignored build directory at the root of the checkout
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
+              "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -96,10 +103,33 @@ def build_all() -> dict[str, Path]:
             failed.append(f"{src}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return todo
+
+
+def resource_usage(source: str) -> list[dict]:
+    """Each kernel instance of ``csrc/<source>.cu`` as its build's
+    ``ptxas`` reported it: ``{"function": mangled name, "registers": n,
+    "spill_stores": bytes, "spill_loads": bytes}`` (built on first use)."""
+    log = build_all()[source].with_suffix(".log").read_text()
+    usage, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = {"function": m.group(1)}
+            usage.append(fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+    return usage
 
 
 def library(source: str) -> ctypes.CDLL:

@@ -7,6 +7,11 @@ or bfloat16; q (BHq, S, D), k and v (BHkv, T, D), BHq a multiple of
 BHkv, D one of ``HEAD_DIMS``), allocates the output, launches on the
 current stream and counts the launch.  A CPU tensor raises; nothing
 falls back to the plain version.
+
+bfloat16 runs the tensor-core (wgmma) kernel, whose TMA loads need
+16-byte aligned bases: an operand that starts mid-allocation (a
+contiguous view at an odd offset) is copied to a fresh one first.
+float32 runs the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -16,8 +21,8 @@ from repro_torch.kernels._build import CudaKernel, check_dense, f32_bits
 
 _FLASH_3D = CudaKernel("flash_attention", "flash_attention_3d", n_ptrs=4,
                        n_sizes=10)
-#: the head dims the kernel is instantiated for (q, acc in registers):
-#: the reduced configs' 16 and the served configs' 64, 80, 96 and 128
+#: the head dims the kernels are instantiated for: the reduced configs'
+#: 16 and the served configs' 64, 80, 96 and 128
 HEAD_DIMS = (16, 64, 80, 96, 128)
 
 
@@ -45,6 +50,9 @@ def flash_attention_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{HEAD_DIMS}, got {d}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    if bf16:
+        q, k, v = (a if a.data_ptr() % 16 == 0 else a.clone()
+                   for a in (q, k, v))
     out = torch.empty_like(q)
     if q.numel():
         _FLASH_3D(q.device, out.data_ptr(), q.data_ptr(), k.data_ptr(),

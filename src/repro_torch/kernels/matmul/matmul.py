@@ -1,5 +1,5 @@
 """CUDA wrappers of the matmul-family kernels: the general chain kernels
-(``csrc/chain_matrix.cu``) and the tiled product (``csrc/matmul_2d.cu``).
+(``csrc/chain_matrix.cu``) and the dense product (``csrc/matmul_2d.cu``).
 
 Ports of ``chain_matrix_1d``, ``chain_matrix_batch_2d`` and ``matmul_2d``
 from the JAX package's ``kernels/matmul/matmul.py``.  Each wrapper checks
@@ -19,6 +19,8 @@ _MATRIX_1D = CudaKernel("chain_matrix", "chain_matrix_1d", n_ptrs=4,
 _MATRIX_BATCH = CudaKernel("chain_matrix", "chain_matrix_batch_2d", n_ptrs=4,
                            n_sizes=3)
 _MATMUL_2D = CudaKernel("matmul_2d", "matmul_2d", n_ptrs=3, n_sizes=5)
+#: the streaming regime's limit on K and N (``kSkinny`` in the source)
+SKINNY = 8
 
 
 def chain_matrix_1d(flat: torch.Tensor, a: torch.Tensor, t: torch.Tensor,
@@ -57,11 +59,24 @@ def chain_matrix_batch_2d(pts3: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def tensor_cores(dtype: torch.dtype, k: int, n: int) -> bool:
+    """Whether ``matmul_2d`` runs inputs of ``dtype`` with contraction K
+    and width N on the tensor cores: bfloat16 outside the streaming
+    regime (K <= 8 and N <= 8).  Those products agree with the plain
+    version within ``tests/torch_bounds.py::matmul_bound``; every other
+    product equals it bit for bit."""
+    return dtype == torch.bfloat16 and not (k <= SKINNY and n <= SKINNY)
+
+
 def matmul_2d(x: torch.Tensor, y: torch.Tensor, *,
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """C = X @ Y for x (M, K), y (K, N), both float32 or both bfloat16,
     with a float32 accumulator; C is ``out_dtype`` (float32 or bfloat16,
-    x's dtype by default)."""
+    x's dtype by default).  The kernel picks its regime from the dtype
+    and the shape: K <= 8 and N <= 8 a streaming kernel, other bfloat16
+    products a wgmma GEMM with TMA loads (``tensor_cores``), other
+    float32 ones a CUDA-core tile; each regime is a kernel of its own,
+    launched and counted as one ``matmul_2d`` call."""
     in_bf16 = check_dense(x, y)
     out_dtype = out_dtype or x.dtype
     if out_dtype not in DENSE_DTYPES:

@@ -8,8 +8,9 @@ Parameters are plain dicts of tensors: ``embed`` (V, d), ``final_norm``
 layers on a leading axis for ``lax.scan``; a Python loop over the list
 takes its place).  The cache is a list of one layer cache each, updated
 in place.  ``build`` raises ``NotPortedError`` for the MoE,
-encoder-decoder and VLM families; ``forward``/``loss`` come with the
-training slice.
+encoder-decoder and VLM families, and for any config that sets experts,
+sinusoidal positions or a frontend (the fields the JAX package's model
+branches on); ``forward``/``loss`` come with the training slice.
 """
 from __future__ import annotations
 
@@ -27,6 +28,17 @@ SERVED_FAMILIES = ("dense", "ssm", "hybrid")
 NOT_PORTED = {"moe": "queue 1 item 10 (MoE serving)",
               "encdec": "queue 1 item 10 (enc-dec serving)",
               "vlm": "queue 1 item 10 (VLM serving)"}
+#: the config fields the JAX package's model branches on and the port
+#: does not run yet, whatever the family: (what, ROADMAP.md sub-item,
+#: test of the config that sets the field)
+NOT_PORTED_FIELDS = (
+    ("experts (n_experts > 0)", "queue 1 item 10.1 (MoE serving)",
+     lambda cfg: cfg.n_experts > 0),
+    ("sinusoidal positions (pos_embed != 'rope')",
+     "queue 1 item 10.2 (enc-dec serving)",
+     lambda cfg: cfg.pos_embed != "rope"),
+    ("a frontend (frontend is not None)", "queue 1 item 10.3 (VLM serving)",
+     lambda cfg: cfg.frontend is not None))
 
 
 class Model:
@@ -36,6 +48,11 @@ class Model:
         if cfg.family not in SERVED_FAMILIES:
             raise NotPortedError(f"the {cfg.family} family ({cfg.name})",
                                  NOT_PORTED.get(cfg.family, "queue 1 item 10"))
+        # the reference branches on these fields, not on the family: a
+        # served family with one of them set would build another model
+        for what, roadmap, is_set in NOT_PORTED_FIELDS:
+            if is_set(cfg):
+                raise NotPortedError(f"{what} in {cfg.name}", roadmap)
         self.cfg = cfg
 
     def init(self, generator: torch.Generator) -> dict:
@@ -94,5 +111,6 @@ class Model:
 
 def build(cfg: ModelConfig) -> Model:
     """The model of ``cfg``; raises ``NotPortedError`` for a family the
-    port does not serve yet."""
+    port does not serve yet, and for a config of a served family that
+    sets a field of ``NOT_PORTED_FIELDS``."""
     return Model(cfg)

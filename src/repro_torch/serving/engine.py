@@ -80,6 +80,8 @@ from repro_torch.serving import bucketing
 #:   payload_points / padded_points -- real vs padded points moved
 #:   rejected_requests -- submissions refused with a typed RequestError
 #:   q_fallbacks   -- q requests rerouted to the float lane (would wrap)
+#:   failed_requests -- requests resolved to a typed LaunchError (a
+#:                    non-finite float output, ``validate_outputs``)
 #: the rest are the fault-tolerance and continuous-batching counters of
 #: the JAX package; they stay 0 until those slices are ported.
 _STAT_KEYS = ("plan_compiles", "plan_hits", "traces", "launches",
@@ -240,10 +242,18 @@ class FaultConfig:
       * ``"reject"``  -- raise ``QRangeError`` at submit.
       * ``"wrap"``    -- the M1's semantics: no check, arithmetic wraps.
 
-    ``validate_finite`` gates the NaN/Inf checks at submit.  The retry and
-    backoff fields and ``validate_outputs`` keep their reference meaning
-    for the recovery ladder, which comes with its own slice; until then
-    they act on nothing.
+    ``validate_finite`` gates the NaN/Inf checks at submit.
+    ``validate_outputs`` gates the check of every float, non-projective
+    launch output (on the launch's device, a flag a packed row): a
+    request whose row holds a NaN or Inf resolves to a ``LaunchError``
+    carrying its ticket, counted in
+    ``stats["failed_requests"]`` and ``BucketReport.failed_requests``, and
+    its finite neighbours in the same launch resolve normally -- the
+    final state the reference's recovery reaches for a deterministic
+    poison.  The retry and backoff fields keep their reference meaning
+    for the recovery ladder (retry, degrade, bisect), which comes with
+    its own slice; until then they act on nothing, and no retry or
+    fallback is run or counted.
     """
     max_launch_attempts: int = 3   # per ladder rung, first attempt included
     backoff_base_s: float = 0.002  # sleep before retry k: base * factor**k
@@ -286,13 +296,16 @@ class _Launch:
     report: "BucketReport"
     host_out: torch.Tensor | None = None
     host_mask: torch.Tensor | None = None   # projective launches only
+    host_finite: torch.Tensor | None = None  # (B,) rows all finite, when
+    #                                          the outputs are validated
     done: torch.cuda.Event | None = None
 
 
 @dataclasses.dataclass
 class BucketReport:
     """Per-bucket accounting for one flush (the driver prints these).
-    The recovery ladder's fields join with the fault-tolerance slice."""
+    The recovery ladder's retry, bisection and fallback fields join with
+    the fault-tolerance slice."""
     structure: str                 # e.g. "2D:TSRT"
     kind: str                      # plan kind: diag | matrix | projective
     lpad: int                      # padded points per request
@@ -303,6 +316,7 @@ class BucketReport:
     backend: str = ""              # the backend the bucket ran on
     q_fallback_requests: int = 0   # q requests served through this float
     #                                bucket because the bound predicted wrap
+    failed_requests: int = 0       # resolved to a typed LaunchError
 
     @property
     def waste(self) -> float:
@@ -337,7 +351,8 @@ class GeometryServer:
     ``device`` defaults to CUDA and raises without a GPU; ``backend``
     defaults to the kernels on CUDA and the plain versions on the CPU
     (``backend="ref"`` on CUDA runs the plain versions on the card).
-    ``fault_config`` holds the q-overflow policy (see ``FaultConfig``).
+    ``fault_config`` holds the q-overflow policy and the output check
+    (see ``FaultConfig``).
     """
 
     def __init__(self, *, device: str | torch.device = "cuda",
@@ -348,7 +363,7 @@ class GeometryServer:
                  fault_config: FaultConfig | None = None):
         self.device = dispatch.resolve_device(device)
         self.backend = dispatch.backend_for(self.device, backend)
-        #: fault policy (the q-overflow arm acts in this slice)
+        #: fault policy (the q-overflow arm and the output check act)
         self.fault_config = fault_config or FaultConfig()
         self.min_len, self.waste_cap, self.grid_source = bucketing.grid_for(
             min_len=min_len, waste_cap=waste_cap)
@@ -564,8 +579,16 @@ class GeometryServer:
             for tensor in (pts, *params):
                 tensor.record_stream(compute)
         outs = L.plan.fn(params, pts)
-        if L.plan.kind != "projective":
+        projective = L.plan.kind == "projective"
+        if not projective:
             outs = (outs,)
+        # the reference's output check, on the device: one flag a packed
+        # row, padding included, as the reference's check of a singleton
+        # launch at the same padded length reads it
+        validate = self.fault_config.validate_outputs \
+            and L.plan.qformat is None and not projective
+        if validate:
+            outs = (*outs, torch.isfinite(outs[0]).flatten(1).all(dim=1))
         if self._cuda:
             hosts = []
             for out in outs:
@@ -577,7 +600,8 @@ class GeometryServer:
             L.done = torch.cuda.Event()
             L.done.record(compute)
         L.host_out = outs[0]
-        L.host_mask = outs[1] if len(outs) > 1 else None
+        L.host_mask = outs[1] if projective else None
+        L.host_finite = outs[-1] if validate else None
 
     def _count_launch(self, L: _Launch) -> None:
         """Bookkeeping for one dispatched launch: the ONE place
@@ -672,13 +696,25 @@ class GeometryServer:
         the padded batch buffer.  A projective launch's results carry
         their rows of the cull mask as ``Projected.mask``; a fixed-point
         result is dequantised for a float submission, and a float-lane
-        fallback requantised for an int16 one."""
+        fallback requantised for an int16 one.  A request whose rows the
+        launch flagged non-finite (``validate_outputs``) resolves to a
+        ``LaunchError``."""
         if L.done is not None:
             L.done.synchronize()
         host = L.host_out.numpy()
         mask = None if L.host_mask is None else L.host_mask.numpy()
+        finite = None if L.host_finite is None else L.host_finite.numpy()
         fmt = quantize.as_qformat(L.plan.qformat) if L.plan.qformat else None
         for i, r in enumerate(L.reqs):
+            if finite is not None and not finite[i]:
+                # inputs are finite at submit: an overflow or a corrupted
+                # launch, which the reference's recovery ends in this
+                results[r.ticket] = errors.LaunchError(
+                    f"non-finite values in {L.plan.kind} launch output",
+                    ticket=r.ticket)
+                stats["failed_requests"] += 1
+                L.report.failed_requests += 1
+                continue
             out = np.array(host[i, :r.n].reshape(r.points.shape))
             if mask is not None:
                 out = _projected(out, np.array(

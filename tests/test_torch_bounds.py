@@ -1,0 +1,215 @@
+"""The tensor-core contracts of ``tests/torch_bounds.py``, held on the CPU.
+
+The wgmma paths of ``matmul_2d`` and ``flash_attention_3d`` (bfloat16
+inputs) run only on the card, so their arithmetic is emulated here in
+eager torch and held to the bounds the card checks use:
+
+  * ``matmul_2d``: a reversed-k float32 sum and a tile-blocked one (64-deep
+    panels, each summed in its own order, added in turn), against the
+    plain k-ascending version, within ``matmul_bound``; a planted fault
+    (the ragged last K step left out) lies outside it;
+  * ``flash_attention_3d``: the kernel's walk -- 128-row query blocks,
+    128-key tiles for D <= 64 and 64-key tiles above, the TPU kernel's
+    tile liveness, zero-padded ragged tiles, the -1e30 sentinel, the
+    online max and sum in float32 and P rounded to bfloat16 before P V --
+    within ``flash_bound`` of the plain version, as bfloat16 and before
+    the output rounding; P one bfloat16 ulp too large at a row's dominant
+    key in a 128-key tile lies outside it.
+
+The shapes are the card tests' (``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+
+# the port needs PyTorch; where it is not installed these tests skip
+torch = pytest.importorskip("torch")
+
+import torch_bounds as bounds
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.matmul import matmul as matrix_k
+from repro_torch.kernels.matmul import ref as matrix_ref
+
+#: the wgmma regime's shapes in test_matmul_kernel_equals_plain (K > 8 or
+#: N > 8): staged loads (K or N no multiple of 8) and TMA loads
+MATMUL_SHAPES = [(17, 100, 33), (65, 17, 63), (130, 1024, 70),
+                 (256, 512, 384), (1024, 1024, 1024)]
+#: test_flash_kernel_within_bound_of_plain's cases: (BHkv, group, S, T, D,
+#: causal, window, q_offset)
+FLASH_CASES = [(2, 1, 37, 37, 64, True, None, 0),
+               (2, 5, 300, 300, 64, True, 128, 0),
+               (2, 5, 300, 300, 64, True, 100, 0),
+               (1, 5, 200, 200, 16, True, 32, 0),
+               (3, 2, 5, 261, 64, True, 64, 256),
+               (1, 4, 1, 77, 80, True, None, 76),
+               (2, 1, 50, 70, 96, False, None, 0),
+               (4, 5, 129, 129, 128, True, 1024, 0),
+               (2, 2, 200, 333, 80, True, 100, 133),
+               (2, 3, 157, 157, 96, True, None, 0),
+               (1, 2, 300, 300, 128, False, None, 0),
+               (2, 1, 77, 200, 128, True, 50, 123)]
+BQ = 128
+
+
+def _bf16(rng, shape, low=None, high=None):
+    a = rng.uniform(low, high, shape) if low is not None \
+        else rng.standard_normal(shape)
+    return torch.from_numpy(a.astype(np.float32)).bfloat16()
+
+
+# -- matmul_2d ----------------------------------------------------------------
+
+def _reversed_k(x, y):
+    acc = torch.zeros((x.shape[0], y.shape[1]), dtype=torch.float32)
+    for k in reversed(range(x.shape[1])):
+        acc = acc + x[:, k:k + 1].float() * y[k:k + 1, :].float()
+    return acc
+
+
+def _panels(x, y, depth=64, drop_last=False):
+    """64-deep panels, each summed by one float32 product (its own order;
+    bfloat16 products are exact in float32, so a fused multiply-add
+    rounds as a multiply and an add), added in turn from 0.  With
+    ``drop_last`` the last K step is left out (the planted fault)."""
+    kk = x.shape[1] - (1 if drop_last else 0)
+    acc = torch.zeros((x.shape[0], y.shape[1]), dtype=torch.float32)
+    for k0 in range(0, kk, depth):
+        k1 = min(kk, k0 + depth)
+        acc = acc + torch.matmul(x[:, k0:k1].float(), y[k0:k1].float())
+    return acc
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES,
+                         ids=["x".join(map(str, s)) for s in MATMUL_SHAPES])
+def test_matmul_emulations_within_bound(shape):
+    m, k, n = shape
+    assert matrix_k.tensor_cores(torch.bfloat16, k, n)
+    assert not matrix_k.tensor_cores(torch.float32, k, n)
+    rng = np.random.default_rng([71, m, k, n])
+    x, y = _bf16(rng, (m, k)), _bf16(rng, (k, n))
+    plain32 = matrix_ref.matmul(x, y, torch.float32)
+    emus = (_reversed_k(x, y), _panels(x, y))
+    for emu in emus:
+        for out in (torch.float32, torch.bfloat16):
+            want = plain32.to(out)
+            err = (emu.to(out).float() - want.float()).abs()
+            assert bool((err <= bounds.matmul_bound(x, y, want)).all()), out
+    # another order does round otherwise: the bound is exercised
+    assert any(not torch.equal(emu, plain32) for emu in emus)
+
+
+def test_matmul_bound_catches_a_dropped_k_step():
+    m, k, n = 130, 1024, 70
+    rng = np.random.default_rng(72)
+    x, y = _bf16(rng, (m, k)), _bf16(rng, (k, n))
+    want = matrix_ref.matmul(x, y, torch.bfloat16)
+    bound = bounds.matmul_bound(x, y, want)
+    good = (_panels(x, y).bfloat16().float() - want.float()).abs()
+    bad = (_panels(x, y, drop_last=True).bfloat16().float()
+           - want.float()).abs()
+    assert bool((good <= bound).all())
+    assert not bool((bad <= bound).all())
+
+
+# -- flash_attention_3d ---------------------------------------------------------
+
+def _emulate_flash(q, k, v, scale, causal, window, q_offset, plant=None):
+    """The wgmma kernel's arithmetic on bfloat16 q (BHq, S, D), k/v (BHkv,
+    T, D), in float32 (the output before its bfloat16 rounding).
+    ``plant`` = (bh, row, key): P of that pair one bfloat16 ulp larger."""
+    bhq, s, d = q.shape
+    bhkv, t, _ = k.shape
+    bk = 128 if d <= 64 else 64
+    heads = torch.arange(bhq) // (bhq // bhkv)
+    pad = (t + bk - 1) // bk * bk - t
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))[heads]
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))[heads]
+    qf = q.float()
+    out = torch.empty((bhq, s, d), dtype=torch.float32)
+    for r0 in range(0, s, BQ):
+        r1 = min(s, r0 + BQ)
+        q_lo = q_offset + r0
+        q_hi = q_lo + BQ - 1
+        qpos = q_offset + torch.arange(r0, r1)
+        m = torch.full((bhq, r1 - r0), -1e30)
+        l = torch.zeros((bhq, r1 - r0))
+        acc = torch.zeros((bhq, r1 - r0, d))
+        for k_lo in range(0, t, bk):
+            if causal and k_lo > q_hi:
+                break
+            if window is not None and not k_lo + bk - 1 > q_lo - window:
+                continue
+            kpos = torch.arange(k_lo, k_lo + bk)
+            sc = torch.matmul(qf[:, r0:r1], kf[:, k_lo:k_lo + bk]
+                              .transpose(1, 2)) * scale
+            ok = (kpos < t)[None, :].expand(r1 - r0, bk)
+            if causal:
+                ok = ok & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                ok = ok & (kpos[None, :] > qpos[:, None] - window)
+            sc = torch.where(ok, sc, torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = corr * l + p.sum(dim=-1)
+            pb = p.bfloat16()
+            if plant is not None and k_lo <= plant[2] < k_lo + bk \
+                    and r0 <= plant[1] < r1:
+                bits = pb.view(torch.int16)
+                bits[plant[0], plant[1] - r0, plant[2] - k_lo] += 1
+            acc = acc * corr[..., None] + torch.matmul(
+                pb.float(), vf[:, k_lo:k_lo + bk])
+            m = m_new
+        out[:, r0:r1] = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out
+
+
+def _flash_inputs(case, seed):
+    bhkv, group, s, t, d, causal, window, q_off = case
+    rng = np.random.default_rng(seed)
+    q = _bf16(rng, (bhkv * group, s, d))
+    k, v = _bf16(rng, (bhkv, t, d)), _bf16(rng, (bhkv, t, d))
+    return q, k, v, dict(scale=d ** -0.5, causal=causal, window=window,
+                         q_offset=q_off)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=["-".join(map(str, c)) for c in FLASH_CASES])
+def test_flash_emulation_within_bound(case):
+    q, k, v, kw = _flash_inputs(case, [73, *case[:5]])
+    emu = _emulate_flash(q, k, v, **kw)
+    want = fa_ref.flash_attention(q, k, v, **kw)
+    want32 = fa_ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    scale = kw["scale"]
+    err = (emu.bfloat16().float() - want.float()).abs()
+    assert bool((err <= bounds.flash_bound(q, k, v, scale, want)).all())
+    err32 = (emu - want32).abs()
+    assert bool((err32 <= bounds.flash_bound(q, k, v, scale, want32)).all())
+    # P's rounding shows: the emulation is not the plain version
+    assert float(err32.max()) > 0
+
+
+def test_flash_bound_catches_one_p_ulp_too_many():
+    """One query row with a dominant key in a 128-key tile (score 32 above
+    the rest, so l ~ 1 and its P is exactly 1) and v of that key at
+    max|v|: P one bfloat16 ulp too large moves the output by 2**-7
+    max|v|, past the bound's 2**-8 max|v| for P's rounding."""
+    rng = np.random.default_rng(74)
+    s = t = 256
+    d, row, key = 64, 200, 150
+    q = rng.standard_normal((1, s, d)).astype(np.float32)
+    k = rng.standard_normal((1, t, d)).astype(np.float32)
+    v = rng.uniform(-1, 1, (1, t, d)).astype(np.float32)
+    q[0, row] = 0.0
+    q[0, row, 0] = 16.0
+    k[0, :, 0] = 0.0
+    k[0, key, 0] = 16.0
+    v[0, key] = 1.0
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    kw = dict(scale=d ** -0.5, causal=True, window=None, q_offset=0)
+    want32 = fa_ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    bound = bounds.flash_bound(q, k, v, kw["scale"], want32)
+    good = (_emulate_flash(q, k, v, **kw) - want32).abs()
+    bad = (_emulate_flash(q, k, v, **kw, plant=(0, row, key)) - want32).abs()
+    assert bool((good <= bound).all())
+    assert not bool((bad[0, row] <= bound[0, row]).all())
+    assert float(bad[0, row].max()) >= 2.0 ** -7 * 0.99

@@ -2,7 +2,9 @@
 PyTorch version on the GPU and on the CPU (the projective kernels' masks
 included; the int16 Qm.n kernels at full-range inputs, where the int32
 accumulator and the int16 store wrap, and at n_frac 0, 7 and 15; the
-eager ``affine_2d``/``vecadd_2d``/``matmul_2d`` in float32 and bfloat16),
+eager ``affine_2d``/``vecadd_2d``/``matmul_2d`` in float32 and bfloat16,
+but ``matmul_2d``'s tensor-core regime, held within a bound; the model
+kernels within ``torch_bounds``),
 the launch counters, and the GPU server bitwise equal to the CPU server,
 to the plain path and to per-request ``apply``/``project``.
 
@@ -131,6 +133,33 @@ def test_cuda_server_equals_cpu_server_bitwise(cuda_device):
     for c, g, r in zip(cpu, gpu, ref, strict=True):
         assert _same_bits(c, g) and _same_bits(g, r)
     assert gpu_srv.last_timing["device_ms"] > 0
+
+
+def test_cuda_server_resolves_non_finite_outputs_like_cpu(cuda_device):
+    """``validate_outputs`` on the card: the request whose float32 output
+    overflows to inf resolves to a ``LaunchError`` with its ticket, its
+    neighbours in the same launch equal the CPU server's, bit for bit."""
+    from repro_torch import errors
+    from repro_torch.core import transform_chain as tc
+    chain = tc.TransformChain.identity(3).scale([1e30, 1.0, 1.0])
+    rng = np.random.default_rng(55)
+    subs = [rng.standard_normal((64, 3)).astype(np.float32),
+            np.full((64, 3), 1e10, np.float32),
+            rng.standard_normal((50, 3)).astype(np.float32)]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        serving.reset_stats()
+        srv = serving.GeometryServer(device=dev)
+        outs[str(dev)] = srv.serve([(chain, p) for p in subs])
+        assert serving.stats["failed_requests"] == 1
+        assert sum(r.failed_requests for r in srv.last_report) == 1
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    for i, (c, g) in enumerate(zip(cpu, gpu, strict=True)):
+        if i == 1:
+            assert isinstance(g, errors.LaunchError) and g.ticket == 1
+            assert isinstance(c, errors.LaunchError) and str(c) == str(g)
+        else:
+            assert _same_bits(c, g)
 
 
 def _projective_cases(rng, d):
@@ -465,20 +494,31 @@ def test_affine_and_vecadd_kernels_equal_plain(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_equals_plain(cuda_device, dtype, out):
     """``matmul_2d`` against the plain version (k ascending, one rounded
-    multiply and add a step) on the card and on the CPU, bit for bit, at
-    ragged edges, K past one panel, K = 0 and the rotate shape."""
+    multiply and add a step) on the card and on the CPU, at ragged edges,
+    K past one panel, K = 0 and the rotate shape: bit for bit for float32
+    inputs and for the skinny regime (K <= 8 and N <= 8) of either dtype;
+    within ``bounds.matmul_bound`` for the tensor-core regime (bfloat16
+    otherwise), through its per-thread loads (K or N no multiple of 8) and
+    its TMA loads (256 x 512 x 384 and 1024**3)."""
+    import torch_bounds as bounds
     rng = np.random.default_rng([52, dtype == torch.bfloat16, out == "bfloat16"])
     out_dtype = getattr(torch, out)
     for m, k, n in ((17, 100, 33), (1, 8, 1), (1, 1, 1), (65, 17, 63),
                     (130, 1024, 70), (1 << 16, 2, 2), (3000, 3, 3),
-                    (5, 0, 4)):
+                    (5, 0, 4), (256, 512, 384), (1024, 1024, 1024)):
         x = _dense(rng, (m, k), dtype, cuda_device)
         y = _dense(rng, (k, n), dtype, cuda_device)
         got = matrix_k.matmul_2d(x, y, out_dtype=out_dtype)
         assert got.dtype == out_dtype and got.shape == (m, n)
         for want in (matrix_ref.matmul(x, y, out_dtype),
                      matrix_ref.matmul(x.cpu(), y.cpu(), out_dtype)):
-            assert _same_bits(_bits(got), _bits(want)), (m, k, n)
+            if matrix_k.tensor_cores(dtype, k, n):
+                want = want.to(cuda_device)
+                err = (got.float() - want.float()).abs()
+                assert bool((err <= bounds.matmul_bound(x, y, want)).all()), \
+                    (m, k, n)
+            else:
+                assert _same_bits(_bits(got), _bits(want)), (m, k, n)
 
 
 def test_primitive_ops_on_card_equal_cpu(cuda_device):
@@ -630,10 +670,11 @@ def test_rope_kernel_equals_plain_bitwise(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_within_bound_of_plain(cuda_device, dtype):
     """``flash_attention_3d`` within ``bounds.flash_bound`` of its plain
-    version: GQA groups 1 and 5, causal with and without a window (an
-    edge on a tile boundary and one inside a tile), ``q_offset`` with
-    S < T (decode-like), non-causal, and S and T that are no multiple of
-    any tile."""
+    version (for bfloat16 the tensor-core kernel's bound): GQA groups 1
+    to 5, causal with and without a window (an edge on a tile boundary
+    and one inside a tile), ``q_offset`` with S < T (decode-like),
+    non-causal, every head dim of ``HEAD_DIMS``, and S and T that are no
+    multiple of any tile (D = 80, 96 and 128 among them)."""
     bounds = _model_kernels()[0]
     fa_k, fa_ref = _model_kernels()[5:7]
     rng = np.random.default_rng([63, dtype == torch.bfloat16])
@@ -645,7 +686,11 @@ def test_flash_kernel_within_bound_of_plain(cuda_device, dtype):
             (3, 2, 5, 261, 64, True, 64, 256),
             (1, 4, 1, 77, 80, True, None, 76),
             (2, 1, 50, 70, 96, False, None, 0),
-            (4, 5, 129, 129, 128, True, 1024, 0)):
+            (4, 5, 129, 129, 128, True, 1024, 0),
+            (2, 2, 200, 333, 80, True, 100, 133),
+            (2, 3, 157, 157, 96, True, None, 0),
+            (1, 2, 300, 300, 128, False, None, 0),
+            (2, 1, 77, 200, 128, True, 50, 123)):
         q = _dense(rng, (bhkv * group, s, d), dtype, cuda_device)
         k = _dense(rng, (bhkv, t, d), dtype, cuda_device)
         v = _dense(rng, (bhkv, t, d), dtype, cuda_device)

@@ -161,6 +161,32 @@ def test_build_raises_not_ported_for_other_families(arch):
     assert isinstance(err.value, NotImplementedError)
 
 
+@pytest.mark.parametrize("field, value, item", [
+    ("n_experts", 4, "queue 1 item 10.1"),
+    ("pos_embed", "sinusoidal", "queue 1 item 10.2"),
+    ("frontend", "vision", "queue 1 item 10.3")])
+def test_build_raises_not_ported_for_unported_fields(field, value, item):
+    """A served family with a field the JAX model branches on (MoE
+    experts, sinusoidal positions, a frontend) would build another model
+    than the reference's: ``build`` refuses it, naming the sub-item that
+    ports the field; the ten shipped configs build, or raise for their
+    family, as before."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.get("h2o-danube-1.8b").reduced(),
+                              **{field: value})
+    with pytest.raises(NotPortedError, match=item) as err:
+        build(cfg)
+    assert field.split("_")[-1] in str(err.value)
+    for arch in configs.list_archs():
+        shipped = configs.get(arch)
+        if shipped.family in ("dense", "ssm", "hybrid"):
+            assert build(shipped).cfg is shipped
+        else:
+            with pytest.raises(NotPortedError,
+                               match=f"the {shipped.family} family"):
+                build(shipped)
+
+
 def test_int8_kv_cache_raises_not_ported():
     import dataclasses
     cfg = dataclasses.replace(configs.get("yi-6b").reduced(),

@@ -531,6 +531,45 @@ def test_q_overflow_fallback_reroutes_and_requantises(reference_q_plans):
                   <= _bound(chain, pts))
 
 
+@pytest.mark.parametrize("validate", [True, False])
+def test_non_finite_outputs_resolve_like_reference(validate):
+    """A d = 3 chain scale([1e30, 1, 1]) over 64 points of 1e10 overflows
+    float32 to inf.  With ``validate_outputs`` (the default) the
+    reference's recovery ends with a ``LaunchError`` in that request's
+    slot and its finite neighbours in the same launch served; the port
+    resolves the same slots, tickets and message text, and counts the
+    failure.  Without it both return the infs."""
+    chain = tc.TransformChain.identity(3).scale([1e30, 1.0, 1.0])
+    jchain = jtc.TransformChain(chain.dim, chain.kinds, chain.params)
+    rng = np.random.default_rng(54)
+    subs = [rng.standard_normal((64, 3)).astype(np.float32),
+            np.full((64, 3), 1e10, np.float32),
+            rng.standard_normal((50, 3)).astype(np.float32)]
+    srv = _server(fault_config=serving.FaultConfig(validate_outputs=validate))
+    jsrv = _jax_server(fault_config=jserving.FaultConfig(
+        validate_outputs=validate))
+    outs = srv.serve([(chain, p) for p in subs])
+    jouts = jsrv.serve([(jchain, p) for p in subs])
+    assert len({r.structure for r in srv.last_report}) == 1
+    for i, (out, jout) in enumerate(zip(outs, jouts)):
+        if validate and i == 1:
+            assert isinstance(out, errors.LaunchError)
+            assert type(jout).__name__ == "LaunchError"
+            assert out.ticket == jout.ticket == 1
+            for e in (out, jout):
+                assert "non-finite values in diag launch output" in str(e)
+        else:
+            assert isinstance(out, np.ndarray) and out.dtype == np.float32
+            assert np.array_equal(out, np.asarray(jout))
+    if not validate:
+        assert np.isinf(outs[1]).any() and np.isinf(jouts[1]).any()
+    failed = 1 if validate else 0
+    assert serving.stats["failed_requests"] \
+        == jserving.stats["failed_requests"] == failed
+    assert sum(r.failed_requests for r in srv.last_report) \
+        == sum(r.failed_requests for r in jsrv.last_report) == failed
+
+
 def test_q_intake_matches_reference(reference_q_plans):
     """FaultConfig validation, and the q intake's refusals: a projective
     chain, a bad format, int32 points; identity q requests pass through."""

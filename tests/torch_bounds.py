@@ -26,6 +26,22 @@ error of a sum of k terms, at most k * eps32 * (the sum of their
 magnitudes) for two summation orders, plus a few ulp for
 ``rsqrtf``/``expf``; a bfloat16 output adds one bfloat16 ulp, the most
 a float32 difference that small can move a rounding.
+
+The tensor-core (wgmma) paths.  ``matmul_2d`` on bfloat16 inputs (not
+the skinny K <= 8, N <= 8 ones, which stay bitwise) and
+``flash_attention_3d`` on bfloat16 inputs sum on Hopper's tensor cores,
+whose fp32 accumulation runs in the hardware's own order and need not
+round to nearest inside an MMA.  So ``matmul_bound`` allows
+2 K eps32 sum_k |x_ik y_kj| per element: K eps32 for each of the two
+orders (the tensor cores' and the plain k-ascending sum), the products
+being exact in float32 for bfloat16 inputs.  ``flash_bound`` doubles its
+ds and T eps32 terms for bfloat16 inputs and adds p_bf16 = 2**-8 max|v|:
+the kernel rounds P to bfloat16 (unit roundoff 2**-9) before P V while
+l sums the float32 p, so an output moves by at most 2**-9 sum_j p_j |v_j|
+/ l <= 2**-9 max|v|, doubled.  That is the trade the reference makes on
+its own chip: the TPU kernel's float32 ``dot_general`` calls set no
+``precision``, and a TPU's matrix unit at default precision takes
+bfloat16 operands.  The float32 paths keep their bounds as they were.
 """
 import numpy as np
 import torch
@@ -90,6 +106,16 @@ def rmsnorm_bound(want: torch.Tensor, n: int) -> torch.Tensor:
     return (n / 2 + 4) * EPS32 * want.float().abs() + _out_ulp(want)
 
 
+def matmul_bound(x: torch.Tensor, y: torch.Tensor,
+                 want: torch.Tensor) -> torch.Tensor:
+    """|kernel - plain| per element of the tensor-core ``matmul_2d``
+    (bfloat16 inputs) for x (M, K), y (K, N): 2 K eps32 sum_k |x_ik y_kj|,
+    plus one bfloat16 ulp for a bfloat16 output."""
+    k = x.shape[-1]
+    mag = torch.matmul(x.float().abs(), y.float().abs())
+    return 2 * k * EPS32 * mag + _out_ulp(want)
+
+
 def flash_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, want: torch.Tensor) -> torch.Tensor:
     """|kernel - plain| per element of attention over T keys of width D:
@@ -98,14 +124,18 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     two orders; the probabilities then by 2 ds + 4 eps32 relative (exp and
     the max shift), and the value sum and the denominator over T terms
     by T eps32 each: (4 ds + (2 T + 8) eps32) max|v|, plus one bfloat16
-    ulp."""
+    ulp.  bfloat16 inputs (the tensor-core kernel): (8 ds + (4 T + 8)
+    eps32 + 2**-8) max|v|, plus one bfloat16 ulp (module docstring)."""
     d, t = q.shape[-1], k.shape[-2]
     qn = q.float().norm(dim=-1).max()
     kn = k.float().norm(dim=-1).max()
     ds = d * EPS32 * scale * qn * kn
     vmax = v.float().abs().max()
-    return (4 * ds + (2 * t + 8) * EPS32) * vmax + _out_ulp(want) \
-        + torch.zeros_like(want, dtype=torch.float32)
+    if q.dtype == torch.bfloat16:
+        err = (8 * ds + (4 * t + 8) * EPS32 + 2.0 ** -8) * vmax
+    else:
+        err = (4 * ds + (2 * t + 8) * EPS32) * vmax
+    return err + _out_ulp(want) + torch.zeros_like(want, dtype=torch.float32)
 
 
 def ssd_bounds(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
