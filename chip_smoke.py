@@ -10,7 +10,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   2. build every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
      and print the registers and spills ptxas gave each instance of the
      tensor-core kernels (``matmul_2d.cu``, ``flash_attention.cu``) and
-     their wgmma and TMA-load instructions in the SASS (none fails);
+     of the 16-byte-access ones (``rmsnorm.cu``, ``affine_2d.cu``), and
+     the instructions in the SASS that each design rests on: wgmma and
+     TMA loads (``HGMMA``, ``UTMALDG``) in the first two, 128-bit global
+     loads and stores (``LDG.E.128``, ``STG.E.128``) in the other two
+     (none fails);
   3. serve (affine): 1024 requests from the affine template pool
      (lognormal sizes from 1024 to 262144 points, median 16384) through
      ``GeometryServer`` on the GPU -- one warm flush, then three rounds
@@ -115,7 +119,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      2000-token prompt with windows 1000 and 1024 and timed at 2048,
      window 1024, group 5; ``ssd_intra`` at 32 chunks of 256, 50 heads
      of 64, state 16; ``vecadd_2d`` at (8192, 1600) and (4, 1600)
-     bfloat16, bit for bit), each within its ``tests/torch_bounds.py``
+     bfloat16, bit for bit; both kernels of ``rmsnorm.cu`` and of
+     ``vecadd_2d``, the 16-byte one and the scalar one, checked untimed at
+     a base one element off 16-byte alignment, at M = 1, ``rmsnorm_2d``
+     at N = 33 and 100 and ``vecadd_2d`` at totals no multiple of 8),
+     each within its ``tests/torch_bounds.py``
      bound of the plain version, against ``F.rms_norm``,
      ``scaled_dot_product_attention`` with the same mask, ``torch.add``
      or a composite (rotate-half RoPE; the bfloat16 masked-matmul SSD);
@@ -294,14 +302,24 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+#: the instructions each redesigned source's SASS must hold: wgmma and
+#: TMA loads for the tensor-core kernels, 128-bit global loads and
+#: stores for the 16-byte-access ones
+SASS_REQUIRED = {"matmul_2d": ("HGMMA", "UTMALDG"),
+                 "flash_attention": ("HGMMA", "UTMALDG"),
+                 "rmsnorm": ("LDG.E.128", "STG.E.128"),
+                 "affine_2d": ("LDG.E.128", "STG.E.128")}
+
+
 def sass_counts(source: str) -> dict:
-    """The wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions in
-    the built library of ``csrc/<source>.cu``, by ``cuobjdump -sass``."""
+    """The instructions of ``SASS_REQUIRED[source]`` in the built library
+    of ``csrc/<source>.cu``, by ``cuobjdump -sass`` (``LDG.E.128`` also
+    counts its suffixed forms, such as ``LDG.E.128.CONSTANT``)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.build_all()[source])],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    return {op: sass.count(op) for op in SASS_REQUIRED[source]}
 
 
 def require_launched(counts: dict, names, phase: str) -> None:
@@ -1059,14 +1077,17 @@ def hymba_phase(device: str = "cuda") -> tuple[dict, dict, dict]:
 
 def model_case(name: str, shape: tuple, dtype: torch.dtype,
                rng: np.random.Generator, size: str, *, window=None,
-               pos0: int = 0, check_only: bool = False) -> dict:
+               pos0: int = 0, check_only: bool = False,
+               misaligned: bool = False) -> dict:
     """Check one model kernel against its plain version on the card at a
     path shape (rope_3d bit for bit, its tables from position ``pos0``;
-    the others within ``torch_bounds``), then time it beside its plain
-    version, one
+    the others within ``torch_bounds``; ``rmsnorm_2d``'s x one element
+    off 16-byte alignment if ``misaligned``), then time it beside its
+    plain version, one
     PyTorch call where one computes the function (``rms_norm``,
     ``scaled_dot_product_attention`` with the same mask) or a composite
-    (RoPE, SSD), and its bound."""
+    (RoPE, SSD), its bound and, for a row bound by bytes, a device copy
+    of as many bytes (``copy_ms``)."""
     dev = torch.device("cuda")
     item = torch.empty((), dtype=dtype).element_size()
 
@@ -1078,6 +1099,8 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
     if name == "rmsnorm_2d":
         m, n = shape
         x = randn(m, n, scale=3.0)
+        if misaligned:
+            x = off_alignment(x)
         g = (torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
              .to(dev))
         g_lib = g.to(dtype)
@@ -1177,7 +1200,8 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
         err = float(diff.max())
     row = {"kernel": name, "size": size, "shape": list(shape),
            "dtype": str(dtype).removeprefix("torch."), "window": window,
-           "pos0": pos0, "within_bound": True, "max_abs_err": err}
+           "pos0": pos0, "misaligned": misaligned, "within_bound": True,
+           "max_abs_err": err}
     if check_only:
         emit(row)
         return row
@@ -1186,6 +1210,8 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
         time_ms(run), time_ms(plain), time_ms(lib)
     composite = library == "composite"
     row.update({"ms": ms, "bytes": nbytes, "ops": ops,
+                "copy_ms": copy_ms(nbytes, dev) if byte_ms >= op_ms
+                else None,
                 "GB/s": nbytes / ms / 1e6, "TFLOP/s": ops / ms / 1e9,
                 "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -1226,6 +1252,26 @@ def time_ms(fn) -> tuple[float, float]:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times)), float(np.median(host)) * 1e6
+
+
+def off_alignment(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies one element past a
+    16-byte boundary, a view into a buffer one element longer: the
+    scalar kernels' case of ``rmsnorm_2d`` and ``vecadd_2d``."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise SystemExit("off_alignment: the view is 16-byte aligned")
+    return view
+
+
+def copy_ms(nbytes: int, dev: torch.device) -> float:
+    """The floor of one pass over ``nbytes`` as ``time_ms`` times it: a
+    device copy that reads nbytes / 2 and writes nbytes / 2."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src))[0]
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1458,7 +1504,7 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
 
 def eager_case(name: str, shape: tuple, dtype: torch.dtype,
                rng: np.random.Generator, size: str, *,
-               check_only: bool = False) -> dict:
+               check_only: bool = False, misaligned: bool = False) -> dict:
     """Check one eager kernel against its plain version, then time it
     unless ``check_only``: ``affine_2d``/``vecadd_2d`` at (M, N),
     ``matmul_2d`` at (M, K, N), inputs and output of ``dtype``; the
@@ -1467,7 +1513,8 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     reads and writes as many bytes (``copy_ms``).  Bit for bit, except
     ``matmul_2d``'s tensor-core regime (bfloat16, K > 8 or N > 8), which
     is held within ``bounds.matmul_bound``; the row's ``check`` says
-    which."""
+    which.  ``misaligned`` puts ``vecadd_2d``'s x and z one element off
+    16-byte alignment."""
     dev = torch.device("cuda")
 
     def randn(*s):
@@ -1487,6 +1534,8 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     elif name == "vecadd_2d":
         m, n = shape
         x, z = randn(m, n), randn(m, n)
+        if misaligned:
+            x, z = off_alignment(x), off_alignment(z)
         run = lambda: diag_k.vecadd_2d(x, z)   # noqa: E731
         plain = lambda: diag_ref.vecadd(x, z)  # noqa: E731
         lib, library = (lambda: torch.add(x, z)), "add"
@@ -1516,18 +1565,13 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     if check_only:
         row = {"kernel": name, "size": size, "shape": list(shape),
                "dtype": str(dtype).removeprefix("torch."), "check": check,
-               "max_abs_err": err}
+               "misaligned": misaligned, "max_abs_err": err}
         emit(row)
         return row
     lib_err = float((got.float() - lib().float()).abs().max())
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
         time_ms(run), time_ms(plain), time_ms(lib)
-    copy_ms = None
-    if byte_ms >= op_ms:   # the floor of one pass over these bytes, as timed
-        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
-        dst = torch.empty_like(src)
-        copy_ms = time_ms(lambda: dst.copy_(src))[0]
     row = {"kernel": name, "size": size, "shape": list(shape),
            "dtype": str(dtype).removeprefix("torch."), "check": check,
            "max_abs_err": err, "ms": ms, "bytes": nbytes, "ops": ops,
@@ -1536,7 +1580,7 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
            "plain_ms": plain_ms, "library_ms": lib_ms, "composite_ms": None,
            "library": library, "library_max_abs_diff": lib_err,
-           "copy_ms": copy_ms,
+           "copy_ms": copy_ms(nbytes, dev) if byte_ms >= op_ms else None,
            "host_us": host_us, "plain_host_us": plain_us,
            "library_host_us": lib_us}
     emit(row)
@@ -1556,15 +1600,15 @@ def main() -> int:
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": _build.sources()})
-    # the tensor-core kernels' instances as ptxas built them, and their
-    # wgmma (HGMMA) and TMA (UTMALDG) instructions in the SASS
-    for source in ("matmul_2d", "flash_attention"):
+    # the redesigned kernels' instances as ptxas built them, and the
+    # instructions their designs rest on in the SASS
+    for source in SASS_REQUIRED:
         sass = sass_counts(source)
         emit({"phase": "ptxas", "source": source, "sass": sass,
               "instances": _build.resource_usage(source)})
         if not all(sass.values()):
-            raise SystemExit(f"{source}: no wgmma or no TMA load in its "
-                             f"SASS: {sass}")
+            raise SystemExit(f"{source}: its SASS lacks one of "
+                             f"{SASS_REQUIRED[source]}: {sass}")
 
     _, summary, largest_affine, sizes_affine = serve_phase(
         "serve", workload.AFFINE_TEMPLATES)
@@ -1644,9 +1688,32 @@ def main() -> int:
                               "hymba prefill residual add")
     eager_case("vecadd_2d", (HYMBA_BATCH, 1600), bf16, rng,
                "hymba decode residual add", check_only=True)
+    # vecadd_2d's scalar kernel (a base off 16-byte alignment) and the
+    # 16-byte one's scalar tail (totals no multiple of 8), M = 1
+    for shape, dtype, size, off in (
+            ((rows_n, 1600), bf16, "prefill shape, off alignment", True),
+            ((1, 1600), bf16, "M = 1", False),
+            ((1, 1603), bf16, "M = 1, total 1603", False),
+            ((4097, 3), f32, "total 12291", False),
+            ((4097, 3), f32, "total 12291, off alignment", True)):
+        eager_case("vecadd_2d", shape, dtype, rng, size, check_only=True,
+                   misaligned=off)
     # the model kernels at every shape the serve gives them; the last row
     # of each kernel is the kernels line's
     last = HYMBA_PROMPT + HYMBA_GEN - 1
+    # rmsnorm.cu's scalar kernel (x off 16-byte alignment; rows of 33 or
+    # 100 values, no multiple of 16 bytes) and both kernels at M = 1
+    for shape, dtype, size, off in (
+            ((rows_n, 1600), bf16, "prefill shape, off alignment", True),
+            ((HYMBA_BATCH, 3200), f32, "decode SSM shape, off alignment",
+             True),
+            ((rows_n, 33), bf16, "N = 33", False),
+            ((rows_n, 100), f32, "N = 100", False),
+            ((1, 1600), bf16, "M = 1", False),
+            ((1, 3200), f32, "M = 1", False),
+            ((1, 100), bf16, "M = 1, N = 100", False)):
+        model_case("rmsnorm_2d", shape, dtype, rng, size, check_only=True,
+                   misaligned=off)
     for name, shape, dtype, size, window, pos0, only in (
             ("rmsnorm_2d", (HYMBA_BATCH, 3200), f32,
              "decode SSM gated norm", None, 0, True),
@@ -1713,11 +1780,11 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "composite_ms": r["composite_ms"],
-                        "library": r["library"]})
+                        "library": r["library"], "copy_ms": r.get("copy_ms")})
     kernels[list(KERNELS).index("vecadd_2d")]["hymba_prefill"] = {
         k: vecadd_hymba[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}
+                                     "library_ms", "copy_ms")}
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

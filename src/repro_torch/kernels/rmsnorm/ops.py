@@ -5,7 +5,7 @@ Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
 launches ``rmsnorm_2d``, a CPU tensor (or ``backend="ref"``) runs the
 plain version.  The JAX package's ``block_rows``/tuning-cache knob is
 left out: rows normalise independently, so it never changed results,
-and the CUDA kernel takes one block a row.
+and the CUDA kernel sizes its row groups to the row itself.
 """
 from __future__ import annotations
 

@@ -14,7 +14,13 @@ eager torch and held to the bounds the card checks use:
     online max and sum in float32 and P rounded to bfloat16 before P V --
     within ``flash_bound`` of the plain version, as bfloat16 and before
     the output rounding; P one bfloat16 ulp too large at a row's dominant
-    key in a 128-key tile lies outside it.
+    key in a 128-key tile lies outside it;
+  * ``rmsnorm_2d``'s 16-byte kernel: W warps a row (``warps_for`` of
+    ``csrc/rmsnorm.cu``), each lane's float32 sum of squares over its
+    vectors in order, the butterfly of shuffles across the warp, the
+    warps' sums added in order, then ``x * inv * gain`` -- within
+    ``rmsnorm_bound`` of the plain version at N = 64, 1600 and 3200, few
+    rows and many; one lane's partial sum dropped lies outside it.
 
 The shapes are the card tests' (``tests/test_torch_cuda.py``).
 """
@@ -28,6 +34,7 @@ import torch_bounds as bounds
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.matmul import matmul as matrix_k
 from repro_torch.kernels.matmul import ref as matrix_ref
+from repro_torch.kernels.rmsnorm import ref as rms_ref
 
 #: the wgmma regime's shapes in test_matmul_kernel_equals_plain (K > 8 or
 #: N > 8): staged loads (K or N no multiple of 8) and TMA loads
@@ -213,3 +220,102 @@ def test_flash_bound_catches_one_p_ulp_too_many():
     assert bool((good <= bound).all())
     assert not bool((bad[0, row] <= bound[0, row]).all())
     assert float(bad[0, row].max()) >= 2.0 ** -7 * 0.99
+
+
+# -- rmsnorm_2d -------------------------------------------------------------------
+
+#: csrc/rmsnorm.cu's kMaxVec and kMaxWarps, and the SM count below which
+#: warps_for spreads a row over more warps
+RMS_MAX_VEC, RMS_MAX_WARPS, SMS = 8, 32, 132
+RMS_CASES = [(m, n, dt) for n in (64, 1600, 3200) for m in (4, 200)
+             for dt in ("float32", "bfloat16")]
+
+
+def _rms_warps(m, nv):
+    """csrc/rmsnorm.cu's ``warps_for``: the warps that take a row."""
+    w = 1
+    while 32 * w * RMS_MAX_VEC < nv:
+        w *= 2
+    if m < SMS:
+        while w < RMS_MAX_WARPS and 32 * w < nv:
+            w *= 2
+    return w
+
+
+def _emulate_rmsnorm(x, g, eps, drop_lane=None):
+    """The 16-byte kernel's arithmetic in float32, before the output
+    rounding: vector j of a row (16 bytes of x) goes to lane j mod 32 W
+    of its group; each lane sums x*x over its vectors in order (a fused
+    multiply-add, emulated in float64 and rounded once to float32 -- the
+    product is exact there, so this is fmaf but for a rare double
+    rounding); a butterfly (xor 16, 8, 4, 2, 1) adds the lanes of each
+    warp; the W warps' sums are added in order.  ``drop_lane`` zeroes one
+    lane's partial sum (the planted fault)."""
+    m, n = x.shape
+    vec = 16 // x.element_size()
+    nv = n // vec
+    w = _rms_warps(m, nv)
+    group = 32 * w
+    k = -(-nv // group)
+    flat = torch.zeros(m, k * group * vec, dtype=torch.float64)
+    flat[:, :n] = x.double()
+    v = flat.view(m, k, group, vec)
+    ss = torch.zeros(m, group, dtype=torch.float32)
+    for kk in range(k):
+        for e in range(vec):
+            a = v[:, kk, :, e]
+            ss = (a * a + ss.double()).float()
+    if drop_lane is not None:
+        ss[:, drop_lane] = 0.0
+    ss = ss.view(m, w, 32)
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, :, lane ^ o]
+    total = ss[:, 0, 0]
+    for i in range(1, w):
+        total = total + ss[:, i, 0]
+    inv = torch.rsqrt(total / n + eps)
+    return (x.float() * inv[:, None]) * g
+
+
+def _rms_inputs(m, n, dt, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        3 * rng.standard_normal((m, n)).astype(np.float32)).to(getattr(torch, dt))
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    return x, g
+
+
+@pytest.mark.parametrize("case", RMS_CASES,
+                         ids=["-".join(map(str, c)) for c in RMS_CASES])
+def test_rmsnorm_emulation_within_bound(case):
+    m, n, dt = case
+    x, g = _rms_inputs(m, n, dt, [75, m, n, dt == "bfloat16"])
+    want = rms_ref.rmsnorm(x, g, 1e-5)
+    emu = _emulate_rmsnorm(x, g, 1e-5)
+    err = (emu.to(x.dtype).float() - want.float()).abs()
+    assert bool((err <= bounds.rmsnorm_bound(want, n)).all())
+    want32 = rms_ref.rmsnorm(x.float(), g, 1e-5)
+    err32 = (emu - want32).abs()
+    assert bool((err32 <= bounds.rmsnorm_bound(want32, n)).all())
+    if m * n >= 200 * 1600:   # another order does round otherwise
+        assert float(err32.max()) > 0
+
+
+@pytest.mark.parametrize("case", RMS_CASES,
+                         ids=["-".join(map(str, c)) for c in RMS_CASES])
+def test_rmsnorm_bound_catches_a_dropped_lane(case):
+    """Lane 0's partial sum left out (lane 0 holds a vector of every row)
+    moves inv by about 1 / (lanes holding the row) relative, past the
+    bound's (n / 2 + 4) eps32 on the float32 output.  (A bfloat16
+    output's ulp, 2**-8 relative and more, hides it where a row spreads
+    over more than ~256 lanes, as at (4, 3200): there the float32 values
+    before the rounding are what shows the fault.)"""
+    m, n, dt = case
+    x, g = _rms_inputs(m, n, dt, [76, m, n, dt == "bfloat16"])
+    want32 = rms_ref.rmsnorm(x.float(), g, 1e-5)
+    bound = bounds.rmsnorm_bound(want32, n)
+    good = (_emulate_rmsnorm(x, g, 1e-5) - want32).abs()
+    bad = (_emulate_rmsnorm(x, g, 1e-5, drop_lane=0) - want32).abs()
+    assert bool((good <= bound).all())
+    assert not bool((bad <= bound).all())

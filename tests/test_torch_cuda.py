@@ -650,6 +650,61 @@ def test_rmsnorm_kernel_within_bound_of_plain(cuda_device, dtype):
             assert bool((err <= bounds.rmsnorm_bound(want, n)).all()), (m, n)
 
 
+def _misaligned(a: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``a`` whose base lies one element past a
+    16-byte boundary (a view into a buffer one element longer)."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_vector_and_scalar_paths_within_bound(cuda_device, dtype):
+    """Both kernels of ``csrc/rmsnorm.cu`` within ``bounds.rmsnorm_bound``
+    of the plain version: the 16-byte one at every warps-a-row instance
+    (few rows and many, up to the widest row it takes) and the scalar
+    one at rows of no multiple of 16 bytes (N = 33, 100), past the
+    widest, and at x or gain one element off 16-byte alignment; M = 1
+    among them."""
+    bounds, rms_k, rms_ref = _model_kernels()[:3]
+    rng = np.random.default_rng([66, dtype == torch.bfloat16])
+    widest = 65536 if dtype == torch.bfloat16 else 32768
+    for m, n in ((1, 1600), (1, 3200), (3, 8), (200, 64), (4, 1600),
+                 (200, 1600), (4, 3200), (200, 3200), (3, 8192),
+                 (140, 8192), (140, 16384), (2, widest), (2, widest + 8), (1, 33),
+                 (7, 33), (5, 100), (300, 100)):
+        x = _dense(rng, (m, n), dtype, cuda_device) * 3
+        g = _dense(rng, (n,), torch.float32, cuda_device, 0.5, 1.5)
+        want = rms_ref.rmsnorm(x, g, 1e-5)
+        bound = bounds.rmsnorm_bound(want, n)
+        for xs, gs in ((x, g), (_misaligned(x), g), (x, _misaligned(g))):
+            got = rms_k.rmsnorm_2d(xs, gs, eps=1e-5)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= bound).all()), (m, n, xs.data_ptr() % 16,
+                                                gs.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vecadd_vector_and_scalar_paths_equal_plain(cuda_device, dtype):
+    """Both kernels of ``vecadd_2d`` bit for bit equal to the plain version
+    on the card and on the CPU: totals that are no multiple of 8 (the
+    16-byte kernel's scalar tail), M = 1, and x or z one element off
+    16-byte alignment (the scalar kernel)."""
+    rng = np.random.default_rng([67, dtype == torch.bfloat16])
+    for shape in ((1, 1), (1, 7), (3, 5), (1, 1603), (13, 77), (8191, 3),
+                  (4, 1600), (4096, 1600), (1, 1 << 20)):
+        x = _dense(rng, shape, dtype, cuda_device)
+        z = _dense(rng, shape, dtype, cuda_device)
+        want = diag_ref.vecadd(x.cpu(), z.cpu())
+        for xs, zs in ((x, z), (_misaligned(x), z), (x, _misaligned(z)),
+                       (_misaligned(x), _misaligned(z))):
+            got = diag_k.vecadd_2d(xs, zs)
+            assert _same_bits(_bits(got), _bits(want)), shape
+            assert _same_bits(_bits(got), _bits(diag_ref.vecadd(xs, zs)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_kernel_equals_plain_bitwise(cuda_device, dtype):
     """``rope_3d`` rounds after each op as eager torch does: bit for bit
