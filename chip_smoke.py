@@ -10,11 +10,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   2. build every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
      and print the registers and spills ptxas gave each instance of the
      tensor-core kernels (``matmul_2d.cu``, ``flash_attention.cu``) and
-     of the 16-byte-access ones (``rmsnorm.cu``, ``affine_2d.cu``), and
-     the instructions in the SASS that each design rests on: wgmma and
-     TMA loads (``HGMMA``, ``UTMALDG``) in the first two, 128-bit global
-     loads and stores (``LDG.E.128``, ``STG.E.128``) in the other two
-     (none fails);
+     of the 16-byte-access ones (``rmsnorm.cu``, ``affine_2d.cu``,
+     ``chain_diag.cu``), and the instructions in the SASS that each
+     design rests on: wgmma and TMA loads (``HGMMA``, ``UTMALDG``) in the
+     first two libraries, 128-bit global loads and stores (``LDG.E.128``,
+     ``STG.E.128``) in every instance of the 16-byte kernels
+     (``rmsnorm_vec_kernel``; ``vecadd_vec_kernel``,
+     ``affine_flat_kernel``, ``affine_col_kernel``;
+     ``chain_diag_vec_kernel``), each counted inside its own ``Function
+     :`` section of ``cuobjdump -sass`` (none may lack one);
   3. serve (affine): 1024 requests from the affine template pool
      (lognormal sizes from 1024 to 262144 points, median 16384) through
      ``GeometryServer`` on the GPU -- one warm flush, then three rounds
@@ -87,7 +91,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
      them -- and the batch kernels at the largest served bucket of each
-     plan kind): bitwise equal to its plain version on the same inputs
+     plan kind, ``chain_diag_batch_2d`` also at the largest d = 3 bucket
+     and, untimed, through its scalar kernel: rows of 39 floats, B > 1024,
+     points one element off 16-byte alignment): bitwise equal to its
+     plain version on the same inputs
      (points and mask; the int16 kernels at full-range words and at
      n_frac 0, 7 and 15), timed with CUDA events (median of 25 runs, L2
      flushed between runs and the device kept busy while the host
@@ -98,7 +105,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      projective ones ``addmm``/``baddbmm``, a divide and two compares,
      for the int16 ones a float64 ``addcmul``/``addmm``/``baddbmm``, then
      an int64 rounding shift) -- a yardstick only, the port never calls
-     it -- and its bound; the eager kernels at the shapes of
+     it -- and its bound, and for a row bound by bytes a device copy of
+     as many bytes (``copy_ms``, the floor of one pass as timed here);
+     the eager kernels at the shapes of
      kernel_bench.py and of the primitives phase: ``affine_2d`` and
      ``vecadd_2d`` at (1024, 1024) float32 and bfloat16 and at (2**20, 2),
      ``matmul_2d`` at 1024**3 bfloat16 and float32, at 4096**3 bfloat16
@@ -107,7 +116,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      ``bounds.matmul_bound`` -- against ``torch.addcmul`` / ``torch.add`` /
      ``torch.matmul`` (and checked, untimed, at (130, 1024, 70) bfloat16,
      the tensor-core regime's per-thread loads, and at the rotate shape
-     in bfloat16),
+     in bfloat16; ``affine_2d`` bitwise in each of its regimes: flat
+     vectors at N = 1, 2, 4, 8 with scalar tails, column vectors at N =
+     8, 12, 1600 and 2**20, the scalar kernel at N = 3 and 100 and with
+     x or s one element off 16-byte alignment),
      and ``chain_matrix_1d`` at (2**20, 2); then the paper's comparison
      of the kernels alone: three ``affine_2d`` and one ``matmul_2d`` row
      medians at the cloud shape, summed, against ``chain_matrix_1d``'s;
@@ -140,6 +152,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -302,24 +315,52 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-#: the instructions each redesigned source's SASS must hold: wgmma and
-#: TMA loads for the tensor-core kernels, 128-bit global loads and
-#: stores for the 16-byte-access ones
-SASS_REQUIRED = {"matmul_2d": ("HGMMA", "UTMALDG"),
-                 "flash_attention": ("HGMMA", "UTMALDG"),
-                 "rmsnorm": ("LDG.E.128", "STG.E.128"),
-                 "affine_2d": ("LDG.E.128", "STG.E.128")}
+#: the 16-byte global loads and stores of the memory-bound kernels
+VEC_OPS = ("LDG.E.128", "STG.E.128")
+#: the instructions each redesigned kernel's SASS must hold, by source and
+#: kernel: every ``Function :`` section of the kernel's name (each template
+#: instance) must hold each instruction; None stands for the whole
+#: library.  wgmma and TMA loads for the tensor-core kernels, 128-bit
+#: global loads and stores for the 16-byte-access ones
+SASS_REQUIRED = {"matmul_2d": {None: ("HGMMA", "UTMALDG")},
+                 "flash_attention": {None: ("HGMMA", "UTMALDG")},
+                 "rmsnorm": {"rmsnorm_vec_kernel": VEC_OPS},
+                 "affine_2d": {"vecadd_vec_kernel": VEC_OPS,
+                               "affine_flat_kernel": VEC_OPS,
+                               "affine_col_kernel": VEC_OPS},
+                 "chain_diag": {"chain_diag_vec_kernel": VEC_OPS}}
 
 
-def sass_counts(source: str) -> dict:
-    """The instructions of ``SASS_REQUIRED[source]`` in the built library
-    of ``csrc/<source>.cu``, by ``cuobjdump -sass`` (``LDG.E.128`` also
-    counts its suffixed forms, such as ``LDG.E.128.CONSTANT``)."""
+def sass_sections(source: str) -> dict:
+    """The SASS of the built library of ``csrc/<source>.cu`` by
+    ``cuobjdump -sass``: {mangled function name: its instructions}."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.build_all()[source])],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return {op: sass.count(op) for op in SASS_REQUIRED[source]}
+    parts = re.split(r"^\s*Function : (\S+)\s*$", sass, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def sass_counts(source: str) -> dict:
+    """{kernel: {function: {instruction: count}}} for the kernels of
+    ``SASS_REQUIRED[source]`` ("library" for None; ``LDG.E.128`` also
+    counts its suffixed forms, such as ``LDG.E.128.CONSTANT``)."""
+    sections = sass_sections(source)
+    counts = {}
+    for kernel, ops in SASS_REQUIRED[source].items():
+        found = {"library": "".join(sections.values())} if kernel is None \
+            else {f: body for f, body in sections.items() if kernel in f}
+        counts[kernel or "library"] = {
+            f: {op: body.count(op) for op in ops} for f, body in found.items()}
+    return counts
+
+
+def sass_missing(counts: dict) -> list:
+    """The kernels of ``sass_counts`` with no section, or with a section
+    that lacks one of its instructions."""
+    return [k for k, fns in counts.items()
+            if not fns or not all(all(c.values()) for c in fns.values())]
 
 
 def require_launched(counts: dict, names, phase: str) -> None:
@@ -518,12 +559,14 @@ def flush_summary(stats, flushes, submit_s, flush_s, timings) -> dict:
 
 
 def largest_buckets(reports) -> dict:
-    """The (requests, lpad, d) of the largest bucket of each plan kind."""
+    """The (requests, lpad, d) of the largest bucket of each plan kind,
+    under the key ``kind`` and, for each d, under ``(kind, d)``."""
     largest = {}
     for rep in reports:
-        if rep.padded_points > largest.get(rep.kind, (0, 0, 0, 0))[3]:
-            largest[rep.kind] = (rep.requests, rep.lpad,
-                                 int(rep.structure[0]), rep.padded_points)
+        d = int(rep.structure[0])
+        for key in (rep.kind, (rep.kind, d)):
+            if rep.padded_points > largest.get(key, (0, 0, 0, 0))[3]:
+                largest[key] = (rep.requests, rep.lpad, d, rep.padded_points)
     return {k: v[:3] for k, v in largest.items()}
 
 
@@ -1334,9 +1377,13 @@ def projective_case(shape: tuple, rng: np.random.Generator, dev):
 
 
 def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
-                size: str) -> dict:
-    """Check and time one kernel at one shape: (N, d) flat or (B, L, d);
-    ``size`` says which of the path's sizes the shape is."""
+                size: str, *, check_only: bool = False,
+                misaligned: bool = False) -> dict:
+    """Check one kernel at one shape, (N, d) flat or (B, L, d), then time
+    it unless ``check_only``; ``size`` says which of the path's sizes the
+    shape is.  A row bound by bytes also times a device copy of as many
+    bytes (``copy_ms``).  ``misaligned`` puts the points one element off
+    16-byte alignment (diag and matrix kernels)."""
     d = shape[-1]
     kind = KERNELS[name][2]
     batched = len(shape) == 3
@@ -1348,6 +1395,8 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
         run, plain, lib, nbytes, ops = projective_case(shape, rng, dev)
     else:
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        if misaligned:
+            x = off_alignment(x)
         t = torch.from_numpy(rng.uniform(-3, 3, lead + (d,)).astype(np.float32)).to(dev)
         if kind == "diag":
             p = torch.from_numpy(rng.uniform(0.2, 2, lead + (d,)).astype(np.float32)).to(dev)
@@ -1383,6 +1432,12 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
     if not same_bits(got, want):
         raise SystemExit(f"{name} {shape}: kernel != plain version")
     err = float((got - want).abs().max()) if got.numel() else 0.0
+    if check_only:
+        row = {"kernel": name, "size": size, "shape": list(shape),
+               "check": "equal", "misaligned": misaligned,
+               "max_abs_err": err}
+        emit(row)
+        return row
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
         time_ms(run), time_ms(plain), time_ms(lib)
@@ -1396,6 +1451,7 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
            "library_ms": None if library == "composite" else lib_ms,
            "composite_ms": lib_ms if library == "composite" else None,
            "library": library,
+           "copy_ms": copy_ms(nbytes, dev) if byte_ms >= op_ms else None,
            "host_us": host_us, "plain_host_us": plain_us,
            "library_host_us": lib_us}
     if kind == "projective":
@@ -1490,12 +1546,15 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
         time_ms(lambda: run(n)), time_ms(lambda: plain(n)), \
         time_ms(lambda: lib(n))
     row = {"kernel": name, "size": size, "shape": list(shape), "d": d,
-           "n_frac_checked": list(Q_FRACS), "timed_n_frac": n, "equal": True,
+           "dtype": "int16", "n_frac_checked": list(Q_FRACS),
+           "timed_n_frac": n, "equal": True,
            "max_abs_err": err, "ms": ms, "bytes": nbytes,
            "GB/s": nbytes / ms / 1e6, "bound_ms": max(byte_ms, op_ms),
            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
            "plain_ms": plain_ms, "library_ms": None, "composite_ms": lib_ms,
            "library": "composite", "composite_equal": composite_equal,
+           "copy_ms": copy_ms(nbytes, torch.device("cuda"))
+           if byte_ms >= op_ms else None,
            "host_us": host_us, "plain_host_us": plain_us,
            "library_host_us": lib_us}
     emit(row)
@@ -1504,7 +1563,7 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
 
 def eager_case(name: str, shape: tuple, dtype: torch.dtype,
                rng: np.random.Generator, size: str, *,
-               check_only: bool = False, misaligned: bool = False) -> dict:
+               check_only: bool = False, misaligned: tuple = ()) -> dict:
     """Check one eager kernel against its plain version, then time it
     unless ``check_only``: ``affine_2d``/``vecadd_2d`` at (M, N),
     ``matmul_2d`` at (M, K, N), inputs and output of ``dtype``; the
@@ -1513,8 +1572,9 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     reads and writes as many bytes (``copy_ms``).  Bit for bit, except
     ``matmul_2d``'s tensor-core regime (bfloat16, K > 8 or N > 8), which
     is held within ``bounds.matmul_bound``; the row's ``check`` says
-    which.  ``misaligned`` puts ``vecadd_2d``'s x and z one element off
-    16-byte alignment."""
+    which.  ``misaligned`` names the operands (``x``, ``z`` of
+    ``vecadd_2d``; ``x``, ``s``, ``t`` of ``affine_2d``) put one element
+    off 16-byte alignment."""
     dev = torch.device("cuda")
 
     def randn(*s):
@@ -1527,6 +1587,8 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     if name == "affine_2d":
         m, n = shape
         x, s, t = randn(m, n), randn(n), randn(n)
+        x, s, t = (off_alignment(a) if k in misaligned else a
+                   for k, a in (("x", x), ("s", s), ("t", t)))
         run = lambda: diag_k.affine_2d(x, s, t)   # noqa: E731
         plain = lambda: diag_ref.affine(x, s, t)  # noqa: E731
         lib, library = (lambda: torch.addcmul(t, x, s)), "addcmul"
@@ -1534,8 +1596,8 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     elif name == "vecadd_2d":
         m, n = shape
         x, z = randn(m, n), randn(m, n)
-        if misaligned:
-            x, z = off_alignment(x), off_alignment(z)
+        x, z = (off_alignment(a) if k in misaligned else a
+                for k, a in (("x", x), ("z", z)))
         run = lambda: diag_k.vecadd_2d(x, z)   # noqa: E731
         plain = lambda: diag_ref.vecadd(x, z)  # noqa: E731
         lib, library = (lambda: torch.add(x, z)), "add"
@@ -1565,7 +1627,7 @@ def eager_case(name: str, shape: tuple, dtype: torch.dtype,
     if check_only:
         row = {"kernel": name, "size": size, "shape": list(shape),
                "dtype": str(dtype).removeprefix("torch."), "check": check,
-               "misaligned": misaligned, "max_abs_err": err}
+               "misaligned": list(misaligned), "max_abs_err": err}
         emit(row)
         return row
     lib_err = float((got.float() - lib().float()).abs().max())
@@ -1606,9 +1668,9 @@ def main() -> int:
         sass = sass_counts(source)
         emit({"phase": "ptxas", "source": source, "sass": sass,
               "instances": _build.resource_usage(source)})
-        if not all(sass.values()):
-            raise SystemExit(f"{source}: its SASS lacks one of "
-                             f"{SASS_REQUIRED[source]}: {sass}")
+        if sass_missing(sass):
+            raise SystemExit(f"{source}: the SASS of {sass_missing(sass)} "
+                             f"lacks one of {SASS_REQUIRED[source]}")
 
     _, summary, largest_affine, sizes_affine = serve_phase(
         "serve", workload.AFFINE_TEMPLATES)
@@ -1639,6 +1701,20 @@ def main() -> int:
                 kernel_case(name, (sizes_affine["all"][i], d), rng, size)
             kernel_case("chain_project_1d", (sizes["projective"][i], d), rng,
                         f"{size} (projective, mixed serve)")
+    # chain_diag_batch_2d's vector kernel at the largest d = 3 bucket too
+    # (three column patterns), and its scalar kernel, untimed: a row of
+    # no multiple of 4 floats, and the largest bucket off alignment
+    kernel_case("chain_diag_batch_2d", largest_affine["diag", 3], rng,
+                "largest d = 3 bucket")
+    kernel_case("chain_diag_batch_2d", (5, 13, 3), rng, "row of 39 floats",
+                check_only=True)
+    kernel_case("chain_diag_batch_2d", (1500, 10, 2), rng,
+                "B > 1024, row of 20 floats", check_only=True)
+    kernel_case("chain_diag_batch_2d", (1100, 13, 3), rng,
+                "B > 1024, row of 39 floats", check_only=True)
+    kernel_case("chain_diag_batch_2d", largest_affine["diag"], rng,
+                "largest bucket, off alignment", check_only=True,
+                misaligned=True)
     for name, kind in (("chain_diag_batch_2d", "diag"),
                        ("chain_matrix_batch_2d", "matrix")):
         rows[name] = kernel_case(name, largest_affine[kind], rng,
@@ -1690,13 +1766,36 @@ def main() -> int:
                "hymba decode residual add", check_only=True)
     # vecadd_2d's scalar kernel (a base off 16-byte alignment) and the
     # 16-byte one's scalar tail (totals no multiple of 8), M = 1
+    xz = ("x", "z")
     for shape, dtype, size, off in (
-            ((rows_n, 1600), bf16, "prefill shape, off alignment", True),
-            ((1, 1600), bf16, "M = 1", False),
-            ((1, 1603), bf16, "M = 1, total 1603", False),
-            ((4097, 3), f32, "total 12291", False),
-            ((4097, 3), f32, "total 12291, off alignment", True)):
+            ((rows_n, 1600), bf16, "prefill shape, off alignment", xz),
+            ((1, 1600), bf16, "M = 1", ()),
+            ((1, 1603), bf16, "M = 1, total 1603", ()),
+            ((4097, 3), f32, "total 12291", ()),
+            ((4097, 3), f32, "total 12291, off alignment", xz)):
         eager_case("vecadd_2d", shape, dtype, rng, size, check_only=True,
+                   misaligned=off)
+    # affine_2d's three regimes beyond the timed rows: flat vectors with a
+    # scalar tail (totals no multiple of the width), column vectors at
+    # narrow, ragged-tile and hymba widths, and the scalar kernel (N = 3,
+    # N = 100, x or s off 16-byte alignment)
+    for shape, dtype, size, off in (
+            ((4097, 1), f32, "flat, N = 1, total 4097", ()),
+            ((CLOUD_POINTS + 1, 2), bf16, "flat, N = 2, total 2**21 + 2",
+             ()),
+            ((1001, 4), f32, "flat, N = 4", ()),
+            ((3001, 8), bf16, "flat, N = 8", ()),
+            ((4097, 8), f32, "column, N = 8", ()),
+            ((999, 12), f32, "column, N = 12", ()),
+            ((rows_n, 1600), bf16, "column, N = 1600", ()),
+            ((HYMBA_BATCH, 1600), bf16, "column, M = 4", ()),
+            ((1, 1 << 20), f32, "column, M = 1", ()),
+            ((CLOUD_POINTS, 3), f32, "scalar, N = 3", ()),
+            ((4097, 100), bf16, "scalar, N = 100", ()),
+            ((CLOUD_POINTS, 2), f32, "scalar, x off alignment", ("x",)),
+            ((1024, 1024), bf16, "scalar, x off alignment", ("x",)),
+            ((1024, 1024), f32, "scalar, s off alignment", ("s",))):
+        eager_case("affine_2d", shape, dtype, rng, size, check_only=True,
                    misaligned=off)
     # the model kernels at every shape the serve gives them; the last row
     # of each kernel is the kernels line's

@@ -41,7 +41,9 @@ def chain_diag_1d(flat: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
 def chain_diag_batch_2d(pts3: torch.Tensor, s: torch.Tensor,
                         t: torch.Tensor) -> torch.Tensor:
     """q[b] = s[b] (.) p[b] + t[b] for a packed (B, L, d) batch and
-    (B, d) per-request parameters: one launch for the whole batch."""
+    (B, d) per-request parameters: one launch for the whole batch (the
+    16-byte kernel where a row of L*d floats is a multiple of 4 and the
+    bases are aligned, else the scalar one; ``csrc/chain_diag.cu``)."""
     if pts3.dim() != 3:
         raise ValueError(f"chain_diag_batch_2d wants (B, L, d) points, got "
                          f"{tuple(pts3.shape)}")
@@ -60,7 +62,10 @@ def chain_diag_batch_2d(pts3: torch.Tensor, s: torch.Tensor,
 def affine_2d(x: torch.Tensor, s: torch.Tensor,
               t: torch.Tensor) -> torch.Tensor:
     """y[i, j] = x[i, j] * s[j] + t[j] for x (M, N) and row parameters
-    ``s``/``t`` (N,), float32 or bfloat16 (one dtype for all three)."""
+    ``s``/``t`` (N,), float32 or bfloat16 (one dtype for all three).  The
+    kernel picks its regime from N and the bases' alignment: flat
+    16-byte vectors, column vectors or one element a thread
+    (``csrc/affine_2d.cu``); a call counts one launch in every regime."""
     bf16 = check_dense(x, s, t)
     if x.dim() != 2 or s.shape != (x.shape[1],) or t.shape != s.shape:
         raise ValueError(f"affine_2d wants x (M, N), s and t (N,); got "

@@ -41,8 +41,39 @@
 //     (a scalar tail inside the vector kernel cost it 6 % in float32).
 //     Other bases take vecadd_2d_kernel alone, one element a thread per
 //     int64 grid-stride step.
-//   * affine_2d: one element a thread per int64 grid-stride step, the
-//     column j mod N.  Vectorised 16-byte accesses are later work here.
+//   * affine_2d: three regimes, chosen by the C entry from N, the type's
+//     width W (4 float32 or 8 bfloat16 values a 16-byte vector) and the
+//     16-byte alignment of the bases, as launch_vecadd chooses:
+//       - W % N == 0 (N = 1, 2, 4; 8 in bfloat16), x and y aligned:
+//         affine_flat_kernel.  Every vector holds W / N whole rows, so its
+//         column pattern is fixed: each thread tiles s and t into one
+//         16-byte register pattern each, once, and walks the flat buffer
+//         in vecadd_vec_kernel's chunked one-wave layout.  The last
+//         total % W elements (which start on column 0, since the vectors
+//         end on a row's end) go to affine_2d_kernel in a second launch.
+//         The point clouds' (N, 2) translate and scale take this regime.
+//       - N % W == 0 otherwise, all four bases aligned:
+//         affine_col_kernel.  A thread owns one column vector: it loads
+//         s and t for it once as one 16-byte vector each and walks its
+//         rows, kUnroll rows loaded before any is stored; neighbouring
+//         threads take neighbouring vectors of one row (a block's 128
+//         threads cover min(N / W, 128) column vectors of 128 / that many
+//         rows at once).  The grid is column tiles x row chunks, sized to
+//         one wave.  No modulo at all.  Every transformer width and
+//         kernel_bench's (1024, 1024) take this regime.
+//       - everything else (N = 3, N = 100, bases off 16 bytes):
+//         affine_2d_kernel, one element a thread per int64 grid-stride
+//         step.  Its column is j mod N taken once a thread, then stepped
+//         by the stride mod N with one compare and subtract a step: a
+//         64-bit division per element is a software routine of tens of
+//         instructions, as costly as the pass at these sizes.
+//     bfloat16 values are unpacked from 32-bit pairs as add_pair does (a
+//     bfloat16 widens to float32 exactly as its bits in the upper half).
+//     On an H100 (80GB HBM3, 700 W) the one-element-a-thread kernel took
+//     0.0112 ms at (1024, 1024) float32, 0.0098 in bfloat16 and 0.0145
+//     at (2**20, 2) float32, 1.04-1.10x torch.addcmul; the column and
+//     flat kernels take 0.0093, 0.0082 and 0.0118, 0.86-0.93x addcmul
+//     (chip_smoke.py's rows).
 #include <cuda_bf16.h>
 
 #include "launch.cuh"
@@ -72,12 +103,16 @@ __global__ void affine_2d_kernel(T* __restrict__ y, const T* __restrict__ x,
                                  const T* __restrict__ t, int64_t total,
                                  int64_t n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < total; j += stride) {
-    const int64_t c = j % n;
+  int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= total) return;
+  int64_t c = j % n;                  // the column, once a thread
+  const int64_t step = stride % n;    // then stepped: c < n, step < n
+  for (; j < total; j += stride) {
     // the product rounded to T before the add, the sum rounded on store
     const float prod = mul_rn(load(x, j), load(s, c), T());
     store(y, j, __fadd_rn(prod, load(t, c)));
+    c += step;
+    if (c >= n) c -= n;
   }
 }
 
@@ -117,6 +152,40 @@ __device__ __forceinline__ uint4 add_vec(const uint4& a, const uint4& b,
                     add_pair(a.z, b.z), add_pair(a.w, b.w));
 }
 
+// y = x * s + t on a 16-byte vector of x against 16-byte patterns of s
+// and t, element by element: float32 __fadd_rn(__fmul_rn(x, s), t); in
+// bfloat16 the product rounded to bfloat16 and widened, t added, the sum
+// rounded (mul_rn and store above).
+__device__ __forceinline__ uint32_t affine_word(uint32_t x, uint32_t s,
+                                                uint32_t t, float) {
+  return __float_as_uint(__fadd_rn(
+      __fmul_rn(__uint_as_float(x), __uint_as_float(s)), __uint_as_float(t)));
+}
+__device__ __forceinline__ float affine_bf16(float x, float s, float t) {
+  const float prod = __bfloat162float(__float2bfloat16_rn(__fmul_rn(x, s)));
+  return __fadd_rn(prod, t);
+}
+__device__ __forceinline__ uint32_t affine_word(uint32_t x, uint32_t s,
+                                                uint32_t t, __nv_bfloat16) {
+  const float lo = affine_bf16(__uint_as_float(x << 16),
+                               __uint_as_float(s << 16),
+                               __uint_as_float(t << 16));
+  const float hi = affine_bf16(__uint_as_float(x & 0xffff0000u),
+                               __uint_as_float(s & 0xffff0000u),
+                               __uint_as_float(t & 0xffff0000u));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+template <typename T>
+__device__ __forceinline__ uint4 affine_vec(const uint4& x, const uint4& s,
+                                            const uint4& t) {
+  return make_uint4(affine_word(x.x, s.x, t.x, T()),
+                    affine_word(x.y, s.y, t.y, T()),
+                    affine_word(x.z, s.z, t.z, T()),
+                    affine_word(x.w, s.w, t.w, T()));
+}
+
 constexpr int kUnroll = 4;
 constexpr int kVecThreads = 128;
 
@@ -147,33 +216,130 @@ vecadd_vec_kernel(T* __restrict__ y, const T* __restrict__ x,
   }
 }
 
-template <typename T>
-int launch_affine(void* y, const void* x, const void* s, const void* t,
-                  int64_t m, int64_t n, cudaStream_t st) {
-  const int64_t total = m * n;
-  const unsigned grid = repro::blocks_for(total, repro::kMaxBlocksX);
-  affine_2d_kernel<T><<<grid, repro::kThreads, 0, st>>>(
-      static_cast<T*>(y), static_cast<const T*>(x), static_cast<const T*>(s),
-      static_cast<const T*>(t), total, n);
-  return static_cast<int>(cudaGetLastError());
+// The 16-byte pattern of a parameter row p of n values (n divides the
+// vector's width W): element k of the vector is column k mod n.
+__device__ __forceinline__ uint4 tile_row(const float* p, int n) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+  return make_uint4(w[0], w[1 & (n - 1)], w[2 & (n - 1)], w[3 & (n - 1)]);
+}
+__device__ __forceinline__ uint4 tile_row(const __nv_bfloat16* p, int n) {
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = static_cast<uint32_t>(h[(2 * k) & (n - 1)]) |
+           (static_cast<uint32_t>(h[(2 * k + 1) & (n - 1)]) << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// The blocks of vecadd_vec_kernel<T> that the card holds at once (its
-// SMs times the blocks an SM takes at the kernel's registers), asked
-// once: a grid of that size runs in one wave.
+// x, y: the flat (M*N,) buffer as nvec 16-byte vectors, N a power of two
+// that divides the width W, so every vector has s's and t's pattern.
 template <typename T>
-int64_t resident_blocks() {
-  static int64_t blocks = 0;
-  if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vecadd_vec_kernel<T>,
-                                                  kVecThreads, 0);
-    blocks = static_cast<int64_t>(sms > 0 ? sms : 1) *
-             (per_sm > 0 ? per_sm : 1);
+__global__ void __launch_bounds__(kVecThreads)
+affine_flat_kernel(T* __restrict__ y, const T* __restrict__ x,
+                   const T* __restrict__ s, const T* __restrict__ t,
+                   int64_t nvec, int n) {
+  constexpr int64_t kChunk = static_cast<int64_t>(kUnroll) * kVecThreads;
+  const uint4 sp = tile_row(s, n), tp = tile_row(t, n);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  for (int64_t c = blockIdx.x * kChunk + threadIdx.x; c < nvec;
+       c += gridDim.x * kChunk) {
+    uint4 a[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = c + u * kVecThreads;
+      if (v < nvec) a[u] = xv[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = c + u * kVecThreads;
+      if (v < nvec) yv[v] = affine_vec<T>(a[u], sp, tp);
+    }
   }
-  return blocks;
+}
+
+// x, y: (M, nvc) 16-byte vectors, s, t: (nvc,) vectors.  A block's
+// threads cover tile_c column vectors of kVecThreads / tile_c rows.
+template <typename T>
+__global__ void __launch_bounds__(kVecThreads)
+affine_col_kernel(T* __restrict__ y, const T* __restrict__ x,
+                  const T* __restrict__ s, const T* __restrict__ t,
+                  int64_t m, int64_t nvc, int tile_c) {
+  const int rows = kVecThreads / tile_c;     // rows a block takes at once
+  const int r_in = static_cast<int>(threadIdx.x) / tile_c;
+  const int64_t cv = static_cast<int64_t>(blockIdx.x) * tile_c +
+                     (static_cast<int>(threadIdx.x) - r_in * tile_c);
+  if (r_in >= rows || cv >= nvc) return;
+  const uint4 sv = reinterpret_cast<const uint4*>(s)[cv];
+  const uint4 tv = reinterpret_cast<const uint4*>(t)[cv];
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + cv;
+  uint4* yv = reinterpret_cast<uint4*>(y) + cv;
+  const int64_t chunk = static_cast<int64_t>(kUnroll) * rows;
+  for (int64_t r0 = blockIdx.y * chunk + r_in; r0 < m;
+       r0 += gridDim.y * chunk) {
+    uint4 a[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t r = r0 + u * rows;
+      if (r < m) a[u] = xv[r * nvc];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t r = r0 + u * rows;
+      if (r < m) yv[r * nvc] = affine_vec<T>(a[u], sv, tv);
+    }
+  }
+}
+
+template <typename T>
+void launch_affine_scalar(T* y, const T* x, const T* s, const T* t,
+                          int64_t total, int64_t n, cudaStream_t st) {
+  const unsigned grid = repro::blocks_for(total, repro::kMaxBlocksX);
+  affine_2d_kernel<T><<<grid, repro::kThreads, 0, st>>>(y, x, s, t, total, n);
+}
+
+template <typename T>
+int launch_affine(void* yp, const void* xp, const void* sp, const void* tp,
+                  int64_t m, int64_t n, cudaStream_t st) {
+  constexpr int64_t kW = 16 / sizeof(T);
+  auto* y = static_cast<T*>(yp);
+  const auto* x = static_cast<const T*>(xp);
+  const auto* s = static_cast<const T*>(sp);
+  const auto* t = static_cast<const T*>(tp);
+  const int64_t total = m * n;
+  const bool xy = repro::aligned16(y, x);
+  if (xy && kW % n == 0 && total >= kW) {
+    static const int64_t resident =
+        repro::resident_blocks(affine_flat_kernel<T>, kVecThreads);
+    const int64_t nvec = total / kW;
+    int64_t grid = (nvec + kVecThreads * kUnroll - 1) / (kVecThreads * kUnroll);
+    if (grid > resident) grid = resident;
+    affine_flat_kernel<T><<<static_cast<unsigned>(grid), kVecThreads, 0, st>>>(
+        y, x, s, t, nvec, static_cast<int>(n));
+    const int64_t done = nvec * kW;   // a multiple of n: the tail's column 0
+    if (done < total) {
+      launch_affine_scalar<T>(y + done, x + done, s, t, total - done, n, st);
+    }
+  } else if (xy && n % kW == 0 && repro::aligned16(s, t)) {
+    static const int64_t resident =
+        repro::resident_blocks(affine_col_kernel<T>, kVecThreads);
+    const int64_t nvc = n / kW;
+    const int tile_c = static_cast<int>(nvc < kVecThreads ? nvc : kVecThreads);
+    const int64_t chunk = static_cast<int64_t>(kUnroll) * (kVecThreads / tile_c);
+    const int64_t gx = (nvc + tile_c - 1) / tile_c;
+    int64_t gy = (m + chunk - 1) / chunk;
+    const int64_t cap = resident / gx > 1 ? resident / gx : 1;
+    if (gy > cap) gy = cap;
+    if (gy > 65535) gy = 65535;
+    affine_col_kernel<T><<<dim3(static_cast<unsigned>(gx),
+                                static_cast<unsigned>(gy)),
+                           kVecThreads, 0, st>>>(y, x, s, t, m, nvc, tile_c);
+  } else {
+    launch_affine_scalar<T>(y, x, s, t, total, n, st);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -181,11 +347,11 @@ int launch_vecadd(void* y, const void* x, const void* z, int64_t total,
                   cudaStream_t st) {
   constexpr int64_t kW = 16 / sizeof(T);
   int64_t done = 0;   // elements the vector kernel takes
-  if (((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(x) |
-        reinterpret_cast<uintptr_t>(z)) % 16) == 0 && total >= kW) {
+  if (repro::aligned16(y, x, z) && total >= kW) {
     const int64_t nvec = total / kW;
     int64_t grid = (nvec + kVecThreads * kUnroll - 1) / (kVecThreads * kUnroll);
-    const int64_t cap = resident_blocks<T>();
+    static const int64_t cap =
+        repro::resident_blocks(vecadd_vec_kernel<T>, kVecThreads);
     if (grid > cap) grid = cap;
     vecadd_vec_kernel<T><<<static_cast<unsigned>(grid), kVecThreads, 0, st>>>(
         static_cast<T*>(y), static_cast<const T*>(x), static_cast<const T*>(z),
@@ -205,8 +371,9 @@ int launch_vecadd(void* y, const void* x, const void* z, int64_t total,
 
 extern "C" {
 
-// x, y: (M, N); s, t: (N,); bf16 = 0 for float32, 1 for bfloat16.
-// Returns cudaGetLastError().
+// x, y: (M, N); s, t: (N,); bf16 = 0 for float32, 1 for bfloat16.  The
+// regime (flat vectors, column vectors or scalar) follows from N and the
+// bases' alignment, as the header says.  Returns cudaGetLastError().
 int affine_2d(void* y, const void* x, const void* s, const void* t,
               int64_t m, int64_t n, int64_t bf16, void* stream) {
   if (m == 0 || n == 0) return 0;

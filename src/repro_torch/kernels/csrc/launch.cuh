@@ -36,4 +36,23 @@ inline unsigned rows_for(int64_t rows) {
   return static_cast<unsigned>(rows < kMaxBlocksY ? rows : kMaxBlocksY);
 }
 
+// Whether every pointer lies on a 16-byte boundary: the condition of the
+// kernels that load and store 16-byte vectors.
+template <typename... P>
+inline bool aligned16(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) | ...) % 16) == 0;
+}
+
+// The blocks of `threads` threads of `kernel` that the card holds at once
+// (its SMs times the blocks an SM takes at the kernel's registers): a
+// grid of that size runs in one wave.  Callers keep it in a static.
+template <typename Kernel>
+int64_t resident_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+}
+
 }  // namespace repro

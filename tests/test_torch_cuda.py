@@ -705,6 +705,79 @@ def test_vecadd_vector_and_scalar_paths_equal_plain(cuda_device, dtype):
             assert _same_bits(_bits(got), _bits(diag_ref.vecadd(xs, zs)))
 
 
+@pytest.mark.parametrize("d", [2, 3])
+def test_diag_batch_vector_and_scalar_paths_equal_plain(cuda_device, d):
+    """Both kernels of ``chain_diag_batch_2d`` bit for bit equal to the
+    plain version on the card and on the CPU: the 16-byte one at rows of
+    a multiple of 4 floats (d = 3: rows of 1, 2, 3 and many vectors, so
+    every column phase starts and ends a row), B > 1024, and the scalar
+    one at rows of no multiple of 4 floats and at points one element off
+    16-byte alignment."""
+    rng = np.random.default_rng([68, d])
+    for lead in ((1, 4), (3, 8), (2, 12), (5, 13), (7, 1), (4, 100),
+                 (48, 4096), (2, 40_000), (1500, 16), (1100, 13),
+                 (3, 3001)):
+        pts, p, t = _inputs(rng, lead, d, "diag")
+        host = [torch.from_numpy(a) for a in (pts, p, t)]
+        want = diag_ref.chain_diag_batch(*host)
+        x, s, tt = (a.to(cuda_device) for a in host)
+        for xs in (x, _misaligned(x)):
+            got = diag_k.chain_diag_batch_2d(xs, s, tt)
+            assert _same_bits(got.cpu().numpy(), want.numpy()), (lead, d)
+            assert torch.equal(got, diag_ref.chain_diag_batch(xs, s, tt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_regimes_equal_plain(cuda_device, dtype):
+    """Each regime of ``affine_2d`` bit for bit equal to the plain version
+    on the card and on the CPU: flat vectors (N dividing the width), with
+    scalar tails where the total is no multiple of it; column vectors (N
+    a multiple of the width: narrow, ragged column tiles, M = 1); the
+    scalar kernel (N = 3, 100; x, s or t one element off 16-byte
+    alignment, which sends every N to it); signed zeros at N = 1024."""
+    rng = np.random.default_rng([69, dtype == torch.bfloat16])
+    for shape in ((1, 1), (3, 1), (4097, 1), (1, 2), (5, 2), (70_001, 2),
+                  (2, 4), (1001, 4), (3001, 8), (4097, 8), (999, 12),
+                  (7, 16), (3, 24), (33, 520), (4, 1600), (300, 1600),
+                  (1024, 1024), (1, 1 << 16), (5, 3), (3001, 3),
+                  (17, 100), (4097, 100)):
+        x = _dense(rng, shape, dtype, cuda_device)
+        s = _dense(rng, shape[1:], dtype, cuda_device, -2, 2)
+        t = _dense(rng, shape[1:], dtype, cuda_device, -3, 3)
+        want = diag_ref.affine(x.cpu(), s.cpu(), t.cpu())
+        for xs, ss, ts in ((x, s, t), (_misaligned(x), s, t),
+                           (x, _misaligned(s), t), (x, s, _misaligned(t))):
+            got = diag_k.affine_2d(xs, ss, ts)
+            assert _same_bits(_bits(got), _bits(want)), shape
+            assert _same_bits(_bits(got), _bits(diag_ref.affine(xs, ss, ts)))
+    x = _dense(rng, (64, 1024), dtype, cuda_device)
+    x[::2] = -0.0
+    s = _dense(rng, (1024,), dtype, cuda_device, -2, 2)
+    s[::3] = 0.0
+    zero = torch.zeros(1024, dtype=dtype, device=cuda_device)
+    out = diag_k.affine_2d(x, s, zero)
+    assert not torch.signbit(out[out == 0]).any()
+    assert _same_bits(_bits(out), _bits(diag_ref.scale(x.cpu(), s.cpu())))
+
+
+def test_cuda_server_with_a_custom_grid_equals_cpu_bitwise(cuda_device):
+    """``waste_cap=0.2`` gives padded lengths that are no power of two, so
+    some diag buckets have rows of no multiple of 4 floats (the scalar
+    batch kernel) beside others that take the 16-byte one: the GPU server
+    bit for bit equal to the CPU server."""
+    reqs = workload.random_workload(seed=6, n_requests=96,
+                                    templates=workload.AFFINE_TEMPLATES,
+                                    min_points=9, max_points=4096)
+    cpu = serving.GeometryServer(device="cpu", waste_cap=0.2).serve(reqs)
+    srv = serving.GeometryServer(device=cuda_device, waste_cap=0.2)
+    gpu = srv.serve(reqs)
+    rows = {rep.lpad * int(rep.structure[0]) % 4 == 0
+            for rep in srv.last_report if rep.kind == "diag"}
+    assert rows == {True, False}
+    for c, g in zip(cpu, gpu, strict=True):
+        assert _same_bits(c, g)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_kernel_equals_plain_bitwise(cuda_device, dtype):
     """``rope_3d`` rounds after each op as eager torch does: bit for bit
