@@ -9,16 +9,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   1. the card's name and power limit, from nvidia-smi;
   2. build every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
      and print the registers and spills ptxas gave each instance of the
-     tensor-core kernels (``matmul_2d.cu``, ``flash_attention.cu``) and
-     of the 16-byte-access ones (``rmsnorm.cu``, ``affine_2d.cu``,
-     ``chain_diag.cu``), and the instructions in the SASS that each
-     design rests on: wgmma and TMA loads (``HGMMA``, ``UTMALDG``) in the
-     first two libraries, 128-bit global loads and stores (``LDG.E.128``,
-     ``STG.E.128``) in every instance of the 16-byte kernels
-     (``rmsnorm_vec_kernel``; ``vecadd_vec_kernel``,
-     ``affine_flat_kernel``, ``affine_col_kernel``;
-     ``chain_diag_vec_kernel``), each counted inside its own ``Function
-     :`` section of ``cuobjdump -sass`` (none may lack one);
+     tensor-core kernels (``matmul_2d.cu``, ``flash_attention.cu``,
+     ``ssd_intra.cu``) and of the 16-byte-access ones (``rmsnorm.cu``,
+     ``affine_2d.cu``, ``chain_diag.cu``, ``chain_project.cu``), and the
+     instructions in the SASS that each design rests on: wgmma and TMA
+     loads (``HGMMA``, ``UTMALDG``) in the first three libraries, 128-bit
+     global loads and stores (``LDG.E.128``, ``STG.E.128``) in every
+     instance of the 16-byte kernels (``rmsnorm_vec_kernel``;
+     ``vecadd_vec_kernel``, ``affine_flat_kernel``, ``affine_col_kernel``;
+     ``chain_diag_vec_kernel``; ``chain_project_vec_kernel``), each
+     counted inside its own ``Function :`` section of ``cuobjdump -sass``
+     (none may lack one);
   3. serve (affine): 1024 requests from the affine template pool
      (lognormal sizes from 1024 to 262144 points, median 16384) through
      ``GeometryServer`` on the GPU -- one warm flush, then three rounds
@@ -93,8 +94,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      them -- and the batch kernels at the largest served bucket of each
      plan kind, ``chain_diag_batch_2d`` also at the largest d = 3 bucket
      and, untimed, through its scalar kernel: rows of 39 floats, B > 1024,
-     points one element off 16-byte alignment): bitwise equal to its
-     plain version on the same inputs
+     points one element off 16-byte alignment; ``chain_project_1d``, whose
+     request rows run its scalar kernel and whose 2**24 rows its 16-byte
+     one, also untimed at N below 2**19, at points off 16-byte alignment
+     and at 2**20 + 3, the 16-byte kernel's tail):
+     bitwise equal to its plain version on the same inputs
      (points and mask; the int16 kernels at full-range words and at
      n_frac 0, 7 and 15), timed with CUDA events (median of 25 runs, L2
      flushed between runs and the device kept busy while the host
@@ -130,7 +134,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      bfloat16, bit for bit; ``flash_attention_3d`` checked at a
      2000-token prompt with windows 1000 and 1024 and timed at 2048,
      window 1024, group 5; ``ssd_intra`` at 32 chunks of 256, 50 heads
-     of 64, state 16; ``vecadd_2d`` at (8192, 1600) and (4, 1600)
+     of 64, state 16 (the tensor-core kernel, within the bfloat16 branch
+     of ``ssd_bounds``), also timed at mamba2-130m's prefill shape (24
+     heads of 64, state 128) and checked, untimed, in float32 (the
+     CUDA-core kernel); ``vecadd_2d`` at (8192, 1600) and (4, 1600)
      bfloat16, bit for bit; both kernels of ``rmsnorm.cu`` and of
      ``vecadd_2d``, the 16-byte one and the scalar one, checked untimed at
      a base one element off 16-byte alignment, at M = 1, ``rmsnorm_2d``
@@ -144,8 +151,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
  10. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
-     ``vecadd_2d`` also carries its hymba prefill row), then the device
-     line last.
+     ``vecadd_2d`` also carries its hymba prefill row, ``ssd_intra`` its
+     mamba2-130m row), then the device line last.
 """
 from __future__ import annotations
 
@@ -328,7 +335,9 @@ SASS_REQUIRED = {"matmul_2d": {None: ("HGMMA", "UTMALDG")},
                  "affine_2d": {"vecadd_vec_kernel": VEC_OPS,
                                "affine_flat_kernel": VEC_OPS,
                                "affine_col_kernel": VEC_OPS},
-                 "chain_diag": {"chain_diag_vec_kernel": VEC_OPS}}
+                 "chain_diag": {"chain_diag_vec_kernel": VEC_OPS},
+                 "ssd_intra": {None: ("HGMMA", "UTMALDG")},
+                 "chain_project": {"chain_project_vec_kernel": VEC_OPS}}
 
 
 def sass_sections(source: str) -> dict:
@@ -1229,7 +1238,8 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
             raise SystemExit(f"{name} {shape}: kernel != plain version")
         err = float((got.float() - want.float()).abs().max())
     elif name == "ssd_intra":
-        by, bs = bounds.ssd_bounds(xdt, bb, cc, cum, ssd_ref.ssd_intra)
+        by, bs = bounds.ssd_bounds(xdt, bb, cc, cum, ssd_ref.ssd_intra,
+                                   tensor_cores=True)
         if not (bool(((got[0] - want[0]).abs() <= by).all())
                 and bool(((got[1] - want[1]).abs() <= bs).all())):
             raise SystemExit(f"{name} {shape}: kernel outside its bound")
@@ -1328,13 +1338,17 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def projective_case(shape: tuple, rng: np.random.Generator, dev):
+def projective_case(shape: tuple, rng: np.random.Generator, dev,
+                    misaligned: bool = False):
     """(run, plain, library, bytes, ops) for a projective kernel at
-    ``shape``: a workload-style homography and cull bounds per chain."""
+    ``shape``: a workload-style homography and cull bounds per chain;
+    ``misaligned`` puts the points one element off 16-byte alignment."""
     d = shape[-1]
     batched = len(shape) == 3
     lead = shape[:1] if batched else ()
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    if misaligned:
+        x = off_alignment(x)
     hs = [workload.random_projective(rng, d) for _ in range(lead[0] if lead else 1)]
     h = torch.from_numpy(np.stack(hs) if batched else hs[0]).to(dev)
     lo = torch.from_numpy(rng.uniform(-6, -3, lead + (d,)).astype(np.float32)).to(dev)
@@ -1383,7 +1397,7 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
     it unless ``check_only``; ``size`` says which of the path's sizes the
     shape is.  A row bound by bytes also times a device copy of as many
     bytes (``copy_ms``).  ``misaligned`` puts the points one element off
-    16-byte alignment (diag and matrix kernels)."""
+    16-byte alignment."""
     d = shape[-1]
     kind = KERNELS[name][2]
     batched = len(shape) == 3
@@ -1392,7 +1406,8 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
     library = "composite" if kind == "projective" \
         else "addcmul" if kind == "diag" else "baddbmm"
     if kind == "projective":
-        run, plain, lib, nbytes, ops = projective_case(shape, rng, dev)
+        run, plain, lib, nbytes, ops = projective_case(shape, rng, dev,
+                                                       misaligned)
     else:
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
         if misaligned:
@@ -1715,6 +1730,16 @@ def main() -> int:
     kernel_case("chain_diag_batch_2d", largest_affine["diag"], rng,
                 "largest bucket, off alignment", check_only=True,
                 misaligned=True)
+    # chain_project_1d untimed: its scalar kernel below 2**19 points (the
+    # timed request rows above run it too) and at points off 16-byte
+    # alignment, and the 16-byte kernel's tail of N mod 4 points
+    for d in (2, 3):
+        for n, size, off in ((3, "N = 3", False), (1001, "N = 1001", False),
+                             ((1 << 19) - 1, "N = 2**19 - 1", False),
+                             (CLOUD_POINTS + 3, "N = 2**20 + 3", False),
+                             (CLOUD_POINTS, "off alignment", True)):
+            kernel_case("chain_project_1d", (n, d), rng, size,
+                        check_only=True, misaligned=off)
     for name, kind in (("chain_diag_batch_2d", "diag"),
                        ("chain_matrix_batch_2d", "matrix")):
         rows[name] = kernel_case(name, largest_affine[kind], rng,
@@ -1833,10 +1858,16 @@ def main() -> int:
              "prompt 2000", 1024, 0, True),
             ("flash_attention_3d", (100, 20, HYMBA_PROMPT, 64), bf16,
              "prefill", 1024, 0, False),
+            ("ssd_intra", (32, 256, 50, 64, 16), f32, "prefill, float32",
+             None, 0, True),
             ("ssd_intra", (32, 256, 50, 64, 16), bf16, "prefill", None, 0,
              False)):
         rows[name] = model_case(name, shape, dtype, rng, size, window=window,
                                 pos0=pos0, check_only=only)
+    # ssd_intra at mamba2-130m's prefill shape (batch 4 x 2048 tokens, 24
+    # heads of 64, state 128), beside the kernels line's hymba row
+    ssd_mamba2 = model_case("ssd_intra", (32, 256, 24, 64, 128), bf16, rng,
+                            "mamba2-130m prefill")
     # every size the serve launched a kernel with was checked above
     checked = _build.launch_sizes()
     for name in MODEL_PATH_KERNELS:
@@ -1884,6 +1915,10 @@ def main() -> int:
         k: vecadd_hymba[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "copy_ms")}
+    kernels[list(KERNELS).index("ssd_intra")]["mamba2_prefill"] = {
+        k: ssd_mamba2[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "composite_ms", "copy_ms")}
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

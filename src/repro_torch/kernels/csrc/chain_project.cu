@@ -39,9 +39,37 @@
 // rounded ops, so kernel and plain version agree bit for bit, mask
 // included.
 //
-// Design: the first version is one simple pass, one point per thread per
-// grid-stride step, D templated so the loops unroll; a batch uses a 2D
-// grid (y = request).  wgmma, TMA and vectorised loads are later work.
+// Design:
+//   * chain_project_1d has two kernels.  chain_project_vec_kernel takes
+//     a launch of 2**19 points or more whose x and y lie on 16-byte
+//     boundaries and whose mask lies on a 4-byte one: a thread holds four
+//     whole points (d float4 vectors, 48 bytes at d = 3, 32 at d = 2)
+//     and stores their four mask bytes as one 32-bit word.  H ((d+1)^2
+//     floats), lo and hi are loaded into registers once a thread.  Each
+//     block walks contiguous chunks of kUnroll * kVecThreads groups of
+//     four points over a grid of the blocks the card holds at once
+//     (vecadd_vec_kernel's layout in affine_2d.cu), all loads of a thread
+//     before its stores.  A warp's 32 groups are 32 d contiguous vectors:
+//     the warp reads them lane by lane (each load instruction 512
+//     contiguous bytes) into shared memory, each lane takes its group's d
+//     vectors from there (a 48-byte stride that hits 8 distinct 16-byte
+//     bank groups a quarter warp) and puts the results back, and the
+//     warp writes them out lane by lane -- reading and writing a lane's
+//     own d vectors straight from memory gave each warp instruction a
+//     32- or 48-byte stride and ran well behind a device copy of the
+//     same bytes on an H100 80GB HBM3 (PERF.md).  The last N mod 4
+//     points go to the first block's first threads, one each.  Offsets
+//     inside the buffer are 32-bit (the C entry sends buffers of 2**31
+//     vectors and more to the scalar kernel).  A thread holds whole
+//     points, so no column pattern is needed (chain_diag_vec_kernel's
+//     v % 3).  chain_project_1d_kernel, one point a thread per int64
+//     grid-stride step, takes every other launch: below 2**19 points --
+//     the per-request calls of a served workload -- its many small
+//     blocks beat the 16-byte kernel's few large ones on the same card,
+//     and buffers off alignment.  Both run point_project, so the two
+//     are bitwise equal to each other and to the plain version.
+//   * chain_project_batch_2d: one point a thread, a 2D grid (y =
+//     request).
 #include "launch.cuh"
 
 namespace {
@@ -114,17 +142,144 @@ __global__ void chain_project_batch_kernel(float* __restrict__ y,
   }
 }
 
+constexpr int kUnroll = 4;
+constexpr int kVecThreads = 128;
+constexpr int kWarps = kVecThreads / 32;
+// the points from which the 16-byte kernel runs; below, the scalar one
+constexpr int64_t kVecPoints = int64_t{1} << 19;
+
+// x, y: the flat (N * D,) float buffers of N = 4 nq + tail points (tail <
+// 4), 16-byte aligned, nq * D < 2**31; mask: (N,) bytes, 4-byte aligned.
+// Group q is points 4q .. 4q + 3: D float4 vectors from vector q * D, mask
+// word q.
+template <int D>
+__global__ void __launch_bounds__(kVecThreads)
+chain_project_vec_kernel(float* __restrict__ y,
+                         unsigned char* __restrict__ mask,
+                         const float* __restrict__ x,
+                         const float* __restrict__ h,
+                         const float* __restrict__ lo,
+                         const float* __restrict__ hi, uint32_t nq,
+                         int tail) {
+  constexpr uint32_t kChunk = kUnroll * kVecThreads;   // groups a chunk
+  __shared__ float4 stage[kWarps][kUnroll][32 * D];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float hr[(D + 1) * (D + 1)], lor[D], hir[D];
+#pragma unroll
+  for (int k = 0; k < (D + 1) * (D + 1); ++k) hr[k] = h[k];
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    lor[c] = lo[c];
+    hir[c] = hi[c];
+  }
+  const float4* xv = reinterpret_cast<const float4*>(x);
+  float4* yv = reinterpret_cast<float4*>(y);
+  uint32_t* mask4 = reinterpret_cast<uint32_t*>(mask);
+  const uint32_t nv = nq * D;
+  for (uint32_t c = blockIdx.x * kChunk; c < nq; c += gridDim.x * kChunk) {
+    // step u: this warp's 32 groups from g0 = c + 128 u + 32 warp, i.e.
+    // 32 D vectors from g0 * D, read lane by lane (a warp instruction
+    // reads 512 contiguous bytes) into shared memory
+    float4 a[kUnroll][D];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t v0 = (c + u * kVecThreads + warp * 32) * D;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const uint32_t v = v0 + k * 32 + lane;
+        if (v < nv) a[u][k] = xv[v];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) stage[warp][u][k * 32 + lane] = a[u][k];
+    }
+    __syncwarp();
+    // lane l projects group g0 + l, its D vectors l * D .. l * D + D - 1
+    // of the staged 32 D, and puts the results back in their place
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t q = c + u * kVecThreads + warp * 32 + lane;
+      if (q < nq) {
+        float p[4 * D], out[4 * D];
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const float4 v = stage[warp][u][lane * D + k];
+          p[4 * k] = v.x;
+          p[4 * k + 1] = v.y;
+          p[4 * k + 2] = v.z;
+          p[4 * k + 3] = v.w;
+        }
+        uint32_t m = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          m |= static_cast<uint32_t>(
+                   point_project<D>(out + e * D, p + e * D, hr, lor, hir))
+               << (8 * e);
+        }
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          stage[warp][u][lane * D + k] = make_float4(
+              out[4 * k], out[4 * k + 1], out[4 * k + 2], out[4 * k + 3]);
+        }
+        mask4[q] = m;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t v0 = (c + u * kVecThreads + warp * 32) * D;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const uint32_t v = v0 + k * 32 + lane;
+        if (v < nv) yv[v] = stage[warp][u][k * 32 + lane];
+      }
+    }
+    __syncwarp();
+  }
+  // the last N mod 4 points, one a thread of the first block
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail) {
+    const int64_t i = 4 * static_cast<int64_t>(nq) + threadIdx.x;
+    mask[i] = point_project<D>(y + i * D, x + i * D, hr, lor, hir);
+  }
+}
+
+template <int D>
+void launch_project_1d(float* y, unsigned char* mask, const float* x,
+                       const float* h, const float* lo, const float* hi,
+                       int64_t n_points, cudaStream_t st) {
+  const int64_t nq = n_points / 4;
+  if (n_points >= kVecPoints && nq * D < (int64_t{1} << 31)
+      && repro::aligned16(y, x)
+      && reinterpret_cast<uintptr_t>(mask) % 4 == 0) {
+    static const int64_t resident =
+        repro::resident_blocks(chain_project_vec_kernel<D>, kVecThreads);
+    int64_t grid = (nq + kUnroll * kVecThreads - 1) / (kUnroll * kVecThreads);
+    if (grid > resident) grid = resident;
+    chain_project_vec_kernel<D><<<static_cast<unsigned>(grid), kVecThreads,
+                                  0, st>>>(
+        y, mask, x, h, lo, hi, static_cast<uint32_t>(nq),
+        static_cast<int>(n_points - 4 * nq));
+    return;
+  }
+  chain_project_1d_kernel<D><<<repro::blocks_for(n_points, repro::kMaxBlocksX),
+                               repro::kThreads, 0, st>>>(y, mask, x, h, lo,
+                                                         hi, n_points);
+}
+
 }  // namespace
 
 extern "C" {
 
-// flat: (N*d,) points; mask: (N,) bytes; h: (d+1, d+1); lo, hi: (d,).
-// Returns cudaGetLastError().
+// flat: (N*d,) points; mask: (N,) bytes; h: (d+1, d+1); lo, hi: (d,).  N of
+// 2**19 or more on 16-byte-aligned x and y and a 4-byte-aligned mask takes
+// the 16-byte kernel, any other launch the scalar one.  Returns
+// cudaGetLastError().
 int chain_project_1d(void* y, void* mask, const void* x, const void* h,
                      const void* lo, const void* hi, int64_t n_points,
                      int64_t d, void* stream) {
   if (n_points == 0) return 0;
-  const unsigned grid = repro::blocks_for(n_points, repro::kMaxBlocksX);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
   auto* mo = static_cast<unsigned char*>(mask);
@@ -133,11 +288,9 @@ int chain_project_1d(void* y, void* mask, const void* x, const void* h,
   auto* l = static_cast<const float*>(lo);
   auto* u = static_cast<const float*>(hi);
   if (d == 2) {
-    chain_project_1d_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, mo, xi, hm, l, u, n_points);
+    launch_project_1d<2>(yo, mo, xi, hm, l, u, n_points, st);
   } else if (d == 3) {
-    chain_project_1d_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, mo, xi, hm, l, u, n_points);
+    launch_project_1d<3>(yo, mo, xi, hm, l, u, n_points, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

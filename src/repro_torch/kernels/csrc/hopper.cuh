@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (matmul_2d.cu, flash_attention.cu): shared-memory addresses, mbarriers,
-// TMA tile loads, 128-byte-swizzled wgmma descriptors and the bfloat16
-// wgmma.mma_async instructions, all as raw PTX for sm_90a.
+// (matmul_2d.cu, flash_attention.cu, ssd_intra.cu): shared-memory
+// addresses, mbarriers, TMA tile loads, transposed ldmatrix,
+// 128-byte-swizzled wgmma descriptors and the bfloat16 wgmma.mma_async
+// instructions, all as raw PTX for sm_90a.
 //
 // Tiles.  Every shared-memory tile is a stack of 128-byte rows (64
 // bfloat16 values) in the 128-byte swizzle, the layout TMA writes for a box
@@ -95,6 +96,34 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- ldmatrix ----------------------------------------------------------------
+
+// four 8 x 8 bfloat16 matrices from shared memory, transposed: lane l
+// gives the address of row l % 8 (16 contiguous bytes) of matrix l / 8,
+// and register m of thread t receives matrix m's elements (row 2 (t % 4),
+// column t / 4) and (row 2 (t % 4) + 1, column t / 4), low half first --
+// the register A fragment layout below, read from a K x M tile
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
       : "memory");
 }
 

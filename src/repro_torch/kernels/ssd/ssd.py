@@ -6,6 +6,11 @@ one dtype, float32 or bfloat16; cum float32; lc at most ``MAX_CHUNK``;
 (p, n) one of ``SHAPES``), allocates the float32 outputs, launches on
 the current stream and counts the launch.  A CPU tensor raises; nothing
 falls back to the plain version.
+
+bfloat16 runs the tensor-core (wgmma) kernel, whose TMA loads need
+16-byte aligned bases: an operand that starts mid-allocation (a
+contiguous view at an odd offset) is copied to a fresh one first.
+float32 runs the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import torch
 from repro_torch.kernels._build import CudaKernel, check_dense
 
 _SSD_INTRA = CudaKernel("ssd_intra", "ssd_intra", n_ptrs=6, n_sizes=6)
-#: the chunk length the kernel takes at most (one thread a row)
+#: the chunk length the kernels take at most
 MAX_CHUNK = 256
 #: the (head dim p, state size n) pairs the kernel is instantiated for:
 #: the reduced configs', hymba-1.5b's and mamba2-130m's
@@ -44,6 +49,9 @@ def ssd_intra(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
     if lc > MAX_CHUNK or (p, n) not in SHAPES:
         raise ValueError(f"ssd_intra is built for lc <= {MAX_CHUNK} and "
                          f"(p, n) in {SHAPES}; got lc={lc}, ({p}, {n})")
+    if bf16:
+        xdt, b_in, c_in = (a if a.data_ptr() % 16 == 0 else a.clone()
+                           for a in (xdt, b_in, c_in))
     y = torch.empty((bc, lc, h, p), dtype=torch.float32, device=xdt.device)
     s_c = torch.empty((bc, h, p, n), dtype=torch.float32, device=xdt.device)
     if xdt.numel():

@@ -20,7 +20,18 @@ eager torch and held to the bounds the card checks use:
     vectors in order, the butterfly of shuffles across the warp, the
     warps' sums added in order, then ``x * inv * gain`` -- within
     ``rmsnorm_bound`` of the plain version at N = 64, 1600 and 3200, few
-    rows and many; one lane's partial sum dropped lies outside it.
+    rows and many; one lane's partial sum dropped lies outside it;
+  * ``ssd_intra``'s wgmma kernel (bfloat16): query and key tiles of 64
+    rows, G = C B^T from the bfloat16 C and B in float32, att = G
+    exp(cum_i - cum_j) masked before exp on the diagonal tile and rounded
+    to bfloat16, y summed over the key tiles in order in float32; S_c
+    from w = xdt exp(cum_last - cum) rounded to bfloat16, summed over the
+    key tiles in order -- within ``ssd_bounds(..., tensor_cores=True)``
+    of the plain version and of the JAX package's ``ssd_intra`` run in
+    interpret mode, at (p, n) = (16, 16), (64, 16), (64, 128) and lc =
+    16, 100, 256; a dropped key tile, and the mask applied after exp,
+    lie outside it; and the states' A fragments, read by transposed
+    ldmatrix from the 128-byte-swizzled xdt tile, hold xdt^T.
 
 The shapes are the card tests' (``tests/test_torch_cuda.py``).
 """
@@ -35,6 +46,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.matmul import matmul as matrix_k
 from repro_torch.kernels.matmul import ref as matrix_ref
 from repro_torch.kernels.rmsnorm import ref as rms_ref
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 #: the wgmma regime's shapes in test_matmul_kernel_equals_plain (K > 8 or
 #: N > 8): staged loads (K or N no multiple of 8) and TMA loads
@@ -319,3 +331,195 @@ def test_rmsnorm_bound_catches_a_dropped_lane(case):
     bad = (_emulate_rmsnorm(x, g, 1e-5, drop_lane=0) - want32).abs()
     assert bool((good <= bound).all())
     assert not bool((bad <= bound).all())
+
+
+# -- ssd_intra -----------------------------------------------------------------
+
+#: (p, n, lc): the three instances at a short, a ragged and a full chunk
+SSD_CASES = [(p, n, lc) for p, n in ((16, 16), (64, 16), (64, 128))
+             for lc in (16, 100, 256)]
+SSD_TILE = 64
+
+
+def _emulate_ssd(xdt, b, c, cum, drop=None, mask_after_exp=False):
+    """The wgmma kernel's arithmetic on bfloat16 xdt (BC, lc, h, p), B, C
+    (BC, lc, n) and float32 cum (BC, lc, h): (y, S_c) in float32.
+    ``drop`` = (query tile, key tile) left out of y (a planted fault);
+    ``mask_after_exp`` multiplies exp(cum_i - cum_j) by the mask instead
+    of masking the exponent (the other)."""
+    bc, lc, h, p = xdt.shape
+    cf, bf, xf = c.float(), b.float(), xdt.float()
+    y = torch.zeros((bc, lc, h, p))
+    for q0 in range(0, lc, SSD_TILE):
+        q1 = min(lc, q0 + SSD_TILE)
+        qi = torch.arange(q0, q1)
+        acc = torch.zeros((bc, q1 - q0, h, p))
+        for k0 in range(0, q1, SSD_TILE):
+            if drop == (q0 // SSD_TILE, k0 // SSD_TILE):
+                continue
+            k1 = min(lc, k0 + SSD_TILE)
+            kj = torch.arange(k0, k1)
+            g = torch.einsum("cin,cjn->cij", cf[:, q0:q1], bf[:, k0:k1])
+            diff = cum[:, q0:q1, None, :] - cum[:, None, k0:k1, :]
+            ok = (kj[None, :] <= qi[:, None])[None, :, :, None]
+            if mask_after_exp:
+                decay = torch.exp(diff) * ok
+            else:
+                decay = torch.exp(torch.where(ok, diff, -torch.inf))
+            att = (g[..., None] * decay).bfloat16().float()
+            acc = acc + torch.einsum("cijh,cjhp->cihp", att, xf[:, k0:k1])
+        y[:, q0:q1] = acc
+    w = (xf * torch.exp(cum[:, -1:, :] - cum)[..., None]).bfloat16().float()
+    s_c = torch.zeros((bc, h, p, b.shape[-1]))
+    for k0 in range(0, lc, SSD_TILE):
+        k1 = min(lc, k0 + SSD_TILE)
+        s_c = s_c + torch.einsum("cjhp,cjn->chpn", w[:, k0:k1], bf[:, k0:k1])
+    return y, s_c
+
+
+def _ssd_inputs(p, n, lc, seed, decay=2.0, bc=2, h=3):
+    """numpy inputs from a seed: xdt, B, C standard normal (bfloat16 on
+    the torch side), cum the running sum of -U(decay / 200, decay)."""
+    rng = np.random.default_rng(seed)
+    xdt = rng.standard_normal((bc, lc, h, p)).astype(np.float32)
+    bb = rng.standard_normal((bc, lc, n)).astype(np.float32)
+    cc = rng.standard_normal((bc, lc, n)).astype(np.float32)
+    cum = np.cumsum(-rng.uniform(decay / 200, decay, (bc, lc, h)),
+                    axis=1).astype(np.float32)
+    return xdt, bb, cc, cum
+
+
+def _ssd_torch(xdt, bb, cc, cum):
+    return (*(torch.from_numpy(a).bfloat16() for a in (xdt, bb, cc)),
+            torch.from_numpy(cum))
+
+
+def _within(got, want, bound) -> bool:
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=["-".join(map(str, c)) for c in SSD_CASES])
+def test_ssd_emulation_within_bound(case):
+    p, n, lc = case
+    for decay in (4.0, 0.01):
+        x, b, c, cum = _ssd_torch(*_ssd_inputs(p, n, lc, [77, *case],
+                                               decay))
+        wy, ws = ssd_ref.ssd_intra(x, b, c, cum)
+        by, bs = bounds.ssd_bounds(x, b, c, cum, ssd_ref.ssd_intra,
+                                   tensor_cores=True)
+        ey, es = _emulate_ssd(x, b, c, cum)
+        assert _within(ey, wy, by) and _within(es, ws, bs), decay
+        # att's and w's rounding shows: the float32 bound is too tight
+        fy, fs = bounds.ssd_bounds(x, b, c, cum, ssd_ref.ssd_intra)
+        assert not (_within(ey, wy, fy) and _within(es, ws, fs))
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=["-".join(map(str, c)) for c in SSD_CASES])
+def test_ssd_emulation_within_bound_of_jax(case):
+    """The emulation against the JAX package's Pallas ``ssd_intra`` body
+    (interpret mode, float32 sums of the bfloat16 inputs), within the
+    same bound."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ssd.ssd import ssd_intra as jax_ssd_intra
+    p, n, lc = case
+    xdt, bb, cc, cum = _ssd_inputs(p, n, lc, [78, *case], 0.5, bc=1, h=2)
+    x, b, c, tcum = _ssd_torch(xdt, bb, cc, cum)
+    jy, js = jax_ssd_intra(*(jnp.asarray(a, jnp.bfloat16)
+                             for a in (xdt, bb, cc)), jnp.asarray(cum),
+                           interpret=True)
+    jy, js = (torch.from_numpy(np.array(a, np.float32)) for a in (jy, js))
+    by, bs = bounds.ssd_bounds(x, b, c, tcum, ssd_ref.ssd_intra,
+                               tensor_cores=True)
+    ey, es = _emulate_ssd(x, b, c, tcum)
+    assert _within(ey, jy, by) and _within(es, js, bs)
+
+
+@pytest.mark.parametrize("p, n", [(64, 16), (64, 128)])
+def test_ssd_bound_catches_a_dropped_key_tile(p, n):
+    """Key tile 0 left out of the last query tile's rows (a decay mild
+    enough that it still weighs there) lies outside the bound."""
+    x, b, c, cum = _ssd_torch(*_ssd_inputs(p, n, 256, [79, p, n], 0.01))
+    wy, _ = ssd_ref.ssd_intra(x, b, c, cum)
+    by, _ = bounds.ssd_bounds(x, b, c, cum, ssd_ref.ssd_intra,
+                              tensor_cores=True)
+    good, _ = _emulate_ssd(x, b, c, cum)
+    bad, _ = _emulate_ssd(x, b, c, cum, drop=(3, 0))
+    assert _within(good, wy, by)
+    assert not _within(bad[:, 192:], wy[:, 192:], by[:, 192:])
+    assert _within(bad[:, :192], wy[:, :192], by[:, :192])
+
+
+@pytest.mark.parametrize("p, n", [(64, 16), (64, 128)])
+def test_ssd_bound_catches_the_mask_after_exp(p, n):
+    """A cum that falls by 2 a row on average makes exp(cum_i - cum_j)
+    overflow for j > i inside a 64-key diagonal tile (past 88 = ln of
+    float32's largest): masked after exp it gives inf * 0 = NaN,
+    outside the bound; masked before exp (the kernel) it stays within."""
+    x, b, c, cum = _ssd_torch(*_ssd_inputs(p, n, 256, [80, p, n], 4.0))
+    wy, _ = ssd_ref.ssd_intra(x, b, c, cum)
+    by, _ = bounds.ssd_bounds(x, b, c, cum, ssd_ref.ssd_intra,
+                              tensor_cores=True)
+    good, _ = _emulate_ssd(x, b, c, cum)
+    bad, _ = _emulate_ssd(x, b, c, cum, mask_after_exp=True)
+    assert _within(good, wy, by)
+    assert not _within(bad, wy, by)
+
+
+def _swizzled_tile(xdt_tile: torch.Tensor) -> torch.Tensor:
+    """An xdt tile (64 keys, p <= 64 columns, bfloat16) as TMA writes it
+    with the 128-byte swizzle: 64 rows of 128 bytes, 16-byte chunk k of
+    row j at chunk k ^ (j % 8), columns past p zero."""
+    keys, p = xdt_tile.shape
+    rows = torch.zeros((keys, 64), dtype=torch.bfloat16)
+    rows[:, :p] = xdt_tile
+    chunks = rows.view(keys, 8, 8)
+    out = torch.empty_like(chunks)
+    for j in range(keys):
+        for k in range(8):
+            out[j, k ^ (j % 8)] = chunks[j, k]
+    return out.reshape(-1)
+
+
+def _ldmatrix_x4_trans(tile_flat: torch.Tensor, rows: list) -> list:
+    """``hopper::ldmatrix_x4_trans`` on a flat bfloat16 tile: ``rows[l]``
+    is lane l's address (in bfloat16 elements) of row l % 8 of matrix
+    l / 8; returns, for each thread t, its four words as value pairs:
+    matrix m's (row 2 (t % 4), column t / 4) and (row 2 (t % 4) + 1,
+    column t / 4)."""
+    mats = [[tile_flat[rows[8 * m + r]:rows[8 * m + r] + 8] for r in range(8)]
+            for m in range(4)]
+    return [[[float(mats[m][2 * (t % 4) + e][t // 4]) for e in range(2)]
+             for m in range(4)] for t in range(32)]
+
+
+@pytest.mark.parametrize("p", [16, 64])
+def test_ssd_state_fragments_hold_w_transposed(p):
+    """The states blocks' A fragments of xdt^T, one transposed ldmatrix a
+    k16 step from the swizzled tile (lane l: key 16 kk + 8 (l / 16) +
+    l % 8, 16-byte chunk 2 warp + (l / 8) % 2), assemble to xdt^T in the
+    register A layout of csrc/hopper.cuh: a[0] (row, c), a[1] (row + 8,
+    c), a[2] (row, c + 8), a[3] (row + 8, c + 8), rows 16 warp + t / 4,
+    c = 16 kk + 2 (t % 4)."""
+    rng = np.random.default_rng([81, p])
+    tile = torch.from_numpy(rng.standard_normal((64, p))
+                            .astype(np.float32)).bfloat16()
+    flat = _swizzled_tile(tile)
+    got = torch.full((64, 64), float("nan"))       # (rows p, keys j)
+    for warp in range(4):
+        for kk in range(4):
+            rows = []
+            for lane in range(32):
+                key = kk * 16 + 8 * (lane // 16) + lane % 8
+                chunk = 2 * warp + (lane // 8) % 2
+                rows.append((key * 128 + ((chunk ^ (key & 7)) << 4)) // 2)
+            words = _ldmatrix_x4_trans(flat, rows)
+            for t in range(32):
+                r0, c0 = warp * 16 + t // 4, kk * 16 + 2 * (t % 4)
+                for m, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8),
+                                              (8, 8))):
+                    got[r0 + dr, c0 + dc:c0 + dc + 2] = torch.tensor(words[t][m])
+    want = torch.zeros((64, 64))
+    want[:p] = tile.float().T
+    assert torch.equal(got, want)

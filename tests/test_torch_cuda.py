@@ -230,6 +230,64 @@ def test_projective_kernels_equal_plain_bitwise(cuda_device, d):
     assert out.shape == (2, 0, d) and mask.shape == (2, 0)
 
 
+def _same_values(a: np.ndarray, b: np.ndarray) -> bool:
+    """NaN at the same places (its payload aside: the card's arithmetic
+    gives one NaN, the CPU's keeps its input's), every other element bit
+    for bit."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != np.float32:
+        return a.tobytes() == b.tobytes()
+    nan = np.isnan(a)
+    return np.array_equal(nan, np.isnan(b)) \
+        and a[~nan].tobytes() == b[~nan].tobytes()
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_project_flat_vector_and_scalar_paths_equal_plain(cuda_device, d):
+    """Both kernels of ``chain_project_1d`` bit for bit equal to the plain
+    version on the card (and, NaN payloads aside, on the CPU), points AND
+    mask: the 16-byte one from 2**19 points, with its tail of N mod 4 =
+    0, 1, 2, 3 points, the scalar one below 2**19 points (N < 4 included)
+    and at points one float off 16-byte alignment; w < 0 and w = 0
+    exactly (H with w = x_0), NaN and infinite points, and bounds of +-inf
+    and NaN."""
+    rng = np.random.default_rng([70, d])
+    h = np.eye(d + 1, dtype=np.float32)
+    h[:d, :d] += rng.uniform(-0.4, 0.4, (d, d)).astype(np.float32)
+    h[d, :d] = rng.uniform(-1, 1, d)
+    h[:d, d] = rng.uniform(-0.5, 0.5, d)
+    w_edge = np.eye(d + 1, dtype=np.float32)
+    w_edge[0, d], w_edge[d, d] = 1.0, 0.0     # w = x_0
+    inf = np.float32(np.inf)
+    limits = [(np.full(d, -2.5, np.float32), np.full(d, 2.5, np.float32)),
+              (np.full(d, -inf), np.full(d, inf)),
+              (np.array([-inf] + [-1.0] * (d - 1), np.float32),
+               np.array([np.nan] + [inf] * (d - 1), np.float32))]
+    for n in (1, 2, 3, 4, 5, 8, 1001, 70_001, (1 << 19) - 1, 1 << 19,
+              (1 << 19) + 1, (1 << 20) + 2, (1 << 20) + 3):
+        pts = (rng.standard_normal((n, d)) * 3).astype(np.float32)
+        pts[: min(n, 4), 0] = np.array([0.0, -2.0, np.nan, 3.0],
+                                       np.float32)[: min(n, 4)]
+        if n > 8:
+            pts[5:8, d - 1] = [-np.inf, np.inf, np.nan]
+        for hm in (h, w_edge):
+            for lo, hi in limits:
+                host = [torch.from_numpy(a) for a in (pts, hm, lo, hi)]
+                want, wmask = proj_ref.chain_project(*host)
+                x, hh, ll, uu = (a.to(cuda_device) for a in host)
+                for xs in (x, _misaligned(x)):
+                    out, mask = proj_k.chain_project_1d(xs.reshape(-1), hh,
+                                                        ll, uu, d=d)
+                    pout, pmask = proj_ref.chain_project(xs, hh, ll, uu)
+                    got = out.reshape(n, d).cpu().numpy()
+                    gmask = mask.cpu().numpy()
+                    assert _same_bits(got, pout.cpu().numpy()), (n, d)
+                    assert _same_bits(gmask, pmask.cpu().numpy()), (n, d)
+                    assert _same_values(got, want.numpy()), (n, d)
+                    assert _same_bits(gmask, wmask.numpy()), (n, d)
+
+
 def test_projective_bucket_on_card_equals_per_request_project(cuda_device):
     """The full TEMPLATES pool served on the card: every projective
     bucket one chain_project_batch_2d launch, every result bitwise equal
@@ -835,28 +893,46 @@ def test_flash_kernel_within_bound_of_plain(cuda_device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_within_bound_of_plain(cuda_device, dtype):
-    """``ssd_intra`` within ``bounds.ssd_bounds`` of its plain version at
-    lc = 16, 100 and 256, (p, n) = (16, 16), (64, 16) and (64, 128), with
-    strongly decaying ``cum`` (so masked exponents would overflow if
-    they were not masked before exp)."""
+    """``ssd_intra`` within ``bounds.ssd_bounds`` of its plain version
+    (bfloat16: the tensor-core kernel, the bound's ``tensor_cores``
+    branch; float32: the CUDA-core kernel) at lc = 1, 16, 65, 100 and
+    256, (p, n) = (16, 16), (64, 16) and (64, 128), hymba-1.5b's 50 heads
+    and mamba2-130m's 24 (n = 128) over a few chunks, head counts that
+    leave a short last group, and bfloat16 operands one element off
+    16-byte alignment, with strongly decaying ``cum`` (by up to 2 or 4 a
+    row, so masked exponents would overflow, even inside one 64-key
+    tile, if they were not masked before exp) and with mildly decaying
+    ``cum`` (so every key tile adds to the last rows)."""
     bounds = _model_kernels()[0]
     ssd_k, ssd_ref = _model_kernels()[7:]
     rng = np.random.default_rng([64, dtype == torch.bfloat16])
-    for bc, lc, h, p, n in ((3, 16, 4, 16, 16), (2, 256, 5, 64, 16),
-                            (2, 256, 3, 64, 128), (1, 100, 2, 64, 128)):
+    for bc, lc, h, p, n, decay in (
+            (3, 16, 4, 16, 16, 2.0), (2, 256, 5, 64, 16, 2.0),
+            (2, 256, 3, 64, 128, 2.0), (1, 100, 2, 64, 128, 2.0),
+            (3, 256, 50, 64, 16, 4.0), (2, 256, 50, 64, 16, 0.01),
+            (3, 256, 24, 64, 128, 4.0), (2, 256, 24, 64, 128, 0.01),
+            (2, 100, 50, 64, 16, 0.01), (2, 100, 24, 64, 128, 2.0),
+            (2, 1, 3, 16, 16, 2.0), (2, 65, 9, 64, 16, 0.01),
+            (1, 256, 17, 16, 16, 0.01)):
         xdt = _dense(rng, (bc, lc, h, p), dtype, cuda_device)
         b = _dense(rng, (bc, lc, n), dtype, cuda_device)
         c = _dense(rng, (bc, lc, n), dtype, cuda_device)
-        a = -torch.from_numpy(rng.uniform(0.01, 2.0, (bc, lc, h))
+        a = -torch.from_numpy(rng.uniform(decay / 200, decay, (bc, lc, h))
                               .astype(np.float32)).to(cuda_device)
         cum = torch.cumsum(a, dim=1)
-        y, s_c = ssd_k.ssd_intra(xdt, b, c, cum)
         wy, ws = ssd_ref.ssd_intra(xdt, b, c, cum)
-        by, bs = bounds.ssd_bounds(xdt, b, c, cum, ssd_ref.ssd_intra)
-        assert y.dtype == s_c.dtype == torch.float32
-        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_c).all())
-        assert bool(((y - wy).abs() <= by).all()), (bc, lc, h, p, n)
-        assert bool(((s_c - ws).abs() <= bs).all()), (bc, lc, h, p, n)
+        by, bs = bounds.ssd_bounds(xdt, b, c, cum, ssd_ref.ssd_intra,
+                                   tensor_cores=True)
+        views = ((xdt, b, c),)
+        if dtype == torch.bfloat16:
+            views += ((_misaligned(xdt), _misaligned(b), _misaligned(c)),)
+        for xs, bs_, cs in views:
+            y, s_c = ssd_k.ssd_intra(xs, bs_, cs, cum)
+            assert y.dtype == s_c.dtype == torch.float32
+            assert bool(torch.isfinite(y).all()) \
+                and bool(torch.isfinite(s_c).all())
+            assert bool(((y - wy).abs() <= by).all()), (bc, lc, h, p, n)
+            assert bool(((s_c - ws).abs() <= bs).all()), (bc, lc, h, p, n)
 
 
 def test_model_kernel_wrappers_check_operands(cuda_device):

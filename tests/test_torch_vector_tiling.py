@@ -1,7 +1,8 @@
-"""The 16-byte kernels of ``chain_diag_batch_2d`` and ``affine_2d``, held
-on the CPU.
+"""The 16-byte kernels of ``chain_diag_batch_2d``, ``affine_2d`` and
+``chain_project_1d``, held on the CPU.
 
-Their CUDA kernels (``csrc/chain_diag.cu``, ``csrc/affine_2d.cu``) run
+Their CUDA kernels (``csrc/chain_diag.cu``, ``csrc/affine_2d.cu``,
+``csrc/chain_project.cu``) run
 only on the card, so here each kernel's mapping from (block, thread,
 unroll step, vector lane) to (request, element, column) is emulated in
 eager torch, with the launch geometry of its C entry:
@@ -17,15 +18,26 @@ eager torch, with the launch geometry of its C entry:
     stepping over rows, lane k of column vector cv on column cv W + k;
   * ``affine_2d_kernel`` (everything else): one element a thread a grid-
     stride step, its column j mod N taken once and stepped by the stride
-    mod N.
+    mod N;
+  * ``chain_project_vec_kernel`` (aligned buffers of 2**19 points or
+    more): the same chunks of 4 x 128 groups of four points, a warp's 32
+    groups read lane by lane into shared memory (slot k 32 + lane holds
+    vector k 32 + lane of the warp's 32 d), lane l taking slots l d ..
+    l d + d - 1 -- its group's four points -- and writing the results
+    back there and its four mask bytes as word q; the last N mod 4 points
+    one a thread of the first block.  The mapping does not depend on N,
+    so it is emulated at small N as well.
 
 Each emulation must cover every element exactly once, pick the regime the
-C entry picks, and, computing each element with the same two rounded ops
-(``x * s``, then ``+ t``), equal ``ref.chain_diag_batch`` / ``ref.affine``
-bit for bit.  A planted fault -- a d = 3 phase off by one, a column
-pattern shifted by one, a column step left unreduced, a chunk stride one
-step short -- must be caught.  Each grid is emulated at the card's size
-and at a tiny one, so every grid-stride loop takes several steps.
+C entry picks, and, computing each element with the same rounded ops
+(``x * s``, then ``+ t``; ``ref.chain_project``'s sequence on the
+gathered points), equal ``ref.chain_diag_batch`` / ``ref.affine`` /
+``ref.chain_project`` bit for bit, masks included.  A planted fault -- a
+d = 3 phase off by one, a column pattern shifted by one, a column step
+left unreduced, a chunk stride one step short, a chunk stride one group
+short, staged slots read at a stride of 1 -- must be caught.  Each grid
+is emulated at the card's size and at a tiny one, so every grid-stride
+loop takes several steps.
 """
 import numpy as np
 import pytest
@@ -34,6 +46,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.affine import ref as diag_ref
+from repro_torch.kernels.projective import ref as proj_ref
 
 #: the launch constants of the C entries (csrc/launch.cuh and the two
 #: sources): the vector kernels' unroll and block, the scalar kernels'
@@ -343,3 +356,137 @@ def test_affine_scalar_column_stepping(m, n):
     elems, cols = emulate_affine_scalar(m * n, n, GRIDS["tiny"][1],
                                         step_unreduced=True)
     assert not torch.equal(cols, elems % n)
+
+
+# -- chain_project_1d ------------------------------------------------------------
+
+#: csrc/chain_project.cu's kVecPoints
+VEC_POINTS = 1 << 19
+
+
+def project_regime(n: int, d: int, xy_aligned: bool,
+                   mask_aligned: bool) -> str:
+    """``launch_project_1d``'s choice (``csrc/chain_project.cu``): the
+    16-byte kernel for aligned buffers of 2**19 points or more under 2**31
+    vectors, the scalar kernel for the rest."""
+    if n >= VEC_POINTS and (n // 4) * d < 2 ** 31 and xy_aligned \
+            and mask_aligned:
+        return "vector"
+    return "scalar"
+
+
+def emulate_project_vec(x, h, lo, hi, resident, *, stride_short=0,
+                        read_stride=None):
+    """``chain_project_vec_kernel`` on (N, d) points: (output (N, d), mask
+    (N,), the flat float index of every element a thread read).
+    ``stride_short`` shortens the chunk stride by that many groups and
+    ``read_stride`` replaces the staged slots' stride d (planted
+    faults)."""
+    n, d = x.shape
+    rs = d if read_stride is None else read_stride
+    nq = n // 4
+    nv = nq * d
+    out = torch.full((n, d), float("nan"))
+    mask = torch.zeros(n, dtype=torch.bool)
+    reads = [_ar(0)]
+    grid = max(min(_cdiv(nq, CHUNK), resident), 1)
+    stride = grid * CHUNK - stride_short
+    steps = _cdiv(nq, stride) + 1
+    c = (_ar(grid)[:, None] * CHUNK + _ar(steps)[None, :] * stride).reshape(-1)
+    c = c[c < nq]                                     # the chunks run
+    g0 = (c[:, None, None] + _ar(UNROLL)[None, :, None] * VEC_THREADS
+          + _ar(VEC_THREADS // 32)[None, None, :] * 32)   # a warp's 32
+    lane = _ar(32)
+    q = g0[..., None] + lane                          # each lane's group
+    # the staged slot lane * rs + k holds vector g0 d + lane * rs + k
+    vec = (g0[..., None, None] * d + lane[:, None] * rs
+           + _ar(d)[None, :])                         # (..., 32, d)
+    live = (q < nq) & (vec < nv).all(-1)
+    q, vec = q[live], vec[live]
+    if q.numel():
+        xv = x.reshape(-1)[:4 * nv].view(-1, 4)       # the float4 vectors
+        pts = xv[vec].reshape(-1, 4, d)               # a lane's four points
+        got, inside = proj_ref.chain_project(pts, h, lo, hi)
+        out.view(-1)[:4 * nv].view(-1, 4)[vec.reshape(-1)] = \
+            got.reshape(-1, 4)
+        mask[:4 * nq].view(-1, 4)[q] = inside
+        reads.append((vec[..., None] * 4 + _ar(4)).reshape(-1))
+    # the tail: thread t < N mod 4 of block 0 takes point 4 nq + t
+    tail = 4 * nq + _ar(n - 4 * nq)
+    out[tail], mask[tail] = proj_ref.chain_project(x[tail], h, lo, hi)
+    reads.append((tail[:, None] * d + _ar(d)).reshape(-1))
+    return out, mask, torch.cat(reads)
+
+
+def _project_inputs(n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (3 * rng.standard_normal((n, d))).astype(np.float32)
+    hm = np.eye(d + 1, dtype=np.float32)
+    hm[:d, :d] += rng.uniform(-0.4, 0.4, (d, d)).astype(np.float32)
+    hm[d, :d] = rng.uniform(-1, 1, d)
+    hm[:d, d] = rng.uniform(-0.5, 0.5, d)             # some w <= 0
+    lo = np.full(d, -2.5, np.float32)
+    hi = np.full(d, 2.5, np.float32)
+    return tuple(torch.from_numpy(a) for a in (x, hm, lo, hi))
+
+
+#: (N, d): whole groups, tails of 1-3 points, one group, no group, past
+#: one tiny grid's chunk many times, 2**16 + 3 points, and the smallest
+#: launch the C entry sends to the kernel plus a tail
+PROJECT_SHAPES = [(n, d) for d in (2, 3)
+                  for n in (3, 4, 7, 1001, 4096, 12290, 70_001, 65539,
+                            VEC_POINTS + 3)]
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", PROJECT_SHAPES, ids=str)
+def test_project_vector_mapping_covers_once_and_equals_plain(shape, grid):
+    n, d = shape
+    x, hm, lo, hi = _project_inputs(n, d, [6, n, d])
+    out, mask, reads = emulate_project_vec(x, hm, lo, hi, GRIDS[grid][0])
+    assert _covered_once(reads, n * d)
+    want, wmask = proj_ref.chain_project(x, hm, lo, hi)
+    assert _same_bits(out, want)
+    assert torch.equal(mask, wmask)
+    if n > 1000:                    # both mask values occur
+        assert bool((~wmask).any()) and bool(wmask.any())
+
+
+@pytest.mark.parametrize("n, d, xy, m4, regime", [
+    (1 << 24, 3, True, True, "vector"), (1 << 24, 2, True, True, "vector"),
+    ((1 << 20) + 3, 3, True, True, "vector"),
+    (VEC_POINTS, 2, True, True, "vector"),
+    (VEC_POINTS - 1, 3, True, True, "scalar"), (3, 2, True, True, "scalar"),
+    (262_144, 3, True, True, "scalar"), (1 << 20, 3, False, True, "scalar"),
+    (1 << 20, 2, True, False, "scalar"),
+    (4 * 2 ** 31 // 3 + 4, 3, True, True, "scalar"),
+    (4 * (2 ** 30 - 1), 2, True, True, "vector")], ids=str)
+def test_project_regime_follows_size_and_alignment(n, d, xy, m4, regime):
+    """The 16-byte kernel takes aligned buffers of 2**19 points or more
+    (the graphics cloud; a served request is at most 2**18) under 2**31
+    vectors; the scalar kernel smaller launches, buffers off alignment
+    and anything larger."""
+    assert project_regime(n, d, xy, m4) == regime
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_project_plant_short_chunk_stride_is_caught(d):
+    n = 12290
+    x, hm, lo, hi = _project_inputs(n, d, [7, d])
+    _, _, reads = emulate_project_vec(x, hm, lo, hi, GRIDS["tiny"][0],
+                                      stride_short=1)
+    assert not _covered_once(reads, n * d)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_project_plant_staging_stride_is_caught(d):
+    """Lane l reading slots l .. l + d - 1 in place of l d .. l d + d - 1
+    takes another lane's vectors: the mapping no longer covers every
+    float once, nor equals the plain version."""
+    n = 4096
+    x, hm, lo, hi = _project_inputs(n, d, [8, d])
+    out, mask, reads = emulate_project_vec(x, hm, lo, hi, GRIDS["card"][0],
+                                           read_stride=1)
+    want, wmask = proj_ref.chain_project(x, hm, lo, hi)
+    assert not _covered_once(reads, n * d)
+    assert not (_same_bits(out, want) and torch.equal(mask, wmask))

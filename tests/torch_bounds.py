@@ -28,8 +28,9 @@ magnitudes) for two summation orders, plus a few ulp for
 a float32 difference that small can move a rounding.
 
 The tensor-core (wgmma) paths.  ``matmul_2d`` on bfloat16 inputs (not
-the skinny K <= 8, N <= 8 ones, which stay bitwise) and
-``flash_attention_3d`` on bfloat16 inputs sum on Hopper's tensor cores,
+the skinny K <= 8, N <= 8 ones, which stay bitwise),
+``flash_attention_3d`` and ``ssd_intra`` on bfloat16 inputs sum on
+Hopper's tensor cores,
 whose fp32 accumulation runs in the hardware's own order and need not
 round to nearest inside an MMA.  So ``matmul_bound`` allows
 2 K eps32 sum_k |x_ik y_kj| per element: K eps32 for each of the two
@@ -41,7 +42,15 @@ l sums the float32 p, so an output moves by at most 2**-9 sum_j p_j |v_j|
 / l <= 2**-9 max|v|, doubled.  That is the trade the reference makes on
 its own chip: the TPU kernel's float32 ``dot_general`` calls set no
 ``precision``, and a TPU's matrix unit at default precision takes
-bfloat16 operands.  The float32 paths keep their bounds as they were.
+bfloat16 operands.  ``ssd_bounds(..., tensor_cores=True)`` doubles its
+eps32 terms for bfloat16 inputs and adds 2**-8 of the magnitude sums:
+the kernel rounds att = G exp(cum_i - cum_j) and w = xdt exp(cum_last -
+cum) to bfloat16 before att @ xdt and w^T B, each term moving by at
+most 2**-9 of its magnitude, doubled -- the rounding the JAX package's
+own bfloat16 path applies (``models/ssm.py``: ``att`` and ``w`` cast to
+the compute dtype).  Without ``tensor_cores`` (the plain versions held
+to the JAX package) it stays the float32 bound.  The float32 paths keep
+their bounds as they were.
 """
 import numpy as np
 import torch
@@ -139,13 +148,23 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def ssd_bounds(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
-               cum: torch.Tensor, plain):
+               cum: torch.Tensor, plain, *, tensor_cores: bool = False):
     """(|dy| bound, |dS_c| bound) per element for chunks of lc rows and
     state size n: each y element is a sum over lc rows of products whose
     G factor is itself a sum of n, so (n + lc + 8) eps32 times the same
     sums over the magnitudes (the plain version on |xdt|, |B|, |C|);
     each S_c element a sum over lc rows: (lc + 8) eps32 times its
-    magnitude sum.  ``plain`` is the plain ``ssd_intra``."""
+    magnitude sum.  ``plain`` is the plain ``ssd_intra``.
+
+    ``tensor_cores`` with bfloat16 inputs (the wgmma kernel): the eps32
+    terms doubled, for the tensor cores' own accumulation order, plus
+    2**-8 y_abs and 2**-8 s_abs, since the kernel rounds att and w to
+    bfloat16 (unit roundoff 2**-9, doubled) before the products they
+    feed, as the JAX package's bfloat16 path does (module docstring).
+    The float32 bound is unchanged."""
     lc, n = xdt.shape[1], b_in.shape[-1]
     y_abs, s_abs = plain(xdt.abs(), b_in.abs(), c_in.abs(), cum)
+    if tensor_cores and xdt.dtype == torch.bfloat16:
+        return ((2 * (n + lc + 8) * EPS32 + 2.0 ** -8) * y_abs,
+                (2 * (lc + 8) * EPS32 + 2.0 ** -8) * s_abs)
     return (n + lc + 8) * EPS32 * y_abs, (lc + 8) * EPS32 * s_abs

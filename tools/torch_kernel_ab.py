@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Time ``ssd_intra`` and ``chain_project_1d`` in two checkouts of the
+PyTorch port on one GPU, in turns (A, B, B, A), so that the card and its
+host are the same for both.
+
+    python3 tools/torch_kernel_ab.py PATH_A PATH_B
+
+Each turn is a process of its own that imports ``repro_torch`` from that
+checkout's ``src`` (building its kernels there on first use) and times,
+on inputs made from seed 0: ``ssd_intra`` in bfloat16 at hymba-1.5b's
+prefill shape (32 chunks of 256, 50 heads of 64, state 16) and at
+mamba2-130m's (24 heads of 64, state 128), and ``chain_project_1d`` at
+2**24 points for d = 2 and 3, each beside a device copy of as many bytes
+as the call moves (``copy_ms``).  Times are ``chip_smoke.py``'s: the
+median of 25 CUDA-event runs after one warm run, the L2 flushed before
+each run and the device kept busy while the host enqueues.  Each turn
+prints one JSON line; the last line holds each row's four times in turn
+order and the mean of each checkout's two turns.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPS = 25
+SPIN_CYCLES = 2_000_000
+SSD_SHAPES = {"ssd_intra hymba-1.5b": (32, 256, 50, 64, 16),
+              "ssd_intra mamba2-130m": (32, 256, 24, 64, 128)}
+N_FLAT = 1 << 24
+
+
+def one(tree: str) -> dict:
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.projective import projective as proj_k
+    from repro_torch.kernels.ssd import ssd as ssd_k
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: needs a CUDA device")
+    _build.build_all()
+    dev = torch.device("cuda")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+
+    def time_ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(REPS):
+            flush.zero_()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    def copy_ms(nbytes: int) -> float:
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        return time_ms(lambda: dst.copy_(src))
+
+    rng = np.random.default_rng(0)
+    rows = {}
+    for name, (bc, lc, h, p, n) in SSD_SHAPES.items():
+        def randn(*s):
+            return torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                    ).to(dev).bfloat16()
+        xdt, bb, cc = randn(bc, lc, h, p), randn(bc, lc, n), randn(bc, lc, n)
+        a = rng.uniform(0.001, 0.1, (bc, lc, h)).astype(np.float32)
+        cum = torch.cumsum(-torch.from_numpy(a).to(dev), dim=1)
+        nbytes = 2 * (bc * lc * h * p + 2 * bc * lc * n) + 4 * bc * lc * h \
+            + 4 * bc * lc * h * p + 4 * bc * h * p * n
+        rows[name] = {
+            "ms": time_ms(lambda: ssd_k.ssd_intra(xdt, bb, cc, cum)),
+            "copy_ms": copy_ms(nbytes)}
+    for d in (2, 3):
+        x = torch.from_numpy(rng.standard_normal(N_FLAT * d, dtype=np.float32)
+                             ).to(dev)
+        hm = torch.eye(d + 1, device=dev)
+        hm[d, :d] = 0.5
+        hm[:d, d] = 0.1
+        lo = torch.full((d,), -3.0, device=dev)
+        hi = torch.full((d,), 3.0, device=dev)
+        nbytes = 8 * N_FLAT * d + N_FLAT + 4 * ((d + 1) ** 2 + 2 * d)
+        rows[f"chain_project_1d d={d}"] = {
+            "ms": time_ms(lambda: proj_k.chain_project_1d(x, hm, lo, hi, d=d)),
+            "copy_ms": copy_ms(nbytes)}
+    return {"tree": tree, "rows": rows,
+            "device": torch.cuda.get_device_name(0)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*")
+    ap.add_argument("--one", help="run one turn in this checkout")
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(one(os.path.abspath(args.one))), flush=True)
+        return 0
+    if len(args.trees) != 2:
+        ap.error("give two checkouts, A and B")
+    a, b = (os.path.abspath(t) for t in args.trees)
+    turns = []
+    for tree in (a, b, b, a):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", tree],
+                             capture_output=True, text=True, check=True)
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        turns.append(json.loads(line)["rows"])
+    summary = {}
+    for name in turns[0]:
+        ms = [t[name]["ms"] for t in turns]
+        summary[name] = {"order": ["A", "B", "B", "A"], "ms": ms,
+                         "copy_ms": [t[name]["copy_ms"] for t in turns],
+                         "A_ms": (ms[0] + ms[3]) / 2,
+                         "B_ms": (ms[1] + ms[2]) / 2}
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
