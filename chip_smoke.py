@@ -11,13 +11,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      and print the registers and spills ptxas gave each instance of the
      tensor-core kernels (``matmul_2d.cu``, ``flash_attention.cu``,
      ``ssd_intra.cu``) and of the 16-byte-access ones (``rmsnorm.cu``,
-     ``affine_2d.cu``, ``chain_diag.cu``, ``chain_project.cu``), and the
+     ``affine_2d.cu``, ``chain_diag.cu``, ``chain_project.cu``,
+     ``rope.cu``, ``chain_fixedpoint.cu``), and the
      instructions in the SASS that each design rests on: wgmma and TMA
      loads (``HGMMA``, ``UTMALDG``) in the first three libraries, 128-bit
      global loads and stores (``LDG.E.128``, ``STG.E.128``) in every
      instance of the 16-byte kernels (``rmsnorm_vec_kernel``;
      ``vecadd_vec_kernel``, ``affine_flat_kernel``, ``affine_col_kernel``;
-     ``chain_diag_vec_kernel``; ``chain_project_vec_kernel``), each
+     ``chain_diag_vec_kernel``; ``chain_project_vec_kernel``;
+     ``rope_vec_kernel``; ``chain_matrix_batch_q_vec_kernel``), each
      counted inside its own ``Function :`` section of ``cuobjdump -sass``
      (none may lack one);
   3. serve (affine): 1024 requests from the affine template pool
@@ -97,7 +99,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      points one element off 16-byte alignment; ``chain_project_1d``, whose
      request rows run its scalar kernel and whose 2**24 rows its 16-byte
      one, also untimed at N below 2**19, at points off 16-byte alignment
-     and at 2**20 + 3, the 16-byte kernel's tail):
+     and at 2**20 + 3, the 16-byte kernel's tail;
+     ``chain_matrix_batch_2d_q``, whose served buckets run its 16-byte
+     kernel, also untimed at d = 3 and through its scalar kernel: rows of
+     no multiple of 8 words, B > 1024, the largest q bucket off 16-byte
+     alignment, each also against the numpy Q oracle):
      bitwise equal to its plain version on the same inputs
      (points and mask; the int16 kernels at full-range words and at
      n_frac 0, 7 and 15), timed with CUDA events (median of 25 runs, L2
@@ -131,8 +137,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      (``rmsnorm_2d`` at (8192, 3200) and (4, 3200) float32, (4, 1600)
      and (8192, 1600) bfloat16; ``rope_3d`` at (20 | 100, 2048, 64) from
      position 0 and (20 | 100, 1, 64) at the last decode position,
-     bfloat16, bit for bit; ``flash_attention_3d`` checked at a
-     2000-token prompt with windows 1000 and 1024 and timed at 2048,
+     bfloat16, bit for bit, and, untimed, through its scalar kernel (D =
+     20, x one element off 16-byte alignment); ``flash_attention_3d``
+     checked at a 2000-token prompt with windows 1000 and 1024 and timed at 2048,
      window 1024, group 5; ``ssd_intra`` at 32 chunks of 256, 50 heads
      of 64, state 16 (the tensor-core kernel, within the bfloat16 branch
      of ``ssd_bounds``), also timed at mamba2-130m's prefill shape (24
@@ -151,8 +158,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
  10. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
-     ``vecadd_2d`` also carries its hymba prefill row, ``ssd_intra`` its
-     mamba2-130m row), then the device line last.
+     ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
+     decode rows, ``ssd_intra`` its mamba2-130m row), then the device line
+     last.
 """
 from __future__ import annotations
 
@@ -337,7 +345,10 @@ SASS_REQUIRED = {"matmul_2d": {None: ("HGMMA", "UTMALDG")},
                                "affine_col_kernel": VEC_OPS},
                  "chain_diag": {"chain_diag_vec_kernel": VEC_OPS},
                  "ssd_intra": {None: ("HGMMA", "UTMALDG")},
-                 "chain_project": {"chain_project_vec_kernel": VEC_OPS}}
+                 "chain_project": {"chain_project_vec_kernel": VEC_OPS},
+                 "rope": {"rope_vec_kernel": VEC_OPS},
+                 "chain_fixedpoint": {
+                     "chain_matrix_batch_q_vec_kernel": VEC_OPS}}
 
 
 def sass_sections(source: str) -> dict:
@@ -1133,8 +1144,9 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
                misaligned: bool = False) -> dict:
     """Check one model kernel against its plain version on the card at a
     path shape (rope_3d bit for bit, its tables from position ``pos0``;
-    the others within ``torch_bounds``; ``rmsnorm_2d``'s x one element
-    off 16-byte alignment if ``misaligned``), then time it beside its
+    the others within ``torch_bounds``; ``rmsnorm_2d``'s and ``rope_3d``'s
+    x one element off 16-byte alignment if ``misaligned``), then time it
+    unless ``check_only`` beside its
     plain version, one
     PyTorch call where one computes the function (``rms_norm``,
     ``scaled_dot_product_attention`` with the same mask) or a composite
@@ -1167,6 +1179,8 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
     elif name == "rope_3d":
         bh, s, d = shape
         x = randn(bh, s, d)
+        if misaligned:
+            x = off_alignment(x)
         pos = torch.arange(pos0, pos0 + s, device=dev)
         cos, sin = (t.to(dtype).contiguous()
                     for t in rope_ref.rope_tables(pos, d))
@@ -1478,9 +1492,12 @@ def kernel_case(name: str, shape: tuple, rng: np.random.Generator,
     return row
 
 
-def q_case(shape: tuple, kind: str, rng: np.random.Generator, dev):
-    """(run, plain, composite, bytes, ops) of an int16 kernel at ``shape``
-    on full-range words, each a function of n_frac.  The composite (no
+def q_case(shape: tuple, kind: str, rng: np.random.Generator, dev,
+           misaligned: bool = False):
+    """(run, plain, composite, oracle, bytes, ops) of an int16 kernel at
+    ``shape`` on full-range words, each a function of n_frac (the oracle:
+    the numpy Q oracle, request by request); ``misaligned`` puts the
+    points one element off 16-byte alignment.  The composite (no
     single PyTorch call requantises a Qm.n chain, and ``torch.matmul`` has
     no integer path on CUDA) is a float64 ``addcmul``/``addmm``/
     ``baddbmm`` -- exact: |acc| < 2**32 -- then an int64 rounding shift
@@ -1494,6 +1511,8 @@ def q_case(shape: tuple, kind: str, rng: np.random.Generator, dev):
                                 .astype(np.int16)).to(dev)
 
     x = words(shape)
+    if misaligned:
+        x = off_alignment(x)
     p = words(lead + ((d,) if kind == "diag" else (d, d)))
     t = words(lead + (d,))
     n_points = x.numel() // d
@@ -1533,19 +1552,31 @@ def q_case(shape: tuple, kind: str, rng: np.random.Generator, dev):
     def plain(n):
         return plain_fn(x, p, t, n)
 
+    def oracle(n):
+        fn = q_ref.np_chain_diag_q if kind == "diag" \
+            else q_ref.np_chain_matrix_q
+        xs, ps, ts = (v.cpu().numpy() for v in (x, p, t))
+        if not batched:
+            return torch.from_numpy(fn(xs, ps, ts, n))
+        return torch.from_numpy(np.stack([fn(xs[i], ps[i], ts[i], n)
+                                          for i in range(shape[0])]))
+
     nbytes = opcount.packed_chain_bytes(shape[0], shape[1], d, itemsize=2,
                                         kind=kind) if batched \
         else opcount.fused_chain_bytes(n_points, d, itemsize=2, kind=kind)
-    return run, plain, lib, nbytes, ops
+    return run, plain, lib, oracle, nbytes, ops
 
 
 def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
-                  size: str) -> dict:
-    """Check one int16 kernel at one shape against its plain version at
-    every n_frac of Q_FRACS, on full-range words; time it at q8.7's."""
+                  size: str, *, check_only: bool = False,
+                  misaligned: bool = False) -> dict:
+    """Check one int16 kernel at one shape against its plain version and
+    the numpy Q oracle at every n_frac of Q_FRACS, on full-range words
+    (``misaligned``: the points one element off 16-byte alignment); time
+    it at q8.7's unless ``check_only``."""
     d = shape[-1]
-    run, plain, lib, nbytes, ops = q_case(shape, KERNELS[name][2], rng,
-                                          torch.device("cuda"))
+    run, plain, lib, oracle, nbytes, ops = q_case(
+        shape, KERNELS[name][2], rng, torch.device("cuda"), misaligned)
     composite_equal = True
     for n in Q_FRACS:
         got, want, comp = run(n), plain(n), lib(n)
@@ -1553,8 +1584,20 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
         if got.dtype != torch.int16 or not same_bits(got, want):
             raise SystemExit(f"{name} {shape} n_frac={n}: kernel != plain "
                              "version")
+        # the redesigned kernel also against the numpy Q oracle
+        if name == "chain_matrix_batch_2d_q" \
+                and not same_bits(got.cpu(), oracle(n)):
+            raise SystemExit(f"{name} {shape} n_frac={n}: kernel != numpy "
+                             "Q oracle")
         composite_equal &= same_bits(got, comp)
     err = float((got.int() - want.int()).abs().max()) if got.numel() else 0.0
+    if check_only:
+        row = {"kernel": name, "size": size, "shape": list(shape), "d": d,
+               "dtype": "int16", "n_frac_checked": list(Q_FRACS),
+               "check": "equal", "misaligned": misaligned,
+               "max_abs_err": err}
+        emit(row)
+        return row
     n = Q8_7.n
     byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     (ms, host_us), (plain_ms, plain_us), (lib_ms, lib_us) = \
@@ -1757,6 +1800,18 @@ def main() -> int:
     for kind, name in Q_BATCH.items():
         rows[name] = kernel_case_q(name, largest_q[kind], rng,
                                    "largest q bucket")
+    # chain_matrix_batch_2d_q's 16-byte kernel at d = 3 and its scalar
+    # kernel, untimed: rows of no multiple of 8 words, B > 1024, the
+    # largest q bucket off alignment
+    for shape, size, off in (
+            ((4, 4096, 3), "d = 3, row of 12288 words", False),
+            ((1100, 16, 3), "B > 1024, row of 48 words", False),
+            ((3, 1001, 3), "row of 3003 words", False),
+            ((3, 1001, 2), "row of 2002 words", False),
+            ((1100, 13, 2), "B > 1024, row of 26 words", False),
+            (largest_q["matrix"], "largest q bucket, off alignment", True)):
+        kernel_case_q("chain_matrix_batch_2d_q", shape, rng, size,
+                      check_only=True, misaligned=off)
 
     bf16, f32 = torch.bfloat16, torch.float32
     bench, cloud = "kernel_bench", "cloud"
@@ -1838,6 +1893,15 @@ def main() -> int:
             ((1, 100), bf16, "M = 1, N = 100", False)):
         model_case("rmsnorm_2d", shape, dtype, rng, size, check_only=True,
                    misaligned=off)
+    # rope.cu's scalar kernel: a half row of no multiple of 16 bytes (D =
+    # 20 in bfloat16) and x one element off 16-byte alignment
+    for shape, size, off in (((20, HYMBA_PROMPT, 20), "D = 20", False),
+                             ((100, HYMBA_PROMPT, 64),
+                              "prefill q, off alignment", True),
+                             ((20, 1, 64), "decode k, off alignment", True)):
+        model_case("rope_3d", shape, bf16, rng, size, check_only=True,
+                   misaligned=off)
+    rope_decode = {}
     for name, shape, dtype, size, window, pos0, only in (
             ("rmsnorm_2d", (HYMBA_BATCH, 3200), f32,
              "decode SSM gated norm", None, 0, True),
@@ -1846,8 +1910,8 @@ def main() -> int:
             ("rmsnorm_2d", (HYMBA_BATCH, 1600), bf16, "decode", None, 0,
              False),
             ("rmsnorm_2d", (rows_n, 1600), bf16, "prefill", None, 0, False),
-            ("rope_3d", (20, 1, 64), bf16, "decode k", None, last, True),
-            ("rope_3d", (100, 1, 64), bf16, "decode q", None, last, True),
+            ("rope_3d", (20, 1, 64), bf16, "decode k", None, last, False),
+            ("rope_3d", (100, 1, 64), bf16, "decode q", None, last, False),
             ("rope_3d", (20, HYMBA_PROMPT, 64), bf16, "prefill k", None, 0,
              False),
             ("rope_3d", (100, HYMBA_PROMPT, 64), bf16, "prefill q", None, 0,
@@ -1864,6 +1928,8 @@ def main() -> int:
              False)):
         rows[name] = model_case(name, shape, dtype, rng, size, window=window,
                                 pos0=pos0, check_only=only)
+        if size.startswith("decode") and name == "rope_3d":
+            rope_decode[size.removeprefix("decode ")] = rows[name]
     # ssd_intra at mamba2-130m's prefill shape (batch 4 x 2048 tokens, 24
     # heads of 64, state 128), beside the kernels line's hymba row
     ssd_mamba2 = model_case("ssd_intra", (32, 256, 24, 64, 128), bf16, rng,
@@ -1915,6 +1981,11 @@ def main() -> int:
         k: vecadd_hymba[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "copy_ms")}
+    kernels[list(KERNELS).index("rope_3d")]["decode"] = {
+        head: {k: r[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "composite_ms", "copy_ms")}
+        for head, r in rope_decode.items()}
     kernels[list(KERNELS).index("ssd_intra")]["mamba2_prefill"] = {
         k: ssd_mamba2[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",

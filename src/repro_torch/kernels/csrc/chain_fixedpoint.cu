@@ -14,7 +14,7 @@
 // _chain_matrix_batch_q_kernel Pallas bodies).  The TPU kernels stage
 // coefficient rows (_coef_rows) and roll lanes 2d-1 times because a TPU
 // lane holds one coordinate; here one thread holds one element (diag) or
-// one point (matrix), so there is nothing to stage or roll.
+// whole points (matrix), so there are no coefficient rows and no rolls.
 //
 // Bound on an H100: memory.  One pass reads the int16 points once and
 // writes them once, 2 bytes a coordinate: at 2^24 points that is 201.3 MB
@@ -26,9 +26,31 @@
 // Design: the float kernels' simple pass (one element or one point per
 // thread per grid-stride step, D templated, a 2D grid with y = request
 // for a batch), on half the bytes.  A warp's 2-byte accesses still cover
-// one contiguous span, so every sector fetched is used; fewer bytes are
-// in flight per thread than in the float kernels, which vectorised loads
-// would fix in later work.
+// one contiguous span, so every sector fetched is used, but few bytes
+// are in flight per thread: at the largest q bucket, (15, 65536, 2), the
+// matrix batch kernel moved 7.87 MB in 0.01030 ms on an H100 80GB HBM3
+// (700 W), 0.76 TB/s (PERF.md).  So chain_matrix_batch_2d_q has a second
+// kernel, chain_matrix_batch_q_vec_kernel, for a launch whose row (L*d
+// words a request) is a multiple of 8 on 16-byte-aligned x and y --
+// always so under the serving grid's default power-of-two lengths -- so
+// no 16-byte vector straddles two requests.  A block serves one request
+// (blockIdx.y, striding over B past 1024), loads its d*d matrix words
+// (widened) and its d shifts (already shifted by n) once into registers,
+// and walks the row in contiguous chunks of kUnroll * kVecThreads groups
+// (4 groups a thread at d = 2, 1 at d = 3) over a grid of the blocks the
+// card holds at once (chain_diag_vec_kernel's layout in chain_diag.cu).
+// A group is whole points: for d = 2 one vector of 8 words, 4 points,
+// read and written straight; for d = 3 three vectors, 24 words, 8 points
+// (3 L a multiple of 8 makes L one), and a warp's 32 groups go through
+// shared memory as chain_project_vec_kernel stages them
+// (chain_project.cu): the warp reads its 96 vectors lane by lane (each
+// load instruction 512 contiguous bytes), lane l takes slots 3l .. 3l + 2,
+// computes its 8 points and puts them back, and the warp writes them out
+// lane by lane.  No point is split between threads, so no column pattern
+// is needed.  Offsets inside a row are 32-bit (the C entry sends rows of
+// 2**31 vectors and more to the scalar kernel).  On an H100 80GB HBM3
+// (700 W) the d = 2 bucket above takes 0.78-0.79x a device copy of the
+// same bytes (PERF.md).
 //
 // Integer contract: signed overflow and left shifts of negative values are
 // undefined in C++17, and the reference wraps by design.  So every
@@ -149,6 +171,173 @@ __global__ void chain_matrix_batch_q_kernel(uint16_t* __restrict__ y,
   }
 }
 
+constexpr int kVecThreads = 128;
+constexpr int kWarps = kVecThreads / 32;
+// the groups a thread takes a chunk: 4 vectors at d = 2; at d = 3 one
+// group of 3, the fastest of 1, 2 and 4 on an H100 (and 40 registers
+// where 4 took 80 with a spill)
+template <int D>
+constexpr int kUnroll = D == 2 ? 4 : 1;
+
+// a 16-bit pattern h < 2^16 sign-extended to 32 bits, in uint32_t (no
+// narrowing conversion of an out-of-range value)
+__device__ __forceinline__ uint32_t sext16(uint32_t h) {
+  return (h ^ 0x8000u) - 0x8000u;
+}
+
+// Word i of V 16-byte vectors held as their 4 V 32-bit parts (word 0 at
+// the lowest address), sign-extended to its 32-bit pattern.
+__device__ __forceinline__ uint32_t word_of(const uint32_t* u, int i) {
+  return sext16((u[i >> 1] >> (16 * (i & 1))) & 0xffffu);
+}
+
+// The 8V / D whole points held in V vectors, in place: a (D*D words,
+// widened) and tn (the D shifts, widened and shifted by n) in registers.
+// Each result goes straight into its half of an output part.
+template <int D, int V>
+__device__ __forceinline__ void matrix_q_vecs(uint4* v, const uint32_t* a,
+                                              const uint32_t* tn,
+                                              uint32_t round, int n) {
+  constexpr int kW = 8 * V;
+  uint32_t in[4 * V], out[4 * V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    in[4 * k] = v[k].x;
+    in[4 * k + 1] = v[k].y;
+    in[4 * k + 2] = v[k].z;
+    in[4 * k + 3] = v[k].w;
+    out[4 * k] = out[4 * k + 1] = out[4 * k + 2] = out[4 * k + 3] = 0u;
+  }
+#pragma unroll
+  for (int p = 0; p < kW; p += D) {
+    uint32_t w[D];
+#pragma unroll
+    for (int m = 0; m < D; ++m) w[m] = word_of(in, p + m);
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      uint32_t acc = tn[c];
+#pragma unroll
+      for (int m = 0; m < D; ++m) acc += w[m] * a[m * D + c];
+      const int i = p + c;
+      out[i >> 1] |= static_cast<uint32_t>(requant(acc, round, n))
+                     << (16 * (i & 1));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    v[k] = make_uint4(out[4 * k], out[4 * k + 1], out[4 * k + 2],
+                      out[4 * k + 3]);
+}
+
+// x, y: (B, L, D) packed int16 words, row = L*D a multiple of 8 (D = 3: of
+// 24) under 2**31 vectors, 16-byte-aligned bases; a: (B, D, D); t: (B, D).
+// ng = groups a row, a group V 16-byte vectors of whole points.
+template <int D>
+__global__ void __launch_bounds__(kVecThreads)
+chain_matrix_batch_q_vec_kernel(uint16_t* __restrict__ y,
+                                const int16_t* __restrict__ x,
+                                const int16_t* __restrict__ a,
+                                const int16_t* __restrict__ t, int64_t bsz,
+                                uint32_t ng, int n) {
+  constexpr int V = D == 2 ? 1 : 3;
+  constexpr int kU = kUnroll<D>;
+  constexpr uint32_t kChunk = kU * kVecThreads;   // groups a chunk
+  __shared__ uint4 stage[V == 1 ? 1 : kWarps][kU][V == 1 ? 1 : 32 * V];
+  const uint32_t round = round_of(n);
+  const uint32_t nv = ng * V;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int64_t b = blockIdx.y; b < bsz; b += gridDim.y) {
+    uint32_t ab[D * D], tn[D];
+#pragma unroll
+    for (int k = 0; k < D * D; ++k) ab[k] = widen(a[b * D * D + k]);
+#pragma unroll
+    for (int c = 0; c < D; ++c) tn[c] = widen(t[b * D + c]) << n;
+    const uint4* xv = reinterpret_cast<const uint4*>(x) + b * nv;
+    uint4* yv = reinterpret_cast<uint4*>(y) + b * nv;
+    if constexpr (V == 1) {
+      for (uint32_t c = blockIdx.x * kChunk + threadIdx.x; c < ng;
+           c += gridDim.x * kChunk) {
+        uint4 r[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const uint32_t g = c + u * kVecThreads;
+          if (g < ng) r[u] = xv[g];
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const uint32_t g = c + u * kVecThreads;
+          if (g < ng) {
+            matrix_q_vecs<D, 1>(&r[u], ab, tn, round, n);
+            yv[g] = r[u];
+          }
+        }
+      }
+    } else {
+      for (uint32_t c = blockIdx.x * kChunk; c < ng; c += gridDim.x * kChunk) {
+        // step u: this warp's 32 groups from g0 = c + 128 u + 32 warp, i.e.
+        // 32 V vectors from g0 * V, read lane by lane into shared memory
+        uint4 r[kU][V];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const uint32_t v0 = (c + u * kVecThreads + warp * 32) * V;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const uint32_t v = v0 + k * 32 + lane;
+            if (v < nv) r[u][k] = xv[v];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) stage[warp][u][k * 32 + lane] = r[u][k];
+        }
+        __syncwarp();
+        // lane l takes group g0 + l, slots l V .. l V + V - 1, and puts its
+        // points back in their place
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const uint32_t g = c + u * kVecThreads + warp * 32 + lane;
+          if (g < ng) {
+            uint4 p[V];
+#pragma unroll
+            for (int k = 0; k < V; ++k) p[k] = stage[warp][u][lane * V + k];
+            matrix_q_vecs<D, V>(p, ab, tn, round, n);
+#pragma unroll
+            for (int k = 0; k < V; ++k) stage[warp][u][lane * V + k] = p[k];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const uint32_t v0 = (c + u * kVecThreads + warp * 32) * V;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const uint32_t v = v0 + k * 32 + lane;
+            if (v < nv) yv[v] = stage[warp][u][k * 32 + lane];
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+template <int D>
+void launch_matrix_q_vec(uint16_t* y, const int16_t* x, const int16_t* a,
+                         const int16_t* t, int64_t bsz, int64_t ng, int n,
+                         cudaStream_t st) {
+  static const int64_t resident = repro::resident_blocks(
+      chain_matrix_batch_q_vec_kernel<D>, kVecThreads);
+  const unsigned gy = repro::rows_for(bsz);
+  constexpr int64_t chunk = kUnroll<D> * kVecThreads;
+  int64_t gx = (ng + chunk - 1) / chunk;
+  const int64_t cap = resident / gy > 1 ? resident / gy : 1;
+  if (gx > cap) gx = cap;
+  chain_matrix_batch_q_vec_kernel<D><<<dim3(static_cast<unsigned>(gx), gy),
+                                       kVecThreads, 0, st>>>(
+      y, x, a, t, bsz, static_cast<uint32_t>(ng), n);
+}
+
 bool bad_frac(int64_t n_frac) { return n_frac < 0 || n_frac > 15; }
 
 }  // namespace
@@ -231,29 +420,41 @@ int chain_matrix_1d_q(void* y, const void* x, const void* a, const void* t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: (B, L, d) int16 words; a: (B, d, d); t: (B, d).
-// Returns cudaGetLastError().
+// x, y: (B, L, d) int16 words; a: (B, d, d); t: (B, d).  A row of L*d
+// words that is a multiple of 8 on 16-byte-aligned x and y takes the
+// vector kernel, any other launch the scalar one.  Returns
+// cudaGetLastError().
 int chain_matrix_batch_2d_q(void* y, const void* x, const void* a,
                             const void* t, int64_t bsz, int64_t len, int64_t d,
                             int64_t n_frac, void* stream) {
   if (bad_frac(n_frac)) return static_cast<int>(cudaErrorInvalidValue);
   if (bsz == 0 || len == 0) return 0;
-  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<uint16_t*>(y);
   auto* xi = static_cast<const int16_t*>(x);
   auto* ai = static_cast<const int16_t*>(a);
   auto* ti = static_cast<const int16_t*>(t);
   const int n = static_cast<int>(n_frac);
+  const int64_t row = len * d;
+  if (row % 8 == 0 && row / 8 < (int64_t{1} << 31) &&
+      repro::aligned16(y, x)) {
+    // d = 3: 3 L = 0 mod 8 makes L a multiple of 8, the row one of 24
+    if (d == 2) {
+      launch_matrix_q_vec<2>(yo, xi, ai, ti, bsz, row / 8, n, st);
+    } else {
+      launch_matrix_q_vec<3>(yo, xi, ai, ti, bsz, row / 24, n, st);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
+                  repro::rows_for(bsz));
   if (d == 2) {
     chain_matrix_batch_q_kernel<2><<<grid, repro::kThreads, 0, st>>>(
         yo, xi, ai, ti, bsz, len, n);
-  } else if (d == 3) {
+  } else {
     chain_matrix_batch_q_kernel<3><<<grid, repro::kThreads, 0, st>>>(
         yo, xi, ai, ti, bsz, len, n);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -421,6 +421,60 @@ def test_q_kernel_equals_plain_on_card_and_cpu(cuda_device, kind, d, batched,
                               else got.cpu().numpy(), want), lead
 
 
+def _q_matrix_batch_case(rng, lead, d):
+    pts = _words(rng, (*lead, d))
+    a = _words(rng, (lead[0], d, d))
+    t = _words(rng, (lead[0], d))
+    return pts, a, t
+
+
+def _check_q_matrix_batch(cuda_device, pts, a, t, n_frac, misaligned=False):
+    """The kernel, the plain version on the card and on the CPU, and the
+    numpy oracle per request, on the same words."""
+    host = [torch.from_numpy(v) for v in (pts, a, t)]
+    dev = [v.to(cuda_device) for v in host]
+    if misaligned:
+        dev[0] = _misaligned(dev[0])
+    got = q_k.chain_matrix_batch_2d_q(*dev, n_frac=n_frac)
+    assert got.dtype == torch.int16
+    assert torch.equal(got, q_ref.chain_matrix_batch_q(*dev, n_frac))
+    got = got.cpu()
+    assert torch.equal(got, q_ref.chain_matrix_batch_q(*host, n_frac))
+    for i in range(pts.shape[0]):
+        want = q_ref.np_chain_matrix_q(pts[i], a[i], t[i], n_frac)
+        assert _same_bits(got[i].numpy(), want), i
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("d", [2, 3])
+def test_q_matrix_batch_vector_kernel_equals_plain(cuda_device, d, n_frac):
+    """``chain_matrix_batch_2d_q``'s 16-byte kernel (rows of a multiple of 8
+    words on aligned buffers): one vector or group a row and many, the
+    largest q bucket's shape, B > 1024, full-range words, bitwise equal
+    to the plain version and the numpy oracle."""
+    rng = np.random.default_rng([72, d, n_frac])
+    for lead in ((1, 8), (3, 4 if d == 2 else 8), (2, 24), (4, 4096),
+                 (15, 65536), (2, 40_000), (1500, 16)):
+        _check_q_matrix_batch(cuda_device, *_q_matrix_batch_case(rng, lead,
+                                                                  d), n_frac)
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("d", [2, 3])
+def test_q_matrix_batch_scalar_kernel_equals_plain(cuda_device, d, n_frac):
+    """``chain_matrix_batch_2d_q``'s scalar kernel: rows of no multiple of
+    8 words ((3, 1001, d), (5, 13, d), B > 1024) and points one element
+    off 16-byte alignment at the largest q bucket's shape, full-range
+    words, bitwise equal to the plain version and the numpy oracle."""
+    rng = np.random.default_rng([73, d, n_frac])
+    for lead, off in (((3, 1001), False), ((5, 13), False),
+                      ((1100, 13), False), ((15, 65536), True),
+                      ((1500, 16), True)):
+        _check_q_matrix_batch(cuda_device, *_q_matrix_batch_case(rng, lead,
+                                                                  d),
+                              n_frac, misaligned=off)
+
+
 def test_q_wrappers_count_launches_and_check_operands(cuda_device):
     _build.reset_launch_counts()
     x = torch.ones(4, 3, dtype=torch.int16, device=cuda_device)
@@ -851,6 +905,57 @@ def test_rope_kernel_equals_plain_bitwise(cuda_device, dtype):
         for want in (rope_ref.rope(x, cos, sin),
                      rope_ref.rope(x.cpu(), cos.cpu(), sin.cpu())):
             assert _same_bits(_bits(got), _bits(want)), (bh, s, d)
+
+
+def _rope_case(rng, shape, dtype, device, pos0=0):
+    _, _, _, _, rope_ref = _model_kernels()[:5]
+    bh, s, d = shape
+    x = _dense(rng, shape, dtype, device)
+    pos = torch.arange(pos0, pos0 + s, device=device)
+    cos, sin = (t.to(dtype).contiguous() for t in rope_ref.rope_tables(pos, d))
+    return x, cos, sin
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_vector_kernel_equals_plain_bitwise(cuda_device, dtype):
+    """``rope_3d``'s 16-byte kernel (a half row of a multiple of 16 bytes
+    on aligned buffers): every RoPE head width of the configs (64, 80, 96,
+    128) and the reduced models' 16, hymba's prefill and decode shapes,
+    one head and more heads than a group, bit for bit the plain version
+    on the card and on the CPU."""
+    _, _, _, rope_k, rope_ref = _model_kernels()[:5]
+    rng = np.random.default_rng([70, dtype == torch.bfloat16])
+    for shape in ((100, 2048, 64), (20, 2048, 64), (100, 1, 64), (20, 1, 64),
+                  (1, 1, 64), (3, 37, 80), (7, 300, 96), (5, 2048, 128),
+                  (130, 5, 128), (2, 33, 16), (4097, 1, 16)):
+        x, cos, sin = _rope_case(rng, shape, dtype, cuda_device, pos0=2000)
+        got = rope_k.rope_3d(x, cos, sin)
+        assert _same_bits(_bits(got), _bits(rope_ref.rope(x, cos, sin))), shape
+        assert _same_bits(_bits(got), _bits(rope_ref.rope(
+            x.cpu(), cos.cpu(), sin.cpu()))), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_scalar_kernel_equals_plain_bitwise(cuda_device, dtype):
+    """``rope_3d``'s scalar kernel: half rows of no multiple of 16 bytes
+    (D = 2, 20 in bfloat16, 6 in float32) and x, y's source, cos or sin
+    one element off 16-byte alignment at hymba's widths, bit for bit the
+    plain version on the card and on the CPU."""
+    _, _, _, rope_k, rope_ref = _model_kernels()[:5]
+    rng = np.random.default_rng([71, dtype == torch.bfloat16])
+    for shape in ((1, 1, 2), (20, 200, 20), (3, 17, 6), (8, 48, 40)):
+        x, cos, sin = _rope_case(rng, shape, dtype, cuda_device)
+        got = rope_k.rope_3d(x, cos, sin)
+        assert _same_bits(_bits(got), _bits(rope_ref.rope(
+            x.cpu(), cos.cpu(), sin.cpu()))), shape
+    for shape in ((100, 2048, 64), (20, 1, 64), (3, 37, 128)):
+        x, cos, sin = _rope_case(rng, shape, dtype, cuda_device)
+        want = rope_ref.rope(x.cpu(), cos.cpu(), sin.cpu())
+        for xs, cs, ss in ((_misaligned(x), cos, sin),
+                           (x, _misaligned(cos), sin),
+                           (x, cos, _misaligned(sin))):
+            got = rope_k.rope_3d(xs, cs, ss)
+            assert _same_bits(_bits(got), _bits(want)), shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

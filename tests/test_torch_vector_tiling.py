@@ -1,8 +1,10 @@
-"""The 16-byte kernels of ``chain_diag_batch_2d``, ``affine_2d`` and
-``chain_project_1d``, held on the CPU.
+"""The 16-byte kernels of ``chain_diag_batch_2d``, ``affine_2d``,
+``chain_project_1d``, ``rope_3d`` and ``chain_matrix_batch_2d_q``, held on
+the CPU.
 
 Their CUDA kernels (``csrc/chain_diag.cu``, ``csrc/affine_2d.cu``,
-``csrc/chain_project.cu``) run
+``csrc/chain_project.cu``, ``csrc/rope.cu``, ``csrc/chain_fixedpoint.cu``)
+run
 only on the card, so here each kernel's mapping from (block, thread,
 unroll step, vector lane) to (request, element, column) is emulated in
 eager torch, with the launch geometry of its C entry:
@@ -26,16 +28,29 @@ eager torch, with the launch geometry of its C entry:
     l d + d - 1 -- its group's four points -- and writing the results
     back there and its four mask bytes as word q; the last N mod 4 points
     one a thread of the first block.  The mapping does not depend on N,
-    so it is emulated at small N as well.
+    so it is emulated at small N as well;
+  * ``rope_vec_kernel`` (a half row of a multiple of 16 bytes on aligned
+    buffers): thread (tx, ty, tz) of block (bx, by) on vector tx of the
+    half row at position bx py + ty (py positions a tile), in heads by hz
+    + tz, + gy hz, ... (hz heads a block: one in prefill, up to 64 for a
+    decode step); x1, x2, cos and sin read as vectors at one column;
+  * ``chain_matrix_batch_q_vec_kernel`` (rows of a multiple of 8 int16
+    words on aligned buffers): a block row per request, chunks of groups
+    of whole points -- one vector, 4 points, at d = 2; three vectors, 8
+    points, at d = 3, a warp's 32 groups staged as the project kernel
+    stages them.
 
 Each emulation must cover every element exactly once, pick the regime the
 C entry picks, and, computing each element with the same rounded ops
 (``x * s``, then ``+ t``; ``ref.chain_project``'s sequence on the
-gathered points), equal ``ref.chain_diag_batch`` / ``ref.affine`` /
-``ref.chain_project`` bit for bit, masks included.  A planted fault -- a
+gathered points; ``ref.rope``'s and ``ref.chain_matrix_batch_q``'s on the
+gathered vectors), equal ``ref.chain_diag_batch`` / ``ref.affine`` /
+``ref.chain_project`` / ``ref.rope`` / ``ref.chain_matrix_batch_q`` bit for
+bit, masks included.  A planted fault -- a
 d = 3 phase off by one, a column pattern shifted by one, a column step
 left unreduced, a chunk stride one step short, a chunk stride one group
-short, staged slots read at a stride of 1 -- must be caught.  Each grid
+short, staged slots read at a stride of 1, a position tile one short, x2
+read one vector off -- must be caught.  Each grid
 is emulated at the card's size and at a tiny one, so every grid-stride
 loop takes several steps.
 """
@@ -46,7 +61,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.affine import ref as diag_ref
+from repro_torch.kernels.fixedpoint import ref as q_ref
 from repro_torch.kernels.projective import ref as proj_ref
+from repro_torch.kernels.rope import ref as rope_ref
 
 #: the launch constants of the C entries (csrc/launch.cuh and the two
 #: sources): the vector kernels' unroll and block, the scalar kernels'
@@ -490,3 +507,269 @@ def test_project_plant_staging_stride_is_caught(d):
     want, wmask = proj_ref.chain_project(x, hm, lo, hi)
     assert not _covered_once(reads, n * d)
     assert not (_same_bits(out, want) and torch.equal(mask, wmask))
+
+
+# -- rope_3d -------------------------------------------------------------------
+
+#: csrc/rope.cu's block of the 16-byte kernel and its cap on grid y; the
+#: tiny grid caps y at 3 so that block rows stride over the heads
+ROPE_THREADS = 128
+ROPE_GRID_Y = {"card": 65535, "tiny": 3}
+
+
+def rope_regime(d: int, itemsize: int, s: int, aligned: bool) -> str:
+    """``rope_3d``'s choice (``csrc/rope.cu``): the 16-byte kernel for a
+    half row of a multiple of 16 bytes (at most 128 vectors), heads under
+    2**31 elements and 16-byte-aligned x, y, cos and sin; the scalar
+    kernel for the rest."""
+    half = d // 2
+    if aligned and half * itemsize % 16 == 0 \
+            and half * itemsize // 16 <= ROPE_THREADS and s * d < 2 ** 31:
+        return "vector"
+    return "scalar"
+
+
+def rope_vec_grid(bh: int, s: int, hv: int, max_gy: int):
+    """``launch_vec``'s (grid x, grid y, positions a tile, heads a
+    block)."""
+    py = min(ROPE_THREADS // hv, s)
+    hz = min(ROPE_THREADS // (hv * py), 64, bh)
+    return _cdiv(s, py), min(_cdiv(bh, hz), max_gy), py, hz
+
+
+def emulate_rope_vec(x, cos, sin, max_gy, *, tile_short=0, x2_shift=0):
+    """``rope_vec_kernel`` on x (BH, S, D), cos, sin (S, D/2): the output
+    and the flat index of every element written.  Thread (tx, ty, tz) of
+    block (bx, by) takes vector tx of the half row at position bx py + ty,
+    in heads by hz + tz, + gy hz, ...  ``tile_short`` starts each tile that
+    many
+    positions early and ``x2_shift`` reads x2 that many vectors off
+    (planted faults; a read past the buffer wraps)."""
+    bh, s, d = x.shape
+    half = d // 2
+    width = 16 // x.element_size()
+    hv = half // width
+    gx, gy, py, hz = rope_vec_grid(bh, s, hv, max_gy)
+    pos = (_ar(gx)[:, None] * (py - tile_short) + _ar(py)[None, :]).reshape(-1)
+    pos = pos[pos < s]                                # threads that run
+    h = (_ar(gy)[:, None, None] * hz + _ar(hz)[None, :, None]
+         + _ar(_cdiv(bh, gy * hz))[None, None, :] * gy * hz).reshape(-1)
+    h = h[h < bh]                                     # striding over heads
+    col = (_ar(hv)[:, None] * width + _ar(width)[None, :]).reshape(-1)
+    # (head, position, column of the half row)
+    o1 = (h[:, None, None] * (s * d) + pos[None, :, None] * d
+          + col[None, None, :]).reshape(-1)
+    tab = (pos[:, None] * half + col[None, :])[None].expand(
+        h.numel(), -1, -1).reshape(-1)
+    flat = x.reshape(-1)
+    x1 = flat[o1]
+    x2 = flat[(o1 + half + x2_shift * width) % flat.numel()]
+    c, sn = cos.reshape(-1)[tab], sin.reshape(-1)[tab]
+    y = torch.full_like(flat, float("nan"))
+    y[o1] = x1 * c - x2 * sn
+    y[o1 + half] = x2 * c + x1 * sn
+    return y.reshape(x.shape), torch.cat([o1, o1 + half])
+
+
+def _rope_inputs(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).to(dtype)
+    pos = torch.arange(2000, 2000 + shape[1])
+    cos, sin = (t.to(dtype) for t in rope_ref.rope_tables(pos, shape[2]))
+    return x, cos, sin
+
+
+#: (BH, S, D): every RoPE head width of the configs (64, 80, 96, 128) at
+#: a decode step (S = 1) and at a prefill's 2048 positions, and the
+#: reduced models' 16
+ROPE_SHAPES = [(bh, s, d) for d in (64, 80, 96, 128)
+               for bh, s in ((100, 1), (5, 2048))] + [(130, 7, 16),
+                                                      (200, 1, 16),
+                                                      (3, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", ROPE_SHAPES, ids=str)
+def test_rope_vector_mapping_covers_once_and_equals_plain(shape, grid,
+                                                          dtype):
+    x, cos, sin = _rope_inputs(shape, dtype, [9, *shape])
+    assert rope_regime(shape[2], x.element_size(), shape[1],
+                       aligned=True) == "vector"
+    y, elems = emulate_rope_vec(x, cos, sin, ROPE_GRID_Y[grid])
+    assert _covered_once(elems, x.numel())
+    assert _same_bits(y, rope_ref.rope(x, cos, sin))
+
+
+@pytest.mark.parametrize("d, itemsize, s, aligned, regime", [
+    (64, 2, 2048, True, "vector"), (64, 2, 2048, False, "scalar"),
+    (80, 2, 1, True, "vector"), (96, 4, 1, True, "vector"),
+    (128, 4, 2048, True, "vector"), (16, 2, 7, True, "vector"),
+    (20, 2, 200, True, "scalar"), (20, 4, 200, True, "scalar"),
+    (8, 4, 3, True, "vector"), (2, 2, 1, True, "scalar"),
+    (40, 2, 48, True, "scalar"), (2048, 2, 1, True, "vector"),
+    (4096, 2, 1, True, "scalar"), (64, 2, 2 ** 25, True, "scalar")],
+    ids=str)
+def test_rope_regime_follows_width_and_alignment(d, itemsize, s, aligned,
+                                                 regime):
+    """Half rows of a multiple of 16 bytes and at most 128 vectors on
+    aligned buffers take the 16-byte kernel; D = 20 (bfloat16 or float32),
+    D = 2, 40 in bfloat16, wider than 2048 bfloat16 values, heads of 2**31
+    elements or an off-aligned base, the scalar one."""
+    assert rope_regime(d, itemsize, s, aligned) == regime
+
+
+def test_rope_every_config_width_takes_the_vector_kernel():
+    """Every RoPE model of ``repro_torch.configs`` (and its reduced form)
+    has a head width the 16-byte kernel takes, in bfloat16 and float32."""
+    from repro_torch import configs
+
+    widths = set()
+    for arch in configs.list_archs():
+        for cfg in (configs.get(arch), configs.get(arch).reduced()):
+            if cfg.n_heads and cfg.pos_embed == "rope":
+                widths.add(cfg.head_dim)
+    assert {64, 80, 96, 128} <= widths
+    for d in widths:
+        for itemsize in (2, 4):
+            assert rope_regime(d, itemsize, 2048, aligned=True) == "vector"
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 2048, 64), (3, 300, 128)], ids=str)
+def test_rope_plant_position_off_by_one_across_a_tile_is_caught(shape,
+                                                                dtype):
+    x, cos, sin = _rope_inputs(shape, dtype, [10, *shape])
+    _, elems = emulate_rope_vec(x, cos, sin, ROPE_GRID_Y["card"],
+                                tile_short=1)
+    assert not _covered_once(elems, x.numel())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 2048, 64), (100, 1, 80)], ids=str)
+def test_rope_plant_x2_one_vector_off_is_caught(shape, dtype):
+    x, cos, sin = _rope_inputs(shape, dtype, [11, *shape])
+    y, elems = emulate_rope_vec(x, cos, sin, ROPE_GRID_Y["card"],
+                                x2_shift=1)
+    assert _covered_once(elems, x.numel())
+    assert not _same_bits(y, rope_ref.rope(x, cos, sin))
+
+
+# -- chain_matrix_batch_2d_q ---------------------------------------------------
+
+#: csrc/chain_fixedpoint.cu's kUnroll<D>: groups a thread takes a chunk
+Q_UNROLL = {2: 4, 3: 1}
+
+
+def matrix_q_regime(length: int, d: int, aligned: bool) -> str:
+    """``chain_matrix_batch_2d_q``'s choice (``csrc/chain_fixedpoint.cu``):
+    the 16-byte kernel for a row of a multiple of 8 int16 words under
+    2**31 vectors on 16-byte-aligned x and y, the scalar kernel for the
+    rest."""
+    row = length * d
+    return "vector" if aligned and row % 8 == 0 and row // 8 < 2 ** 31 \
+        else "scalar"
+
+
+def emulate_matrix_q_vec(x, a, t, n_frac, resident, *, read_stride=None):
+    """``chain_matrix_batch_q_vec_kernel`` on x (B, L, d) int16 words, a
+    (B, d, d), t (B, d): (output, the flat index of every word a lane
+    took).  A group is V = 1 (d = 2) or 3 (d = 3) vectors of 8 words, its
+    8 V / d whole points; for V = 3 a warp's 32 groups are staged (slot
+    k 32 + lane holds vector g0 V + k 32 + lane) and lane l takes slots
+    l rs .. l rs + V - 1, rs = V unless ``read_stride`` plants a fault."""
+    bsz, length, d = x.shape
+    v_per = 1 if d == 2 else 3
+    unroll = Q_UNROLL[d]
+    chunk = unroll * VEC_THREADS
+    rs = v_per if read_stride is None else read_stride
+    row = length * d
+    ng = row // (8 * v_per)
+    nv = ng * v_per
+    gy = min(bsz, MAX_BLOCKS_Y)
+    gx = min(_cdiv(ng, chunk), max(resident // gy, 1))
+    b = (_ar(gy)[:, None] + _ar(_cdiv(bsz, gy))[None, :] * gy).reshape(-1)
+    b = b[b < bsz]                                  # blockIdx.y, striding
+    if v_per == 1:
+        vec = _chunked(ng, gx)[:, None]             # (groups, 1)
+    else:
+        steps = _cdiv(ng, gx * chunk) + 1
+        c = (_ar(gx)[:, None] * chunk
+             + _ar(steps)[None, :] * gx * chunk).reshape(-1)
+        c = c[c < ng]
+        g0 = (c[:, None, None] + _ar(unroll)[None, :, None] * VEC_THREADS
+              + _ar(VEC_THREADS // 32)[None, None, :] * 32).reshape(-1)
+        lane = _ar(32)
+        g = (g0[:, None] + lane).reshape(-1)
+        vec = (g0[:, None, None] * v_per + lane[None, :, None] * rs
+               + _ar(v_per)[None, None, :]).reshape(-1, v_per)
+        live = (g < ng) & (vec < nv).all(-1)
+        vec = vec[live]
+    words = (vec[:, :, None] * 8 + _ar(8)).reshape(vec.shape[0], -1)
+    words = (b[:, None, None] * row + words[None]).reshape(-1, 8 * v_per)
+    req = b[:, None].expand(-1, vec.shape[0]).reshape(-1)
+    flat = x.reshape(-1)
+    pts = flat[words].reshape(words.shape[0], -1, d)   # a lane's points
+    got = q_ref.chain_matrix_batch_q(pts, a[req], t[req], n_frac)
+    y = torch.zeros_like(flat)
+    y[words.reshape(-1)] = got.reshape(-1)
+    return y.reshape(x.shape), words.reshape(-1)
+
+
+def _q_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    bsz, _, d = shape
+
+    def words(s):
+        return torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, s)
+                                .astype(np.int16))
+    return words(shape), words((bsz, d, d)), words((bsz, d))
+
+
+#: (B, L, d) buckets with rows of a multiple of 8 words: one vector or
+#: group a row and several, power-of-two serving lengths, the largest q
+#: bucket's (15, 65536, 2), B > 1024
+MATRIX_Q_SHAPES = [(3, 4, 2), (2, 12, 2), (4, 4096, 2), (15, 65536, 2),
+                   (1500, 16, 2), (3, 8, 3), (2, 24, 3), (4, 4096, 3),
+                   (2, 40_000, 3), (1100, 8, 3)]
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", MATRIX_Q_SHAPES, ids=str)
+def test_matrix_q_vector_mapping_covers_once_and_equals_plain(shape, grid,
+                                                              n_frac):
+    x, a, t = _q_inputs(shape, [12, *shape, n_frac])
+    assert matrix_q_regime(shape[1], shape[2], aligned=True) == "vector"
+    y, words = emulate_matrix_q_vec(x, a, t, n_frac, GRIDS[grid][0])
+    assert _covered_once(words, x.numel())
+    assert torch.equal(y, q_ref.chain_matrix_batch_q(x, a, t, n_frac))
+
+
+@pytest.mark.parametrize("length, d, aligned, regime", [
+    (65536, 2, True, "vector"), (65536, 3, True, "vector"),
+    (4, 2, True, "vector"), (8, 3, True, "vector"), (12, 3, False, "scalar"),
+    (1001, 3, True, "scalar"), (1001, 2, True, "scalar"),
+    (13, 2, True, "scalar"), (6, 2, True, "scalar"),
+    (4, 3, True, "scalar"), (65536, 2, False, "scalar"),
+    (2 ** 34, 2, True, "scalar")], ids=str)
+def test_matrix_q_regime_follows_row_and_alignment(length, d, aligned,
+                                                   regime):
+    """Rows of a multiple of 8 words (every power-of-two serving length
+    from 4 points at d = 2, from 8 at d = 3) on aligned buffers take the
+    16-byte kernel; a custom grid's L = 13 or 1001, an off-aligned view or
+    a row of 2**31 vectors, the scalar one."""
+    assert matrix_q_regime(length, d, aligned) == regime
+
+
+def test_matrix_q_plant_staging_stride_is_caught():
+    """Lane l reading slots l .. l + 2 in place of 3l .. 3l + 2 takes
+    another lane's vectors: the mapping no longer covers every word once,
+    nor equals the plain version."""
+    shape = (4, 4096, 3)
+    x, a, t = _q_inputs(shape, [13])
+    y, words = emulate_matrix_q_vec(x, a, t, 7, GRIDS["card"][0],
+                                    read_stride=1)
+    assert not _covered_once(words, x.numel())
+    assert not torch.equal(y, q_ref.chain_matrix_batch_q(x, a, t, 7))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time ``ssd_intra`` and ``chain_project_1d`` in two checkouts of the
-PyTorch port on one GPU, in turns (A, B, B, A), so that the card and its
-host are the same for both.
+"""Time ``ssd_intra``, ``chain_project_1d``, ``rope_3d`` and
+``chain_matrix_batch_2d_q`` in two checkouts of the PyTorch port on one
+GPU, in turns (A, B, B, A), so that the card and its host are the same
+for both.
 
     python3 tools/torch_kernel_ab.py PATH_A PATH_B
 
@@ -9,9 +10,14 @@ Each turn is a process of its own that imports ``repro_torch`` from that
 checkout's ``src`` (building its kernels there on first use) and times,
 on inputs made from seed 0: ``ssd_intra`` in bfloat16 at hymba-1.5b's
 prefill shape (32 chunks of 256, 50 heads of 64, state 16) and at
-mamba2-130m's (24 heads of 64, state 128), and ``chain_project_1d`` at
-2**24 points for d = 2 and 3, each beside a device copy of as many bytes
-as the call moves (``copy_ms``).  Times are ``chip_smoke.py``'s: the
+mamba2-130m's (24 heads of 64, state 128), ``chain_project_1d`` at
+2**24 points for d = 2 and 3, ``rope_3d`` in bfloat16 at hymba-1.5b's
+prefill q and k shapes ((100 | 20, 2048, 64), tables from position 0)
+and its decode q shape ((100, 1, 64) at position 2063),
+and ``chain_matrix_batch_2d_q`` at the largest q bucket of
+``chip_smoke.py``'s q-mixed serve, (15, 65536, 2), on full-range int16
+words at n_frac 7 (q8.7), each beside a device copy of as many bytes as
+the call moves (``copy_ms``).  Times are ``chip_smoke.py``'s: the
 median of 25 CUDA-event runs after one warm run, the L2 flushed before
 each run and the device kept busy while the host enqueues.  Each turn
 prints one JSON line; the last line holds each row's four times in turn
@@ -30,6 +36,12 @@ SPIN_CYCLES = 2_000_000
 SSD_SHAPES = {"ssd_intra hymba-1.5b": (32, 256, 50, 64, 16),
               "ssd_intra mamba2-130m": (32, 256, 24, 64, 128)}
 N_FLAT = 1 << 24
+#: (BH, S, D) and the first position: prefill q and k, the last decode step
+ROPE_SHAPES = {"rope_3d q": ((100, 2048, 64), 0),
+               "rope_3d k": ((20, 2048, 64), 0),
+               "rope_3d decode q": ((100, 1, 64), 2063)}
+#: chip_smoke.py's largest q bucket of the matrix kind (seed 0)
+Q_MATRIX_BUCKET = (15, 65536, 2)
 
 
 def one(tree: str) -> dict:
@@ -38,7 +50,10 @@ def one(tree: str) -> dict:
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.fixedpoint import fixedpoint as q_k
     from repro_torch.kernels.projective import projective as proj_k
+    from repro_torch.kernels.rope import ref as rope_ref
+    from repro_torch.kernels.rope import rope as rope_k
     from repro_torch.kernels.ssd import ssd as ssd_k
 
     if not torch.cuda.is_available():
@@ -92,6 +107,25 @@ def one(tree: str) -> dict:
         rows[f"chain_project_1d d={d}"] = {
             "ms": time_ms(lambda: proj_k.chain_project_1d(x, hm, lo, hi, d=d)),
             "copy_ms": copy_ms(nbytes)}
+    for name, ((bh, s, d), pos0) in ROPE_SHAPES.items():
+        x = torch.from_numpy(rng.standard_normal((bh, s, d), dtype=np.float32)
+                             ).to(dev).bfloat16()
+        pos = torch.arange(pos0, pos0 + s, device=dev)
+        cos, sin = (t.bfloat16().contiguous() for t in
+                    rope_ref.rope_tables(pos, d))
+        nbytes = 2 * (2 * bh * s * d + s * d)
+        rows[name] = {"ms": time_ms(lambda: rope_k.rope_3d(x, cos, sin)),
+                      "copy_ms": copy_ms(nbytes)}
+    bsz, length, d = Q_MATRIX_BUCKET
+
+    def words(*s):
+        return torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, s)
+                                .astype(np.int16)).to(dev)
+    x, a, t = words(bsz, length, d), words(bsz, d, d), words(bsz, d)
+    nbytes = 2 * (2 * bsz * length * d + bsz * (d * d + d))
+    rows["chain_matrix_batch_2d_q"] = {
+        "ms": time_ms(lambda: q_k.chain_matrix_batch_2d_q(x, a, t, n_frac=7)),
+        "copy_ms": copy_ms(nbytes)}
     return {"tree": tree, "rows": rows,
             "device": torch.cuda.get_device_name(0)}
 
