@@ -12,16 +12,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      tensor-core kernels (``matmul_2d.cu``, ``flash_attention.cu``,
      ``ssd_intra.cu``) and of the 16-byte-access ones (``rmsnorm.cu``,
      ``affine_2d.cu``, ``chain_diag.cu``, ``chain_project.cu``,
-     ``rope.cu``, ``chain_fixedpoint.cu``), and the
+     ``rope.cu``, ``chain_fixedpoint.cu``, ``chain_matrix.cu``), and the
      instructions in the SASS that each design rests on: wgmma and TMA
      loads (``HGMMA``, ``UTMALDG``) in the first three libraries, 128-bit
      global loads and stores (``LDG.E.128``, ``STG.E.128``) in every
      instance of the 16-byte kernels (``rmsnorm_vec_kernel``;
      ``vecadd_vec_kernel``, ``affine_flat_kernel``, ``affine_col_kernel``;
      ``chain_diag_vec_kernel``; ``chain_project_vec_kernel``;
-     ``rope_vec_kernel``; ``chain_matrix_batch_q_vec_kernel``), each
-     counted inside its own ``Function :`` section of ``cuobjdump -sass``
-     (none may lack one);
+     ``rope_vec_kernel``; ``chain_matrix_batch_q_vec_kernel``,
+     ``chain_diag_batch_q_vec_kernel``; ``chain_matrix_batch_vec_kernel``),
+     each counted inside its own ``Function :`` section of ``cuobjdump
+     -sass`` (none may lack one);
   3. serve (affine): 1024 requests from the affine template pool
      (lognormal sizes from 1024 to 262144 points, median 16384) through
      ``GeometryServer`` on the GPU -- one warm flush, then three rounds
@@ -32,7 +33,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   4. serve (mixed): the main path, the same run over the full
      ``TEMPLATES`` pool -- the JAX launcher's default mix, about 3/11 of
      the requests projective -- with per-request ``project`` for the
-     projective requests and ``apply`` for the rest;
+     projective requests and ``apply`` for the rest; in phases 3, 4 and 6
+     every float matrix bucket and every q bucket must have rows that the
+     16-byte batch kernels take (their C entries' rule on the padded
+     length, the packed buffers being fresh, aligned allocations);
   5. graphics: one ``viewing_chain`` (camera, perspective, cull,
      viewport) projects a 2**20-point cloud in one launch, then 64 frames
      of 65536 points with the camera stepped around an orbit serve as one
@@ -94,16 +98,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
      them -- and the batch kernels at the largest served bucket of each
-     plan kind, ``chain_diag_batch_2d`` also at the largest d = 3 bucket
-     and, untimed, through its scalar kernel: rows of 39 floats, B > 1024,
-     points one element off 16-byte alignment; ``chain_project_1d``, whose
+     plan kind, ``chain_diag_batch_2d`` and ``chain_matrix_batch_2d`` also
+     at the largest d = 3 bucket and, untimed, through their scalar
+     kernels: rows of no whole vector or group (39 floats; L odd, L = 6
+     at d = 3), B > 1024, points one element off 16-byte alignment
+     (``chain_matrix_batch_2d``'s 16-byte kernel also untimed at d = 3
+     and B > 1024); ``chain_project_1d``, whose
      request rows run its scalar kernel and whose 2**24 rows its 16-byte
      one, also untimed at N below 2**19, at points off 16-byte alignment
      and at 2**20 + 3, the 16-byte kernel's tail;
-     ``chain_matrix_batch_2d_q``, whose served buckets run its 16-byte
-     kernel, also untimed at d = 3 and through its scalar kernel: rows of
-     no multiple of 8 words, B > 1024, the largest q bucket off 16-byte
-     alignment, each also against the numpy Q oracle):
+     ``chain_matrix_batch_2d_q`` and ``chain_diag_batch_2d_q``, whose
+     served buckets run their 16-byte kernels, also untimed at d = 3 and
+     B > 1024 and through their scalar kernels: rows of no multiple of 8
+     words, B > 1024, the largest q bucket off 16-byte alignment, each
+     also against the numpy Q oracle):
      bitwise equal to its plain version on the same inputs
      (points and mask; the int16 kernels at full-range words and at
      n_frac 0, 7 and 15), timed with CUDA events (median of 25 runs, L2
@@ -159,8 +167,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
-     decode rows, ``ssd_intra`` its mamba2-130m row), then the device line
-     last.
+     decode rows, ``ssd_intra`` its mamba2-130m row,
+     ``chain_matrix_batch_2d`` its largest d = 3 bucket's row), then the
+     device line last.
 """
 from __future__ import annotations
 
@@ -348,7 +357,9 @@ SASS_REQUIRED = {"matmul_2d": {None: ("HGMMA", "UTMALDG")},
                  "chain_project": {"chain_project_vec_kernel": VEC_OPS},
                  "rope": {"rope_vec_kernel": VEC_OPS},
                  "chain_fixedpoint": {
-                     "chain_matrix_batch_q_vec_kernel": VEC_OPS}}
+                     "chain_matrix_batch_q_vec_kernel": VEC_OPS,
+                     "chain_diag_batch_q_vec_kernel": VEC_OPS},
+                 "chain_matrix": {"chain_matrix_batch_vec_kernel": VEC_OPS}}
 
 
 def sass_sections(source: str) -> dict:
@@ -381,6 +392,28 @@ def sass_missing(counts: dict) -> list:
     that lacks one of its instructions."""
     return [k for k, fns in counts.items()
             if not fns or not all(all(c.values()) for c in fns.values())]
+
+
+def off_vector_buckets(reports, q_reports=()) -> list:
+    """The served buckets whose rows a 16-byte batch kernel does not take,
+    by its C entry's rule on the padded length (the packed buffers are
+    fresh device allocations, so 16-byte aligned): ``chain_matrix_batch_2d``
+    for the float matrix buckets (L even at d = 2, a multiple of 4 at d =
+    3), ``chain_diag_batch_2d_q`` and ``chain_matrix_batch_2d_q`` for
+    ``q_reports`` (rows of a multiple of 8 words)."""
+    q_ids = {id(r) for r in q_reports}
+    bad = []
+    for rep in reports:
+        d = int(rep.structure[0])
+        if id(rep) in q_ids:
+            ok = rep.lpad * d % 8 == 0
+        elif rep.kind == "matrix":
+            ok = rep.lpad % (2 if d == 2 else 4) == 0
+        else:
+            continue
+        if not ok:
+            bad.append((rep.kind, rep.requests, rep.lpad, d))
+    return bad
 
 
 def require_launched(counts: dict, names, phase: str) -> None:
@@ -511,6 +544,9 @@ def serve_phase(phase: str, templates, device: str = "cuda",
     used = [k for k in FLAT if n_kind[k]]
     require_launched(counts, [FLAT[k] for k in used]
                      + [BATCH[k] for k in used], phase)
+    off = off_vector_buckets(srv.last_report)
+    if off:
+        raise SystemExit(f"{phase}: buckets {off} run a scalar batch kernel")
 
     ref_outs = serving.GeometryServer(device=device, backend="ref").serve(reqs)
     undecided = 0
@@ -694,6 +730,9 @@ def q_mixed_phase(device: str = "cuda") -> tuple[dict, dict, dict, tuple]:
                              f"per-request {kind} q calls")
     require_launched(counts, [*Q_FLAT.values(), *Q_BATCH.values()],
                      "q-mixed serve")
+    off = off_vector_buckets(srv.last_report, q_reports)
+    if off:
+        raise SystemExit(f"q-mixed: buckets {off} run a scalar batch kernel")
     for (op, nbytes), rep in zip(records, srv.last_report):
         if op.endswith("_q") and 2 * nbytes != opcount.packed_chain_bytes(
                 rep.requests, rep.lpad, int(rep.structure[0]), itemsize=4,
@@ -1584,9 +1623,8 @@ def kernel_case_q(name: str, shape: tuple, rng: np.random.Generator,
         if got.dtype != torch.int16 or not same_bits(got, want):
             raise SystemExit(f"{name} {shape} n_frac={n}: kernel != plain "
                              "version")
-        # the redesigned kernel also against the numpy Q oracle
-        if name == "chain_matrix_batch_2d_q" \
-                and not same_bits(got.cpu(), oracle(n)):
+        # the redesigned kernels also against the numpy Q oracle
+        if name in Q_BATCH.values() and not same_bits(got.cpu(), oracle(n)):
             raise SystemExit(f"{name} {shape} n_frac={n}: kernel != numpy "
                              "Q oracle")
         composite_equal &= same_bits(got, comp)
@@ -1764,6 +1802,24 @@ def main() -> int:
     # no multiple of 4 floats, and the largest bucket off alignment
     kernel_case("chain_diag_batch_2d", largest_affine["diag", 3], rng,
                 "largest d = 3 bucket")
+    # chain_matrix_batch_2d's vector kernel at the largest d = 3 bucket
+    # (staged groups of 4 points), untimed at B > 1024, and its scalar
+    # kernel, untimed: rows of no whole group, the largest buckets off
+    # alignment
+    matrix_d3 = kernel_case("chain_matrix_batch_2d",
+                            largest_affine["matrix", 3], rng,
+                            "largest d = 3 bucket")
+    for shape, size, off in (
+            ((1100, 8, 3), "B > 1024, d = 3, row of 2 groups", False),
+            ((1500, 16, 2), "B > 1024, row of 8 groups", False),
+            ((5, 13, 2), "row of 13 points", False),
+            ((3, 6, 3), "d = 3, row of 6 points", False),
+            ((1100, 13, 3), "B > 1024, row of 13 points", False),
+            (largest_affine["matrix"], "largest bucket, off alignment", True),
+            (largest_affine["matrix", 3],
+             "largest d = 3 bucket, off alignment", True)):
+        kernel_case("chain_matrix_batch_2d", shape, rng, size,
+                    check_only=True, misaligned=off)
     kernel_case("chain_diag_batch_2d", (5, 13, 3), rng, "row of 39 floats",
                 check_only=True)
     kernel_case("chain_diag_batch_2d", (1500, 10, 2), rng,
@@ -1811,6 +1867,19 @@ def main() -> int:
             ((1100, 13, 2), "B > 1024, row of 26 words", False),
             (largest_q["matrix"], "largest q bucket, off alignment", True)):
         kernel_case_q("chain_matrix_batch_2d_q", shape, rng, size,
+                      check_only=True, misaligned=off)
+    # chain_diag_batch_2d_q's 16-byte kernel at d = 3 (three column
+    # patterns) and B > 1024, and its scalar kernel, untimed: rows of no
+    # multiple of 8 words, B > 1024, the largest q bucket off alignment
+    for shape, size, off in (
+            ((5, 24, 3), "d = 3, row of 9 vectors", False),
+            ((4, 4096, 3), "d = 3, row of 12288 words", False),
+            ((1100, 8, 3), "B > 1024, row of 24 words", False),
+            ((3, 1001, 3), "row of 3003 words", False),
+            ((5, 13, 2), "row of 26 words", False),
+            ((1100, 13, 3), "B > 1024, row of 39 words", False),
+            (largest_q["diag"], "largest q bucket, off alignment", True)):
+        kernel_case_q("chain_diag_batch_2d_q", shape, rng, size,
                       check_only=True, misaligned=off)
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1986,6 +2055,10 @@ def main() -> int:
                                  "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "composite_ms", "copy_ms")}
         for head, r in rope_decode.items()}
+    kernels[list(KERNELS).index("chain_matrix_batch_2d")]["largest_d3"] = {
+        k: matrix_d3[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "copy_ms")}
     kernels[list(KERNELS).index("ssd_intra")]["mamba2_prefill"] = {
         k: ssd_mamba2[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",

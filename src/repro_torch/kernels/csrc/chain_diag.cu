@@ -29,11 +29,12 @@
 //     (8 KB), neighbouring threads on neighbouring vectors, all loads of
 //     a thread before its stores, over a grid of the blocks the card
 //     holds at once (vecadd_vec_kernel's layout, the best of the layouts
-//     measured for it).  Vector v of a row starts at column 4v mod d:
-//     for d = 2 every vector is two whole points, pattern (s0, s1, s0,
-//     s1); for d = 3 it starts at column v mod 3 (4 = 1 mod 3), so the
-//     pattern is one of three, picked by a 32-bit v % 3 (a multiply-high,
-//     no division) with selects.  Three vectors a thread (four whole
+//     measured for it; launch.cuh's walk_groups and row_grid).  Vector
+//     v of a row starts at column 4v mod d: for d = 2 every vector is
+//     two whole points, pattern (s0, s1, s0, s1); for d = 3 it starts at
+//     column v mod 3 (4 = 1 mod 3), so the pattern is one of three,
+//     picked by a 32-bit v % 3 (a multiply-high, no division) with
+//     selects.  Three vectors a thread (four whole
 //     points, a pattern fixed at compile time) was the other choice; it
 //     gives each warp instruction a 48-byte stride and so sectors half
 //     used, where the select costs a few integer instructions against a
@@ -87,8 +88,8 @@ __global__ void chain_diag_batch_kernel(float* __restrict__ y,
   }
 }
 
+// the vectors a thread takes a chunk
 constexpr int kUnroll = 4;
-constexpr int kVecThreads = 128;
 
 __device__ __forceinline__ float4 diag4(const float4& x, float s0, float s1,
                                         float s2, float s3, float t0,
@@ -122,11 +123,10 @@ __device__ __forceinline__ float4 diag_vec(const float4& x, uint32_t v,
 // x, y: (B, L, D) packed, row = L*D a multiple of 4 and nv = row / 4 < 2**31
 // vectors a request, 16-byte-aligned bases; s, t: (B, D).
 template <int D>
-__global__ void __launch_bounds__(kVecThreads)
+__global__ void __launch_bounds__(repro::kVecThreads)
 chain_diag_vec_kernel(float* __restrict__ y, const float* __restrict__ x,
                       const float* __restrict__ s, const float* __restrict__ t,
                       int64_t bsz, uint32_t nv) {
-  constexpr uint32_t kChunk = kUnroll * kVecThreads;
   for (int64_t b = blockIdx.y; b < bsz; b += gridDim.y) {
     float sb[D], tb[D];
 #pragma unroll
@@ -135,22 +135,10 @@ chain_diag_vec_kernel(float* __restrict__ y, const float* __restrict__ x,
       tb[c] = t[b * D + c];
     }
     const int64_t base = b * nv;                   // in vectors
-    const float4* xv = reinterpret_cast<const float4*>(x) + base;
-    float4* yv = reinterpret_cast<float4*>(y) + base;
-    for (uint32_t c = blockIdx.x * kChunk + threadIdx.x; c < nv;
-         c += gridDim.x * kChunk) {
-      float4 a[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const uint32_t v = c + u * kVecThreads;
-        if (v < nv) a[u] = xv[v];
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const uint32_t v = c + u * kVecThreads;
-        if (v < nv) yv[v] = diag_vec<D>(a[u], v, sb, tb);
-      }
-    }
+    repro::walk_groups<1, kUnroll>(
+        reinterpret_cast<float4*>(y) + base,
+        reinterpret_cast<const float4*>(x) + base, nv,
+        [&](float4* v, uint32_t i) { *v = diag_vec<D>(*v, i, sb, tb); });
   }
 }
 
@@ -158,14 +146,11 @@ template <int D>
 void launch_diag_vec(float* y, const float* x, const float* s, const float* t,
                      int64_t bsz, int64_t nv, cudaStream_t st) {
   static const int64_t resident =
-      repro::resident_blocks(chain_diag_vec_kernel<D>, kVecThreads);
-  const unsigned gy = repro::rows_for(bsz);
-  int64_t gx = (nv + kUnroll * kVecThreads - 1) / (kUnroll * kVecThreads);
-  const int64_t cap = resident / gy > 1 ? resident / gy : 1;
-  if (gx > cap) gx = cap;
-  chain_diag_vec_kernel<D><<<dim3(static_cast<unsigned>(gx), gy), kVecThreads,
-                             0, st>>>(y, x, s, t, bsz,
-                                      static_cast<uint32_t>(nv));
+      repro::resident_blocks(chain_diag_vec_kernel<D>, repro::kVecThreads);
+  chain_diag_vec_kernel<D><<<
+      repro::row_grid(resident, bsz, nv, kUnroll * repro::kVecThreads),
+      repro::kVecThreads, 0, st>>>(y, x, s, t, bsz,
+                                   static_cast<uint32_t>(nv));
 }
 
 }  // namespace

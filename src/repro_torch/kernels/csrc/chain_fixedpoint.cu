@@ -29,28 +29,52 @@
 // one contiguous span, so every sector fetched is used, but few bytes
 // are in flight per thread: at the largest q bucket, (15, 65536, 2), the
 // matrix batch kernel moved 7.87 MB in 0.01030 ms on an H100 80GB HBM3
-// (700 W), 0.76 TB/s (PERF.md).  So chain_matrix_batch_2d_q has a second
-// kernel, chain_matrix_batch_q_vec_kernel, for a launch whose row (L*d
-// words a request) is a multiple of 8 on 16-byte-aligned x and y --
-// always so under the serving grid's default power-of-two lengths -- so
-// no 16-byte vector straddles two requests.  A block serves one request
-// (blockIdx.y, striding over B past 1024), loads its d*d matrix words
-// (widened) and its d shifts (already shifted by n) once into registers,
-// and walks the row in contiguous chunks of kUnroll * kVecThreads groups
-// (4 groups a thread at d = 2, 1 at d = 3) over a grid of the blocks the
-// card holds at once (chain_diag_vec_kernel's layout in chain_diag.cu).
-// A group is whole points: for d = 2 one vector of 8 words, 4 points,
-// read and written straight; for d = 3 three vectors, 24 words, 8 points
-// (3 L a multiple of 8 makes L one), and a warp's 32 groups go through
-// shared memory as chain_project_vec_kernel stages them
-// (chain_project.cu): the warp reads its 96 vectors lane by lane (each
-// load instruction 512 contiguous bytes), lane l takes slots 3l .. 3l + 2,
-// computes its 8 points and puts them back, and the warp writes them out
-// lane by lane.  No point is split between threads, so no column pattern
-// is needed.  Offsets inside a row are 32-bit (the C entry sends rows of
-// 2**31 vectors and more to the scalar kernel).  On an H100 80GB HBM3
+// (700 W), 0.76 TB/s, and the diag batch kernel, an int64 i % D an
+// element, 0.01869 ms at (36, 32768, 2), 1.56x a device copy of the
+// same bytes (PERF.md).  So both batch kernels have a second kernel.
+//
+// chain_matrix_batch_2d_q's, chain_matrix_batch_q_vec_kernel, is for a
+// launch whose row (L*d words a request) is a multiple of 8 on
+// 16-byte-aligned x and y -- always so under the serving grid's
+// default power-of-two lengths -- so no 16-byte vector straddles two
+// requests.  A block serves one request (blockIdx.y, striding over B
+// past 1024), loads its d*d matrix words (widened) and its d shifts
+// (already shifted by n) once into registers, and walks the row in
+// contiguous chunks of kUnroll * kVecThreads groups (4 groups a thread
+// at d = 2, 1 at d = 3) over a grid of the blocks the card holds at once
+// (launch.cuh's row_grid).  A group is whole points: for d = 2 one
+// vector of 8 words, 4 points, read and written straight; for d = 3
+// three vectors, 24 words, 8 points (3 L a multiple of 8 makes L one),
+// and a warp's 32 groups go through shared memory: the warp reads its 96
+// vectors lane by lane (each load instruction 512 contiguous bytes),
+// lane l takes slots 3l .. 3l + 2, computes its 8 points and puts them
+// back, and the warp writes them out lane by lane.  No point is split
+// between threads, so no column pattern is needed.  Offsets inside a row
+// are 32-bit (the C entry sends rows of 2**31 vectors and more to the
+// scalar kernel).  On an H100 80GB HBM3
 // (700 W) the d = 2 bucket above takes 0.78-0.79x a device copy of the
 // same bytes (PERF.md).
+//
+// chain_diag_batch_2d_q's, chain_diag_batch_q_vec_kernel, takes the same
+// launches (rows of a multiple of 8 words on 16-byte-aligned x and y)
+// with chain_diag_vec_kernel's layout (chain_diag.cu): a block a request,
+// its d widened scales and d shifts -- each t << n with the rounding
+// constant already added, the same bits mod 2**32 as adding them apart --
+// once in registers, contiguous chunks of kDiagUnroll * kVecThreads
+// vectors of 8 words, all loads of a thread before its stores, a
+// one-wave grid.
+// Word k of vector v is on column (8v + k) mod d: for d = 2 every vector
+// has the pattern (s0, s1) x 4; for d = 3 vector v starts at column
+// 8v mod 3 = 2v mod 3, one of three patterns, picked by a 32-bit v % 3
+// (a multiply-high, no division) and selects.  No int64 division or
+// modulo is left on the element path.  On an H100 80GB HBM3 (700 W) it
+// takes 0.0094-0.0096 ms at (36, 32768, 2), 0.83-0.85x a device copy of
+// the same bytes, where the scalar kernel took 0.0187 (PERF.md).
+//
+// Both int16 kernels write out the chunked walk that launch.cuh's
+// walk_groups holds for the float kernels: through walk_groups they took
+// 3-4 % longer on an H100 80GB HBM3 (700 W) -- the same instructions but
+// for their address arithmetic and order (PERF.md).
 //
 // Integer contract: signed overflow and left shifts of negative values are
 // undefined in C++17, and the reference wraps by design.  So every
@@ -171,7 +195,7 @@ __global__ void chain_matrix_batch_q_kernel(uint16_t* __restrict__ y,
   }
 }
 
-constexpr int kVecThreads = 128;
+using repro::kVecThreads;
 constexpr int kWarps = kVecThreads / 32;
 // the groups a thread takes a chunk: 4 vectors at d = 2; at d = 3 one
 // group of 3, the fastest of 1, 2 and 4 on an H100 (and 40 registers
@@ -328,14 +352,108 @@ void launch_matrix_q_vec(uint16_t* y, const int16_t* x, const int16_t* a,
                          cudaStream_t st) {
   static const int64_t resident = repro::resident_blocks(
       chain_matrix_batch_q_vec_kernel<D>, kVecThreads);
-  const unsigned gy = repro::rows_for(bsz);
-  constexpr int64_t chunk = kUnroll<D> * kVecThreads;
-  int64_t gx = (ng + chunk - 1) / chunk;
-  const int64_t cap = resident / gy > 1 ? resident / gy : 1;
-  if (gx > cap) gx = cap;
-  chain_matrix_batch_q_vec_kernel<D><<<dim3(static_cast<unsigned>(gx), gy),
-                                       kVecThreads, 0, st>>>(
-      y, x, a, t, bsz, static_cast<uint32_t>(ng), n);
+  chain_matrix_batch_q_vec_kernel<D><<<
+      repro::row_grid(resident, bsz, ng, kUnroll<D> * kVecThreads),
+      kVecThreads, 0, st>>>(y, x, a, t, bsz, static_cast<uint32_t>(ng), n);
+}
+
+// the vectors a thread of chain_diag_batch_q_vec_kernel takes a chunk
+constexpr int kDiagUnroll = 4;
+
+// requant(x * s + tr) for the int16 word x held in the low 16 bits of h
+// (the rest 0), tr = (t << n) + round: the low 16 bits of the result
+__device__ __forceinline__ uint32_t diag_word(uint32_t h, uint32_t s,
+                                              uint32_t tr, int n) {
+  return ((sext16(h) * s + tr) >> n) & 0xffffu;
+}
+
+__device__ __forceinline__ uint32_t pick3(uint32_t c, const uint32_t* p) {
+  return c == 0 ? p[0] : (c == 1 ? p[1] : p[2]);
+}
+
+// The 8 words of vector v of a request's row: word k on column
+// (8v + k) mod D, s (widened) and tr (t << n, plus the rounding constant)
+// the request's D words in registers.
+template <int D>
+__device__ __forceinline__ uint4 diag_q_vec(const uint4& x, uint32_t v,
+                                            const uint32_t* s,
+                                            const uint32_t* tr, int n) {
+  // the columns of words 0, 1, 2 of the vector; word k is on word k mod D's
+  uint32_t sc[3], tc[3];
+  if constexpr (D == 2) {
+    sc[0] = sc[2] = s[0];
+    sc[1] = s[1];
+    tc[0] = tc[2] = tr[0];
+    tc[1] = tr[1];
+  } else {
+    const uint32_t r = v % 3u;
+    const uint32_t c0 = r == 0 ? 0 : 3 - r;         // 8v = 2v (mod 3)
+    const uint32_t c1 = c0 == 2 ? 0 : c0 + 1;
+    const uint32_t c2 = c0 == 0 ? 2 : c0 - 1;
+    sc[0] = pick3(c0, s);
+    sc[1] = pick3(c1, s);
+    sc[2] = pick3(c2, s);
+    tc[0] = pick3(c0, tr);
+    tc[1] = pick3(c1, tr);
+    tc[2] = pick3(c2, tr);
+  }
+  const uint32_t in[4] = {x.x, x.y, x.z, x.w};
+  uint32_t out[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int lo = (2 * h) % D, hi = (2 * h + 1) % D;
+    out[h] = diag_word(in[h] & 0xffffu, sc[lo], tc[lo], n)
+             | (diag_word(in[h] >> 16, sc[hi], tc[hi], n) << 16);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// x, y: (B, L, D) packed int16 words, row = L*D a multiple of 8 and nv =
+// row / 8 < 2**31 vectors a request, 16-byte-aligned bases; s, t: (B, D).
+template <int D>
+__global__ void __launch_bounds__(kVecThreads)
+chain_diag_batch_q_vec_kernel(uint16_t* __restrict__ y,
+                              const int16_t* __restrict__ x,
+                              const int16_t* __restrict__ s,
+                              const int16_t* __restrict__ t, int64_t bsz,
+                              uint32_t nv, int n) {
+  constexpr uint32_t kChunk = kDiagUnroll * kVecThreads;
+  const uint32_t round = round_of(n);
+  for (int64_t b = blockIdx.y; b < bsz; b += gridDim.y) {
+    uint32_t sb[D], tr[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      sb[c] = widen(s[b * D + c]);
+      tr[c] = (widen(t[b * D + c]) << n) + round;
+    }
+    const uint4* xv = reinterpret_cast<const uint4*>(x) + b * nv;
+    uint4* yv = reinterpret_cast<uint4*>(y) + b * nv;
+    for (uint32_t c = blockIdx.x * kChunk + threadIdx.x; c < nv;
+         c += gridDim.x * kChunk) {
+      uint4 r[kDiagUnroll];
+#pragma unroll
+      for (int u = 0; u < kDiagUnroll; ++u) {
+        const uint32_t v = c + u * kVecThreads;
+        if (v < nv) r[u] = xv[v];
+      }
+#pragma unroll
+      for (int u = 0; u < kDiagUnroll; ++u) {
+        const uint32_t v = c + u * kVecThreads;
+        if (v < nv) yv[v] = diag_q_vec<D>(r[u], v, sb, tr, n);
+      }
+    }
+  }
+}
+
+template <int D>
+void launch_diag_q_vec(uint16_t* y, const int16_t* x, const int16_t* s,
+                       const int16_t* t, int64_t bsz, int64_t nv, int n,
+                       cudaStream_t st) {
+  static const int64_t resident = repro::resident_blocks(
+      chain_diag_batch_q_vec_kernel<D>, kVecThreads);
+  chain_diag_batch_q_vec_kernel<D><<<
+      repro::row_grid(resident, bsz, nv, kDiagUnroll * kVecThreads),
+      kVecThreads, 0, st>>>(y, x, s, t, bsz, static_cast<uint32_t>(nv), n);
 }
 
 bool bad_frac(int64_t n_frac) { return n_frac < 0 || n_frac > 15; }
@@ -368,29 +486,39 @@ int chain_diag_1d_q(void* y, const void* x, const void* s, const void* t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: (B, L, d) int16 words; s, t: (B, d).  Returns cudaGetLastError().
+// x, y: (B, L, d) int16 words; s, t: (B, d).  A row of L*d words that
+// is a multiple of 8 on 16-byte-aligned x and y takes the vector kernel,
+// any other launch the scalar one.  Returns cudaGetLastError().
 int chain_diag_batch_2d_q(void* y, const void* x, const void* s, const void* t,
                           int64_t bsz, int64_t len, int64_t d, int64_t n_frac,
                           void* stream) {
   if (bad_frac(n_frac)) return static_cast<int>(cudaErrorInvalidValue);
   if (bsz == 0 || len == 0) return 0;
+  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t row = len * d;
-  const dim3 grid(repro::blocks_for(row, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<uint16_t*>(y);
   auto* xi = static_cast<const int16_t*>(x);
   auto* si = static_cast<const int16_t*>(s);
   auto* ti = static_cast<const int16_t*>(t);
   const int n = static_cast<int>(n_frac);
+  if (row % 8 == 0 && row / 8 < (int64_t{1} << 31) &&
+      repro::aligned16(y, x)) {
+    if (d == 2) {
+      launch_diag_q_vec<2>(yo, xi, si, ti, bsz, row / 8, n, st);
+    } else {
+      launch_diag_q_vec<3>(yo, xi, si, ti, bsz, row / 8, n, st);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(repro::blocks_for(row, repro::kMaxBlocksX),
+                  repro::rows_for(bsz));
   if (d == 2) {
     chain_diag_batch_q_kernel<2><<<grid, repro::kThreads, 0, st>>>(
         yo, xi, si, ti, bsz, row, n);
-  } else if (d == 3) {
+  } else {
     chain_diag_batch_q_kernel<3><<<grid, repro::kThreads, 0, st>>>(
         yo, xi, si, ti, bsz, row, n);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -421,27 +421,36 @@ def test_q_kernel_equals_plain_on_card_and_cpu(cuda_device, kind, d, batched,
                               else got.cpu().numpy(), want), lead
 
 
-def _q_matrix_batch_case(rng, lead, d):
+#: the batch Qm.n kernels: (wrapper, plain version, numpy oracle)
+Q_BATCH = {"diag": (q_k.chain_diag_batch_2d_q, q_ref.chain_diag_batch_q,
+                    q_ref.np_chain_diag_q),
+           "matrix": (q_k.chain_matrix_batch_2d_q,
+                      q_ref.chain_matrix_batch_q, q_ref.np_chain_matrix_q)}
+
+
+def _q_batch_case(rng, lead, d, kind="matrix"):
     pts = _words(rng, (*lead, d))
-    a = _words(rng, (lead[0], d, d))
+    par = _words(rng, (lead[0], d) if kind == "diag" else (lead[0], d, d))
     t = _words(rng, (lead[0], d))
-    return pts, a, t
+    return pts, par, t
 
 
-def _check_q_matrix_batch(cuda_device, pts, a, t, n_frac, misaligned=False):
+def _check_q_batch(cuda_device, pts, par, t, n_frac, misaligned=False,
+                   kind="matrix"):
     """The kernel, the plain version on the card and on the CPU, and the
     numpy oracle per request, on the same words."""
-    host = [torch.from_numpy(v) for v in (pts, a, t)]
+    op, plain, oracle = Q_BATCH[kind]
+    host = [torch.from_numpy(v) for v in (pts, par, t)]
     dev = [v.to(cuda_device) for v in host]
     if misaligned:
         dev[0] = _misaligned(dev[0])
-    got = q_k.chain_matrix_batch_2d_q(*dev, n_frac=n_frac)
+    got = op(*dev, n_frac=n_frac)
     assert got.dtype == torch.int16
-    assert torch.equal(got, q_ref.chain_matrix_batch_q(*dev, n_frac))
+    assert torch.equal(got, plain(*dev, n_frac))
     got = got.cpu()
-    assert torch.equal(got, q_ref.chain_matrix_batch_q(*host, n_frac))
+    assert torch.equal(got, plain(*host, n_frac))
     for i in range(pts.shape[0]):
-        want = q_ref.np_chain_matrix_q(pts[i], a[i], t[i], n_frac)
+        want = oracle(pts[i], par[i], t[i], n_frac)
         assert _same_bits(got[i].numpy(), want), i
 
 
@@ -455,8 +464,7 @@ def test_q_matrix_batch_vector_kernel_equals_plain(cuda_device, d, n_frac):
     rng = np.random.default_rng([72, d, n_frac])
     for lead in ((1, 8), (3, 4 if d == 2 else 8), (2, 24), (4, 4096),
                  (15, 65536), (2, 40_000), (1500, 16)):
-        _check_q_matrix_batch(cuda_device, *_q_matrix_batch_case(rng, lead,
-                                                                  d), n_frac)
+        _check_q_batch(cuda_device, *_q_batch_case(rng, lead, d), n_frac)
 
 
 @pytest.mark.parametrize("n_frac", [0, 7, 15])
@@ -470,9 +478,41 @@ def test_q_matrix_batch_scalar_kernel_equals_plain(cuda_device, d, n_frac):
     for lead, off in (((3, 1001), False), ((5, 13), False),
                       ((1100, 13), False), ((15, 65536), True),
                       ((1500, 16), True)):
-        _check_q_matrix_batch(cuda_device, *_q_matrix_batch_case(rng, lead,
-                                                                  d),
-                              n_frac, misaligned=off)
+        _check_q_batch(cuda_device, *_q_batch_case(rng, lead, d), n_frac,
+                       misaligned=off)
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("d", [2, 3])
+def test_q_diag_batch_vector_kernel_equals_plain(cuda_device, d, n_frac):
+    """``chain_diag_batch_2d_q``'s 16-byte kernel (rows of a multiple of 8
+    words on aligned buffers): at d = 3 rows of 3, 6 and 9 vectors, so
+    every column phase starts and ends a row; the largest q diag bucket's
+    shape, B > 1024, full-range words, bitwise equal to the plain version
+    and the numpy oracle."""
+    rng = np.random.default_rng([74, d, n_frac])
+    leads = ((1, 4), (3, 12), (4, 4096), (36, 32768), (2, 40_000),
+             (1500, 16)) if d == 2 else \
+        ((1, 8), (3, 16), (5, 24), (4, 4096), (2, 40_000), (1100, 8))
+    for lead in leads:
+        _check_q_batch(cuda_device, *_q_batch_case(rng, lead, d, "diag"),
+                       n_frac, kind="diag")
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("d", [2, 3])
+def test_q_diag_batch_scalar_kernel_equals_plain(cuda_device, d, n_frac):
+    """``chain_diag_batch_2d_q``'s scalar kernel: rows of no multiple of 8
+    words ((3, 1001, d), (5, 13, d), B > 1024) and points one element off
+    16-byte alignment at the largest q diag bucket's shape and at B >
+    1024, full-range words, bitwise equal to the plain version and the
+    numpy oracle."""
+    rng = np.random.default_rng([75, d, n_frac])
+    for lead, off in (((3, 1001), False), ((5, 13), False),
+                      ((1100, 13), False), ((36, 32768), True),
+                      ((1500, 16), True)):
+        _check_q_batch(cuda_device, *_q_batch_case(rng, lead, d, "diag"),
+                       n_frac, misaligned=off, kind="diag")
 
 
 def test_q_wrappers_count_launches_and_check_operands(cuda_device):
@@ -837,6 +877,29 @@ def test_diag_batch_vector_and_scalar_paths_equal_plain(cuda_device, d):
             got = diag_k.chain_diag_batch_2d(xs, s, tt)
             assert _same_bits(got.cpu().numpy(), want.numpy()), (lead, d)
             assert torch.equal(got, diag_ref.chain_diag_batch(xs, s, tt))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_matrix_batch_vector_and_scalar_paths_equal_plain(cuda_device, d):
+    """Both kernels of ``chain_matrix_batch_2d`` bit for bit equal to the
+    plain version on the card and on the CPU: the 16-byte one at rows of
+    whole groups (one group a row and many, the largest served bucket's
+    shape, B > 1024), and the scalar one at rows of no whole group (L =
+    13, 1, 3001; L = 6 at d = 3, B > 1024) and at points one element off
+    16-byte alignment."""
+    rng = np.random.default_rng([69, d])
+    for lead in ((1, 4), (3, 8), (2, 12), (5, 13), (7, 1), (3, 6),
+                 (47, 32768), (2, 40_000), (1500, 16), (1100, 13),
+                 (3, 3001)):
+        pts, a, t = _inputs(rng, lead, d, "matrix")
+        host = [torch.from_numpy(v) for v in (pts, a, t)]
+        want = matrix_ref.chain_matrix_batch(*host)
+        x, av, tv = (v.to(cuda_device) for v in host)
+        for xs in (x, _misaligned(x)):
+            got = matrix_k.chain_matrix_batch_2d(xs, av, tv)
+            assert _same_bits(got.cpu().numpy(), want.numpy()), (lead, d)
+            assert torch.equal(got, matrix_ref.chain_matrix_batch(xs, av,
+                                                                  tv))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

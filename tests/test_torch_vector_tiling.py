@@ -1,11 +1,10 @@
 """The 16-byte kernels of ``chain_diag_batch_2d``, ``affine_2d``,
-``chain_project_1d``, ``rope_3d`` and ``chain_matrix_batch_2d_q``, held on
-the CPU.
+``chain_project_1d``, ``rope_3d``, ``chain_matrix_batch_2d_q``,
+``chain_matrix_batch_2d`` and ``chain_diag_batch_2d_q``, held on the CPU.
 
 Their CUDA kernels (``csrc/chain_diag.cu``, ``csrc/affine_2d.cu``,
-``csrc/chain_project.cu``, ``csrc/rope.cu``, ``csrc/chain_fixedpoint.cu``)
-run
-only on the card, so here each kernel's mapping from (block, thread,
+``csrc/chain_project.cu``, ``csrc/rope.cu``, ``csrc/chain_fixedpoint.cu``,
+``csrc/chain_matrix.cu``) run only on the card, so here each kernel's mapping from (block, thread,
 unroll step, vector lane) to (request, element, column) is emulated in
 eager torch, with the launch geometry of its C entry:
 
@@ -38,15 +37,26 @@ eager torch, with the launch geometry of its C entry:
     words on aligned buffers): a block row per request, chunks of groups
     of whole points -- one vector, 4 points, at d = 2; three vectors, 8
     points, at d = 3, a warp's 32 groups staged as the project kernel
-    stages them.
+    stages them;
+  * ``chain_matrix_batch_vec_kernel`` (rows of whole groups on aligned
+    buffers: L even at d = 2, a multiple of 4 at d = 3): the same, on
+    float4 vectors -- one vector, 2 points, at d = 2; three, 4 points, at
+    d = 3;
+  * ``chain_diag_batch_q_vec_kernel`` (rows of a multiple of 8 int16
+    words on aligned buffers): ``chain_diag_vec_kernel``'s map on vectors
+    of 8 words, word k of vector v on column (8v + k) mod d -- for d = 3
+    the phase v % 3 picks one of three patterns -- and the kernel's
+    uint32 arithmetic, the rounding constant folded into t << n and a
+    logical final shift.
 
 Each emulation must cover every element exactly once, pick the regime the
 C entry picks, and, computing each element with the same rounded ops
 (``x * s``, then ``+ t``; ``ref.chain_project``'s sequence on the
 gathered points; ``ref.rope``'s and ``ref.chain_matrix_batch_q``'s on the
 gathered vectors), equal ``ref.chain_diag_batch`` / ``ref.affine`` /
-``ref.chain_project`` / ``ref.rope`` / ``ref.chain_matrix_batch_q`` bit for
-bit, masks included.  A planted fault -- a
+``ref.chain_project`` / ``ref.rope`` / ``ref.chain_matrix_batch_q`` /
+``ref.chain_matrix_batch`` / ``ref.chain_diag_batch_q`` bit for bit, masks
+included.  A planted fault -- a
 d = 3 phase off by one, a column pattern shifted by one, a column step
 left unreduced, a chunk stride one step short, a chunk stride one group
 short, staged slots read at a stride of 1, a position tile one short, x2
@@ -62,7 +72,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.affine import ref as diag_ref
 from repro_torch.kernels.fixedpoint import ref as q_ref
+from repro_torch.kernels.matmul import ref as matrix_ref
 from repro_torch.kernels.projective import ref as proj_ref
+from repro_torch.serving import bucketing
 from repro_torch.kernels.rope import ref as rope_ref
 
 #: the launch constants of the C entries (csrc/launch.cuh and the two
@@ -656,19 +668,83 @@ def test_rope_plant_x2_one_vector_off_is_caught(shape, dtype):
     assert not _same_bits(y, rope_ref.rope(x, cos, sin))
 
 
-# -- chain_matrix_batch_2d_q ---------------------------------------------------
+# -- the whole-point kernels: chain_matrix_batch_2d_q, chain_matrix_batch_2d --
 
-#: csrc/chain_fixedpoint.cu's kUnroll<D>: groups a thread takes a chunk
+#: csrc/chain_fixedpoint.cu's and csrc/chain_matrix.cu's kUnroll<D>: groups
+#: a thread takes a chunk
 Q_UNROLL = {2: 4, 3: 1}
+MATRIX_UNROLL = {2: 4, 3: 1}
 
 
-def matrix_q_regime(length: int, d: int, aligned: bool) -> str:
-    """``chain_matrix_batch_2d_q``'s choice (``csrc/chain_fixedpoint.cu``):
-    the 16-byte kernel for a row of a multiple of 8 int16 words under
-    2**31 vectors on 16-byte-aligned x and y, the scalar kernel for the
-    rest."""
+def _requests(bsz: int) -> tuple[int, torch.Tensor]:
+    """A batch kernel's grid y and the requests its block rows take,
+    striding over B past 1024."""
+    gy = min(bsz, MAX_BLOCKS_Y)
+    b = (_ar(gy)[:, None] + _ar(_cdiv(bsz, gy))[None, :] * gy).reshape(-1)
+    return gy, b[b < bsz]
+
+
+def _group_vectors(ng, v_per, unroll, grid, *, stride_short=0,
+                   read_stride=None):
+    """The vectors of a row each lane of a whole-point kernel takes, one
+    group a row: (groups, V).  V = 1: ``_chunked``'s loop.  V = 3: chunks
+    of ``unroll`` x 128 groups, a warp's 32 groups staged (slot k 32 +
+    lane holds vector g0 V + k 32 + lane) and lane l taking slots l rs ..
+    l rs + V - 1, rs = V unless ``read_stride`` plants a fault;
+    ``stride_short`` shortens the chunk stride by that many groups."""
+    if v_per == 1:
+        assert unroll == UNROLL
+        return _chunked(ng, grid, stride_short)[:, None]
+    chunk = unroll * VEC_THREADS
+    rs = v_per if read_stride is None else read_stride
+    stride = grid * chunk - stride_short
+    steps = _cdiv(ng, stride) + 1
+    c = (_ar(grid)[:, None] * chunk + _ar(steps)[None, :] * stride).reshape(-1)
+    c = c[c < ng]
+    g0 = (c[:, None, None] + _ar(unroll)[None, :, None] * VEC_THREADS
+          + _ar(VEC_THREADS // 32)[None, None, :] * 32).reshape(-1)
+    lane = _ar(32)
+    g = (g0[:, None] + lane).reshape(-1)
+    vec = (g0[:, None, None] * v_per + lane[None, :, None] * rs
+           + _ar(v_per)[None, None, :]).reshape(-1, v_per)
+    live = (g < ng) & (vec < ng * v_per).all(-1)
+    return vec[live]
+
+
+def _apply_groups(x, b, vec, width, fn):
+    """Each lane's whole points, gathered from its vectors ``vec`` of
+    ``width`` values in the row of every request of ``b``, through
+    ``fn(points, requests)`` and put back: (output, the flat index of
+    every value a lane took)."""
+    _, length, d = x.shape
+    row = length * d
+    vals = (vec[:, :, None] * width + _ar(width)).reshape(vec.shape[0], -1)
+    vals = (b[:, None, None] * row + vals[None]).reshape(-1, vals.shape[1])
+    req = b[:, None].expand(-1, vec.shape[0]).reshape(-1)
+    flat = x.reshape(-1)
+    got = fn(flat[vals].reshape(vals.shape[0], -1, d), req)
+    y = torch.zeros_like(flat)
+    y[vals.reshape(-1)] = got.reshape(-1)
+    return y.reshape(x.shape), vals.reshape(-1)
+
+
+def q_regime(length: int, d: int, aligned: bool) -> str:
+    """The choice of ``chain_matrix_batch_2d_q`` and of
+    ``chain_diag_batch_2d_q`` (``csrc/chain_fixedpoint.cu``): the 16-byte
+    kernel for a row of a multiple of 8 int16 words under 2**31 vectors on
+    16-byte-aligned x and y, the scalar kernel for the rest."""
     row = length * d
     return "vector" if aligned and row % 8 == 0 and row // 8 < 2 ** 31 \
+        else "scalar"
+
+
+def matrix_regime(length: int, d: int, aligned: bool) -> str:
+    """``chain_matrix_batch_2d``'s choice (``csrc/chain_matrix.cu``): the
+    16-byte kernel for a row of whole groups (L even at d = 2, a multiple
+    of 4 at d = 3) under 2**31 float4 vectors on 16-byte-aligned x and y,
+    the scalar kernel for the rest."""
+    whole = length % (2 if d == 2 else 4) == 0
+    return "vector" if aligned and whole and length * d // 4 < 2 ** 31 \
         else "scalar"
 
 
@@ -676,55 +752,45 @@ def emulate_matrix_q_vec(x, a, t, n_frac, resident, *, read_stride=None):
     """``chain_matrix_batch_q_vec_kernel`` on x (B, L, d) int16 words, a
     (B, d, d), t (B, d): (output, the flat index of every word a lane
     took).  A group is V = 1 (d = 2) or 3 (d = 3) vectors of 8 words, its
-    8 V / d whole points; for V = 3 a warp's 32 groups are staged (slot
-    k 32 + lane holds vector g0 V + k 32 + lane) and lane l takes slots
-    l rs .. l rs + V - 1, rs = V unless ``read_stride`` plants a fault."""
+    8 V / d whole points."""
     bsz, length, d = x.shape
     v_per = 1 if d == 2 else 3
-    unroll = Q_UNROLL[d]
-    chunk = unroll * VEC_THREADS
-    rs = v_per if read_stride is None else read_stride
-    row = length * d
-    ng = row // (8 * v_per)
-    nv = ng * v_per
-    gy = min(bsz, MAX_BLOCKS_Y)
-    gx = min(_cdiv(ng, chunk), max(resident // gy, 1))
-    b = (_ar(gy)[:, None] + _ar(_cdiv(bsz, gy))[None, :] * gy).reshape(-1)
-    b = b[b < bsz]                                  # blockIdx.y, striding
-    if v_per == 1:
-        vec = _chunked(ng, gx)[:, None]             # (groups, 1)
-    else:
-        steps = _cdiv(ng, gx * chunk) + 1
-        c = (_ar(gx)[:, None] * chunk
-             + _ar(steps)[None, :] * gx * chunk).reshape(-1)
-        c = c[c < ng]
-        g0 = (c[:, None, None] + _ar(unroll)[None, :, None] * VEC_THREADS
-              + _ar(VEC_THREADS // 32)[None, None, :] * 32).reshape(-1)
-        lane = _ar(32)
-        g = (g0[:, None] + lane).reshape(-1)
-        vec = (g0[:, None, None] * v_per + lane[None, :, None] * rs
-               + _ar(v_per)[None, None, :]).reshape(-1, v_per)
-        live = (g < ng) & (vec < nv).all(-1)
-        vec = vec[live]
-    words = (vec[:, :, None] * 8 + _ar(8)).reshape(vec.shape[0], -1)
-    words = (b[:, None, None] * row + words[None]).reshape(-1, 8 * v_per)
-    req = b[:, None].expand(-1, vec.shape[0]).reshape(-1)
-    flat = x.reshape(-1)
-    pts = flat[words].reshape(words.shape[0], -1, d)   # a lane's points
-    got = q_ref.chain_matrix_batch_q(pts, a[req], t[req], n_frac)
-    y = torch.zeros_like(flat)
-    y[words.reshape(-1)] = got.reshape(-1)
-    return y.reshape(x.shape), words.reshape(-1)
+    ng = length * d // (8 * v_per)
+    gy, b = _requests(bsz)
+    gx = min(_cdiv(ng, Q_UNROLL[d] * VEC_THREADS), max(resident // gy, 1))
+    vec = _group_vectors(ng, v_per, Q_UNROLL[d], gx, read_stride=read_stride)
+    return _apply_groups(x, b, vec, 8, lambda pts, req:
+                         q_ref.chain_matrix_batch_q(pts, a[req], t[req],
+                                                    n_frac))
 
 
-def _q_inputs(shape, seed):
+def emulate_matrix_vec(x, a, t, resident, *, stride_short=0,
+                       read_stride=None):
+    """``chain_matrix_batch_vec_kernel`` on x (B, L, d) float32, a (B, d,
+    d), t (B, d): (output, the flat index of every float a lane took).  A
+    group is V = 1 (d = 2) or 3 (d = 3) float4 vectors, its 4 V / d whole
+    points, computed with ``ref.chain_matrix_batch``'s rounded ops."""
+    bsz, length, d = x.shape
+    v_per = 1 if d == 2 else 3
+    ng = length * d // (4 * v_per)
+    gy, b = _requests(bsz)
+    gx = min(_cdiv(ng, MATRIX_UNROLL[d] * VEC_THREADS),
+             max(resident // gy, 1))
+    vec = _group_vectors(ng, v_per, MATRIX_UNROLL[d], gx,
+                         stride_short=stride_short, read_stride=read_stride)
+    return _apply_groups(x, b, vec, 4, lambda pts, req:
+                         matrix_ref.chain_matrix_batch(pts, a[req], t[req]))
+
+
+def _q_inputs(shape, seed, kind="matrix"):
     rng = np.random.default_rng(seed)
     bsz, _, d = shape
 
     def words(s):
         return torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, s)
                                 .astype(np.int16))
-    return words(shape), words((bsz, d, d)), words((bsz, d))
+    return words(shape), words((bsz, d, d) if kind == "matrix"
+                               else (bsz, d)), words((bsz, d))
 
 
 #: (B, L, d) buckets with rows of a multiple of 8 words: one vector or
@@ -741,7 +807,7 @@ MATRIX_Q_SHAPES = [(3, 4, 2), (2, 12, 2), (4, 4096, 2), (15, 65536, 2),
 def test_matrix_q_vector_mapping_covers_once_and_equals_plain(shape, grid,
                                                               n_frac):
     x, a, t = _q_inputs(shape, [12, *shape, n_frac])
-    assert matrix_q_regime(shape[1], shape[2], aligned=True) == "vector"
+    assert q_regime(shape[1], shape[2], aligned=True) == "vector"
     y, words = emulate_matrix_q_vec(x, a, t, n_frac, GRIDS[grid][0])
     assert _covered_once(words, x.numel())
     assert torch.equal(y, q_ref.chain_matrix_batch_q(x, a, t, n_frac))
@@ -760,7 +826,7 @@ def test_matrix_q_regime_follows_row_and_alignment(length, d, aligned,
     from 4 points at d = 2, from 8 at d = 3) on aligned buffers take the
     16-byte kernel; a custom grid's L = 13 or 1001, an off-aligned view or
     a row of 2**31 vectors, the scalar one."""
-    assert matrix_q_regime(length, d, aligned) == regime
+    assert q_regime(length, d, aligned) == regime
 
 
 def test_matrix_q_plant_staging_stride_is_caught():
@@ -773,3 +839,156 @@ def test_matrix_q_plant_staging_stride_is_caught():
                                     read_stride=1)
     assert not _covered_once(words, x.numel())
     assert not torch.equal(y, q_ref.chain_matrix_batch_q(x, a, t, 7))
+
+
+def _matrix_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    bsz, _, d = shape
+    x = rng.standard_normal(shape).astype(np.float32)
+    a = rng.uniform(-1.5, 1.5, (bsz, d, d)).astype(np.float32)
+    t = rng.uniform(-3, 3, (bsz, d)).astype(np.float32)
+    return tuple(torch.from_numpy(v) for v in (x, a, t))
+
+
+#: (B, L, d) float buckets of whole groups: one group a row and several,
+#: power-of-two serving lengths, the largest served matrix bucket (47,
+#: 32768, 2), rows past one chunk many times, B > 1024
+MATRIX_SHAPES = [(3, 2, 2), (2, 6, 2), (4, 4096, 2), (47, 32768, 2),
+                 (1500, 16, 2), (3, 4, 3), (2, 12, 3), (5, 8, 3),
+                 (4, 4096, 3), (2, 40_000, 3), (1100, 8, 3)]
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", MATRIX_SHAPES, ids=str)
+def test_matrix_vector_mapping_covers_once_and_equals_plain(shape, grid):
+    x, a, t = _matrix_inputs(shape, [14, *shape])
+    assert matrix_regime(shape[1], shape[2], aligned=True) == "vector"
+    y, elems = emulate_matrix_vec(x, a, t, GRIDS[grid][0])
+    assert _covered_once(elems, x.numel())
+    assert _same_bits(y, matrix_ref.chain_matrix_batch(x, a, t))
+
+
+@pytest.mark.parametrize("length, d, aligned, regime", [
+    (32768, 2, True, "vector"), (32768, 3, True, "vector"),
+    (2, 2, True, "vector"), (4, 3, True, "vector"), (8, 3, True, "vector"),
+    (6, 2, True, "vector"), (12, 3, True, "vector"),
+    (13, 2, True, "scalar"), (1001, 2, True, "scalar"),
+    (6, 3, True, "scalar"), (1001, 3, True, "scalar"),
+    (32768, 2, False, "scalar"), (32768, 3, False, "scalar"),
+    (2 ** 32, 2, True, "scalar"), (2 ** 32 // 3 * 4, 3, True, "scalar")],
+    ids=str)
+def test_matrix_regime_follows_row_and_alignment(length, d, aligned, regime):
+    """Rows of whole groups -- L even at d = 2 (2 points a vector), a
+    multiple of 4 at d = 3 (4 points in 3 vectors) -- on aligned buffers
+    take the 16-byte kernel; a custom grid's L = 13 or 1001, L = 6 at d =
+    3, an off-aligned view or a row of 2**31 vectors, the scalar one."""
+    assert matrix_regime(length, d, aligned) == regime
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_matrix_plant_short_chunk_stride_is_caught(d):
+    shape = (3, 4096, d)
+    x, a, t = _matrix_inputs(shape, [15, d])
+    _, elems = emulate_matrix_vec(x, a, t, GRIDS["tiny"][0], stride_short=1)
+    assert not _covered_once(elems, x.numel())
+
+
+def test_matrix_plant_staging_stride_is_caught():
+    """Lane l reading slots l .. l + 2 in place of 3l .. 3l + 2 takes
+    another lane's float4 vectors: the mapping no longer covers every
+    float once, nor equals the plain version."""
+    shape = (4, 4096, 3)
+    x, a, t = _matrix_inputs(shape, [16])
+    y, elems = emulate_matrix_vec(x, a, t, GRIDS["card"][0], read_stride=1)
+    assert not _covered_once(elems, x.numel())
+    assert not _same_bits(y, matrix_ref.chain_matrix_batch(x, a, t))
+
+
+# -- chain_diag_batch_2d_q -----------------------------------------------------
+
+def emulate_diag_q_vec(x, s, t, n_frac, resident, *, phase_shift=0,
+                       stride_short=0):
+    """``chain_diag_batch_q_vec_kernel`` on x (B, L, d) int16 words, s, t
+    (B, d): the output and the flat index of every word it wrote.
+    ``chain_diag_vec_kernel``'s map on vectors of 8 words: word k of
+    vector v on column (8v + k) mod d, for d = 3 from the phase r = v % 3
+    (column 0, 2, 1 for r = 0, 1, 2; ``phase_shift`` moves r, a planted
+    fault).  Each word is the kernel's uint32 arithmetic, in int64 masked
+    to 32 bits: x s + ((t << n) + round), a logical shift by n, the low
+    16 bits."""
+    bsz, length, d = x.shape
+    row = length * d
+    nv = row // 8
+    gx, _ = diag_vec_grid(bsz, nv, resident)
+    _, b = _requests(bsz)
+    v = _chunked(nv, gx, stride_short)
+    k = _ar(8)
+    if d == 2:
+        col = (k % 2)[None, :].expand(v.numel(), 8)
+    else:
+        r = (v + phase_shift) % 3
+        col = (torch.where(r == 0, 0, 3 - r)[:, None] + k) % 3
+    elem = (b[:, None, None] * row + 8 * v[None, :, None] + k).reshape(-1)
+    req = b[:, None, None].expand(-1, v.numel(), 8).reshape(-1)
+    col = col[None].expand(b.numel(), -1, -1).reshape(-1)
+    mask = 0xFFFFFFFF
+    tr = ((t[req, col].long() << n_frac)
+          + ((1 << (n_frac - 1)) if n_frac else 0)) & mask
+    acc = (x.reshape(-1)[elem].long() * s[req, col].long() + tr) & mask
+    word = (acc >> n_frac) & 0xFFFF
+    y = torch.zeros(bsz * row, dtype=torch.int16)
+    y[elem] = torch.where(word >= 0x8000, word - 0x10000, word).to(
+        torch.int16)
+    return y.reshape(x.shape), elem
+
+
+#: (B, L, d) q buckets with rows of a multiple of 8 words: d = 3 rows of
+#: 3, 6 and 9 vectors (each phase starts and ends a row), power-of-two
+#: serving lengths, the largest q diag bucket (36, 32768, 2), B > 1024
+DIAG_Q_SHAPES = [(1, 8, 3), (3, 16, 3), (5, 24, 3), (4, 4096, 3),
+                 (2, 40_000, 3), (1100, 8, 3), (1, 4, 2), (3, 12, 2),
+                 (36, 32768, 2), (1500, 16, 2)]
+
+
+@pytest.mark.parametrize("n_frac", [0, 7, 15])
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", DIAG_Q_SHAPES, ids=str)
+def test_diag_q_vector_mapping_covers_once_and_equals_plain(shape, grid,
+                                                            n_frac):
+    x, s, t = _q_inputs(shape, [17, *shape, n_frac], kind="diag")
+    assert q_regime(shape[1], shape[2], aligned=True) == "vector"
+    y, elems = emulate_diag_q_vec(x, s, t, n_frac, GRIDS[grid][0])
+    assert _covered_once(elems, x.numel())
+    assert torch.equal(y, q_ref.chain_diag_batch_q(x, s, t, n_frac))
+
+
+@pytest.mark.parametrize("shape", [sh for sh in DIAG_Q_SHAPES
+                                   if sh[2] == 3], ids=str)
+def test_diag_q_plant_phase_off_by_one_is_caught(shape):
+    x, s, t = _q_inputs(shape, [18, *shape], kind="diag")
+    y, elems = emulate_diag_q_vec(x, s, t, 7, GRIDS["card"][0],
+                                  phase_shift=1)
+    assert _covered_once(elems, x.numel())
+    assert not torch.equal(y, q_ref.chain_diag_batch_q(x, s, t, 7))
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 3), (36, 32768, 2)], ids=str)
+def test_diag_q_plant_short_chunk_stride_is_caught(shape):
+    x, s, t = _q_inputs(shape, [19, *shape], kind="diag")
+    _, elems = emulate_diag_q_vec(x, s, t, 7, GRIDS["tiny"][0],
+                                  stride_short=VEC_THREADS)
+    assert not _covered_once(elems, x.numel())
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_every_default_serving_length_takes_the_vector_kernels(d):
+    """Each padded length of the default serving grid (powers of two from
+    MIN_LEN) gives rows that the 16-byte kernels of
+    ``chain_matrix_batch_2d``, ``chain_diag_batch_2d_q`` and
+    ``chain_matrix_batch_2d_q`` take on aligned buffers."""
+    lengths = {bucketing.padded_length(n) for n in range(1, (1 << 18) + 1,
+                                                         97)}
+    assert min(lengths) == bucketing.MIN_LEN and max(lengths) >= 1 << 18
+    for length in lengths:
+        assert matrix_regime(length, d, aligned=True) == "vector"
+        assert q_regime(length, d, aligned=True) == "vector"

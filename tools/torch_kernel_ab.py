@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time ``ssd_intra``, ``chain_project_1d``, ``rope_3d`` and
-``chain_matrix_batch_2d_q`` in two checkouts of the PyTorch port on one
+"""Time ``ssd_intra``, ``chain_project_1d``, ``rope_3d``,
+``chain_matrix_batch_2d_q``, ``chain_matrix_batch_2d`` and
+``chain_diag_batch_2d_q`` in two checkouts of the PyTorch port on one
 GPU, in turns (A, B, B, A), so that the card and its host are the same
 for both.
 
@@ -14,14 +15,19 @@ mamba2-130m's (24 heads of 64, state 128), ``chain_project_1d`` at
 2**24 points for d = 2 and 3, ``rope_3d`` in bfloat16 at hymba-1.5b's
 prefill q and k shapes ((100 | 20, 2048, 64), tables from position 0)
 and its decode q shape ((100, 1, 64) at position 2063),
-and ``chain_matrix_batch_2d_q`` at the largest q bucket of
-``chip_smoke.py``'s q-mixed serve, (15, 65536, 2), on full-range int16
-words at n_frac 7 (q8.7), each beside a device copy of as many bytes as
-the call moves (``copy_ms``).  Times are ``chip_smoke.py``'s: the
-median of 25 CUDA-event runs after one warm run, the L2 flushed before
-each run and the device kept busy while the host enqueues.  Each turn
-prints one JSON line; the last line holds each row's four times in turn
-order and the mean of each checkout's two turns.
+``chain_matrix_batch_2d_q`` and ``chain_diag_batch_2d_q`` at the
+largest q buckets of ``chip_smoke.py``'s q-mixed serve, (15, 65536, 2)
+and (36, 32768, 2), on full-range int16 words at n_frac 7 (q8.7), and
+``chain_matrix_batch_2d`` at the largest d = 2 and d = 3 matrix buckets
+of its affine serve, (47, 32768, 2) and (20, 32768, 3), each beside a
+device copy of as many bytes as the call moves (``copy_ms``).  Times are
+``chip_smoke.py``'s: the median of 25 CUDA-event runs after one warm
+run, the L2 flushed before each run and the device kept busy while the
+host enqueues.  Each turn also reports the registers and spills ``ptxas``
+gave the batch kernels of ``chain_matrix.cu`` and ``chain_fixedpoint.cu``
+in that checkout.  Each turn prints one JSON line; the last line holds
+each row's four times in turn order, the mean of each checkout's two
+turns, and the card's name and power limit from ``nvidia-smi``.
 """
 from __future__ import annotations
 
@@ -40,8 +46,12 @@ N_FLAT = 1 << 24
 ROPE_SHAPES = {"rope_3d q": ((100, 2048, 64), 0),
                "rope_3d k": ((20, 2048, 64), 0),
                "rope_3d decode q": ((100, 1, 64), 2063)}
-#: chip_smoke.py's largest q bucket of the matrix kind (seed 0)
-Q_MATRIX_BUCKET = (15, 65536, 2)
+#: chip_smoke.py's largest q buckets (seed 0), by plan kind
+Q_BUCKETS = {"chain_matrix_batch_2d_q": (15, 65536, 2),
+             "chain_diag_batch_2d_q": (36, 32768, 2)}
+#: chip_smoke.py's largest matrix buckets of the affine serve (seed 0)
+MATRIX_BUCKETS = {"chain_matrix_batch_2d": (47, 32768, 2),
+                  "chain_matrix_batch_2d d=3": (20, 32768, 3)}
 
 
 def one(tree: str) -> dict:
@@ -51,6 +61,7 @@ def one(tree: str) -> dict:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.fixedpoint import fixedpoint as q_k
+    from repro_torch.kernels.matmul import matmul as matrix_k
     from repro_torch.kernels.projective import projective as proj_k
     from repro_torch.kernels.rope import ref as rope_ref
     from repro_torch.kernels.rope import rope as rope_k
@@ -116,17 +127,33 @@ def one(tree: str) -> dict:
         nbytes = 2 * (2 * bh * s * d + s * d)
         rows[name] = {"ms": time_ms(lambda: rope_k.rope_3d(x, cos, sin)),
                       "copy_ms": copy_ms(nbytes)}
-    bsz, length, d = Q_MATRIX_BUCKET
 
     def words(*s):
         return torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, s)
                                 .astype(np.int16)).to(dev)
-    x, a, t = words(bsz, length, d), words(bsz, d, d), words(bsz, d)
-    nbytes = 2 * (2 * bsz * length * d + bsz * (d * d + d))
-    rows["chain_matrix_batch_2d_q"] = {
-        "ms": time_ms(lambda: q_k.chain_matrix_batch_2d_q(x, a, t, n_frac=7)),
-        "copy_ms": copy_ms(nbytes)}
-    return {"tree": tree, "rows": rows,
+    for name, (bsz, length, d) in Q_BUCKETS.items():
+        diag = name == "chain_diag_batch_2d_q"
+        x, t = words(bsz, length, d), words(bsz, d)
+        p = words(bsz, d) if diag else words(bsz, d, d)
+        op = q_k.chain_diag_batch_2d_q if diag else q_k.chain_matrix_batch_2d_q
+        nbytes = 2 * (2 * bsz * length * d + bsz * (p[0].numel() + d))
+        rows[name] = {"ms": time_ms(lambda: op(x, p, t, n_frac=7)),
+                      "copy_ms": copy_ms(nbytes)}
+    for name, (bsz, length, d) in MATRIX_BUCKETS.items():
+        x = torch.from_numpy(rng.standard_normal((bsz, length, d),
+                                                 dtype=np.float32)).to(dev)
+        a = torch.from_numpy(rng.uniform(-1, 1, (bsz, d, d)).astype(
+            np.float32)).to(dev)
+        t = torch.from_numpy(rng.uniform(-3, 3, (bsz, d)).astype(
+            np.float32)).to(dev)
+        nbytes = 4 * (2 * bsz * length * d + bsz * (d * d + d))
+        rows[name] = {
+            "ms": time_ms(lambda: matrix_k.chain_matrix_batch_2d(x, a, t)),
+            "copy_ms": copy_ms(nbytes)}
+    ptxas = {src: [u for u in _build.resource_usage(src)
+                   if "batch" in u["function"]]
+             for src in ("chain_matrix", "chain_fixedpoint")}
+    return {"tree": tree, "rows": rows, "ptxas": ptxas,
             "device": torch.cuda.get_device_name(0)}
 
 
@@ -141,6 +168,10 @@ def main() -> int:
     if len(args.trees) != 2:
         ap.error("give two checkouts, A and B")
     a, b = (os.path.abspath(t) for t in args.trees)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
     turns = []
     for tree in (a, b, b, a):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -156,7 +187,7 @@ def main() -> int:
                          "copy_ms": [t[name]["copy_ms"] for t in turns],
                          "A_ms": (ms[0] + ms[3]) / 2,
                          "B_ms": (ms[1] + ms[2]) / 2}
-    print(json.dumps(summary), flush=True)
+    print(json.dumps({"card": card, "rows": summary}), flush=True)
     return 0
 
 
