@@ -18,8 +18,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      global loads and stores (``LDG.E.128``, ``STG.E.128``) in every
      instance of the 16-byte kernels (``rmsnorm_vec_kernel``;
      ``vecadd_vec_kernel``, ``affine_flat_kernel``, ``affine_col_kernel``;
-     ``chain_diag_vec_kernel``; ``chain_project_vec_kernel``;
-     ``rope_vec_kernel``; ``chain_matrix_batch_q_vec_kernel``,
+     ``chain_diag_vec_kernel``; ``chain_project_vec_kernel``,
+     ``chain_project_batch_vec_kernel``; ``rope_vec_kernel``;
+     ``chain_matrix_batch_q_vec_kernel``,
      ``chain_diag_batch_q_vec_kernel``; ``chain_matrix_batch_vec_kernel``),
      each counted inside its own ``Function :`` section of ``cuobjdump
      -sass`` (none may lack one);
@@ -33,10 +34,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
   4. serve (mixed): the main path, the same run over the full
      ``TEMPLATES`` pool -- the JAX launcher's default mix, about 3/11 of
      the requests projective -- with per-request ``project`` for the
-     projective requests and ``apply`` for the rest; in phases 3, 4 and 6
-     every float matrix bucket and every q bucket must have rows that the
-     16-byte batch kernels take (their C entries' rule on the padded
-     length, the packed buffers being fresh, aligned allocations);
+     projective requests and ``apply`` for the rest; in phases 3-6
+     every float matrix bucket, every projective bucket and every q
+     bucket must have rows that the 16-byte batch kernels take (their C
+     entries' rule on the padded length, the packed buffers being fresh,
+     aligned allocations);
   5. graphics: one ``viewing_chain`` (camera, perspective, cull,
      viewport) projects a 2**20-point cloud in one launch, then 64 frames
      of 65536 points with the camera stepped around an orbit serve as one
@@ -103,7 +105,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      kernels: rows of no whole vector or group (39 floats; L odd, L = 6
      at d = 3), B > 1024, points one element off 16-byte alignment
      (``chain_matrix_batch_2d``'s 16-byte kernel also untimed at d = 3
-     and B > 1024); ``chain_project_1d``, whose
+     and B > 1024); ``chain_project_batch_2d`` also at the graphics
+     bucket, (64, 65536, 3), and, untimed, through its 16-byte kernel at
+     B > 1024 and its scalar kernel (L odd, L = 6, B > 1024, the largest
+     and the graphics bucket off alignment); ``chain_project_1d``, whose
      request rows run its scalar kernel and whose 2**24 rows its 16-byte
      one, also untimed at N below 2**19, at points off 16-byte alignment
      and at 2**20 + 3, the 16-byte kernel's tail;
@@ -168,7 +173,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      primitives phase, for the model kernels from the hymba serve;
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
      decode rows, ``ssd_intra`` its mamba2-130m row,
-     ``chain_matrix_batch_2d`` its largest d = 3 bucket's row), then the
+     ``chain_matrix_batch_2d`` its largest d = 3 bucket's row,
+     ``chain_project_batch_2d`` its graphics bucket's row), then the
      device line last.
 """
 from __future__ import annotations
@@ -354,7 +360,8 @@ SASS_REQUIRED = {"matmul_2d": {None: ("HGMMA", "UTMALDG")},
                                "affine_col_kernel": VEC_OPS},
                  "chain_diag": {"chain_diag_vec_kernel": VEC_OPS},
                  "ssd_intra": {None: ("HGMMA", "UTMALDG")},
-                 "chain_project": {"chain_project_vec_kernel": VEC_OPS},
+                 "chain_project": {"chain_project_vec_kernel": VEC_OPS,
+                                   "chain_project_batch_vec_kernel": VEC_OPS},
                  "rope": {"rope_vec_kernel": VEC_OPS},
                  "chain_fixedpoint": {
                      "chain_matrix_batch_q_vec_kernel": VEC_OPS,
@@ -399,7 +406,8 @@ def off_vector_buckets(reports, q_reports=()) -> list:
     by its C entry's rule on the padded length (the packed buffers are
     fresh device allocations, so 16-byte aligned): ``chain_matrix_batch_2d``
     for the float matrix buckets (L even at d = 2, a multiple of 4 at d =
-    3), ``chain_diag_batch_2d_q`` and ``chain_matrix_batch_2d_q`` for
+    3), ``chain_project_batch_2d`` for the projective ones (L a multiple
+    of 4), ``chain_diag_batch_2d_q`` and ``chain_matrix_batch_2d_q`` for
     ``q_reports`` (rows of a multiple of 8 words)."""
     q_ids = {id(r) for r in q_reports}
     bad = []
@@ -409,6 +417,8 @@ def off_vector_buckets(reports, q_reports=()) -> list:
             ok = rep.lpad * d % 8 == 0
         elif rep.kind == "matrix":
             ok = rep.lpad % (2 if d == 2 else 4) == 0
+        elif rep.kind == "projective":
+            ok = rep.lpad % 4 == 0
         else:
             continue
         if not ok:
@@ -829,6 +839,9 @@ def graphics_phase(device: str = "cuda") -> tuple[dict, dict]:
         raise SystemExit(f"graphics: expected one flat and one batch launch, "
                          f"got {counts}, {stats['launches']} launches in "
                          f"{stats['buckets']} buckets")
+    if off_vector_buckets(srv.last_report):
+        raise SystemExit("graphics: the frames' bucket runs the scalar "
+                         "batch kernel")
 
     out, mask = out.cpu().numpy(), mask.cpu().numpy()
     ref, ref_mask = (t.cpu().numpy() for t in
@@ -1846,6 +1859,24 @@ def main() -> int:
     rows["chain_project_batch_2d"] = kernel_case(
         "chain_project_batch_2d", largest["projective"], rng,
         "largest bucket (mixed serve)")
+    # chain_project_batch_2d's vector kernel at the graphics bucket and,
+    # untimed, at B > 1024, and its scalar kernel, untimed: rows of no
+    # whole group, B > 1024, the largest and the graphics bucket off
+    # alignment
+    project_graphics = kernel_case("chain_project_batch_2d",
+                                   (FRAMES, FRAME_POINTS, 3), rng,
+                                   "graphics bucket")
+    for shape, size, off in (
+            ((1100, 8, 3), "B > 1024, d = 3, row of 2 groups", False),
+            ((1500, 16, 2), "B > 1024, row of 4 groups", False),
+            ((5, 13, 2), "row of 13 points", False),
+            ((3, 6, 3), "d = 3, row of 6 points", False),
+            ((1100, 13, 3), "B > 1024, row of 13 points", False),
+            (largest["projective"], "largest bucket, off alignment", True),
+            ((FRAMES, FRAME_POINTS, 3), "graphics bucket, off alignment",
+             True)):
+        kernel_case("chain_project_batch_2d", shape, rng, size,
+                    check_only=True, misaligned=off)
     for d in (2, 3):
         for name in Q_FLAT.values():
             rows[name] = kernel_case_q(name, (N_FLAT, d), rng, "flat 2**24")
@@ -2059,6 +2090,11 @@ def main() -> int:
         k: matrix_d3[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms",
                                   "copy_ms")}
+    kernels[list(KERNELS).index("chain_project_batch_2d")]["graphics"] = {
+        k: project_graphics[k] for k in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "composite_ms",
+                                         "copy_ms")}
     kernels[list(KERNELS).index("ssd_intra")]["mamba2_prefill"] = {
         k: ssd_mamba2[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",

@@ -68,8 +68,34 @@
 //     blocks beat the 16-byte kernel's few large ones on the same card,
 //     and buffers off alignment.  Both run point_project, so the two
 //     are bitwise equal to each other and to the plain version.
-//   * chain_project_batch_2d: one point a thread, a 2D grid (y =
-//     request).
+//   * chain_project_batch_2d, the server's bucket launch, has two
+//     kernels.  chain_project_batch_kernel (one point a thread, 4-byte
+//     accesses, one mask byte a thread, the request's parameters read
+//     through pointers for every point, int64 indices) was the first
+//     version: at the largest bucket of the mixed serve, (20, 65536, 2),
+//     it took 0.01754 ms on an H100 80GB HBM3 (700 W), 38 % of its bound.
+//     chain_project_batch_vec_kernel takes a launch whose rows hold whole
+//     groups of four points (L a multiple of 4 -- always so under the
+//     serving grid's default power-of-two lengths from 8) on 16-byte-
+//     aligned x and y and a 4-byte-aligned mask, so no vector or mask
+//     word straddles two requests.  A block serves one request
+//     (blockIdx.y, striding over B past 1024), loads its (d+1)^2 + 2d
+//     parameters once into registers and walks the row in contiguous
+//     chunks over a grid of the blocks the card holds at once, all loads
+//     of a thread before its stores (launch.cuh's walk_groups and
+//     row_grid).  A group is chain_project_vec_kernel's: four whole
+//     points in d float4 vectors and one 32-bit mask word; a warp's 32
+//     groups are staged through shared memory at d = 2 and d = 3 alike,
+//     so every load and store instruction covers 512 contiguous bytes
+//     and a warp's 32 mask words 128.  Offsets inside a row are 32-bit
+//     (the C entry sends rows of 2**31 vectors and more to the scalar
+//     kernel); 64-bit arithmetic is the request's base alone.
+//     chain_project_batch_kernel takes every other launch: a custom
+//     grid's L of no multiple of 4, a base off alignment.
+//   On an H100 80GB HBM3 (700 W) the vector kernel takes 0.0147 ms at
+//   (20, 65536, 2), 0.88x a device copy of the same bytes, and
+//   0.0447-0.0452 ms at the graphics phase's (64, 65536, 3), 70 % of its
+//   bound and 1.48x faster than the scalar kernel (PERF.md).
 #include "launch.cuh"
 
 namespace {
@@ -245,6 +271,97 @@ chain_project_vec_kernel(float* __restrict__ y,
   }
 }
 
+// the groups a thread of the batch kernel takes a chunk, at d = 2 and
+// d = 3.  Builds of 1, 2 and 4 (58, 51, 72 registers at d = 2; 80, 72,
+// 114 at d = 3; no spills) timed by tools/torch_kernel_ab.py on an H100
+// 80GB HBM3 (700 W) at the mixed serve's smallest, median and largest
+// projective buckets and the graphics one: 1 took 0.0064, 0.0085,
+// 0.0147, 0.0449 ms; 2 0.0075, 0.0094, 0.0148, 0.0452; 4 0.0088,
+// 0.0106, 0.0143, 0.0447.  With 2 or 4 the kernel lost to the scalar
+// one (0.0066 ms) at the smallest bucket, (1, 4096, 3); with 1 it
+// loses at none of the four, so the C entry needs no size threshold.
+// Capping the registers at 64 (8 blocks an SM) spilled 40 bytes at d =
+// 3 and took 0.0526 ms at the graphics bucket.
+constexpr int kBatchUnroll = 1;
+
+// The four points held in D float4 vectors, in place, through
+// point_project on register copies (H, lo, hi in registers): returns the
+// group's mask word, byte e for point e.
+template <int D>
+__device__ __forceinline__ uint32_t project_group(float4* v, const float* h,
+                                                  const float* lo,
+                                                  const float* hi) {
+  float p[4 * D], out[4 * D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    p[4 * k] = v[k].x;
+    p[4 * k + 1] = v[k].y;
+    p[4 * k + 2] = v[k].z;
+    p[4 * k + 3] = v[k].w;
+  }
+  uint32_t m = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    m |= static_cast<uint32_t>(point_project<D>(out + e * D, p + e * D, h,
+                                                lo, hi))
+         << (8 * e);
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+    v[k] = make_float4(out[4 * k], out[4 * k + 1], out[4 * k + 2],
+                       out[4 * k + 3]);
+  return m;
+}
+
+// x, y: (B, L, D) packed floats, L a multiple of 4, L D / 4 < 2**31
+// vectors a row, 16-byte-aligned bases; mask: (B, L) bytes, 4-byte
+// aligned; h: (B, D+1, D+1); lo, hi: (B, D).  ng = L / 4 groups a row,
+// group g of request b its D vectors from (b ng + g) D and mask word
+// b ng + g.
+template <int D>
+__global__ void __launch_bounds__(repro::kVecThreads)
+chain_project_batch_vec_kernel(float* __restrict__ y,
+                               unsigned char* __restrict__ mask,
+                               const float* __restrict__ x,
+                               const float* __restrict__ h,
+                               const float* __restrict__ lo,
+                               const float* __restrict__ hi, int64_t bsz,
+                               uint32_t ng) {
+  constexpr int W = D + 1;
+  for (int64_t b = blockIdx.y; b < bsz; b += gridDim.y) {
+    float hr[W * W], lor[D], hir[D];
+#pragma unroll
+    for (int k = 0; k < W * W; ++k) hr[k] = h[b * W * W + k];
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      lor[c] = lo[b * D + c];
+      hir[c] = hi[b * D + c];
+    }
+    const int64_t base = b * ng;                   // in groups
+    uint32_t* words = reinterpret_cast<uint32_t*>(mask) + base;
+    repro::walk_groups<D, kBatchUnroll>(
+        reinterpret_cast<float4*>(y) + base * D,
+        reinterpret_cast<const float4*>(x) + base * D, ng,
+        [&](float4* v, uint32_t g) {
+          words[g] = project_group<D>(v, hr, lor, hir);
+        });
+  }
+}
+
+template <int D>
+void launch_project_batch_vec(float* y, unsigned char* mask, const float* x,
+                              const float* h, const float* lo,
+                              const float* hi, int64_t bsz, int64_t ng,
+                              cudaStream_t st) {
+  static const int64_t resident = repro::resident_blocks(
+      chain_project_batch_vec_kernel<D>, repro::kVecThreads);
+  chain_project_batch_vec_kernel<D><<<
+      repro::row_grid(resident, bsz, ng,
+                      kBatchUnroll * repro::kVecThreads),
+      repro::kVecThreads, 0, st>>>(y, mask, x, h, lo, hi, bsz,
+                                   static_cast<uint32_t>(ng));
+}
+
 template <int D>
 void launch_project_1d(float* y, unsigned char* mask, const float* x,
                        const float* h, const float* lo, const float* hi,
@@ -298,13 +415,14 @@ int chain_project_1d(void* y, void* mask, const void* x, const void* h,
 }
 
 // x, y: (B, L, d); mask: (B, L) bytes; h: (B, d+1, d+1); lo, hi: (B, d).
-// Returns cudaGetLastError().
+// Rows of whole groups (L a multiple of 4) on 16-byte-aligned x and y
+// and a 4-byte-aligned mask take the vector kernel, any other launch the
+// scalar one.  Returns cudaGetLastError().
 int chain_project_batch_2d(void* y, void* mask, const void* x, const void* h,
                            const void* lo, const void* hi, int64_t bsz,
                            int64_t len, int64_t d, void* stream) {
   if (bsz == 0 || len == 0) return 0;
-  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
   auto* mo = static_cast<unsigned char*>(mask);
@@ -312,14 +430,23 @@ int chain_project_batch_2d(void* y, void* mask, const void* x, const void* h,
   auto* hm = static_cast<const float*>(h);
   auto* l = static_cast<const float*>(lo);
   auto* u = static_cast<const float*>(hi);
+  if (len % 4 == 0 && len * d / 4 < (int64_t{1} << 31) &&
+      repro::aligned16(y, x) && reinterpret_cast<uintptr_t>(mask) % 4 == 0) {
+    if (d == 2) {
+      launch_project_batch_vec<2>(yo, mo, xi, hm, l, u, bsz, len / 4, st);
+    } else {
+      launch_project_batch_vec<3>(yo, mo, xi, hm, l, u, bsz, len / 4, st);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
+                  repro::rows_for(bsz));
   if (d == 2) {
     chain_project_batch_kernel<2><<<grid, repro::kThreads, 0, st>>>(
         yo, mo, xi, hm, l, u, bsz, len);
-  } else if (d == 3) {
+  } else {
     chain_project_batch_kernel<3><<<grid, repro::kThreads, 0, st>>>(
         yo, mo, xi, hm, l, u, bsz, len);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

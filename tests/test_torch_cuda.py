@@ -288,6 +288,61 @@ def test_project_flat_vector_and_scalar_paths_equal_plain(cuda_device, d):
                     assert _same_bits(gmask, wmask.numpy()), (n, d)
 
 
+def _project_batch_inputs(rng, lead, d):
+    """Points (3 sigma, some w <= 0 and some outside the cull) and per-
+    request H, lo, hi for a (B, L, d) bucket; request 0 takes H with w =
+    x_0 and points with x_0 = 0, -2, NaN, so w = 0 exactly, w < 0 and a
+    NaN w occur."""
+    bsz, length = lead
+    pts = (3 * rng.standard_normal((bsz, length, d))).astype(np.float32)
+    h = np.tile(np.eye(d + 1, dtype=np.float32), (bsz, 1, 1))
+    h[:, :d, :d] += rng.uniform(-0.4, 0.4, (bsz, d, d)).astype(np.float32)
+    h[:, d, :d] = rng.uniform(-1, 1, (bsz, d))
+    h[:, :d, d] = rng.uniform(-0.5, 0.5, (bsz, d))
+    h[0] = np.eye(d + 1, dtype=np.float32)
+    h[0, 0, d], h[0, d, d] = 1.0, 0.0             # w = x_0
+    pts[0, : min(length, 3), 0] = np.array([0.0, -2.0, np.nan],
+                                           np.float32)[: min(length, 3)]
+    lo = rng.uniform(-3, -2, (bsz, d)).astype(np.float32)
+    hi = rng.uniform(2, 3, (bsz, d)).astype(np.float32)
+    return pts, h, lo, hi
+
+
+#: (B, L): csrc/chain_project.cu's 16-byte batch kernel (L a multiple of
+#: 4: one group a row and many, the mixed serve's largest d = 2 bucket
+#: and its median, the graphics frames, B > 1024) and its scalar kernel
+#: (L = 6, 39, 1, 3001; B > 1024 at L = 13)
+PROJECT_BATCH_VEC = ((1, 4), (3, 8), (2, 12), (20, 65536), (8, 32768),
+                     (64, 65536), (1100, 8), (1500, 16))
+PROJECT_BATCH_SCALAR = ((3, 6), (2, 39), (7, 1), (3, 3001), (1100, 13))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_project_batch_vector_and_scalar_paths_equal_plain(cuda_device, d):
+    """Both kernels of ``chain_project_batch_2d`` bit for bit equal to the
+    plain version on the card and, NaN payloads aside, on the CPU, points
+    AND mask: the 16-byte one at rows of whole groups of four points
+    (served buckets, B > 1024), the scalar one at rows of no whole group
+    and at points one float off 16-byte alignment; w = 0, w < 0 and NaN
+    w, points outside the cull."""
+    rng = np.random.default_rng([71, d])
+    for lead in PROJECT_BATCH_VEC + PROJECT_BATCH_SCALAR:
+        host = [torch.from_numpy(a)
+                for a in _project_batch_inputs(rng, lead, d)]
+        want, wmask = proj_ref.chain_project_batch(*host)
+        x, hh, ll, uu = (a.to(cuda_device) for a in host)
+        for xs in (x, _misaligned(x)):
+            out, mask = proj_k.chain_project_batch_2d(xs, hh, ll, uu)
+            pout, pmask = proj_ref.chain_project_batch(xs, hh, ll, uu)
+            got, gmask = out.cpu().numpy(), mask.cpu().numpy()
+            assert _same_bits(got, pout.cpu().numpy()), (lead, d)
+            assert _same_bits(gmask, pmask.cpu().numpy()), (lead, d)
+            assert _same_values(got, want.numpy()), (lead, d)
+            assert _same_bits(gmask, wmask.numpy()), (lead, d)
+        if wmask.numel() > 1000:        # both mask values occur
+            assert bool(wmask.any()) and not bool(wmask.all()), lead
+
+
 def test_projective_bucket_on_card_equals_per_request_project(cuda_device):
     """The full TEMPLATES pool served on the card: every projective
     bucket one chain_project_batch_2d launch, every result bitwise equal

@@ -1,6 +1,7 @@
 """The 16-byte kernels of ``chain_diag_batch_2d``, ``affine_2d``,
 ``chain_project_1d``, ``rope_3d``, ``chain_matrix_batch_2d_q``,
-``chain_matrix_batch_2d`` and ``chain_diag_batch_2d_q``, held on the CPU.
+``chain_matrix_batch_2d``, ``chain_diag_batch_2d_q`` and
+``chain_project_batch_2d``, held on the CPU.
 
 Their CUDA kernels (``csrc/chain_diag.cu``, ``csrc/affine_2d.cu``,
 ``csrc/chain_project.cu``, ``csrc/rope.cu``, ``csrc/chain_fixedpoint.cu``,
@@ -47,7 +48,12 @@ eager torch, with the launch geometry of its C entry:
     of 8 words, word k of vector v on column (8v + k) mod d -- for d = 3
     the phase v % 3 picks one of three patterns -- and the kernel's
     uint32 arithmetic, the rounding constant folded into t << n and a
-    logical final shift.
+    logical final shift;
+  * ``chain_project_batch_vec_kernel`` (rows of whole groups of four
+    points on aligned buffers): ``chain_matrix_batch_vec_kernel``'s walk
+    on ``chain_project_vec_kernel``'s groups -- four points in d float4
+    vectors, staged at d = 2 and d = 3 alike -- each lane also writing
+    its group's mask word b L/4 + g.
 
 Each emulation must cover every element exactly once, pick the regime the
 C entry picks, and, computing each element with the same rounded ops
@@ -55,12 +61,13 @@ C entry picks, and, computing each element with the same rounded ops
 gathered points; ``ref.rope``'s and ``ref.chain_matrix_batch_q``'s on the
 gathered vectors), equal ``ref.chain_diag_batch`` / ``ref.affine`` /
 ``ref.chain_project`` / ``ref.rope`` / ``ref.chain_matrix_batch_q`` /
-``ref.chain_matrix_batch`` / ``ref.chain_diag_batch_q`` bit for bit, masks
-included.  A planted fault -- a
-d = 3 phase off by one, a column pattern shifted by one, a column step
-left unreduced, a chunk stride one step short, a chunk stride one group
-short, staged slots read at a stride of 1, a position tile one short, x2
-read one vector off -- must be caught.  Each grid
+``ref.chain_matrix_batch`` / ``ref.chain_diag_batch_q`` /
+``ref.chain_project_batch`` bit for bit, masks included.  A planted fault
+-- a d = 3 phase off by one, a column pattern shifted by one, a column
+step left unreduced, a chunk stride one step short, a chunk stride one
+group short, staged slots read at a stride of 1, a position tile one
+short, x2 read one vector off, a request's row of mask words one group
+short -- must be caught.  Each grid
 is emulated at the card's size and at a tiny one, so every grid-stride
 loop takes several steps.
 """
@@ -685,16 +692,19 @@ def _requests(bsz: int) -> tuple[int, torch.Tensor]:
 
 
 def _group_vectors(ng, v_per, unroll, grid, *, stride_short=0,
-                   read_stride=None):
+                   read_stride=None, with_groups=False):
     """The vectors of a row each lane of a whole-point kernel takes, one
-    group a row: (groups, V).  V = 1: ``_chunked``'s loop.  V = 3: chunks
-    of ``unroll`` x 128 groups, a warp's 32 groups staged (slot k 32 +
-    lane holds vector g0 V + k 32 + lane) and lane l taking slots l rs ..
-    l rs + V - 1, rs = V unless ``read_stride`` plants a fault;
-    ``stride_short`` shortens the chunk stride by that many groups."""
+    group a row: (groups, V), and with ``with_groups`` each one's group
+    index g as well.  V = 1: ``_chunked``'s loop.  V > 1: chunks of
+    ``unroll`` x 128 groups, a warp's 32 groups staged (slot k 32 + lane
+    holds vector g0 V + k 32 + lane) and lane l, on group g0 + l, taking
+    slots l rs .. l rs + V - 1, rs = V unless ``read_stride`` plants a
+    fault; ``stride_short`` shortens the chunk stride by that many
+    groups."""
     if v_per == 1:
         assert unroll == UNROLL
-        return _chunked(ng, grid, stride_short)[:, None]
+        g = _chunked(ng, grid, stride_short)
+        return (g[:, None], g) if with_groups else g[:, None]
     chunk = unroll * VEC_THREADS
     rs = v_per if read_stride is None else read_stride
     stride = grid * chunk - stride_short
@@ -708,7 +718,7 @@ def _group_vectors(ng, v_per, unroll, grid, *, stride_short=0,
     vec = (g0[:, None, None] * v_per + lane[None, :, None] * rs
            + _ar(v_per)[None, None, :]).reshape(-1, v_per)
     live = (g < ng) & (vec < ng * v_per).all(-1)
-    return vec[live]
+    return (vec[live], g[live]) if with_groups else vec[live]
 
 
 def _apply_groups(x, b, vec, width, fn):
@@ -980,15 +990,167 @@ def test_diag_q_plant_short_chunk_stride_is_caught(shape):
     assert not _covered_once(elems, x.numel())
 
 
+# -- chain_project_batch_2d ---------------------------------------------------
+
+#: csrc/chain_project.cu's kBatchUnroll: groups a thread takes a chunk
+PROJECT_BATCH_UNROLL = 1
+
+
+def project_batch_regime(bsz: int, length: int, d: int, xy_aligned: bool,
+                         mask_aligned: bool) -> str:
+    """``chain_project_batch_2d``'s choice (``csrc/chain_project.cu``): the
+    16-byte kernel for rows of whole groups of four points (L a multiple
+    of 4) under 2**31 float4 vectors on 16-byte-aligned x and y and a
+    4-byte-aligned mask, the scalar kernel for the rest."""
+    if xy_aligned and mask_aligned and length % 4 == 0 \
+            and length * d // 4 < 2 ** 31:
+        return "vector"
+    return "scalar"
+
+
+def emulate_project_batch_vec(x, h, lo, hi, resident, *, stride_short=0,
+                              read_stride=None, words_short=0):
+    """``chain_project_batch_vec_kernel`` on x (B, L, d) float32, h (B, d+1,
+    d+1), lo, hi (B, d): (output, mask (B, L), the flat index of every
+    float a lane took, the mask word each lane wrote).  A group is four
+    whole points in d float4 vectors, staged at d = 2 and d = 3 alike,
+    computed with ``ref.chain_project_batch``'s rounded ops; group g of
+    request b writes mask word b L/4 + g (``words_short`` shortens a
+    request's row of words by that many: a planted fault)."""
+    bsz, length, d = x.shape
+    ng = length // 4
+    gy, b = _requests(bsz)
+    unroll = PROJECT_BATCH_UNROLL
+    gx = min(_cdiv(ng, unroll * VEC_THREADS), max(resident // gy, 1))
+    vec, g = _group_vectors(ng, d, unroll, gx, stride_short=stride_short,
+                            read_stride=read_stride, with_groups=True)
+    inside = []
+
+    def project(pts, req):
+        got, m = proj_ref.chain_project_batch(pts, h[req], lo[req], hi[req])
+        inside.append(m)
+        return got
+    y, elems = _apply_groups(x, b, vec, 4, project)
+    words = (b[:, None] * (ng - words_short) + g[None, :]).reshape(-1)
+    mask = torch.zeros(bsz * ng, 4, dtype=torch.bool)
+    mask[words] = inside[0]
+    return y, mask.reshape(bsz, length), elems, words
+
+
+def _project_batch_inputs(shape, seed):
+    """Points and per-request H, lo, hi with a perspective column, so that
+    some points have w <= 0 and some fall outside [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    bsz, _, d = shape
+    x = (3 * rng.standard_normal(shape)).astype(np.float32)
+    hm = np.tile(np.eye(d + 1, dtype=np.float32), (bsz, 1, 1))
+    hm[:, :d, :d] += rng.uniform(-0.4, 0.4, (bsz, d, d)).astype(np.float32)
+    hm[:, d, :d] = rng.uniform(-1, 1, (bsz, d))
+    hm[:, :d, d] = rng.uniform(-0.5, 0.5, (bsz, d))     # some w <= 0
+    lo = rng.uniform(-3, -2, (bsz, d)).astype(np.float32)
+    hi = rng.uniform(2, 3, (bsz, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (x, hm, lo, hi))
+
+
+#: (B, L, d) buckets of whole groups: one group a row and several, power-
+#: of-two serving lengths, the mixed serve's largest and median buckets,
+#: (20, 65536, 2) and (8, 32768, 3), rows past one chunk many times, B >
+#: 1024
+PROJECT_BATCH_SHAPES = [(3, 4, 2), (2, 12, 2), (4, 4096, 2), (20, 65536, 2),
+                        (1500, 16, 2), (1, 4, 3), (2, 12, 3), (5, 8, 3),
+                        (8, 32768, 3), (2, 40_000, 3), (1100, 8, 3)]
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", PROJECT_BATCH_SHAPES, ids=str)
+def test_project_batch_vector_mapping_covers_once_and_equals_plain(shape,
+                                                                   grid):
+    bsz, length, d = shape
+    x, hm, lo, hi = _project_batch_inputs(shape, [20, *shape])
+    assert project_batch_regime(bsz, length, d, True, True) == "vector"
+    y, mask, elems, words = emulate_project_batch_vec(x, hm, lo, hi,
+                                                      GRIDS[grid][0])
+    assert _covered_once(elems, x.numel())
+    assert _covered_once(words, bsz * length // 4)
+    want, wmask = proj_ref.chain_project_batch(x, hm, lo, hi)
+    assert _same_bits(y, want)
+    assert torch.equal(mask, wmask)
+    if wmask.numel() > 1000:        # both mask values occur
+        assert bool(wmask.any()) and not bool(wmask.all())
+
+
+@pytest.mark.parametrize("bsz, length, d, xy, m4, regime", [
+    (20, 65536, 2, True, True, "vector"), (64, 65536, 3, True, True,
+                                           "vector"),
+    (1, 4096, 3, True, True, "vector"), (1, 4, 2, True, True, "vector"),
+    (1100, 8, 3, True, True, "vector"), (3, 6, 3, True, True, "scalar"),
+    (2, 39, 2, True, True, "scalar"), (1100, 13, 3, True, True, "scalar"),
+    (20, 65536, 2, False, True, "scalar"),
+    (20, 65536, 2, True, False, "scalar"),
+    (1, 2 ** 32, 2, True, True, "scalar"),
+    (1, 2 ** 32 // 3 * 4, 3, True, True, "scalar"),
+    (1, 2 ** 32 - 4, 2, True, True, "vector")], ids=str)
+def test_project_batch_regime_follows_row_and_alignment(bsz, length, d, xy,
+                                                        m4, regime):
+    """Rows of whole groups of four points on aligned x, y and mask take
+    the 16-byte kernel, whatever the bucket's size; a custom grid's L = 6,
+    39 or 13, an off-aligned view of the points or the mask, or a row of
+    2**31 vectors, the scalar one."""
+    assert project_batch_regime(bsz, length, d, xy, m4) == regime
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_project_batch_plant_short_chunk_stride_is_caught(d):
+    shape = (3, 4096, d)
+    x, hm, lo, hi = _project_batch_inputs(shape, [21, d])
+    _, _, elems, words = emulate_project_batch_vec(x, hm, lo, hi,
+                                                   GRIDS["tiny"][0],
+                                                   stride_short=1)
+    assert not _covered_once(elems, x.numel())
+    assert not _covered_once(words, 3 * 4096 // 4)
+
+
+def test_project_batch_plant_staging_stride_is_caught():
+    """Lane l reading slots l .. l + 2 in place of 3l .. 3l + 2 at d = 3
+    takes another lane's vectors: the mapping no longer covers every
+    float once, nor equals the plain version."""
+    shape = (4, 4096, 3)
+    x, hm, lo, hi = _project_batch_inputs(shape, [22])
+    y, mask, elems, _ = emulate_project_batch_vec(x, hm, lo, hi,
+                                                  GRIDS["card"][0],
+                                                  read_stride=1)
+    want, wmask = proj_ref.chain_project_batch(x, hm, lo, hi)
+    assert not _covered_once(elems, x.numel())
+    assert not (_same_bits(y, want) and torch.equal(mask, wmask))
+
+
+@pytest.mark.parametrize("shape", [(3, 4096, 2), (20, 65536, 2),
+                                   (4, 4096, 3)], ids=str)
+def test_project_batch_plant_mask_row_one_group_short_is_caught(shape):
+    """Request b's mask words at b (L/4 - 1) + g in place of b L/4 + g:
+    each request but the first writes over its neighbour's last word, and
+    the last request's words at the end stay unwritten."""
+    x, hm, lo, hi = _project_batch_inputs(shape, [23, *shape])
+    y, mask, _, words = emulate_project_batch_vec(x, hm, lo, hi,
+                                                  GRIDS["card"][0],
+                                                  words_short=1)
+    want, wmask = proj_ref.chain_project_batch(x, hm, lo, hi)
+    assert _same_bits(y, want)
+    assert not _covered_once(words, shape[0] * shape[1] // 4)
+    assert not torch.equal(mask, wmask)
+
+
 @pytest.mark.parametrize("d", [2, 3])
 def test_every_default_serving_length_takes_the_vector_kernels(d):
     """Each padded length of the default serving grid (powers of two from
     MIN_LEN) gives rows that the 16-byte kernels of
-    ``chain_matrix_batch_2d``, ``chain_diag_batch_2d_q`` and
-    ``chain_matrix_batch_2d_q`` take on aligned buffers."""
+    ``chain_matrix_batch_2d``, ``chain_project_batch_2d``,
+    ``chain_diag_batch_2d_q`` and ``chain_matrix_batch_2d_q`` take on
+    aligned buffers (fresh allocations, as ``GeometryServer`` packs)."""
     lengths = {bucketing.padded_length(n) for n in range(1, (1 << 18) + 1,
                                                          97)}
     assert min(lengths) == bucketing.MIN_LEN and max(lengths) >= 1 << 18
     for length in lengths:
         assert matrix_regime(length, d, aligned=True) == "vector"
+        assert project_batch_regime(1, length, d, True, True) == "vector"
         assert q_regime(length, d, aligned=True) == "vector"

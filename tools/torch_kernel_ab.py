@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time ``ssd_intra``, ``chain_project_1d``, ``rope_3d``,
-``chain_matrix_batch_2d_q``, ``chain_matrix_batch_2d`` and
-``chain_diag_batch_2d_q`` in two checkouts of the PyTorch port on one
-GPU, in turns (A, B, B, A), so that the card and its host are the same
-for both.
+``chain_matrix_batch_2d_q``, ``chain_matrix_batch_2d``,
+``chain_diag_batch_2d_q`` and ``chain_project_batch_2d`` in two
+checkouts of the PyTorch port on one GPU, in turns (A, B, B, A), so that
+the card and its host are the same for both.
 
     python3 tools/torch_kernel_ab.py PATH_A PATH_B
 
@@ -19,15 +19,19 @@ and its decode q shape ((100, 1, 64) at position 2063),
 largest q buckets of ``chip_smoke.py``'s q-mixed serve, (15, 65536, 2)
 and (36, 32768, 2), on full-range int16 words at n_frac 7 (q8.7), and
 ``chain_matrix_batch_2d`` at the largest d = 2 and d = 3 matrix buckets
-of its affine serve, (47, 32768, 2) and (20, 32768, 3), each beside a
-device copy of as many bytes as the call moves (``copy_ms``).  Times are
-``chip_smoke.py``'s: the median of 25 CUDA-event runs after one warm
+of its affine serve, (47, 32768, 2) and (20, 32768, 3), and
+``chain_project_batch_2d`` at the smallest, median and largest
+projective buckets of its mixed serve, (1, 4096, 3), (8, 32768, 3) and
+(20, 65536, 2), and at its graphics bucket, (64, 65536, 3), each beside
+a device copy of as many bytes as the call moves (``copy_ms``).  Times
+are ``chip_smoke.py``'s: the median of 25 CUDA-event runs after one warm
 run, the L2 flushed before each run and the device kept busy while the
-host enqueues.  Each turn also reports the registers and spills ``ptxas``
-gave the batch kernels of ``chain_matrix.cu`` and ``chain_fixedpoint.cu``
-in that checkout.  Each turn prints one JSON line; the last line holds
-each row's four times in turn order, the mean of each checkout's two
-turns, and the card's name and power limit from ``nvidia-smi``.
+host enqueues.  Each turn also reports the registers and spills
+``ptxas`` gave the batch kernels of ``chain_matrix.cu``,
+``chain_fixedpoint.cu`` and ``chain_project.cu`` in that checkout.  Each
+turn prints one JSON line; the last line holds each row's four times in
+turn order, the mean of each checkout's two turns, and the card's name
+and power limit from ``nvidia-smi``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,12 @@ Q_BUCKETS = {"chain_matrix_batch_2d_q": (15, 65536, 2),
 #: chip_smoke.py's largest matrix buckets of the affine serve (seed 0)
 MATRIX_BUCKETS = {"chain_matrix_batch_2d": (47, 32768, 2),
                   "chain_matrix_batch_2d d=3": (20, 32768, 3)}
+#: chip_smoke.py's projective buckets (seed 0): the mixed serve's
+#: smallest, median and largest, and the graphics phase's 64 frames
+PROJECT_BUCKETS = {"chain_project_batch_2d smallest": (1, 4096, 3),
+                   "chain_project_batch_2d median": (8, 32768, 3),
+                   "chain_project_batch_2d": (20, 65536, 2),
+                   "chain_project_batch_2d graphics": (64, 65536, 3)}
 
 
 def one(tree: str) -> dict:
@@ -150,9 +160,25 @@ def one(tree: str) -> dict:
         rows[name] = {
             "ms": time_ms(lambda: matrix_k.chain_matrix_batch_2d(x, a, t)),
             "copy_ms": copy_ms(nbytes)}
+    for name, (bsz, length, d) in PROJECT_BUCKETS.items():
+        x = torch.from_numpy(3 * rng.standard_normal((bsz, length, d),
+                                                     dtype=np.float32)).to(dev)
+        hm = torch.eye(d + 1, device=dev).repeat(bsz, 1, 1)
+        hm[:, :d, :d] += torch.from_numpy(rng.uniform(
+            -0.4, 0.4, (bsz, d, d)).astype(np.float32)).to(dev)
+        hm[:, :d, d] = torch.from_numpy(rng.uniform(
+            -0.5, 0.5, (bsz, d)).astype(np.float32)).to(dev)
+        lo = torch.full((bsz, d), -2.5, device=dev)
+        hi = torch.full((bsz, d), 2.5, device=dev)
+        nbytes = 8 * bsz * length * d + bsz * length \
+            + 4 * bsz * ((d + 1) ** 2 + 2 * d)
+        rows[name] = {
+            "ms": time_ms(lambda: proj_k.chain_project_batch_2d(x, hm, lo,
+                                                                hi)),
+            "copy_ms": copy_ms(nbytes)}
     ptxas = {src: [u for u in _build.resource_usage(src)
                    if "batch" in u["function"]]
-             for src in ("chain_matrix", "chain_fixedpoint")}
+             for src in ("chain_matrix", "chain_fixedpoint", "chain_project")}
     return {"tree": tree, "rows": rows, "ptxas": ptxas,
             "device": torch.cuda.get_device_name(0)}
 
