@@ -168,7 +168,35 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      or a composite (rotate-half RoPE; the bfloat16 masked-matmul SSD);
      every size a kernel was launched with in the hymba serve must be
      among the sizes these checks launched it with;
- 10. the ``kernels`` line (launches from the mixed serve, for the int16
+ 10. (run after phase 9, after every timed phase: the soak leaves the
+     process's later flushes unpacking onto freshly faulted host pages)
+     the serving layer's fault tolerance and async front end, each path
+     with the launch counts zeroed just before it and read just after
+     (phases 3-6 above must also show 0 for every recovery counter --
+     ``launch_failures``, ``retries``, ``backend_fallbacks``,
+     ``bisections``, ``failed_requests`` -- so the ladder never hides a
+     kernel that fails on the card):
+     chaos (soak) -- ``serving.run_chaos_soak(seed=11, n_requests=64)``
+     on the card's two-rung ladder (the kernels, then the plain versions
+     on the card), every resolved result bitwise equal to per-request
+     ``apply``/``project``, its counters exactly the JAX package's
+     two-rung ones (``tests/torch_chaos.py``);
+     chaos (mixed) -- the mixed serve's 1024 requests served clean and
+     under ``FaultInjector(seed=11)`` at the soak's rates (no backoff
+     sleeps): nothing lost, each resolved result bitwise equal to the
+     clean flush's (masks included), the failed tickets exactly the
+     poison ones, both flush times printed;
+     traced flush -- one mixed flush under an ``obs.Tracer`` beside an
+     untraced one, the Chrome trace written to TRACE_PATH (git-ignored);
+     async -- the mixed workload submitted under a frozen
+     ``VirtualClock`` and drained, bitwise equal to one synchronous
+     flush with equal launches and bytes; then the JAX package's
+     Poisson soak (``tests/torch_chaos.py``'s copy of
+     ``benchmarks/soak_bench.py``'s driver and settings: seed 17, four
+     tenants, a pool of 384 mixed-lane requests, 20 000 arrivals at
+     150 000/s, token buckets that must fire), its counters exactly the
+     reference's, nothing lost, with its host seconds;
+ 11. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
@@ -197,7 +225,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import configs, graphics, quantize, serving  # noqa: E402
+from repro_torch import configs, graphics, obs, quantize, serving  # noqa: E402
 from repro_torch.core import analysis  # noqa: E402
 from repro_torch.core import transform_engine as te  # noqa: E402
 from repro_torch.core.morphosys import intel, programs  # noqa: E402
@@ -223,6 +251,7 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 
 import torch_bounds as bounds  # noqa: E402
+import torch_chaos  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -269,6 +298,18 @@ HYMBA_ARCH, HYMBA_BATCH, HYMBA_PROMPT, HYMBA_GEN = "hymba-1.5b", 4, 2048, 16
 #: sqrt(6 * 32 + 1) * 2**-7 = 0.109 if each is a full ulp at the top of
 #: the range and they add in quadrature (PERF.md)
 HYMBA_LOGITS_RTOL = math.sqrt(6 * 32 + 1) * 2.0 ** -7
+#: the recovery counters a clean serve must leave at 0: the ladder must
+#: never hide a kernel that fails on the card
+RECOVERY_KEYS = ("launch_failures", "retries", "backend_fallbacks",
+                 "bisections", "failed_requests")
+#: the chaos soak's injection rates (``run_chaos_soak``'s defaults),
+#: which the chaos (mixed) phase serves the mixed workload under
+CHAOS_RATES = dict(flaky_rate=0.06, backend_rate=0.05, corrupt_rate=0.05,
+                   poison_rate=0.03)
+#: the Chrome trace of one traced mixed flush, in the git-ignored
+#: directory whose files a remote run brings back
+TRACE_PATH = os.path.join(ROOT, "chiprun_out",
+                          "chip_smoke_mixed_trace.json")
 #: the kernels the hybrid serving path launches
 MODEL_PATH_KERNELS = ["rmsnorm_2d", "rope_3d", "flash_attention_3d",
                       "ssd_intra", "vecadd_2d"]
@@ -432,6 +473,15 @@ def require_launched(counts: dict, names, phase: str) -> None:
             raise SystemExit(f"{name} was never launched in the {phase} run")
 
 
+def require_clean(stats, phase: str) -> None:
+    """A serve without injected faults ran no step of the recovery
+    ladder: every launch succeeded on the kernel it was planned for."""
+    dirty = {k: stats[k] for k in RECOVERY_KEYS if stats[k]}
+    if dirty:
+        raise SystemExit(f"{phase}: the recovery ladder ran in a clean "
+                         f"serve: {dirty}")
+
+
 # -- the float64 oracles ---------------------------------------------------------
 
 def fold_oracle_ok(chain, pts: np.ndarray, out: np.ndarray) -> bool:
@@ -537,6 +587,7 @@ def serve_phase(phase: str, templates, device: str = "cuda",
     counts = _build.launch_counts()
     stats = dict(serving.stats)
     flushes = 4
+    require_clean(stats, phase)
 
     buckets = len(srv.last_report)
     if stats["launches"] != stats["buckets"] or stats["buckets"] != flushes * buckets:
@@ -711,6 +762,7 @@ def q_mixed_phase(device: str = "cuda") -> tuple[dict, dict, dict, tuple]:
     counts = _build.launch_counts()
     stats = dict(serving.stats)
     flushes = 4
+    require_clean(stats, "serve (q-mixed)")
 
     buckets = len(srv.last_report)
     q_reports = [rep for (op, _), rep in zip(records, srv.last_report)
@@ -834,6 +886,7 @@ def graphics_phase(device: str = "cuda") -> tuple[dict, dict]:
     flush_s = time.perf_counter() - t0
     counts = _build.launch_counts()
     stats = dict(serving.stats)
+    require_clean(stats, "graphics")
     if counts["chain_project_1d"] != 1 or counts["chain_project_batch_2d"] != 1 \
             or stats["launches"] != 1 or stats["buckets"] != 1:
         raise SystemExit(f"graphics: expected one flat and one batch launch, "
@@ -868,6 +921,228 @@ def graphics_phase(device: str = "cuda") -> tuple[dict, dict]:
                "bitwise_vs_ref": True, "bitwise_vs_per_request": True,
                "fold_oracle": True, "mask_points_within_bound": undecided}
     return counts, summary
+
+
+# -- fault tolerance and the async front end ----------------------------------
+
+def kinds_launched(reqs) -> list:
+    """The batch kernels a flush of (chain, points, qformat) requests must
+    launch: one for each plan kind of the float lane and of the q lane."""
+    names = set()
+    for chain, _, q in reqs:
+        names.add((Q_BATCH if q else BATCH)[chain.plan_kind])
+    return sorted(names)
+
+
+def chaos_soak_phase(device: str = "cuda") -> tuple[dict, dict]:
+    """The port's chaos soak on the card: ``run_chaos_soak(seed=11,
+    n_requests=64)`` serves the seeded mixed-lane workload under seeded
+    injection on the two-rung ladder ("cuda", then "ref", the plain
+    version on the card), holds every resolved result bitwise to
+    per-request ``apply``/``project`` and must give the JAX package's
+    two-rung counters exactly (``tests/torch_chaos.py``).  Returns
+    (launch counts of the run, the summary)."""
+    serving.reset_stats()
+    _build.reset_launch_counts()
+    rep = serving.run_chaos_soak(seed=torch_chaos.SEED,
+                                 n_requests=torch_chaos.N_REQUESTS,
+                                 device=device)
+    counts = _build.launch_counts()
+    got = rep.counters()
+    if rep.backend != "cuda" or got != torch_chaos.TWO_RUNG:
+        diff = {k: (got.get(k), v) for k, v in torch_chaos.TWO_RUNG.items()
+                if got.get(k) != v}
+        raise SystemExit(f"chaos (soak) on {rep.backend}: counters differ "
+                         f"from the two-rung reference (got, want): {diff}")
+    triples = workload.mixed_lane_workload(torch_chaos.SEED,
+                                           torch_chaos.N_REQUESTS)
+    require_launched(counts, kinds_launched(triples), "chaos (soak)")
+    return counts, {"phase": "chaos (soak)", "backend": rep.backend,
+                    **got, "elapsed_ms": rep.elapsed_s * 1e3,
+                    "postmortems": len(rep.postmortems),
+                    "launches_by_kernel": {k: v for k, v in counts.items()
+                                           if v}}
+
+
+def timed_flush(srv, reqs, out: list | None = None) -> float:
+    """Submit every (chain, points) request, then flush; returns the
+    flush's seconds alone (the host phases are in ``srv.last_timing``)
+    and puts the results in ``out``."""
+    for chain, pts in reqs:
+        srv.submit(chain, pts)
+    t0 = time.perf_counter()
+    results = srv.flush()
+    flush_s = time.perf_counter() - t0
+    if out is not None:
+        out.extend(results)
+    return flush_s
+
+
+def chaos_mixed_phase(device: str = "cuda") -> tuple[dict, dict]:
+    """The mixed serve's 1024 requests served clean, then under
+    ``FaultInjector(seed=11)`` at the soak's rates (no backoff sleeps, so
+    the faulted flush's time is the recovery's own work): nothing lost,
+    every resolved result bitwise equal to the clean flush's for its
+    ticket (masks included), the failed tickets exactly the injector's
+    poison tickets.  Returns (launch counts of the faulted run, the
+    summary)."""
+    reqs = workload.random_workload(
+        seed=SEED, n_requests=1024, templates=workload.TEMPLATES,
+        min_points=1024, max_points=262144)
+    clean_srv = serving.GeometryServer(device=device)
+    clean_srv.serve(reqs)                            # warm
+    serving.reset_stats()
+    clean = []
+    clean_s = timed_flush(clean_srv, reqs, clean)
+    require_clean(serving.stats, "chaos (mixed), clean flush")
+
+    inj = serving.FaultInjector(seed=torch_chaos.SEED, **CHAOS_RATES)
+    srv = serving.GeometryServer(
+        device=device, injector=inj,
+        fault_config=serving.FaultConfig(backoff_base_s=0.0))
+    serving.reset_stats()
+    _build.reset_launch_counts()
+    faulted = []
+    faulted_s = timed_flush(srv, reqs, faulted)
+    counts = _build.launch_counts()
+    stats = dict(serving.stats)
+
+    if len(faulted) != len(reqs):
+        raise SystemExit(f"chaos (mixed): {len(faulted)} results for "
+                         f"{len(reqs)} requests")
+    poison = {t for t in range(len(reqs)) if inj.role(t) == "poison"}
+    failed = set()
+    for t, (got, want) in enumerate(zip(faulted, clean)):
+        if serving.is_error(got):
+            if not isinstance(got, serving.LaunchError) or got.ticket != t:
+                raise SystemExit(f"chaos (mixed): ticket {t} resolved to "
+                                 f"{got!r}")
+            failed.add(t)
+        elif not isinstance(got, np.ndarray):
+            raise SystemExit(f"chaos (mixed): ticket {t} lost")
+        elif not bitwise_equal(got, want) or (
+                reqs[t][0].is_projective
+                and not bitwise_equal(got.mask, want.mask)):
+            raise SystemExit(f"chaos (mixed): ticket {t} != its clean "
+                             f"result")
+    if failed != poison:
+        raise SystemExit(f"chaos (mixed): failed tickets {sorted(failed)} "
+                         f"!= the poison tickets {sorted(poison)}")
+    if not (stats["retries"] and stats["backend_fallbacks"]
+            and stats["bisections"] and inj.injected_corruptions):
+        raise SystemExit(f"chaos (mixed): a rung of the ladder never ran: "
+                         f"{stats}")
+    require_launched(counts, kinds_launched([(c, p, None) for c, p in reqs]),
+                     "chaos (mixed)")
+    roles = {}
+    for t in range(len(reqs)):
+        roles[inj.role(t)] = roles.get(inj.role(t), 0) + 1
+    return counts, {
+        "phase": "chaos (mixed)", "requests": len(reqs),
+        "roles": {str(k): v for k, v in roles.items()},
+        **{k: stats[k] for k in ("launches", "buckets", *RECOVERY_KEYS,
+                                 "recovered_requests")},
+        "injected_launch_faults": inj.injected_launch_faults,
+        "injected_corruptions": inj.injected_corruptions,
+        "clean_flush_ms": clean_s * 1e3, "faulted_flush_ms": faulted_s * 1e3,
+        "clean_phases": clean_srv.last_timing,
+        "faulted_phases": srv.last_timing,
+        "lost": 0, "bitwise_vs_clean": True, "failed_are_poison": True}
+
+
+def traced_flush_phase(device: str = "cuda") -> dict:
+    """One mixed flush traced (``obs.Tracer`` on the monotonic clock)
+    beside an untraced one, the trace written as Chrome JSON to
+    TRACE_PATH; the span stream must count one ``launch`` instant a
+    launch and one ``request.resolve`` a request."""
+    reqs = workload.random_workload(
+        seed=SEED, n_requests=1024, templates=workload.TEMPLATES,
+        min_points=1024, max_points=262144)
+    srv = serving.GeometryServer(device=device)
+    srv.serve(reqs)                                  # warm
+    serving.reset_stats()
+    plain_s = timed_flush(srv, reqs)
+    plain_phases = srv.last_timing
+    tracer = obs.Tracer()
+    serving.reset_stats()
+    with obs.installed(tracer):
+        traced_s = timed_flush(srv, reqs)
+    if tracer.count("launch") != serving.stats["launches"] \
+            or tracer.count("request.resolve") != len(reqs):
+        raise SystemExit(f"traced flush: {tracer.count('launch')} launch "
+                         f"instants for {serving.stats['launches']} "
+                         f"launches")
+    os.makedirs(os.path.dirname(TRACE_PATH), exist_ok=True)
+    obs.dump_chrome_trace(tracer, TRACE_PATH)
+    return {"phase": "traced flush", "events": tracer.n_events,
+            "spans": tracer.n_spans, "untraced_flush_ms": plain_s * 1e3,
+            "traced_flush_ms": traced_s * 1e3,
+            "untraced_phases": plain_phases, "traced_phases": srv.last_timing,
+            "trace": os.path.relpath(TRACE_PATH, ROOT)}
+
+
+def async_phase(device: str = "cuda") -> tuple[dict, dict]:
+    """The async front end on the card.  First the mixed workload is
+    submitted under a frozen ``VirtualClock`` and drained: bitwise equal
+    to one synchronous flush, with equal launches and launch bytes.  Then
+    the JAX package's Poisson soak under a ``VirtualClock``
+    (``tests/torch_chaos.py``: its driver and documented settings, 20 000
+    arrivals at 150 000/s over four tenants, token buckets that must
+    fire): its counters must equal the reference's exactly, nothing
+    lost; its host seconds are reported.  Returns (launch counts of the
+    soak, the summary)."""
+    reqs = workload.random_workload(
+        seed=SEED, n_requests=1024, templates=workload.TEMPLATES,
+        min_points=1024, max_points=262144)
+    serving.reset_stats()
+    sync = serving.GeometryServer(device=device)
+    with opcount.counting() as sync_bytes:
+        want = sync.serve(reqs)
+    sync_stats = dict(serving.stats)
+    serving.reset_stats()
+    eng = serving.AsyncGeometryServer(
+        device=device, clock=serving.VirtualClock(),
+        admission=serving.AdmissionConfig(max_queue_depth=len(reqs),
+                                          tenant_share=1.0))
+    tickets = [eng.submit_async(c, p) for c, p in reqs]
+    with opcount.counting() as async_bytes:
+        eng.drain()
+    for i, (t, w) in enumerate(zip(tickets, want)):
+        got = t.result()
+        if not bitwise_equal(got, w) or (
+                reqs[i][0].is_projective and not bitwise_equal(got.mask,
+                                                                w.mask)):
+            raise SystemExit(f"async: ticket {i} drained != sync flush")
+    if serving.stats["launches"] != sync_stats["launches"] \
+            or async_bytes != sync_bytes \
+            or eng.server.last_report != sync.last_report:
+        raise SystemExit("async: the drain's launches or bytes differ from "
+                         "the synchronous flush's")
+
+    # the Poisson soak: the JAX package's soak driver and settings,
+    # copied (tests/torch_chaos.py), its counters exactly the reference's
+    serving.reset_stats()
+    _build.reset_launch_counts()
+    soak = torch_chaos.drive_soak(torch_chaos.SOAK_ARRIVALS, device=device)
+    counts = _build.launch_counts()
+    got = {k: soak[k] for k in torch_chaos.SOAK}
+    if got != torch_chaos.SOAK:
+        diff = {k: (got[k], v) for k, v in torch_chaos.SOAK.items()
+                if got[k] != v}
+        raise SystemExit(f"async: the Poisson soak's counters differ from "
+                         f"the reference's (got, want): {diff}")
+    require_clean(serving.stats, "async")
+    pool = workload.mixed_lane_workload(torch_chaos.SOAK_SEED,
+                                        torch_chaos.SOAK_POOL,
+                                        max_points=torch_chaos.SOAK_MAX_POINTS)
+    require_launched(counts, kinds_launched(pool), "async")
+    return counts, {
+        "phase": "async", "drain_bitwise_vs_sync": True,
+        "drain_launches": sync_stats["launches"],
+        "drain_bytes": opcount.total_bytes(async_bytes),
+        "soak": got, "soak_equals_reference": True,
+        "host_s": soak["wall_s"],
+        "host_us_per_arrival": soak["wall_s"] / soak["requests"] * 1e6}
 
 
 # -- the paper's primitives ------------------------------------------------------
@@ -2053,6 +2328,19 @@ def main() -> int:
           "sequential_kernels_ms": seq_ms, "fused_kernel_ms": fused["ms"],
           "kernel_time_ratio": seq_ms / fused["ms"]})
 
+    # the recovery ladder and the async front end, after every timed
+    # phase: after the chaos soak (with or without faults) the process's
+    # flushes unpack 3-5x slower, their result arrays landing on freshly
+    # faulted host pages (PERF.md section 7), which must not reach the
+    # timings above
+    soak_counts, summary = chaos_soak_phase()
+    emit(summary)
+    chaos_counts, summary = chaos_mixed_phase()
+    emit(summary)
+    emit(traced_flush_phase())
+    async_counts, summary = async_phase()
+    emit(summary)
+
     kernels = []
     for name, (source, replaces, kind) in KERNELS.items():
         r = rows[name]
@@ -2070,6 +2358,9 @@ def main() -> int:
                         "launches_graphics": graphics_counts[name],
                         "launches_primitives": eager_counts[name],
                         "launches_hymba": hymba_counts[name],
+                        "launches_chaos_soak": soak_counts[name],
+                        "launches_chaos_mixed": chaos_counts[name],
+                        "launches_async": async_counts[name],
                         "shape": r["shape"], "dtype": r.get("dtype", "float32"),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

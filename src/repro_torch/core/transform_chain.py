@@ -55,6 +55,7 @@ from repro_torch.kernels import chain_diag as _k_chain_diag
 from repro_torch.kernels import chain_diag_q as _k_chain_diag_q
 from repro_torch.kernels import chain_project as _k_chain_project
 from repro_torch.kernels import dispatch, opcount
+from repro_torch.obs import trace as obst
 
 # primitive kinds: T translate, S scale, R rotate, A affine(s, t), M matrix,
 # P projective (full homogeneous matrix), C cull (axis-aligned bounds)
@@ -67,7 +68,9 @@ _AXES = {"x": 0, "y": 1, "z": 2}
 #:   hits     -- plans served from the cache
 #:   traces   -- kept for parity with the JAX package, where it counts jit
 #:               traces of a plan body; eager PyTorch has no trace step,
-#:               so it stays 0
+#:               so it stays 0, and no ``plan.trace`` instant is emitted
+#: with a tracer installed (``obs.trace``), each compile and hit is also a
+#: ``plan.compile`` / ``plan.hit`` instant, as in the JAX package
 stats = {"compiles": 0, "hits": 0, "traces": 0}
 
 _PLAN_CACHE: dict[tuple, "Plan"] = {}
@@ -387,12 +390,19 @@ def _get_plan(structure: tuple, backend: str,
               qname: str | None = None) -> Plan:
     key = (structure, backend, qname)
     plan = _PLAN_CACHE.get(key)
+    trc = obst.active()
     if plan is None:
         stats["compiles"] += 1
+        if trc.enabled:
+            trc.instant("plan.compile", cache="chain", backend=backend,
+                        q=qname, length=len(structure))
         plan = _PLAN_CACHE[key] = _compile_q(structure, backend, qname) \
             if qname is not None else _compile(structure, backend)
     else:
         stats["hits"] += 1
+        if trc.enabled:
+            trc.instant("plan.hit", cache="chain", backend=backend,
+                        q=qname, length=len(structure))
     return plan
 
 

@@ -32,6 +32,12 @@ import contextlib
 import torch
 
 BACKENDS = ("cuda", "ref")
+#: the serving engine's degradation ladder, fastest substrate first: a
+#: launch that keeps failing on the hand-written kernel (``cuda``) by
+#: injected faults falls to the plain version on the same device
+#: (``ref``).  Both compute the same function, so degrading trades
+#: speed, never results; a kernel that fails on its own never falls.
+FALLBACK_ORDER = ("cuda", "ref")
 #: the backend every op takes when its call names none (None: by device)
 _BACKEND: str | None = None
 
@@ -83,6 +89,17 @@ def backend_for(device: torch.device, backend: str | None = None) -> str:
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {device}")
     return backend
+
+
+def fallback_ladder(backend: str) -> tuple[str, ...]:
+    """The rungs a failing launch may degrade through, starting at (and
+    including) a server's resolved ``backend`` (``backend_for`` of its
+    device): ``("cuda", "ref")`` on a CUDA server, ``("ref",)`` on a CPU
+    one or a server that asked for the plain version."""
+    if backend not in FALLBACK_ORDER:
+        raise ValueError(f"backend must be one of {FALLBACK_ORDER}, "
+                         f"got {backend!r}")
+    return FALLBACK_ORDER[FALLBACK_ORDER.index(backend):]
 
 
 def param_tensor(v, shape: tuple, like: torch.Tensor) -> torch.Tensor:

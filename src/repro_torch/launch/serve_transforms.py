@@ -12,7 +12,9 @@ comparison against per-request dispatch:
 it the launcher needs a CUDA device and raises when there is none.  The
 default pool, ``--templates all``, is every ``TEMPLATES`` structure --
 affine and projective, the JAX launcher's mix; ``--templates affine`` keeps
-to the affine structures.
+to the affine structures.  ``--trace out.json`` serves the counted flush
+under a ``repro_torch.obs`` tracer and writes the span stream as
+Chrome-trace JSON -- open it in Perfetto (one track per plan bucket).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import argparse
 
 import torch
 
-from repro_torch import serving
+from repro_torch import obs, serving
 from repro_torch.serving import workload
 from repro_torch.serving.workload import timed as _timed
 
@@ -32,8 +34,10 @@ def run_workload(requests: int, *, device: str = "cuda",
                  backend: str | None = None, templates: str = "all",
                  waste_cap: float | None = None, max_points: int,
                  max_points_per_launch: int | None, seed: int,
-                 compare: bool = True) -> dict:
-    """Serve one workload; returns the timing/schedule summary dict."""
+                 compare: bool = True,
+                 trace_path: str | None = None) -> dict:
+    """Serve one workload; returns the timing/schedule summary dict.
+    ``trace_path`` traces the counted flush and writes Chrome JSON."""
     reqs = workload.random_workload(seed=seed, n_requests=requests,
                                     templates=TEMPLATE_POOLS[templates],
                                     max_points=max_points)
@@ -42,7 +46,14 @@ def run_workload(requests: int, *, device: str = "cuda",
                                  max_points_per_launch=max_points_per_launch)
     srv.serve(reqs)                              # warm: build kernels, plans
     srv.reset_stats()
-    srv.serve(reqs)                              # one counted flush
+    if trace_path is not None:
+        tracer = obs.Tracer()
+        with obs.installed(tracer):
+            srv.serve(reqs)                      # one counted, traced flush
+        obs.dump_chrome_trace(tracer, trace_path)
+        print(f"wrote {tracer.n_events} trace events to {trace_path}")
+    else:
+        srv.serve(reqs)                          # one counted flush
     stats = dict(serving.stats)
     batched_s = min(_timed(lambda: srv.serve(reqs)) for _ in range(3))
 
@@ -108,6 +119,9 @@ def main(argv=None) -> None:
                     help="skip the per-request dispatch baseline")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny workload; liveness check")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="trace the counted flush and write it as "
+                         "Chrome-trace JSON (open in Perfetto)")
     args = ap.parse_args(argv)
 
     res = run_workload(16 if args.smoke else args.requests,
@@ -115,7 +129,8 @@ def main(argv=None) -> None:
                        templates=args.templates, waste_cap=args.waste_cap,
                        max_points=128 if args.smoke else args.max_points,
                        max_points_per_launch=args.max_points_per_launch,
-                       seed=args.seed, compare=not args.no_compare)
+                       seed=args.seed, compare=not args.no_compare,
+                       trace_path=args.trace)
     print_summary(res)
 
 

@@ -138,7 +138,11 @@ def test_cuda_server_equals_cpu_server_bitwise(cuda_device):
 def test_cuda_server_resolves_non_finite_outputs_like_cpu(cuda_device):
     """``validate_outputs`` on the card: the request whose float32 output
     overflows to inf resolves to a ``LaunchError`` with its ticket, its
-    neighbours in the same launch equal the CPU server's, bit for bit."""
+    neighbours in the same launch equal the CPU server's, bit for bit.
+    A corruption on the kernel rung never degrades to the plain version:
+    the card's server retries and bisects on the kernel alone, with the
+    CPU server's counters, and its message names only the ``cuda`` rung
+    where the CPU server's names ``ref``."""
     from repro_torch import errors
     from repro_torch.core import transform_chain as tc
     chain = tc.TransformChain.identity(3).scale([1e30, 1.0, 1.0])
@@ -146,18 +150,26 @@ def test_cuda_server_resolves_non_finite_outputs_like_cpu(cuda_device):
     subs = [rng.standard_normal((64, 3)).astype(np.float32),
             np.full((64, 3), 1e10, np.float32),
             rng.standard_normal((50, 3)).astype(np.float32)]
-    outs = {}
+    outs, counters = {}, {}
     for dev in ("cpu", cuda_device):
         serving.reset_stats()
-        srv = serving.GeometryServer(device=dev)
+        srv = serving.GeometryServer(device=dev, fault_config=serving
+                                     .FaultConfig(backoff_base_s=0.0))
         outs[str(dev)] = srv.serve([(chain, p) for p in subs])
         assert serving.stats["failed_requests"] == 1
         assert sum(r.failed_requests for r in srv.last_report) == 1
+        counters[str(dev)] = {k: serving.stats[k] for k in (
+            "launches", "launch_failures", "retries", "backend_fallbacks",
+            "bisections", "recovered_requests", "failed_requests")}
+    assert counters["cpu"] == counters[str(cuda_device)]
+    assert counters["cpu"]["backend_fallbacks"] == 0
     cpu, gpu = outs["cpu"], outs[str(cuda_device)]
     for i, (c, g) in enumerate(zip(cpu, gpu, strict=True)):
         if i == 1:
             assert isinstance(g, errors.LaunchError) and g.ticket == 1
-            assert isinstance(c, errors.LaunchError) and str(c) == str(g)
+            assert isinstance(c, errors.LaunchError)
+            assert str(c).split(": ", 1)[1] == str(g).split(": ", 1)[1]
+            assert "('cuda',)" in str(g) and "('ref',)" in str(c)
         else:
             assert _same_bits(c, g)
 
@@ -1225,3 +1237,78 @@ def test_reduced_hymba_serves_on_card_through_the_kernels(cuda_device):
     assert np.array_equal(toks, ref_toks)
     for a, b in zip(trace["logits"], ref_trace["logits"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_chaos_soak_on_card_gives_the_two_rung_counters(cuda_device):
+    """The chaos soak on a CUDA server walks the card's two-rung ladder
+    (the kernels, then the plain versions on the card) and gives the JAX
+    package's two-rung counters exactly, every resolved result bitwise
+    equal to per-request ``apply``/``project``."""
+    import torch_chaos
+    rep = serving.run_chaos_soak(seed=torch_chaos.SEED,
+                                 n_requests=torch_chaos.N_REQUESTS,
+                                 device=cuda_device,
+                                 fault_config=serving.FaultConfig(
+                                     backoff_base_s=0.0))
+    assert rep.backend == "cuda"
+    assert rep.counters() == torch_chaos.TWO_RUNG
+
+
+def test_contained_exception_on_card_checks_the_device(cuda_device,
+                                                       monkeypatch):
+    """A launch that raises on a CUDA server (not injected) is contained
+    once ``torch.cuda.synchronize`` shows the device healthy: its request
+    resolves to a ``LaunchError`` after the kernel rung's attempts -- the
+    plain version on the card never stands in for a kernel that raised
+    -- and its neighbour serves bitwise equal to the CPU server."""
+    from repro_torch import errors
+    from repro_torch.core import transform_chain as tc
+    from repro_torch.serving import engine
+    bad = tc.TransformChain.identity(2).translate(0.5, -0.25)
+    good = tc.TransformChain.identity(3).translate(1.0, 2.0, 3.0)
+    calls = []
+
+    def boom(folded, pts3):
+        calls.append(pts3.device.type)
+        raise RuntimeError("kernel refused")
+    plan = engine.get_batch_plan(bad.structure, "cuda")
+    monkeypatch.setitem(engine._BATCH_PLANS, (bad.structure, "cuda", None),
+                        engine.BatchPlan(kind=plan.kind, dim=plan.dim,
+                                         backend="cuda", fn=boom))
+    synced = []
+    real_sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: (synced.append(1), real_sync(*a)))
+    rng = np.random.default_rng(56)
+    pts = rng.standard_normal((40, 3)).astype(np.float32)
+    serving.reset_stats()
+    srv = serving.GeometryServer(device=cuda_device, fault_config=serving
+                                 .FaultConfig(backoff_base_s=0.0))
+    out = srv.serve([(bad, rng.standard_normal((8, 2)).astype(np.float32)),
+                     (good, pts)])
+    assert isinstance(out[0], errors.LaunchError)
+    assert "('cuda',)" in str(out[0]) and "kernel refused" in str(out[0])
+    assert len(calls) == 3 and set(calls) == {"cuda"} and len(synced) >= 3
+    assert serving.stats["backend_fallbacks"] == 0
+    assert _same_bits(out[1], good.apply(pts, device="cpu").numpy())
+
+
+def test_async_drain_on_card_equals_the_sync_flush(cuda_device):
+    """A frozen-clock drain on the card launches exactly the synchronous
+    flush's buckets and returns its results bit for bit."""
+    reqs = workload.mixed_lane_workload(5, 48)
+    serving.reset_stats()
+    sync = serving.GeometryServer(device=cuda_device)
+    for c, p, q in reqs:
+        sync.submit(c, p, qformat=q)
+    want = sync.flush()
+    launches = serving.stats["launches"]
+    serving.reset_stats()
+    eng = serving.AsyncGeometryServer(device=cuda_device,
+                                      clock=serving.VirtualClock())
+    tickets = [eng.submit_async(c, p, qformat=q) for c, p, q in reqs]
+    eng.drain()
+    assert serving.stats["launches"] == launches
+    assert eng.server.last_report == sync.last_report
+    for t, w in zip(tickets, want):
+        assert _same_bits(np.asarray(t.result()), np.asarray(w))

@@ -69,7 +69,14 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.kernels.rmsnorm.rmsnorm",
                    "repro_torch.kernels.rope.rope",
                    "repro_torch.kernels.flash_attention.flash_attention",
-                   "repro_torch.kernels.ssd.ssd"):
+                   "repro_torch.kernels.ssd.ssd",
+                   "repro_torch.obs", "repro_torch.obs.metrics",
+                   "repro_torch.obs.trace", "repro_torch.obs.recorder",
+                   "repro_torch.obs.export", "repro_torch.obs.slo",
+                   "repro_torch.serving.clock",
+                   "repro_torch.serving.admission",
+                   "repro_torch.serving.async_engine",
+                   "repro_torch.serving.faults"):
         assert module in names.split(), module
 
 
@@ -137,6 +144,33 @@ print(cfg.param_count(), cfg.head_dim, ",".join(bad))
 """
 
 
+_SERVING_PROBE = r"""
+import sys
+from repro_torch.serving import faults
+from repro_torch.serving.async_engine import AsyncGeometryServer
+from repro_torch.serving.clock import VirtualClock
+from repro_torch import obs
+from repro_torch.obs import slo
+rep = faults.run_chaos_soak(seed=1, n_requests=16, device="cpu")
+eng = AsyncGeometryServer(device="cpu", clock=VirtualClock())
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(rep.lost, rep.backend, obs.Tracer.__module__, ",".join(bad))
+"""
+
+
+def test_fault_and_async_serving_load_no_jax_or_repro():
+    """The fault-tolerant and async serving layer and the obs package,
+    imported first in a fresh interpreter and run once, pull in neither
+    jax nor ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _SERVING_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["0", "ref", "repro_torch.obs.trace"]
+
+
 def test_model_stack_loads_no_jax_or_repro():
     """The model stack -- ``repro_torch.models``, ``.configs``,
     ``.launch.serve`` and the four kernel families -- imported first in a
@@ -164,6 +198,10 @@ def test_default_device_entry_points_raise_without_cuda():
     from repro_torch.launch import serve_transforms
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.GeometryServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.AsyncGeometryServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.run_chaos_soak(n_requests=4)
     chain = TransformChain.identity(2).translate(1.0, 2.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         chain.apply(np.ones((4, 2), np.float32))

@@ -534,11 +534,14 @@ def test_q_overflow_fallback_reroutes_and_requantises(reference_q_plans):
 @pytest.mark.parametrize("validate", [True, False])
 def test_non_finite_outputs_resolve_like_reference(validate):
     """A d = 3 chain scale([1e30, 1, 1]) over 64 points of 1e10 overflows
-    float32 to inf.  With ``validate_outputs`` (the default) the
-    reference's recovery ends with a ``LaunchError`` in that request's
-    slot and its finite neighbours in the same launch served; the port
-    resolves the same slots, tickets and message text, and counts the
-    failure.  Without it both return the infs."""
+    float32 to inf.  With ``validate_outputs`` (the default) the launch
+    raises ``CorruptionError`` and the recovery ladder (retries, then
+    bisection) ends with a ``LaunchError`` in that request's slot and its
+    finite neighbours in the same launch served; the port resolves the
+    same slots, tickets and message text, and its recovery counters
+    (launches, launch failures, retries, bisections, recovered and
+    failed requests) equal the reference's.  Without it both return the
+    infs in one launch."""
     chain = tc.TransformChain.identity(3).scale([1e30, 1.0, 1.0])
     jchain = jtc.TransformChain(chain.dim, chain.kinds, chain.params)
     rng = np.random.default_rng(54)
@@ -568,6 +571,17 @@ def test_non_finite_outputs_resolve_like_reference(validate):
         == jserving.stats["failed_requests"] == failed
     assert sum(r.failed_requests for r in srv.last_report) \
         == sum(r.failed_requests for r in jsrv.last_report) == failed
+    recovery = ("launches", "launch_failures", "retries", "bisections",
+                "recovered_requests", "failed_requests")
+    assert {k: serving.stats[k] for k in recovery} \
+        == {k: jserving.stats[k] for k in recovery}
+    # 3 attempts of the bucket, bisect: [0] in 1, [1, 2] in 3, bisect:
+    # [1] in 3 (then its LaunchError), [2] in 1
+    assert serving.stats["launches"] == (3 + 1 + 3 + 3 + 1 if validate else 1)
+    assert [(r.launches, r.retries, r.bisections, r.recovered_requests)
+            for r in srv.last_report] == \
+        [(r.launches, r.retries, r.bisections, r.recovered_requests)
+         for r in jsrv.last_report]
 
 
 def test_q_intake_matches_reference(reference_q_plans):

@@ -35,11 +35,11 @@ and power limit from ``nvidia-smi``.
 """
 from __future__ import annotations
 
-import argparse
-import json
 import os
 import subprocess
 import sys
+
+from torch_turns import ab_main, pair
 
 REPS = 25
 SPIN_CYCLES = 2_000_000
@@ -64,7 +64,7 @@ PROJECT_BUCKETS = {"chain_project_batch_2d smallest": (1, 4096, 3),
                    "chain_project_batch_2d graphics": (64, 65536, 3)}
 
 
-def one(tree: str) -> dict:
+def one(tree: str, args) -> dict:
     sys.path.insert(0, os.path.join(tree, "src"))
     import numpy as np
     import torch
@@ -183,39 +183,17 @@ def one(tree: str) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--one", help="run one turn in this checkout")
-    args = ap.parse_args()
-    if args.one:
-        print(json.dumps(one(os.path.abspath(args.one))), flush=True)
-        return 0
-    if len(args.trees) != 2:
-        ap.error("give two checkouts, A and B")
-    a, b = (os.path.abspath(t) for t in args.trees)
+def summary(turns: list, args) -> dict:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    turns = []
-    for tree in (a, b, b, a):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree],
-                             capture_output=True, text=True, check=True)
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        turns.append(json.loads(line)["rows"])
-    summary = {}
-    for name in turns[0]:
-        ms = [t[name]["ms"] for t in turns]
-        summary[name] = {"order": ["A", "B", "B", "A"], "ms": ms,
-                         "copy_ms": [t[name]["copy_ms"] for t in turns],
-                         "A_ms": (ms[0] + ms[3]) / 2,
-                         "B_ms": (ms[1] + ms[2]) / 2}
-    print(json.dumps({"card": card, "rows": summary}), flush=True)
-    return 0
+    rows = {}
+    for name in turns[0]["rows"]:
+        rows[name] = {**pair([t["rows"][name]["ms"] for t in turns]),
+                      "copy_ms": [t["rows"][name]["copy_ms"] for t in turns]}
+    return {"card": card, "rows": rows}
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_main(__doc__, __file__, one, summary))

@@ -14,20 +14,20 @@ checkout, each serve's prefill ms (CUDA events, ``serve_batch``'s
 trace) and their median, the median decode step's ms over the 16 steps
 of every serve, and the flash kernel's launches in the last prefill.
 The last line is the four prefill medians in turn order and the mean of
-each checkout's two turns, and the same of the decode medians.
+each checkout's two turns, and the same of the decode medians
+(``tools/torch_turns.py`` runs the turns).
 """
 from __future__ import annotations
 
-import argparse
-import json
 import os
-import subprocess
 import sys
+
+from torch_turns import ab_main, pair
 
 BATCH, PROMPT, GEN = 4, 2048, 16
 
 
-def one(tree: str, reps: int) -> dict:
+def one(tree: str, args) -> dict:
     sys.path.insert(0, os.path.join(tree, "src"))
     import numpy as np
     import torch
@@ -47,7 +47,7 @@ def one(tree: str, reps: int) -> dict:
         0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
     serve_batch(cfg, params, prompts, gen_tokens=GEN, model=model)
     times, steps = [], []
-    for _ in range(reps):
+    for _ in range(args.reps):
         _build.reset_launch_counts()
         trace = {}
         serve_batch(cfg, params, prompts, gen_tokens=GEN, model=model,
@@ -61,37 +61,11 @@ def one(tree: str, reps: int) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--one", help="run one turn in this checkout")
-    ap.add_argument("--reps", type=int, default=5)
-    args = ap.parse_args()
-    if args.one:
-        print(json.dumps(one(os.path.abspath(args.one), args.reps)),
-              flush=True)
-        return 0
-    if len(args.trees) != 2:
-        ap.error("give two checkouts, A and B")
-    a, b = (os.path.abspath(t) for t in args.trees)
-    medians, decode = [], []
-    for tree in (a, b, b, a):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree, "--reps", str(args.reps)],
-                             capture_output=True, text=True, check=True)
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        medians.append(json.loads(line)["median_ms"])
-        decode.append(json.loads(line)["decode_ms_per_token"])
-    print(json.dumps({"order": ["A", "B", "B", "A"], "medians_ms": medians,
-                      "A_ms": (medians[0] + medians[3]) / 2,
-                      "B_ms": (medians[1] + medians[2]) / 2,
-                      "decode_medians_ms": decode,
-                      "A_decode_ms": (decode[0] + decode[3]) / 2,
-                      "B_decode_ms": (decode[1] + decode[2]) / 2}),
-          flush=True)
-    return 0
+def summary(turns: list, args) -> dict:
+    return {"prefill": pair([t["median_ms"] for t in turns]),
+            "decode": pair([t["decode_ms_per_token"] for t in turns])}
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_main(__doc__, __file__, one, summary,
+                     options={"--reps": dict(type=int, default=5)}))
