@@ -168,7 +168,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      or a composite (rotate-half RoPE; the bfloat16 masked-matmul SSD);
      every size a kernel was launched with in the hymba serve must be
      among the sizes these checks launched it with;
- 10. (run after phase 9, after every timed phase: the soak leaves the
+ 10. autotune (after every timed phase, before the chaos soak): (a)
+     every candidate of every tunable kernel launched once at the served
+     shapes -- the five single-chain kernels at 16 384 and 2**24 points,
+     d = 2 and 3; the batch kernels at the largest affine, mixed and q
+     buckets (PERF.md section 6 rows 2, 4, 6, 9, 10) and the graphics
+     bucket, both candidate spaces (waves; threads x waves) --
+     each output bitwise equal to the default config's; ``matmul_2d`` at
+     1024**3 and 4096**3 bfloat16, every (bn, stages) within
+     ``matmul_bound`` of the plain version and bitwise equal to the
+     default at the default's BN (whether another BN is bitwise too is
+     printed, not gated); ``rmsnorm_2d`` at (8192, 1600) bfloat16, every
+     feasible ``row_warps`` within ``rmsnorm_bound``, the kernel's own
+     count bitwise (another count sums the row in another order; printed,
+     not gated); (b) the tuners at those shapes (every feasible kernel
+     candidate timed: the model scores the chain candidates' tails alike)
+     and the serving grid on the mixed workload, each decision's default
+     ms, winner and winner ms printed, the winners saved to
+     TUNED_CACHE_PATH; (c) the mixed workload served with tuning enabled
+     and that cache installed, every result bitwise equal to the untuned
+     serve's and to per-request ``apply``/``project`` under tuning, its
+     launches, padded points and flush ms beside the default grid's, in
+     turns (default, tuned, tuned, default), ungated; (d) tuning
+     disabled, ``config_for`` gives ``DEFAULTS`` again; (e) with the
+     traced flush below: ``obs.Profile`` folds its span stream,
+     ``byte_ratio_exact`` and its launches equal to the server's;
+ 11. (run after phase 10, after every timed phase: the soak leaves the
      process's later flushes unpacking onto freshly faulted host pages)
      the serving layer's fault tolerance and async front end, each path
      with the launch counts zeroed just before it and read just after
@@ -187,7 +212,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      clean flush's (masks included), the failed tickets exactly the
      poison ones, both flush times printed;
      traced flush -- one mixed flush under an ``obs.Tracer`` beside an
-     untraced one, the Chrome trace written to TRACE_PATH (git-ignored);
+     untraced one, the Chrome trace written to TRACE_PATH (git-ignored),
+     its span stream folded by ``obs.Profile`` (phase 10 (e));
      async -- the mixed workload submitted under a frozen
      ``VirtualClock`` and drained, bitwise equal to one synchronous
      flush with equal launches and bytes; then the JAX package's
@@ -196,7 +222,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      tenants, a pool of 384 mixed-lane requests, 20 000 arrivals at
      150 000/s, token buckets that must fire), its counters exactly the
      reference's, nothing lost, with its host seconds;
- 11. the ``kernels`` line (launches from the mixed serve, for the int16
+ 12. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
@@ -225,11 +251,15 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import configs, graphics, obs, quantize, serving  # noqa: E402
+from repro_torch import autotune, configs, graphics, obs, quantize, serving  # noqa: E402
+from repro_torch.autotune import cache as tcache  # noqa: E402
+from repro_torch.autotune import costmodel, search  # noqa: E402
 from repro_torch.core import analysis  # noqa: E402
 from repro_torch.core import transform_engine as te  # noqa: E402
 from repro_torch.core.morphosys import intel, programs  # noqa: E402
 from repro_torch.kernels import _build, dispatch, opcount  # noqa: E402
+from repro_torch.kernels import matmul as matmul_op  # noqa: E402
+from repro_torch.kernels import rmsnorm as rmsnorm_op  # noqa: E402
 from repro_torch.kernels.affine import affine as diag_k  # noqa: E402
 from repro_torch.kernels.affine import ref as diag_ref  # noqa: E402
 from repro_torch.kernels.fixedpoint import fixedpoint as q_k  # noqa: E402
@@ -310,6 +340,18 @@ CHAOS_RATES = dict(flaky_rate=0.06, backend_rate=0.05, corrupt_rate=0.05,
 #: directory whose files a remote run brings back
 TRACE_PATH = os.path.join(ROOT, "chiprun_out",
                           "chip_smoke_mixed_trace.json")
+#: the winners of the autotune phase's search, in the git-ignored
+#: directory whose files a remote run brings back
+TUNED_CACHE_PATH = os.path.join(ROOT, "chiprun_out",
+                                "chip_smoke_tuned_cache.json")
+#: the autotune phase's shapes: the single-chain kernels at the served
+#: median request and the flat rows' 2**24 points; matmul_2d at the
+#: kernel_bench and the 4096**3 rows; rmsnorm_2d at hymba's prefill norm
+TUNE_FLAT_POINTS = (16384, N_FLAT)
+TUNE_MATMULS = ((1024, 1024, 1024), (4096, 4096, 4096))
+TUNE_RMSNORM = (8192, 1600)
+#: the kernel tuners' best-of count (CUDA-event windows a candidate)
+TUNE_ITERS = 10
 #: the kernels the hybrid serving path launches
 MODEL_PATH_KERNELS = ["rmsnorm_2d", "rope_3d", "flash_attention_3d",
                       "ssd_intra", "vecadd_2d"]
@@ -444,25 +486,19 @@ def sass_missing(counts: dict) -> list:
 
 def off_vector_buckets(reports, q_reports=()) -> list:
     """The served buckets whose rows a 16-byte batch kernel does not take,
-    by its C entry's rule on the padded length (the packed buffers are
-    fresh device allocations, so 16-byte aligned): ``chain_matrix_batch_2d``
-    for the float matrix buckets (L even at d = 2, a multiple of 4 at d =
-    3), ``chain_project_batch_2d`` for the projective ones (L a multiple
-    of 4), ``chain_diag_batch_2d_q`` and ``chain_matrix_batch_2d_q`` for
-    ``q_reports`` (rows of a multiple of 8 words)."""
+    by its C entry's rule on the padded length
+    (``costmodel.batch_takes_vectors``; the packed buffers are fresh
+    device allocations, so 16-byte aligned): the float matrix and
+    projective buckets, and the q ones of ``q_reports``."""
     q_ids = {id(r) for r in q_reports}
     bad = []
     for rep in reports:
         d = int(rep.structure[0])
-        if id(rep) in q_ids:
-            ok = rep.lpad * d % 8 == 0
-        elif rep.kind == "matrix":
-            ok = rep.lpad % (2 if d == 2 else 4) == 0
-        elif rep.kind == "projective":
-            ok = rep.lpad % 4 == 0
-        else:
+        q = id(rep) in q_ids
+        if rep.kind == "diag" and not q:
             continue
-        if not ok:
+        kind = rep.kind + ("_q" if q else "")
+        if not costmodel.batch_takes_vectors(kind, rep.lpad, d):
             bad.append((rep.kind, rep.requests, rep.lpad, d))
     return bad
 
@@ -1054,7 +1090,10 @@ def traced_flush_phase(device: str = "cuda") -> dict:
     """One mixed flush traced (``obs.Tracer`` on the monotonic clock)
     beside an untraced one, the trace written as Chrome JSON to
     TRACE_PATH; the span stream must count one ``launch`` instant a
-    launch and one ``request.resolve`` a request."""
+    launch and one ``request.resolve`` a request, and, folded by
+    ``obs.Profile`` (the autotune phase's check (e)), give as many
+    launches as the server counted, each launch's observed bytes exactly
+    the cost model's prediction."""
     reqs = workload.random_workload(
         seed=SEED, n_requests=1024, templates=workload.TEMPLATES,
         min_points=1024, max_points=262144)
@@ -1072,9 +1111,17 @@ def traced_flush_phase(device: str = "cuda") -> dict:
         raise SystemExit(f"traced flush: {tracer.count('launch')} launch "
                          f"instants for {serving.stats['launches']} "
                          f"launches")
+    prof = obs.Profile.from_tracer(tracer)
+    if not prof.byte_ratio_exact \
+            or prof.launches != serving.stats["launches"]:
+        raise SystemExit(f"traced flush: the profile folds "
+                         f"{prof.launches} launches for "
+                         f"{serving.stats['launches']}, byte ratio exact "
+                         f"{prof.byte_ratio_exact}")
     os.makedirs(os.path.dirname(TRACE_PATH), exist_ok=True)
     obs.dump_chrome_trace(tracer, TRACE_PATH)
     return {"phase": "traced flush", "events": tracer.n_events,
+            "profile": prof.counters(),
             "spans": tracer.n_spans, "untraced_flush_ms": plain_s * 1e3,
             "traced_flush_ms": traced_s * 1e3,
             "untraced_phases": plain_phases, "traced_phases": srv.last_timing,
@@ -1143,6 +1190,197 @@ def async_phase(device: str = "cuda") -> tuple[dict, dict]:
         "soak": got, "soak_equals_reference": True,
         "host_s": soak["wall_s"],
         "host_us_per_arrival": soak["wall_s"] / soak["requests"] * 1e6}
+
+
+# -- autotune -----------------------------------------------------------------------
+
+def _outs(r) -> tuple:
+    return r if isinstance(r, tuple) else (r,)
+
+
+def knob_checks(largest_affine: dict, largest: dict, largest_q: dict,
+                device: str = "cuda") -> tuple[list, dict]:
+    """Autotune (a): every candidate of every tunable kernel once at the
+    served shapes, held to the default config.  Returns (the chain
+    shapes as (kernel, shape), the summary)."""
+    dev = torch.device(device)
+    backend = dispatch.backend_for(dev)
+    single = [(k, (n, d)) for k in search._SINGLE
+              for n in TUNE_FLAT_POINTS for d in (2, 3)]
+    batch = [("chain_diag_batch", largest_affine["diag"]),
+             ("chain_apply_batch", largest_affine["matrix"]),
+             ("chain_project_batch", largest["projective"]),
+             ("chain_project_batch", (FRAMES, FRAME_POINTS, 3)),
+             ("chain_diag_batch_q", largest_q["diag"]),
+             ("chain_apply_batch_q", largest_q["matrix"])]
+    launched = 0
+    for kernel, shape in single + batch:
+        run = search._chain_entry(kernel, backend, dev, shape,
+                                  "q8.7" if kernel.endswith("_q")
+                                  else "float32")
+        want = _outs(run(autotune.DEFAULTS[kernel]))
+        cands = search.chain_candidates(kernel) if kernel in search._SINGLE \
+            else search.chain_batch_candidates(kernel) \
+            + search.chain_batch_candidates(kernel, vectors=False)
+        for cfg in cands:
+            got = _outs(run(cfg))
+            if not all(same_bits(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"autotune: {kernel} {shape} under "
+                                 f"{cfg.describe()} != the default config")
+            launched += 1
+        del run, want
+    mm_rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for m, k, n in TUNE_MATMULS:
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+        want = matrix_ref.matmul(x, y)
+        bound = bounds.matmul_bound(x, y, want)
+        default = matmul_op(x, y)
+        own_bn = costmodel.matmul_bn(m, n)
+        for cfg in search.matmul_candidates():
+            got = matmul_op(x, y, config=cfg)
+            if not bool(((got.float() - want.float()).abs() <= bound).all()):
+                raise SystemExit(f"autotune: matmul_2d {(m, k, n)} under "
+                                 f"{cfg.describe()} outside matmul_bound")
+            same = same_bits(got, default)
+            if cfg.bn == own_bn and not same:
+                raise SystemExit(f"autotune: matmul_2d {(m, k, n)} under "
+                                 f"{cfg.describe()} != the default config "
+                                 f"at its own BN")
+            mm_rows.append({"shape": [m, k, n], "config": cfg.describe(),
+                            "bitwise_vs_default": same})
+            launched += 1
+    m, n = TUNE_RMSNORM
+    x = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.rand(n, generator=gen, device=dev) + 0.5
+    want = rms_ref.rmsnorm(x, g, 1e-6)
+    default = rmsnorm_op(x, g)
+    own = costmodel.rmsnorm_warps(m, n * 2 // 16)
+    rms_rows = []
+    for cfg in search.rmsnorm_candidates():
+        if not costmodel.rmsnorm_cost(m, n, cfg, itemsize=2).feasible:
+            continue
+        got = rmsnorm_op(x, g, config=cfg)
+        if not bool(((got.float() - want.float()).abs()
+                     <= bounds.rmsnorm_bound(want, n)).all()):
+            raise SystemExit(f"autotune: rmsnorm_2d under {cfg.describe()} "
+                             f"outside rmsnorm_bound")
+        same = same_bits(got, default)
+        if cfg.row_warps == own and not same:
+            raise SystemExit("autotune: rmsnorm_2d at its own row_warps != "
+                             "the default config")
+        rms_rows.append({"row_warps": cfg.row_warps,
+                         "bitwise_vs_default": same})
+        launched += 1
+    return single + batch, {
+        "launches": launched, "chain_shapes": len(single + batch),
+        "chain_bitwise_vs_default": True, "matmul_2d": mm_rows,
+        "rmsnorm_2d": rms_rows}
+
+
+def _decision(rep, shape) -> dict:
+    return {"kernel": rep.kernel, "dtype": rep.dtype, "shape": list(shape),
+            "default_ms": rep.default_seconds * 1e3,
+            "winner": rep.winner.describe(),
+            "winner_ms": rep.winner_seconds * 1e3, "trials": len(rep.trials)}
+
+
+def autotune_phase(largest_affine: dict, largest: dict, largest_q: dict,
+                   device: str = "cuda", n_requests: int = 1024,
+                   max_points: int = 262144) -> dict:
+    """The autotune phase (the module docstring's phase 10 (a)-(d)).
+    Leaves tuning disabled and the process's cache unset."""
+    t0 = time.perf_counter()
+    chain_shapes, checks = knob_checks(largest_affine, largest, largest_q,
+                                       device)
+    emit({"phase": "autotune (knobs)", **checks})
+
+    # (b) the tuners at those shapes and the serving grid
+    cache = autotune.TuningCache()
+    decisions = []
+    for kernel, shape in chain_shapes:
+        dtype = "q8.7" if kernel.endswith("_q") else "float32"
+        if kernel in search._SINGLE:
+            rep = search.tune_chain(kernel, n_points=shape[0], d=shape[1],
+                                    dtype=dtype, device=device, cache=cache,
+                                    keep=9, iters=TUNE_ITERS)
+        else:
+            bsz, lpad, d = shape
+            rep = search.tune_chain_batch(kernel, bsz=bsz, lpad=lpad, d=d,
+                                          dtype=dtype, device=device,
+                                          cache=cache, keep=9,
+                                          iters=TUNE_ITERS)
+        decisions.append(_decision(rep, shape))
+    for m, k, n in TUNE_MATMULS:
+        decisions.append(_decision(search.tune_matmul(
+            m=m, k=k, n=n, device=device, cache=cache, keep=6,
+            iters=TUNE_ITERS), (m, k, n)))
+    decisions.append(_decision(search.tune_rmsnorm(
+        m=TUNE_RMSNORM[0], n=TUNE_RMSNORM[1], dtype="bfloat16",
+        device=device, cache=cache, keep=6, iters=TUNE_ITERS), TUNE_RMSNORM))
+    reqs = workload.random_workload(
+        seed=SEED, n_requests=n_requests, templates=workload.TEMPLATES,
+        min_points=1024, max_points=max_points)
+    grid = search.tune_serving_grid(reqs, device=device, cache=cache)
+    decisions.append(_decision(grid, (len(reqs),)))
+    for row in decisions:
+        emit({"phase": "autotune (tune)", **row})
+    os.makedirs(os.path.dirname(TUNED_CACHE_PATH), exist_ok=True)
+    cache.save(TUNED_CACHE_PATH)
+
+    # (c) the mixed serve, untuned and tuned, in turns
+    untuned = serving.GeometryServer(device=device)
+    tuned = serving.GeometryServer(device=device)
+    runs = {}
+    for label in ("default", "tuned", "tuned", "default"):
+        srv = tuned if label == "tuned" else untuned
+        if label == "tuned":
+            tcache.set_cache(cache)
+        autotune.set_enabled(label == "tuned")
+        if label not in runs:
+            srv.serve(reqs)                          # warm once each
+        serving.reset_stats()
+        out = []
+        flush_s = timed_flush(srv, reqs, out)
+        require_clean(serving.stats, f"autotune ({label} serve)")
+        run = runs.setdefault(label, {
+            "out": out, "launches": serving.stats["launches"],
+            "padded_points": serving.stats["padded_points"],
+            "grid": [srv.min_len, srv.waste_cap, srv.grid_source],
+            "flush_ms": []})
+        run["flush_ms"].append(flush_s * 1e3)
+    autotune.set_enabled(True)
+    for i, ((chain, pts), got, want) in enumerate(
+            zip(reqs, runs["tuned"]["out"], runs["default"]["out"])):
+        x = torch.from_numpy(pts).to(device)
+        if chain.is_projective:
+            q, m = (t.cpu().numpy() for t in chain.project(x))
+            ok = bitwise_equal(got.mask, want.mask) \
+                and bitwise_equal(got.mask, m)
+        else:
+            q, ok = chain.apply(x).cpu().numpy(), True
+        if not (ok and bitwise_equal(got, want) and bitwise_equal(got, q)):
+            raise SystemExit(f"autotune: request {i} under tuning != the "
+                             f"untuned serve or per-request apply/project")
+
+    # (d) tuning disabled: the defaults again
+    autotune.set_enabled(False)
+    for kernel, cfg in autotune.DEFAULTS.items():
+        for n in (0, 16384, N_FLAT):
+            if tcache.config_for(kernel, dispatch.backend_for(
+                    torch.device(device)), "float32", n) is not cfg:
+                raise SystemExit(f"autotune: {kernel} is not its default "
+                                 f"with tuning disabled")
+    tcache.set_cache(None)
+    autotune.set_enabled(None)
+    return {"phase": "autotune (serve)", "requests": len(reqs),
+            **{f"{label}_{k}": run[k] for label, run in runs.items()
+               for k in ("launches", "padded_points", "grid", "flush_ms")},
+            "bitwise_vs_untuned": True, "bitwise_vs_per_request": True,
+            "defaults_when_disabled": True, "cache": os.path.relpath(
+                TUNED_CACHE_PATH, ROOT),
+            "seconds": time.perf_counter() - t0}
 
 
 # -- the paper's primitives ------------------------------------------------------
@@ -2327,6 +2565,10 @@ def main() -> int:
     emit({"phase": "primitives (kernels alone)", "points": CLOUD_POINTS,
           "sequential_kernels_ms": seq_ms, "fused_kernel_ms": fused["ms"],
           "kernel_time_ratio": seq_ms / fused["ms"]})
+
+    # the launch knobs and the tuners, after every timed phase and
+    # before the soak (which slows the flushes after it)
+    emit(autotune_phase(largest_affine, largest, largest_q))
 
     # the recovery ladder and the async front end, after every timed
     # phase: after the chaos soak (with or without faults) the process's

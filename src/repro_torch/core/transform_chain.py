@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert, errors, quantize
+from repro_torch.autotune import cache as tuning
 from repro_torch.kernels import chain_apply as _k_chain_apply
 from repro_torch.kernels import chain_apply_q as _k_chain_apply_q
 from repro_torch.kernels import chain_diag as _k_chain_diag
@@ -344,9 +345,10 @@ class Plan:
 
 def _compile_q(structure: tuple, backend: str, qname: str) -> Plan:
     """A fixed-point plan: one fused int16 ``chain_*_q`` kernel with the
-    format's fraction count as the requantising shift.  Only affine
-    structures get here -- ``TransformChain`` rejects projective + dtype
-    before the lookup."""
+    format's fraction count as the requantising shift, its launch knobs
+    looked up as the float plans' are (cached under the format's name).
+    Only affine structures get here -- ``TransformChain`` rejects
+    projective + dtype before the lookup."""
     dim, _ = structure
     kind = plan_kind_of(structure)
     fmt = quantize.as_qformat(qname)
@@ -354,15 +356,30 @@ def _compile_q(structure: tuple, backend: str, qname: str) -> Plan:
         def fn(folded_q, pts2):
             """Q-format diagonal scale+translate over (N, dim)."""
             s, t = folded_q
-            return _k_chain_diag_q(pts2, s, t, n_frac=fmt.n, backend=backend)
+            cfg = tuning.config_for("chain_diag_q", backend, fmt.name,
+                                    pts2.shape[0])
+            return _k_chain_diag_q(pts2, s, t, n_frac=fmt.n, backend=backend,
+                                   config=cfg)
     else:
         def fn(folded_q, pts2):
             """Q-format fused matmul+translate over (N, dim)."""
             a, t = folded_q
+            cfg = tuning.config_for("chain_apply_q", backend, fmt.name,
+                                    pts2.shape[0])
             return _k_chain_apply_q(pts2, a, t, n_frac=fmt.n,
-                                    backend=backend)
+                                    backend=backend, config=cfg)
     return Plan(kind=kind, dim=dim, backend=backend, fn=fn,
                 qformat=fmt.name)
+
+
+def _config(kernel: str, backend: str, pts2: torch.Tensor):
+    """The launch knobs of a plan's kernel at these points: the tuning
+    cache's winner for their size class when autotuning is enabled, else
+    the defaults (the JAX package looks them up at trace time, the port
+    at every call).  Knobs steer the grid only: every config gives the
+    same bits."""
+    return tuning.config_for(kernel, backend, tuning.dtype_name(pts2.dtype),
+                             pts2.shape[0])
 
 
 def _compile(structure: tuple, backend: str) -> Plan:
@@ -372,17 +389,22 @@ def _compile(structure: tuple, backend: str) -> Plan:
         def fn(folded, pts2):
             """Diagonal scale+translate over (N, dim)."""
             s, t = folded
-            return _k_chain_diag(pts2, s, t, backend=backend)
+            return _k_chain_diag(pts2, s, t, backend=backend,
+                                 config=_config("chain_diag", backend, pts2))
     elif kind == "matrix":
         def fn(folded, pts2):
             """Fused matmul+translate over (N, dim)."""
             a, t = folded
-            return _k_chain_apply(pts2, a, t, backend=backend)
+            return _k_chain_apply(pts2, a, t, backend=backend,
+                                  config=_config("chain_apply", backend,
+                                                 pts2))
     else:
         def fn(folded, pts2):
             """Homography apply + perspective divide + cull over (N, dim)."""
             h, lo, hi = folded
-            return _k_chain_project(pts2, h, lo, hi, backend=backend)
+            return _k_chain_project(pts2, h, lo, hi, backend=backend,
+                                    config=_config("chain_project", backend,
+                                                   pts2))
     return Plan(kind=kind, dim=dim, backend=backend, fn=fn)
 
 

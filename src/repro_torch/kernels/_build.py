@@ -211,6 +211,24 @@ def check_dense(*tensors: torch.Tensor) -> int:
     return DENSE_DTYPES[first.dtype]
 
 
+def chain_knobs(block_threads: int | None = None,
+                waves: int | None = None) -> tuple[int, int]:
+    """The chain kernels' launch knobs as the two int64 sizes their C
+    entries take (``csrc/launch.cuh``), 0 for the kernel's own choice:
+    the scalar kernels' threads a block and the grid's cap in waves of
+    resident blocks.  Raises ``ValueError`` for a knob no launch takes
+    (a block that is no multiple of 32 from 32 to 1024, fewer than one
+    wave); nothing is quietly replaced by the default."""
+    bt = block_threads or 0
+    w = waves or 0
+    if bt and not (32 <= bt <= 1024 and bt % 32 == 0):
+        raise ValueError(f"block_threads must be a multiple of 32 from 32 "
+                         f"to 1024, got {block_threads}")
+    if w and not 1 <= w <= 1024:
+        raise ValueError(f"waves must be from 1 to 1024, got {waves}")
+    return int(bt), int(w)
+
+
 def f32_bits(v: float) -> int:
     """A float as the int64 the C entry takes for it: its float32 bits
     (the C side reads them back with ``repro::f32_from_bits``)."""

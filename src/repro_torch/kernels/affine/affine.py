@@ -7,26 +7,31 @@ wrapper checks its tensors (CUDA, contiguous, matching shapes; float32
 for the chain kernels with d in {2, 3}, float32 or bfloat16 for the
 eager ones), allocates the output, launches on the current stream and
 counts the launch.  An empty input launches nothing.  No wrapper falls
-back to the plain version: a CPU tensor raises.
+back to the plain version: a CPU tensor raises.  The chain wrappers take
+the launch knobs ``block_threads`` and ``waves`` (``_build.chain_knobs``;
+None or 0 for the kernel's own choice), which move no bit of a result.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_dense, check_operands
+from repro_torch.kernels._build import (CudaKernel, chain_knobs, check_dense,
+                                        check_operands)
 
-_DIAG_1D = CudaKernel("chain_diag", "chain_diag_1d", n_ptrs=4, n_sizes=2)
+_DIAG_1D = CudaKernel("chain_diag", "chain_diag_1d", n_ptrs=4, n_sizes=4)
 _DIAG_BATCH = CudaKernel("chain_diag", "chain_diag_batch_2d", n_ptrs=4,
-                         n_sizes=3)
+                         n_sizes=5)
 _AFFINE_2D = CudaKernel("affine_2d", "affine_2d", n_ptrs=4, n_sizes=3)
 _VECADD_2D = CudaKernel("affine_2d", "vecadd_2d", n_ptrs=3, n_sizes=2)
 
 
 def chain_diag_1d(flat: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
-                  *, d: int) -> torch.Tensor:
+                  *, d: int, block_threads: int | None = None,
+                  waves: int | None = None) -> torch.Tensor:
     """y = s[c] * x[j] + t[c], c = j mod d, over the flat (N*d,) buffer of
     an (N, d) point array; ``s``/``t`` are (d,)."""
     check_operands(flat, s, t, d=d)
+    knobs = chain_knobs(block_threads, waves)
     if flat.dim() != 1 or flat.numel() % d or s.shape != (d,) or t.shape != (d,):
         raise ValueError(f"chain_diag_1d wants flat (N*{d},), s and t "
                          f"({d},); got {tuple(flat.shape)}, "
@@ -34,12 +39,13 @@ def chain_diag_1d(flat: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
     out = torch.empty_like(flat)
     if flat.numel():
         _DIAG_1D(flat.device, out.data_ptr(), flat.data_ptr(), s.data_ptr(),
-                 t.data_ptr(), flat.numel(), d)
+                 t.data_ptr(), flat.numel(), d, *knobs)
     return out
 
 
 def chain_diag_batch_2d(pts3: torch.Tensor, s: torch.Tensor,
-                        t: torch.Tensor) -> torch.Tensor:
+                        t: torch.Tensor, *, block_threads: int | None = None,
+                        waves: int | None = None) -> torch.Tensor:
     """q[b] = s[b] (.) p[b] + t[b] for a packed (B, L, d) batch and
     (B, d) per-request parameters: one launch for the whole batch (the
     16-byte kernel where a row of L*d floats is a multiple of 4 and the
@@ -49,13 +55,14 @@ def chain_diag_batch_2d(pts3: torch.Tensor, s: torch.Tensor,
                          f"{tuple(pts3.shape)}")
     bsz, length, d = pts3.shape
     check_operands(pts3, s, t, d=d)
+    knobs = chain_knobs(block_threads, waves)
     if s.shape != (bsz, d) or t.shape != (bsz, d):
         raise ValueError(f"s and t must be ({bsz}, {d}); got "
                          f"{tuple(s.shape)}, {tuple(t.shape)}")
     out = torch.empty_like(pts3)
     if pts3.numel():
         _DIAG_BATCH(pts3.device, out.data_ptr(), pts3.data_ptr(),
-                    s.data_ptr(), t.data_ptr(), bsz, length, d)
+                    s.data_ptr(), t.data_ptr(), bsz, length, d, *knobs)
     return out
 
 

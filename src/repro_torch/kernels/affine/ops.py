@@ -8,12 +8,15 @@ primitives take inputs of any rank, flattened to (M, N) with N the
 trailing dim, and scalar or (N,) row parameters; each records its HBM
 bytes through ``opcount`` with the JAX package's formulas, so sequential
 and fused byte counts compare.  Chain-level byte accounting happens in
-``TransformChain.apply`` and in the serving engine.
+``TransformChain.apply`` and in the serving engine.  The chain ops take
+``config`` (an ``autotune.KernelConfig``): its launch knobs steer the
+kernel's grid, never its arithmetic, and the plain version ignores them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.autotune.cache import KernelConfig
 from repro_torch.kernels import dispatch, opcount
 from repro_torch.kernels.affine import affine as K
 from repro_torch.kernels.affine import ref
@@ -65,34 +68,43 @@ def vecadd(x: torch.Tensor, z, *, backend: str | None = None) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
-def chain_diag(points: torch.Tensor, s, t, *,
-               backend: str | None = None) -> torch.Tensor:
+def chain_diag(points: torch.Tensor, s, t, *, backend: str | None = None,
+               config: KernelConfig | None = None) -> torch.Tensor:
     """Folded diagonal transform chain q = s (.) p + t in one fused pass.
 
     ``points`` is (..., d); ``s``/``t`` are scalars or (d,) per-coordinate
     parameters.  Lowered to the ``chain_diag_1d`` kernel over the flat
-    buffer: one read of the points, one write."""
+    buffer: one read of the points, one write.  ``config`` carries its
+    launch knobs (None: the kernel's own choice); every config gives the
+    same bits."""
     b = dispatch.backend_for(points.device, backend)
     d = points.shape[-1]
     s = dispatch.param_tensor(s, (d,), points)
     t = dispatch.param_tensor(t, (d,), points)
     if b == "ref":
         return ref.chain_diag(points, s, t)
-    out = K.chain_diag_1d(points.contiguous().reshape(-1), s, t, d=d)
+    cfg = config or KernelConfig("chain_diag")
+    out = K.chain_diag_1d(points.contiguous().reshape(-1), s, t, d=d,
+                          block_threads=cfg.block_threads, waves=cfg.waves)
     return out.reshape(points.shape)
 
 
 def chain_diag_batch(pts3: torch.Tensor, s, t, *,
-                     backend: str | None = None) -> torch.Tensor:
+                     backend: str | None = None,
+                     config: KernelConfig | None = None) -> torch.Tensor:
     """Batched folded diagonal chains: q[b] = s[b] (.) p[b] + t[b].
 
     ``pts3`` is a packed (B, L, d) batch -- one serving request per row,
     padded to a common length L; ``s``/``t`` are (B, d) per-request
-    folded parameters.  One launch serves the whole batch."""
+    folded parameters.  One launch serves the whole batch, its launch
+    knobs from ``config``."""
     b = dispatch.backend_for(pts3.device, backend)
     bsz, _, d = pts3.shape
     s = dispatch.param_tensor(s, (bsz, d), pts3)
     t = dispatch.param_tensor(t, (bsz, d), pts3)
     if b == "ref":
         return ref.chain_diag_batch(pts3, s, t)
-    return K.chain_diag_batch_2d(pts3.contiguous(), s, t)
+    cfg = config or KernelConfig("chain_diag_batch")
+    return K.chain_diag_batch_2d(pts3.contiguous(), s, t,
+                                 block_threads=cfg.block_threads,
+                                 waves=cfg.waves)

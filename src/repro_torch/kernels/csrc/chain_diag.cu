@@ -144,46 +144,71 @@ chain_diag_vec_kernel(float* __restrict__ y, const float* __restrict__ x,
 
 template <int D>
 void launch_diag_vec(float* y, const float* x, const float* s, const float* t,
-                     int64_t bsz, int64_t nv, cudaStream_t st) {
+                     int64_t bsz, int64_t nv, int64_t waves,
+                     cudaStream_t st) {
   static const int64_t resident =
       repro::resident_blocks(chain_diag_vec_kernel<D>, repro::kVecThreads);
   chain_diag_vec_kernel<D><<<
-      repro::row_grid(resident, bsz, nv, kUnroll * repro::kVecThreads),
+      repro::row_grid(resident, bsz, nv, kUnroll * repro::kVecThreads, waves),
       repro::kVecThreads, 0, st>>>(y, x, s, t, bsz,
                                    static_cast<uint32_t>(nv));
+}
+
+template <int D>
+void launch_diag_1d(float* y, const float* x, const float* s, const float* t,
+                    int64_t n, int threads, int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_diag_1d_kernel<D>);
+  chain_diag_1d_kernel<D><<<res.grid(n, 1, threads, waves), threads, 0, st>>>(
+      y, x, s, t, n);
+}
+
+template <int D>
+void launch_diag_batch(float* y, const float* x, const float* s,
+                       const float* t, int64_t bsz, int64_t row, int threads,
+                       int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_diag_batch_kernel<D>);
+  chain_diag_batch_kernel<D><<<res.grid(row, bsz, threads, waves), threads, 0,
+                               st>>>(y, x, s, t, bsz, row);
 }
 
 }  // namespace
 
 extern "C" {
 
-// flat: (N*d,) points; s, t: (d,).  Returns cudaGetLastError().
+// flat: (N*d,) points; s, t: (d,); threads, waves: the launch knobs
+// (launch.cuh, 0 for the kernel's own choice).  Returns cudaGetLastError().
 int chain_diag_1d(void* y, const void* x, const void* s, const void* t,
-                  int64_t n, int64_t d, void* stream) {
+                  int64_t n, int64_t d, int64_t threads, int64_t waves,
+                  void* stream) {
+  if (!repro::knobs_ok(threads, waves) || (d != 2 && d != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
-  const unsigned grid = repro::blocks_for(n, repro::kMaxBlocksX);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
   auto* xi = static_cast<const float*>(x);
   auto* si = static_cast<const float*>(s);
   auto* ti = static_cast<const float*>(t);
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_diag_1d_kernel<2><<<grid, repro::kThreads, 0, st>>>(yo, xi, si, ti, n);
-  } else if (d == 3) {
-    chain_diag_1d_kernel<3><<<grid, repro::kThreads, 0, st>>>(yo, xi, si, ti, n);
+    launch_diag_1d<2>(yo, xi, si, ti, n, bt, waves, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_diag_1d<3>(yo, xi, si, ti, n, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (B, L, d); s, t: (B, d).  A row of L*d floats that is a multiple
-// of 4 on 16-byte-aligned x and y takes the vector kernel, any other
-// launch the scalar one.  Returns cudaGetLastError().
+// of 4 on 16-byte-aligned x and y takes the vector kernel (which reads
+// `waves` only), any other launch the scalar one.  Returns
+// cudaGetLastError().
 int chain_diag_batch_2d(void* y, const void* x, const void* s, const void* t,
-                        int64_t bsz, int64_t len, int64_t d, void* stream) {
+                        int64_t bsz, int64_t len, int64_t d, int64_t threads,
+                        int64_t waves, void* stream) {
+  if (!repro::knobs_ok(threads, waves) || (d != 2 && d != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bsz == 0 || len == 0) return 0;
-  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t row = len * d;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
@@ -193,20 +218,17 @@ int chain_diag_batch_2d(void* y, const void* x, const void* s, const void* t,
   if (row % 4 == 0 && row / 4 < (int64_t{1} << 31) &&
       repro::aligned16(y, x)) {
     if (d == 2) {
-      launch_diag_vec<2>(yo, xi, si, ti, bsz, row / 4, st);
+      launch_diag_vec<2>(yo, xi, si, ti, bsz, row / 4, waves, st);
     } else {
-      launch_diag_vec<3>(yo, xi, si, ti, bsz, row / 4, st);
+      launch_diag_vec<3>(yo, xi, si, ti, bsz, row / 4, waves, st);
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(repro::blocks_for(row, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_diag_batch_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, si, ti, bsz, row);
+    launch_diag_batch<2>(yo, xi, si, ti, bsz, row, bt, waves, st);
   } else {
-    chain_diag_batch_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, si, ti, bsz, row);
+    launch_diag_batch<3>(yo, xi, si, ti, bsz, row, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -349,11 +349,11 @@ chain_matrix_batch_q_vec_kernel(uint16_t* __restrict__ y,
 template <int D>
 void launch_matrix_q_vec(uint16_t* y, const int16_t* x, const int16_t* a,
                          const int16_t* t, int64_t bsz, int64_t ng, int n,
-                         cudaStream_t st) {
+                         int64_t waves, cudaStream_t st) {
   static const int64_t resident = repro::resident_blocks(
       chain_matrix_batch_q_vec_kernel<D>, kVecThreads);
   chain_matrix_batch_q_vec_kernel<D><<<
-      repro::row_grid(resident, bsz, ng, kUnroll<D> * kVecThreads),
+      repro::row_grid(resident, bsz, ng, kUnroll<D> * kVecThreads, waves),
       kVecThreads, 0, st>>>(y, x, a, t, bsz, static_cast<uint32_t>(ng), n);
 }
 
@@ -448,53 +448,97 @@ chain_diag_batch_q_vec_kernel(uint16_t* __restrict__ y,
 template <int D>
 void launch_diag_q_vec(uint16_t* y, const int16_t* x, const int16_t* s,
                        const int16_t* t, int64_t bsz, int64_t nv, int n,
-                       cudaStream_t st) {
+                       int64_t waves, cudaStream_t st) {
   static const int64_t resident = repro::resident_blocks(
       chain_diag_batch_q_vec_kernel<D>, kVecThreads);
   chain_diag_batch_q_vec_kernel<D><<<
-      repro::row_grid(resident, bsz, nv, kDiagUnroll * kVecThreads),
+      repro::row_grid(resident, bsz, nv, kDiagUnroll * kVecThreads, waves),
       kVecThreads, 0, st>>>(y, x, s, t, bsz, static_cast<uint32_t>(nv), n);
 }
 
-bool bad_frac(int64_t n_frac) { return n_frac < 0 || n_frac > 15; }
+// The scalar kernels' launches over their Residency (launch.cuh's knobs).
+template <int D>
+void launch_diag_1d_q(uint16_t* y, const int16_t* x, const int16_t* s,
+                      const int16_t* t, int64_t n_elems, int n, int threads,
+                      int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_diag_1d_q_kernel<D>);
+  chain_diag_1d_q_kernel<D><<<res.grid(n_elems, 1, threads, waves), threads,
+                              0, st>>>(y, x, s, t, n_elems, n);
+}
+
+template <int D>
+void launch_diag_batch_q(uint16_t* y, const int16_t* x, const int16_t* s,
+                         const int16_t* t, int64_t bsz, int64_t row, int n,
+                         int threads, int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_diag_batch_q_kernel<D>);
+  chain_diag_batch_q_kernel<D><<<res.grid(row, bsz, threads, waves), threads,
+                                 0, st>>>(y, x, s, t, bsz, row, n);
+}
+
+template <int D>
+void launch_matrix_1d_q(uint16_t* y, const int16_t* x, const int16_t* a,
+                        const int16_t* t, int64_t n_points, int n,
+                        int threads, int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_matrix_1d_q_kernel<D>);
+  chain_matrix_1d_q_kernel<D><<<res.grid(n_points, 1, threads, waves),
+                                threads, 0, st>>>(y, x, a, t, n_points, n);
+}
+
+template <int D>
+void launch_matrix_batch_q(uint16_t* y, const int16_t* x, const int16_t* a,
+                           const int16_t* t, int64_t bsz, int64_t len, int n,
+                           int threads, int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_matrix_batch_q_kernel<D>);
+  chain_matrix_batch_q_kernel<D><<<res.grid(len, bsz, threads, waves),
+                                   threads, 0, st>>>(y, x, a, t, bsz, len, n);
+}
+
+// A C entry's arguments it cannot take: a fraction count outside 0..15,
+// launch knobs launch.cuh refuses, d other than 2 or 3.
+bool bad_args(int64_t n_frac, int64_t d, int64_t threads, int64_t waves) {
+  return n_frac < 0 || n_frac > 15 || !repro::knobs_ok(threads, waves) ||
+         (d != 2 && d != 3);
+}
 
 }  // namespace
 
 extern "C" {
 
-// flat: (N*d,) int16 words; s, t: (d,).  Returns cudaGetLastError().
+// flat: (N*d,) int16 words; s, t: (d,); threads, waves: the launch knobs
+// (launch.cuh, 0 for the kernel's own choice).  Returns
+// cudaGetLastError().
 int chain_diag_1d_q(void* y, const void* x, const void* s, const void* t,
-                    int64_t n_elems, int64_t d, int64_t n_frac, void* stream) {
-  if (bad_frac(n_frac)) return static_cast<int>(cudaErrorInvalidValue);
+                    int64_t n_elems, int64_t d, int64_t n_frac,
+                    int64_t threads, int64_t waves, void* stream) {
+  if (bad_args(n_frac, d, threads, waves)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_elems == 0) return 0;
-  const unsigned grid = repro::blocks_for(n_elems, repro::kMaxBlocksX);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<uint16_t*>(y);
   auto* xi = static_cast<const int16_t*>(x);
   auto* si = static_cast<const int16_t*>(s);
   auto* ti = static_cast<const int16_t*>(t);
-  const int n = static_cast<int>(n_frac);
+  const int n = static_cast<int>(n_frac), bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_diag_1d_q_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, si, ti, n_elems, n);
-  } else if (d == 3) {
-    chain_diag_1d_q_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, si, ti, n_elems, n);
+    launch_diag_1d_q<2>(yo, xi, si, ti, n_elems, n, bt, waves, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_diag_1d_q<3>(yo, xi, si, ti, n_elems, n, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (B, L, d) int16 words; s, t: (B, d).  A row of L*d words that
-// is a multiple of 8 on 16-byte-aligned x and y takes the vector kernel,
-// any other launch the scalar one.  Returns cudaGetLastError().
+// is a multiple of 8 on 16-byte-aligned x and y takes the vector kernel
+// (which reads `waves` only), any other launch the scalar one.  Returns
+// cudaGetLastError().
 int chain_diag_batch_2d_q(void* y, const void* x, const void* s, const void* t,
                           int64_t bsz, int64_t len, int64_t d, int64_t n_frac,
-                          void* stream) {
-  if (bad_frac(n_frac)) return static_cast<int>(cudaErrorInvalidValue);
+                          int64_t threads, int64_t waves, void* stream) {
+  if (bad_args(n_frac, d, threads, waves)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bsz == 0 || len == 0) return 0;
-  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t row = len * d;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<uint16_t*>(y);
@@ -505,59 +549,56 @@ int chain_diag_batch_2d_q(void* y, const void* x, const void* s, const void* t,
   if (row % 8 == 0 && row / 8 < (int64_t{1} << 31) &&
       repro::aligned16(y, x)) {
     if (d == 2) {
-      launch_diag_q_vec<2>(yo, xi, si, ti, bsz, row / 8, n, st);
+      launch_diag_q_vec<2>(yo, xi, si, ti, bsz, row / 8, n, waves, st);
     } else {
-      launch_diag_q_vec<3>(yo, xi, si, ti, bsz, row / 8, n, st);
+      launch_diag_q_vec<3>(yo, xi, si, ti, bsz, row / 8, n, waves, st);
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(repro::blocks_for(row, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_diag_batch_q_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, si, ti, bsz, row, n);
+    launch_diag_batch_q<2>(yo, xi, si, ti, bsz, row, n, bt, waves, st);
   } else {
-    chain_diag_batch_q_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, si, ti, bsz, row, n);
+    launch_diag_batch_q<3>(yo, xi, si, ti, bsz, row, n, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// flat: (N*d,) int16 words; a: (d, d); t: (d,).  Returns cudaGetLastError().
+// flat: (N*d,) int16 words; a: (d, d); t: (d,); threads, waves: the
+// launch knobs.  Returns cudaGetLastError().
 int chain_matrix_1d_q(void* y, const void* x, const void* a, const void* t,
                       int64_t n_points, int64_t d, int64_t n_frac,
-                      void* stream) {
-  if (bad_frac(n_frac)) return static_cast<int>(cudaErrorInvalidValue);
+                      int64_t threads, int64_t waves, void* stream) {
+  if (bad_args(n_frac, d, threads, waves)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_points == 0) return 0;
-  const unsigned grid = repro::blocks_for(n_points, repro::kMaxBlocksX);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<uint16_t*>(y);
   auto* xi = static_cast<const int16_t*>(x);
   auto* ai = static_cast<const int16_t*>(a);
   auto* ti = static_cast<const int16_t*>(t);
-  const int n = static_cast<int>(n_frac);
+  const int n = static_cast<int>(n_frac), bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_matrix_1d_q_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, n_points, n);
-  } else if (d == 3) {
-    chain_matrix_1d_q_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, n_points, n);
+    launch_matrix_1d_q<2>(yo, xi, ai, ti, n_points, n, bt, waves, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_matrix_1d_q<3>(yo, xi, ai, ti, n_points, n, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (B, L, d) int16 words; a: (B, d, d); t: (B, d).  A row of L*d
 // words that is a multiple of 8 on 16-byte-aligned x and y takes the
-// vector kernel, any other launch the scalar one.  Returns
-// cudaGetLastError().
+// vector kernel (which reads `waves` only), any other launch the scalar
+// one.  Returns cudaGetLastError().
 int chain_matrix_batch_2d_q(void* y, const void* x, const void* a,
                             const void* t, int64_t bsz, int64_t len, int64_t d,
-                            int64_t n_frac, void* stream) {
-  if (bad_frac(n_frac)) return static_cast<int>(cudaErrorInvalidValue);
+                            int64_t n_frac, int64_t threads, int64_t waves,
+                            void* stream) {
+  if (bad_args(n_frac, d, threads, waves)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bsz == 0 || len == 0) return 0;
-  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<uint16_t*>(y);
   auto* xi = static_cast<const int16_t*>(x);
@@ -569,20 +610,17 @@ int chain_matrix_batch_2d_q(void* y, const void* x, const void* a,
       repro::aligned16(y, x)) {
     // d = 3: 3 L = 0 mod 8 makes L a multiple of 8, the row one of 24
     if (d == 2) {
-      launch_matrix_q_vec<2>(yo, xi, ai, ti, bsz, row / 8, n, st);
+      launch_matrix_q_vec<2>(yo, xi, ai, ti, bsz, row / 8, n, waves, st);
     } else {
-      launch_matrix_q_vec<3>(yo, xi, ai, ti, bsz, row / 24, n, st);
+      launch_matrix_q_vec<3>(yo, xi, ai, ti, bsz, row / 24, n, waves, st);
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_matrix_batch_q_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, bsz, len, n);
+    launch_matrix_batch_q<2>(yo, xi, ai, ti, bsz, len, n, bt, waves, st);
   } else {
-    chain_matrix_batch_q_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, bsz, len, n);
+    launch_matrix_batch_q<3>(yo, xi, ai, ti, bsz, len, n, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -163,50 +163,74 @@ chain_matrix_batch_vec_kernel(float* __restrict__ y,
 
 template <int D>
 void launch_matrix_vec(float* y, const float* x, const float* a,
-                       const float* t, int64_t bsz, int64_t ng,
+                       const float* t, int64_t bsz, int64_t ng, int64_t waves,
                        cudaStream_t st) {
   static const int64_t resident = repro::resident_blocks(
       chain_matrix_batch_vec_kernel<D>, repro::kVecThreads);
   chain_matrix_batch_vec_kernel<D><<<
-      repro::row_grid(resident, bsz, ng, kUnroll<D> * repro::kVecThreads),
+      repro::row_grid(resident, bsz, ng, kUnroll<D> * repro::kVecThreads,
+                      waves),
       repro::kVecThreads, 0, st>>>(y, x, a, t, bsz,
                                    static_cast<uint32_t>(ng));
+}
+
+template <int D>
+void launch_matrix_1d(float* y, const float* x, const float* a,
+                      const float* t, int64_t n_points, int threads,
+                      int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_matrix_1d_kernel<D>);
+  chain_matrix_1d_kernel<D><<<res.grid(n_points, 1, threads, waves), threads,
+                              0, st>>>(y, x, a, t, n_points);
+}
+
+template <int D>
+void launch_matrix_batch(float* y, const float* x, const float* a,
+                         const float* t, int64_t bsz, int64_t len,
+                         int threads, int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_matrix_batch_kernel<D>);
+  chain_matrix_batch_kernel<D><<<res.grid(len, bsz, threads, waves), threads,
+                                 0, st>>>(y, x, a, t, bsz, len);
 }
 
 }  // namespace
 
 extern "C" {
 
-// flat: (N*d,) points; a: (d, d); t: (d,).  Returns cudaGetLastError().
+// flat: (N*d,) points; a: (d, d); t: (d,); threads, waves: the launch
+// knobs (launch.cuh, 0 for the kernel's own choice).  Returns
+// cudaGetLastError().
 int chain_matrix_1d(void* y, const void* x, const void* a, const void* t,
-                    int64_t n_points, int64_t d, void* stream) {
+                    int64_t n_points, int64_t d, int64_t threads,
+                    int64_t waves, void* stream) {
+  if (!repro::knobs_ok(threads, waves) || (d != 2 && d != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_points == 0) return 0;
-  const unsigned grid = repro::blocks_for(n_points, repro::kMaxBlocksX);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
   auto* xi = static_cast<const float*>(x);
   auto* ai = static_cast<const float*>(a);
   auto* ti = static_cast<const float*>(t);
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_matrix_1d_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, n_points);
-  } else if (d == 3) {
-    chain_matrix_1d_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, n_points);
+    launch_matrix_1d<2>(yo, xi, ai, ti, n_points, bt, waves, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_matrix_1d<3>(yo, xi, ai, ti, n_points, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (B, L, d); a: (B, d, d); t: (B, d).  A row of whole groups (L
 // even at d = 2, a multiple of 4 at d = 3) on 16-byte-aligned x and y
-// takes the vector kernel, any other launch the scalar one.  Returns
-// cudaGetLastError().
+// takes the vector kernel (which reads `waves` only), any other launch
+// the scalar one.  Returns cudaGetLastError().
 int chain_matrix_batch_2d(void* y, const void* x, const void* a, const void* t,
-                          int64_t bsz, int64_t len, int64_t d, void* stream) {
+                          int64_t bsz, int64_t len, int64_t d,
+                          int64_t threads, int64_t waves, void* stream) {
+  if (!repro::knobs_ok(threads, waves) || (d != 2 && d != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bsz == 0 || len == 0) return 0;
-  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
   auto* xi = static_cast<const float*>(x);
@@ -216,20 +240,17 @@ int chain_matrix_batch_2d(void* y, const void* x, const void* a, const void* t,
   if (len % (d == 2 ? 2 : 4) == 0 && row / 4 < (int64_t{1} << 31) &&
       repro::aligned16(y, x)) {
     if (d == 2) {
-      launch_matrix_vec<2>(yo, xi, ai, ti, bsz, row / 4, st);
+      launch_matrix_vec<2>(yo, xi, ai, ti, bsz, row / 4, waves, st);
     } else {
-      launch_matrix_vec<3>(yo, xi, ai, ti, bsz, row / 12, st);
+      launch_matrix_vec<3>(yo, xi, ai, ti, bsz, row / 12, waves, st);
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_matrix_batch_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, bsz, len);
+    launch_matrix_batch<2>(yo, xi, ai, ti, bsz, len, bt, waves, st);
   } else {
-    chain_matrix_batch_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, xi, ai, ti, bsz, len);
+    launch_matrix_batch<3>(yo, xi, ai, ti, bsz, len, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -352,20 +352,34 @@ template <int D>
 void launch_project_batch_vec(float* y, unsigned char* mask, const float* x,
                               const float* h, const float* lo,
                               const float* hi, int64_t bsz, int64_t ng,
-                              cudaStream_t st) {
+                              int64_t waves, cudaStream_t st) {
   static const int64_t resident = repro::resident_blocks(
       chain_project_batch_vec_kernel<D>, repro::kVecThreads);
   chain_project_batch_vec_kernel<D><<<
       repro::row_grid(resident, bsz, ng,
-                      kBatchUnroll * repro::kVecThreads),
+                      kBatchUnroll * repro::kVecThreads, waves),
       repro::kVecThreads, 0, st>>>(y, mask, x, h, lo, hi, bsz,
                                    static_cast<uint32_t>(ng));
 }
 
 template <int D>
+void launch_project_batch(float* y, unsigned char* mask, const float* x,
+                          const float* h, const float* lo, const float* hi,
+                          int64_t bsz, int64_t len, int threads,
+                          int64_t waves, cudaStream_t st) {
+  static repro::Residency res(chain_project_batch_kernel<D>);
+  chain_project_batch_kernel<D><<<res.grid(len, bsz, threads, waves),
+                                  threads, 0, st>>>(y, mask, x, h, lo, hi,
+                                                    bsz, len);
+}
+
+// The 16-byte kernel's grid is capped at `waves` (one when 0) waves of
+// resident blocks; the scalar kernel's per launch.cuh's knobs.
+template <int D>
 void launch_project_1d(float* y, unsigned char* mask, const float* x,
                        const float* h, const float* lo, const float* hi,
-                       int64_t n_points, cudaStream_t st) {
+                       int64_t n_points, int threads, int64_t waves,
+                       cudaStream_t st) {
   const int64_t nq = n_points / 4;
   if (n_points >= kVecPoints && nq * D < (int64_t{1} << 31)
       && repro::aligned16(y, x)
@@ -373,29 +387,36 @@ void launch_project_1d(float* y, unsigned char* mask, const float* x,
     static const int64_t resident =
         repro::resident_blocks(chain_project_vec_kernel<D>, kVecThreads);
     int64_t grid = (nq + kUnroll * kVecThreads - 1) / (kUnroll * kVecThreads);
-    if (grid > resident) grid = resident;
+    const int64_t cap = (waves > 0 ? waves : 1) * resident;
+    if (grid > cap) grid = cap;
     chain_project_vec_kernel<D><<<static_cast<unsigned>(grid), kVecThreads,
                                   0, st>>>(
         y, mask, x, h, lo, hi, static_cast<uint32_t>(nq),
         static_cast<int>(n_points - 4 * nq));
     return;
   }
-  chain_project_1d_kernel<D><<<repro::blocks_for(n_points, repro::kMaxBlocksX),
-                               repro::kThreads, 0, st>>>(y, mask, x, h, lo,
-                                                         hi, n_points);
+  static repro::Residency res(chain_project_1d_kernel<D>);
+  chain_project_1d_kernel<D><<<res.grid(n_points, 1, threads, waves),
+                               threads, 0, st>>>(y, mask, x, h, lo, hi,
+                                                 n_points);
 }
 
 }  // namespace
 
 extern "C" {
 
-// flat: (N*d,) points; mask: (N,) bytes; h: (d+1, d+1); lo, hi: (d,).  N of
-// 2**19 or more on 16-byte-aligned x and y and a 4-byte-aligned mask takes
-// the 16-byte kernel, any other launch the scalar one.  Returns
-// cudaGetLastError().
+// flat: (N*d,) points; mask: (N,) bytes; h: (d+1, d+1); lo, hi: (d,);
+// threads, waves: the launch knobs (launch.cuh, 0 for the kernel's own
+// choice).  N of 2**19 or more on 16-byte-aligned x and y and a
+// 4-byte-aligned mask takes the 16-byte kernel (which reads `waves`
+// only), any other launch the scalar one.  Returns cudaGetLastError().
 int chain_project_1d(void* y, void* mask, const void* x, const void* h,
                      const void* lo, const void* hi, int64_t n_points,
-                     int64_t d, void* stream) {
+                     int64_t d, int64_t threads, int64_t waves,
+                     void* stream) {
+  if (!repro::knobs_ok(threads, waves) || (d != 2 && d != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_points == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
@@ -404,25 +425,27 @@ int chain_project_1d(void* y, void* mask, const void* x, const void* h,
   auto* hm = static_cast<const float*>(h);
   auto* l = static_cast<const float*>(lo);
   auto* u = static_cast<const float*>(hi);
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    launch_project_1d<2>(yo, mo, xi, hm, l, u, n_points, st);
-  } else if (d == 3) {
-    launch_project_1d<3>(yo, mo, xi, hm, l, u, n_points, st);
+    launch_project_1d<2>(yo, mo, xi, hm, l, u, n_points, bt, waves, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_project_1d<3>(yo, mo, xi, hm, l, u, n_points, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (B, L, d); mask: (B, L) bytes; h: (B, d+1, d+1); lo, hi: (B, d).
 // Rows of whole groups (L a multiple of 4) on 16-byte-aligned x and y
-// and a 4-byte-aligned mask take the vector kernel, any other launch the
-// scalar one.  Returns cudaGetLastError().
+// and a 4-byte-aligned mask take the vector kernel (which reads `waves`
+// only), any other launch the scalar one.  Returns cudaGetLastError().
 int chain_project_batch_2d(void* y, void* mask, const void* x, const void* h,
                            const void* lo, const void* hi, int64_t bsz,
-                           int64_t len, int64_t d, void* stream) {
+                           int64_t len, int64_t d, int64_t threads,
+                           int64_t waves, void* stream) {
+  if (!repro::knobs_ok(threads, waves) || (d != 2 && d != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (bsz == 0 || len == 0) return 0;
-  if (d != 2 && d != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yo = static_cast<float*>(y);
   auto* mo = static_cast<unsigned char*>(mask);
@@ -433,20 +456,19 @@ int chain_project_batch_2d(void* y, void* mask, const void* x, const void* h,
   if (len % 4 == 0 && len * d / 4 < (int64_t{1} << 31) &&
       repro::aligned16(y, x) && reinterpret_cast<uintptr_t>(mask) % 4 == 0) {
     if (d == 2) {
-      launch_project_batch_vec<2>(yo, mo, xi, hm, l, u, bsz, len / 4, st);
+      launch_project_batch_vec<2>(yo, mo, xi, hm, l, u, bsz, len / 4, waves,
+                                  st);
     } else {
-      launch_project_batch_vec<3>(yo, mo, xi, hm, l, u, bsz, len / 4, st);
+      launch_project_batch_vec<3>(yo, mo, xi, hm, l, u, bsz, len / 4, waves,
+                                  st);
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(repro::blocks_for(len, repro::kMaxBlocksX),
-                  repro::rows_for(bsz));
+  const int bt = repro::threads_of(threads);
   if (d == 2) {
-    chain_project_batch_kernel<2><<<grid, repro::kThreads, 0, st>>>(
-        yo, mo, xi, hm, l, u, bsz, len);
+    launch_project_batch<2>(yo, mo, xi, hm, l, u, bsz, len, bt, waves, st);
   } else {
-    chain_project_batch_kernel<3><<<grid, repro::kThreads, 0, st>>>(
-        yo, mo, xi, hm, l, u, bsz, len);
+    launch_project_batch<3>(yo, mo, xi, hm, l, u, bsz, len, bt, waves, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

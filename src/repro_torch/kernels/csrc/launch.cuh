@@ -24,8 +24,10 @@ constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocksX = 4096;
 constexpr int64_t kMaxBlocksY = 1024;
 
-inline unsigned blocks_for(int64_t work, int64_t cap) {
-  int64_t b = (work + kThreads - 1) / kThreads;
+// Blocks of `threads` threads for `work` items, one a thread, at most
+// `cap` (the grid-stride loops cover the rest).
+inline unsigned blocks_for(int64_t work, int64_t cap, int threads = kThreads) {
+  int64_t b = (work + threads - 1) / threads;
   if (b < 1) b = 1;
   return static_cast<unsigned>(b < cap ? b : cap);
 }
@@ -65,15 +67,76 @@ int64_t resident_blocks(Kernel kernel, int threads) {
 // The block of the 16-byte batch kernels.
 constexpr int kVecThreads = 128;
 
+// The launch knobs of the chain kernels' C entries (the port's
+// autotune/cache.py KernelConfig), each 0 for the launch the kernels
+// had before the knobs:
+//   threads -- the block of a scalar kernel (kThreads when 0): a multiple
+//              of 32 up to 1024.  A 16-byte kernel keeps kVecThreads,
+//              which sizes its shared staging.
+//   waves   -- the grid's cap in waves of the blocks the card holds at
+//              once (when 0: kMaxBlocksX blocks for a scalar kernel, one
+//              wave for a 16-byte one).
+// Only the grid and the block change; every element's arithmetic is the
+// same, so every knob gives the same bits.
+inline bool knobs_ok(int64_t threads, int64_t waves) {
+  return (threads == 0 || (threads >= 32 && threads <= 1024 &&
+                           threads % 32 == 0)) &&
+         waves >= 0 && waves <= 1024;
+}
+
+inline int threads_of(int64_t threads) {
+  return threads > 0 ? static_cast<int>(threads) : kThreads;
+}
+
+// A scalar kernel's resident blocks at each block size, asked of the
+// runtime once per size: a launch function keeps one in a static.
+class Residency {
+ public:
+  template <typename Kernel>
+  explicit Residency(Kernel kernel)
+      : fn_(reinterpret_cast<const void*>(kernel)) {}
+
+  int64_t blocks(int threads) {
+    int64_t& r = cache_[threads / 32];
+    if (r == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn_, threads, 0);
+      r = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    }
+    return r;
+  }
+
+  // The grid of the scalar kernel over bsz rows (y, striding past
+  // kMaxBlocksY; 1 for a flat buffer) of `work` items a row, one a
+  // thread (x): capped at kMaxBlocksX blocks, or, for waves > 0, so
+  // that the whole grid is `waves` waves of resident blocks.
+  dim3 grid(int64_t work, int64_t bsz, int threads, int64_t waves) {
+    const unsigned gy = rows_for(bsz);
+    int64_t cap = kMaxBlocksX;
+    if (waves > 0) {
+      cap = waves * blocks(threads) / gy;
+      if (cap < 1) cap = 1;
+    }
+    return dim3(blocks_for(work, cap, threads), gy);
+  }
+
+ private:
+  const void* fn_;
+  int64_t cache_[1024 / 32 + 1] = {};
+};
+
 // The grid of a 16-byte batch kernel over B requests of `units` each,
 // walked in chunks of `chunk`: x the chunks of a row, capped so that the
-// whole grid is one wave of `resident` blocks; y the requests, striding
-// over B past kMaxBlocksY.
+// whole grid is `waves` waves of `resident` blocks (one when 0); y the
+// requests, striding over B past kMaxBlocksY.
 inline dim3 row_grid(int64_t resident, int64_t bsz, int64_t units,
-                     int64_t chunk) {
+                     int64_t chunk, int64_t waves = 0) {
   const unsigned gy = rows_for(bsz);
   int64_t gx = (units + chunk - 1) / chunk;
-  const int64_t cap = resident / gy > 1 ? resident / gy : 1;
+  const int64_t all = (waves > 0 ? waves : 1) * resident;
+  const int64_t cap = all / gy > 1 ? all / gy : 1;
   if (gx > cap) gx = cap;
   return dim3(static_cast<unsigned>(gx), gy);
 }

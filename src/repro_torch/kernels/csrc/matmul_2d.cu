@@ -25,8 +25,10 @@
 //   2. bfloat16 inputs otherwise: a wgmma GEMM.  A block of two consumer
 //      warpgroups and one producer warp owns a 128 x BN output tile (BN =
 //      128, or 64 when 128-wide tiles would leave SMs idle: 1024^3 gives
-//      64 such tiles to 132 SMs, 128 of 128 x 64).  K advances in 64-deep
-//      panels (128 bytes of bfloat16) through a 4-stage shared-memory ring:
+//      64 such tiles to 132 SMs, 128 of 128 x 64); the C entry's `bn`
+//      knob picks 64 or 128 instead.  K advances in 64-deep panels (128
+//      bytes of bfloat16) through a shared-memory ring of 4 stages (the
+//      `stages` knob: 3, 4 or 6, each an instance of its own):
 //      the producer warp fills a stage by TMA when X's and Y's rows are
 //      16-byte multiples and their bases 16-byte aligned, else by per-thread
 //      loads into the same 128-byte-swizzled layout (zeros past M, K, N);
@@ -254,16 +256,18 @@ int launch_skinny(void* c, const void* a, const void* b, int64_t m, int64_t k,
 
 namespace wg {
 
-constexpr int BM = 128, BK = 64, kStages = 4;
+constexpr int BM = 128, BK = 64;
 constexpr int kConsumers = 2;                      // warpgroups of 64 rows
 constexpr int kThreads = kConsumers * 128 + 32;    // + the producer warp
 constexpr int kPanel = 128;                        // bytes a swizzled row
 constexpr int A_BYTES = BM * kPanel;               // (BM, 64) of X
 
-template <int BN>
+// BN the tile's width, S the ring's stages
+template <int BN, int S>
 struct Tile {
   static constexpr int B_BYTES = BK * kPanel * (BN / 64);   // (64, BN) of Y
-  static constexpr int SMEM = kStages * (A_BYTES + B_BYTES) + 1024;
+  static constexpr int SMEM = S * (A_BYTES + B_BYTES) + 1024;
+  static_assert(SMEM <= 232448, "the ring exceeds a block's shared memory");
 };
 
 // 8 bfloat16 values of a row from global memory, zeros past `valid`
@@ -315,13 +319,13 @@ __device__ __forceinline__ void mma_panel(float (&acc)[BN / 2],
   }
 }
 
-template <int BN, typename O, bool kTma>
+template <int BN, int kStages, typename O, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ CUtensorMap map_b, O* __restrict__ c,
             const bf16* __restrict__ a, const bf16* __restrict__ b, int64_t m,
             int64_t k, int64_t n) {
-  constexpr int B_BYTES = Tile<BN>::B_BYTES;
+  constexpr int B_BYTES = Tile<BN, kStages>::B_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kStages], empty[kStages];
   // the ring, 1024-byte aligned: kStages A tiles, then kStages B tiles
@@ -414,7 +418,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-template <int BN, typename O, bool kTma>
+template <int BN, int S, typename O, bool kTma>
 int launch_tile(const CUtensorMap& map_a, const CUtensorMap& map_b, void* c,
                 const void* a, const void* b, int64_t m, int64_t k, int64_t n,
                 cudaStream_t st) {
@@ -422,18 +426,18 @@ int launch_tile(const CUtensorMap& map_a, const CUtensorMap& map_b, void* c,
   if (gx > 0x7fffffff || gy > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = gemm_kernel<BN, O, kTma>;
+  auto kernel = gemm_kernel<BN, S, O, kTma>;
   const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN, S>::SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
-           kThreads, Tile<BN>::SMEM, st>>>(
+           kThreads, Tile<BN, S>::SMEM, st>>>(
       map_a, map_b, static_cast<O*>(c), static_cast<const bf16*>(a),
       static_cast<const bf16*>(b), m, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, typename O>
+template <int BN, int S, typename O>
 int launch_bn(void* c, const void* a, const void* b, int64_t m, int64_t k,
               int64_t n, cudaStream_t st) {
   // TMA needs 16-byte aligned bases and row strides that are multiples
@@ -442,7 +446,7 @@ int launch_bn(void* c, const void* a, const void* b, int64_t m, int64_t k,
                    && hopper::aligned16(b);
   CUtensorMap map_a{}, map_b{};
   if (!tma) {
-    return launch_tile<BN, O, false>(map_a, map_b, c, a, b, m, k, n, st);
+    return launch_tile<BN, S, O, false>(map_a, map_b, c, a, b, m, k, n, st);
   }
   const cuuint64_t dims_a[2] = {static_cast<cuuint64_t>(k),
                                 static_cast<cuuint64_t>(m)};
@@ -456,12 +460,26 @@ int launch_bn(void* c, const void* a, const void* b, int64_t m, int64_t k,
       || !hopper::make_map(&map_b, b, 2, dims_b, strides_b, box_b)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tile<BN, O, true>(map_a, map_b, c, a, b, m, k, n, st);
+  return launch_tile<BN, S, O, true>(map_a, map_b, c, a, b, m, k, n, st);
 }
 
+template <int BN, typename O>
+int launch_stages(void* c, const void* a, const void* b, int64_t m, int64_t k,
+                  int64_t n, int64_t stages, cudaStream_t st) {
+  switch (stages) {
+    case 3: return launch_bn<BN, 3, O>(c, a, b, m, k, n, st);
+    case 6: return launch_bn<BN, 6, O>(c, a, b, m, k, n, st);
+    default: return launch_bn<BN, 4, O>(c, a, b, m, k, n, st);
+  }
+}
+
+// bn, stages: the knobs (0 for the kernel's own choice: BN by SM fill,
+// 4 stages); the C entry has checked them.
 template <typename O>
 int launch(void* c, const void* a, const void* b, int64_t m, int64_t k,
-           int64_t n, cudaStream_t st) {
+           int64_t n, int64_t bn, int64_t stages, cudaStream_t st) {
+  if (bn == 64) return launch_stages<64, O>(c, a, b, m, k, n, stages, st);
+  if (bn == 128) return launch_stages<128, O>(c, a, b, m, k, n, stages, st);
   int dev = 0, sms = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) {
@@ -470,8 +488,9 @@ int launch(void* c, const void* a, const void* b, int64_t m, int64_t k,
   if (rc != cudaSuccess) return static_cast<int>(rc);
   // 128-wide tiles unless they would leave SMs without a tile
   const int64_t tiles128 = ((m + BM - 1) / BM) * ((n + 127) / 128);
-  return tiles128 >= sms ? launch_bn<128, O>(c, a, b, m, k, n, st)
-                         : launch_bn<64, O>(c, a, b, m, k, n, st);
+  return tiles128 >= sms
+             ? launch_stages<128, O>(c, a, b, m, k, n, stages, st)
+             : launch_stages<64, O>(c, a, b, m, k, n, stages, st);
 }
 
 }  // namespace wg
@@ -568,9 +587,16 @@ int launch(void* c, const void* a, const void* b, int64_t m, int64_t k,
 extern "C" {
 
 // c: (M, N); a: (M, K); b: (K, N).  in_bf16 / out_bf16: 0 for float32,
-// 1 for bfloat16.  Returns cudaGetLastError().
+// 1 for bfloat16.  bn, stages: the wgmma regime's knobs, 0 for its own
+// choice (BN by SM fill, 4 stages), else BN 64 or 128 and 3, 4 or 6
+// stages; the other regimes read neither.  Returns cudaGetLastError().
 int matmul_2d(void* c, const void* a, const void* b, int64_t m, int64_t k,
-              int64_t n, int64_t in_bf16, int64_t out_bf16, void* stream) {
+              int64_t n, int64_t in_bf16, int64_t out_bf16, int64_t bn,
+              int64_t stages, void* stream) {
+  if ((bn != 0 && bn != 64 && bn != 128) ||
+      (stages != 0 && stages != 3 && stages != 4 && stages != 6)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (m == 0 || n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k <= kSkinny && n <= kSkinny) {
@@ -582,8 +608,8 @@ int matmul_2d(void* c, const void* a, const void* b, int64_t m, int64_t k,
                     : launch_skinny<float, float>(c, a, b, m, k, n, st);
   }
   if (in_bf16) {
-    return out_bf16 ? wg::launch<bf16>(c, a, b, m, k, n, st)
-                    : wg::launch<float>(c, a, b, m, k, n, st);
+    return out_bf16 ? wg::launch<bf16>(c, a, b, m, k, n, bn, stages, st)
+                    : wg::launch<float>(c, a, b, m, k, n, bn, stages, st);
   }
   return out_bf16 ? launch<float, bf16>(c, a, b, m, k, n, st)
                   : launch<float, float>(c, a, b, m, k, n, st);

@@ -230,17 +230,31 @@ inline int warps_for(int64_t m, int64_t nv) {
   return w;
 }
 
+// Whether the vector kernel takes `w` warps a row of nv vectors: a power
+// of two up to kMaxWarps whose lanes hold the row at kMaxVec a lane.
+inline bool warps_ok(int64_t w, int64_t nv) {
+  return w >= 1 && w <= kMaxWarps && (w & (w - 1)) == 0 &&
+         static_cast<int64_t>(32) * w * kMaxVec >= nv;
+}
+
+// row_warps: the knob (0 for warps_for's choice).  A knob the row cannot
+// take, or one for a launch the vector kernel does not take, is refused.
+// The warps a row decide which lane sums which vectors, so two counts
+// may round a row's sum differently (within the bound, not bit for bit).
 template <typename T>
 int launch(void* y, const void* x, const void* gain, int64_t m, int64_t n,
-           float eps, cudaStream_t st) {
+           float eps, int64_t row_warps, cudaStream_t st) {
   constexpr int64_t kV = Vec<T>::kN;
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(x) |
         reinterpret_cast<uintptr_t>(gain)) % 16 == 0) && n % kV == 0 &&
       n / kV <= static_cast<int64_t>(32) * kMaxWarps * kMaxVec;
+  if (row_warps != 0 && !(aligned && warps_ok(row_warps, n / kV))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (aligned) {
     const int nv = static_cast<int>(n / kV);
-    switch (warps_for(m, nv)) {
+    switch (row_warps != 0 ? static_cast<int>(row_warps) : warps_for(m, nv)) {
       case 1: return launch_vec<T, 1>(y, x, gain, m, nv, n, eps, st);
       case 2: return launch_vec<T, 2>(y, x, gain, m, nv, n, eps, st);
       case 4: return launch_vec<T, 4>(y, x, gain, m, nv, n, eps, st);
@@ -263,17 +277,19 @@ int launch(void* y, const void* x, const void* gain, int64_t m, int64_t n,
 extern "C" {
 
 // x, y: (M, N) float32 (bf16 = 0) or bfloat16 (bf16 = 1); gain: (N,)
-// float32; eps_bits: eps's float32 bits.  M < 2**31 rows.  Rows of a
+// float32; eps_bits: eps's float32 bits; row_warps: the vector kernel's
+// warps a row, 0 for its own choice.  M < 2**31 rows.  Rows of a
 // multiple of 16 bytes at 16-byte-aligned x, y and gain take the vector
 // kernel, others the scalar one.  Returns cudaGetLastError().
 int rmsnorm_2d(void* y, const void* x, const void* gain, int64_t m, int64_t n,
-               int64_t eps_bits, int64_t bf16, void* stream) {
+               int64_t eps_bits, int64_t bf16, int64_t row_warps,
+               void* stream) {
   if (m == 0 || n == 0) return 0;
   if (m > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float eps = repro::f32_from_bits(eps_bits);
-  return bf16 ? launch<__nv_bfloat16>(y, x, gain, m, n, eps, st)
-              : launch<float>(y, x, gain, m, n, eps, st);
+  return bf16 ? launch<__nv_bfloat16>(y, x, gain, m, n, eps, row_warps, st)
+              : launch<float>(y, x, gain, m, n, eps, row_warps, st);
 }
 
 }  // extern "C"

@@ -1,28 +1,35 @@
 """Public entry points of the matmul family: ``matmul``, ``rotate2d`` and
 the general (matrix) chain ops.  Backend dispatch as in ``affine/ops.py``.
 
-``matmul`` leaves out the JAX package's ``bm``/``bn``/``bk`` tile
-arguments and its tuning-cache lookup: they come with the autotune
-slice, as the CUDA kernel's launch parameters.  Tile choice never
-changes results there either.
+``matmul`` takes the wgmma regime's launch knobs, ``bn`` and ``stages``,
+in place of the JAX package's ``bm``/``bn``/``bk`` TPU tile: explicit
+knobs win, then ``config``, then the tuning cache when autotuning is
+enabled, else the kernel's own choice (BN by SM fill, 4 stages).  The
+ring's stages never change a result; BN changes the order of the tensor
+cores' sums (within ``matmul_bound``).  The chain ops take ``config`` as
+in ``affine/ops.py``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.autotune import cache as tuning
+from repro_torch.autotune.cache import KernelConfig
 from repro_torch.kernels import dispatch, opcount
 from repro_torch.kernels.matmul import matmul as K
 from repro_torch.kernels.matmul import ref
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *, backend: str | None = None,
-           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+           out_dtype: torch.dtype | None = None, bn: int | None = None,
+           stages: int | None = None,
+           config: KernelConfig | None = None) -> torch.Tensor:
     """C = X @ Y with float32 accumulation; x (..., K) of rank >= 2 (the
     leading dims are batched by reshape), y (K, N).  ``out_dtype`` is
     x's dtype by default.  Operands of two dtypes are both widened to
     the wider one first (exact for bfloat16 to float32).  Lowered to the
-    ``matmul_2d`` kernel."""
+    ``matmul_2d`` kernel, its knobs as the module docstring says."""
     out_dtype = out_dtype or x.dtype
     out_elems = x.shape[:-1].numel() * y.shape[-1]
     opcount.record("matmul", x.nbytes + y.nbytes
@@ -33,8 +40,11 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, backend: str | None = None,
     if x.dtype != y.dtype:
         common = torch.promote_types(x.dtype, y.dtype)
         x, y = x.to(common), y.to(common)
+    cfg = config or tuning.config_for(
+        "matmul", b, tuning.dtype_name(x.dtype), out_elems)
     out = K.matmul_2d(x.contiguous().reshape(-1, x.shape[-1]),
-                      y.contiguous(), out_dtype=out_dtype)
+                      y.contiguous(), out_dtype=out_dtype,
+                      bn=bn or cfg.bn, stages=stages or cfg.stages)
     return out.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -52,8 +62,8 @@ def rotate2d(points: torch.Tensor, theta, *,
     return out.reshape(points.shape)
 
 
-def chain_apply(points: torch.Tensor, a, t, *,
-                backend: str | None = None) -> torch.Tensor:
+def chain_apply(points: torch.Tensor, a, t, *, backend: str | None = None,
+                config: KernelConfig | None = None) -> torch.Tensor:
     """Folded transform chain q = p @ A + t in one fused pass.
 
     ``points`` is (..., d); ``a`` is the composed (d, d) linear part and
@@ -65,12 +75,15 @@ def chain_apply(points: torch.Tensor, a, t, *,
     t = dispatch.param_tensor(t, (d,), points)
     if b == "ref":
         return ref.chain_matrix(points, a, t)
-    out = K.chain_matrix_1d(points.contiguous().reshape(-1), a, t, d=d)
+    cfg = config or KernelConfig("chain_apply")
+    out = K.chain_matrix_1d(points.contiguous().reshape(-1), a, t, d=d,
+                            block_threads=cfg.block_threads, waves=cfg.waves)
     return out.reshape(points.shape)
 
 
 def chain_apply_batch(pts3: torch.Tensor, a, t, *,
-                      backend: str | None = None) -> torch.Tensor:
+                      backend: str | None = None,
+                      config: KernelConfig | None = None) -> torch.Tensor:
     """Batched folded general chains: q[b] = p[b] @ A[b] + t[b].
 
     ``pts3`` is a packed (B, L, d) batch; ``a`` (B, d, d) / ``t`` (B, d)
@@ -81,4 +94,7 @@ def chain_apply_batch(pts3: torch.Tensor, a, t, *,
     t = dispatch.param_tensor(t, (bsz, d), pts3)
     if b == "ref":
         return ref.chain_matrix_batch(pts3, a, t)
-    return K.chain_matrix_batch_2d(pts3.contiguous(), a, t)
+    cfg = config or KernelConfig("chain_apply_batch")
+    return K.chain_matrix_batch_2d(pts3.contiguous(), a, t,
+                                   block_threads=cfg.block_threads,
+                                   waves=cfg.waves)

@@ -7,12 +7,15 @@ points and the bool frustum-cull mask, one bit per point (w > 0 and every
 coordinate inside the folded [lo, hi] bounds; the bounds are inclusive,
 so points exactly on a frustum plane are inside).  Backend dispatch as in
 ``affine/ops.py``; chain-level byte accounting happens in
-``TransformChain.apply``/``project`` and in the serving engine.
+``TransformChain.apply``/``project`` and in the serving engine.  Both
+take ``config`` as in ``affine/ops.py``: launch knobs only, the same bits
+under every config.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.autotune.cache import KernelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.projective import projective as K
 from repro_torch.kernels.projective import ref
@@ -29,7 +32,8 @@ def _bounds(lo, hi, d: int, like: torch.Tensor, batch: tuple = ()):
 
 
 def chain_project(points: torch.Tensor, h, lo=None, hi=None, *,
-                  backend: str | None = None
+                  backend: str | None = None,
+                  config: KernelConfig | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Folded projective chain q = divide([p, 1] @ H) in one fused pass.
 
@@ -45,13 +49,16 @@ def chain_project(points: torch.Tensor, h, lo=None, hi=None, *,
     lo, hi = _bounds(lo, hi, d, points)
     if b == "ref":
         return ref.chain_project(points, h, lo, hi)
+    cfg = config or KernelConfig("chain_project")
     out, mask = K.chain_project_1d(points.contiguous().reshape(-1), h, lo,
-                                   hi, d=d)
+                                   hi, d=d, block_threads=cfg.block_threads,
+                                   waves=cfg.waves)
     return out.reshape(points.shape), mask.reshape(points.shape[:-1])
 
 
 def chain_project_batch(pts3: torch.Tensor, h, lo=None, hi=None, *,
-                        backend: str | None = None
+                        backend: str | None = None,
+                        config: KernelConfig | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched folded projective chains: one launch per serving bucket.
 
@@ -65,4 +72,7 @@ def chain_project_batch(pts3: torch.Tensor, h, lo=None, hi=None, *,
     lo, hi = _bounds(lo, hi, d, pts3, batch=(bsz,))
     if b == "ref":
         return ref.chain_project_batch(pts3, h, lo, hi)
-    return K.chain_project_batch_2d(pts3.contiguous(), h, lo, hi)
+    cfg = config or KernelConfig("chain_project_batch")
+    return K.chain_project_batch_2d(pts3.contiguous(), h, lo, hi,
+                                    block_threads=cfg.block_threads,
+                                    waves=cfg.waves)

@@ -4,28 +4,33 @@ Ports of ``chain_project_1d`` and ``chain_project_batch_2d`` from the JAX
 package's ``kernels/projective/projective.py``.  Each wrapper checks its
 tensors, allocates the projected points (float32) and the per-point mask
 (``torch.bool``, one byte per point), launches on the current stream and
-counts the launch.  An empty input launches nothing.
+counts the launch.  An empty input launches nothing.  Both take the
+launch knobs ``block_threads`` and ``waves`` (``_build.chain_knobs``;
+None or 0 for the kernel's own choice), which move no bit of a result.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_operands
+from repro_torch.kernels._build import CudaKernel, chain_knobs, check_operands
 
 _PROJECT_1D = CudaKernel("chain_project", "chain_project_1d", n_ptrs=6,
-                         n_sizes=2)
+                         n_sizes=4)
 _PROJECT_BATCH = CudaKernel("chain_project", "chain_project_batch_2d",
-                            n_ptrs=6, n_sizes=3)
+                            n_ptrs=6, n_sizes=5)
 
 
 def chain_project_1d(flat: torch.Tensor, h: torch.Tensor, lo: torch.Tensor,
-                     hi: torch.Tensor, *, d: int
+                     hi: torch.Tensor, *, d: int,
+                     block_threads: int | None = None,
+                     waves: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """q = divide([p, 1] @ H) and the inclusive cull against [lo, hi] over
     the flat (N*d,) buffer of an (N, d) point array; ``h`` is (d+1, d+1),
     ``lo``/``hi`` are (d,).  Returns the projected flat (N*d,) buffer and
     the (N,) bool mask."""
     check_operands(flat, h, lo, hi, d=d)
+    knobs = chain_knobs(block_threads, waves)
     if flat.dim() != 1 or flat.numel() % d or h.shape != (d + 1, d + 1) \
             or lo.shape != (d,) or hi.shape != (d,):
         raise ValueError(f"chain_project_1d wants flat (N*{d},), h "
@@ -38,12 +43,14 @@ def chain_project_1d(flat: torch.Tensor, h: torch.Tensor, lo: torch.Tensor,
     if n:
         _PROJECT_1D(flat.device, out.data_ptr(), mask.data_ptr(),
                     flat.data_ptr(), h.data_ptr(), lo.data_ptr(),
-                    hi.data_ptr(), n, d)
+                    hi.data_ptr(), n, d, *knobs)
     return out, mask
 
 
 def chain_project_batch_2d(pts3: torch.Tensor, h: torch.Tensor,
-                           lo: torch.Tensor, hi: torch.Tensor
+                           lo: torch.Tensor, hi: torch.Tensor, *,
+                           block_threads: int | None = None,
+                           waves: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Projective chains per request of a packed (B, L, d) batch, (B, d+1,
     d+1) and (B, d) per-request parameters: one launch for the whole
@@ -54,6 +61,7 @@ def chain_project_batch_2d(pts3: torch.Tensor, h: torch.Tensor,
                          f"got {tuple(pts3.shape)}")
     bsz, length, d = pts3.shape
     check_operands(pts3, h, lo, hi, d=d)
+    knobs = chain_knobs(block_threads, waves)
     if h.shape != (bsz, d + 1, d + 1) or lo.shape != (bsz, d) \
             or hi.shape != (bsz, d):
         raise ValueError(f"h must be ({bsz}, {d + 1}, {d + 1}), lo and hi "
@@ -64,5 +72,5 @@ def chain_project_batch_2d(pts3: torch.Tensor, h: torch.Tensor,
     if pts3.numel():
         _PROJECT_BATCH(pts3.device, out.data_ptr(), mask.data_ptr(),
                        pts3.data_ptr(), h.data_ptr(), lo.data_ptr(),
-                       hi.data_ptr(), bsz, length, d)
+                       hi.data_ptr(), bsz, length, d, *knobs)
     return out, mask

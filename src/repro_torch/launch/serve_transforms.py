@@ -15,6 +15,10 @@ affine and projective, the JAX launcher's mix; ``--templates affine`` keeps
 to the affine structures.  ``--trace out.json`` serves the counted flush
 under a ``repro_torch.obs`` tracer and writes the span stream as
 Chrome-trace JSON -- open it in Perfetto (one track per plan bucket).
+``--autotune`` enables the tuning cache (``repro_torch.autotune``): the
+size grid and the kernels' launch knobs come from the winners file
+(``$REPRO_TORCH_AUTOTUNE_CACHE`` or the committed ``default_cache.json``)
+where it holds an entry for the server's backend.
 """
 from __future__ import annotations
 
@@ -111,7 +115,12 @@ def main(argv=None) -> None:
                          "structures) or affine")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--waste-cap", type=float, default=None,
-                    help="explicit padding-waste cap (default grid if unset)")
+                    help="explicit padding-waste cap; unset defers to the "
+                         "tuning cache (with --autotune) or the default "
+                         "grid")
+    ap.add_argument("--autotune", action="store_true",
+                    help="consult the tuning cache for the size grid and "
+                         "the kernels' launch knobs")
     ap.add_argument("--max-points", type=int, default=4096)
     ap.add_argument("--max-points-per-launch", type=int, default=None,
                     help="shard buckets whose packed B*L exceeds this")
@@ -124,6 +133,9 @@ def main(argv=None) -> None:
                          "Chrome-trace JSON (open in Perfetto)")
     args = ap.parse_args(argv)
 
+    if args.autotune:
+        from repro_torch import autotune
+        autotune.set_enabled(True)
     res = run_workload(16 if args.smoke else args.requests,
                        device=args.device, backend=args.backend,
                        templates=args.templates, waste_cap=args.waste_cap,

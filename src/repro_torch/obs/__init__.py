@@ -1,5 +1,6 @@
 """Observability of the port: deterministic tracing, typed metrics,
-exporters, a flight recorder and the SLO burn-rate monitor.
+exporters, a flight recorder, the cost-model-attributed profiler and the
+SLO burn-rate monitor.
 
 The modules are copies of the JAX package's ``repro/obs`` modules of the
 same names (which import no jax): the port imports nothing of that
@@ -18,14 +19,16 @@ package, so it keeps its own.
     exposition.
   * ``obs.recorder`` -- bounded ring-buffer flight recorder dumped into
     ``LaunchError`` / chaos post-mortems.
+  * ``obs.profile``  -- folds a traced run's span stream into a
+    self/child attribution tree and per-kernel launch tables, with the
+    cost model's per-launch predictions (attached at dispatch time)
+    compared against observed traffic; ``python -m
+    repro_torch.obs.profile``.
   * ``obs.slo``      -- multi-window burn-rate alerting over the latency
     and rejection error budgets, deterministic under a virtual clock.
 
-Not ported yet: ``obs.profile`` (``Profile``, ``LaunchGroup``, ...) folds
-the autotune cost model's per-launch predictions, so it comes with the
-autotune slice (ROADMAP.md queue 1 item 5), and ``obs.bench_history``
-reads the benchmark record, which waits for item 9.  Their names raise
-``NotPortedError``.
+Not ported: ``obs.bench_history``, which reads the JAX package's
+benchmark record (ROADMAP.md queue 1 item 9).
 
 Quickstart::
 
@@ -39,7 +42,6 @@ Quickstart::
     obs.dump_chrome_trace(trc, "out.json")       # open in Perfetto
     print(obs.prometheus_text(my_registry))
 """
-from repro_torch.errors import NotPortedError
 from repro_torch.obs.export import (chrome_trace, chrome_trace_events,
                                     dump_chrome_trace, prometheus_text)
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
@@ -48,18 +50,18 @@ from repro_torch.obs.recorder import FlightRecorder
 from repro_torch.obs.trace import (NullTracer, Span, SpanNode, Tracer, active,
                                    install, installed)
 
-#: the SLO monitor resolves lazily (PEP 562), as in the JAX package
-_LAZY = {"BurnRule": "slo", "SLOMonitor": "slo"}
-
-#: the analysis layer's names that come with a later slice
-_NOT_PORTED = {"LaunchGroup", "Profile", "ProfileNode", "dump_span_stream",
-               "load_span_stream"}
+#: the analysis layer resolves lazily (PEP 562), as in the JAX package:
+#: ``obs.profile`` is also a ``python -m`` entry point, and an eager
+#: package-level import of it would trip runpy's double-import warning
+_LAZY = {
+    "LaunchGroup": "profile", "Profile": "profile",
+    "ProfileNode": "profile", "dump_span_stream": "profile",
+    "load_span_stream": "profile",
+    "BurnRule": "slo", "SLOMonitor": "slo",
+}
 
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotPortedError(f"repro_torch.obs.{name} (obs/profile.py)",
-                             "queue 1 item 5 (autotune)")
     submodule = _LAZY.get(name)
     if submodule is None:
         raise AttributeError(f"module {__name__!r} has no attribute "
@@ -73,8 +75,9 @@ def __getattr__(name):
 
 __all__ = [
     "BurnRule", "Counter", "FlightRecorder", "Gauge", "Histogram",
-    "MetricsRegistry", "NullTracer", "SLOMonitor", "Span", "SpanNode",
-    "StatsView", "Tracer", "active", "chrome_trace", "chrome_trace_events",
-    "dump_chrome_trace", "install", "installed", "percentile",
-    "prometheus_text",
+    "LaunchGroup", "MetricsRegistry", "NullTracer", "Profile",
+    "ProfileNode", "SLOMonitor", "Span", "SpanNode", "StatsView", "Tracer",
+    "active", "chrome_trace", "chrome_trace_events", "dump_chrome_trace",
+    "dump_span_stream", "install", "installed", "load_span_stream",
+    "percentile", "prometheus_text",
 ]

@@ -19,23 +19,36 @@ from __future__ import annotations
 
 import math
 
+from repro_torch.autotune import cache as tuning
+
 MIN_LEN = 8          #: default grid floor
 WASTE_CAP = 0.5      #: default cap -- pure power-of-two grid
 
 
-def grid_for(*, min_len: int | None = None,
-             waste_cap: float | None = None) -> tuple[int, float, str]:
-    """Resolve the size grid the serving engine runs: explicit arguments
-    win, unset knobs take the module defaults (the port's tuning cache
-    arrives with the autotune slice).  Returns ``(min_len, waste_cap,
-    source)`` with ``source`` naming where the knobs came from:
-    ``explicit``, ``default``, or ``explicit+default`` when they mix."""
+def grid_for(backend: str, *, min_len: int | None = None,
+             waste_cap: float | None = None,
+             n: int = 0) -> tuple[int, float, str]:
+    """Resolve the size grid the serving engine runs, in the JAX
+    package's order: explicit arguments win; unset knobs come from the
+    tuning cache when autotuning is enabled (kernel ``serving_grid`` on
+    ``backend``), else the module defaults.  ``n`` is the workload's
+    largest request length -- the size class grid winners are cached
+    under (the engine passes its pending queue's maximum at flush time).
+    Returns ``(min_len, waste_cap, source)`` with ``source`` naming where
+    the knobs came from: ``explicit`` (both passed), ``default`` /
+    ``cached`` / ``tuned`` (neither passed), or ``explicit+<that>`` when
+    they mix."""
     if min_len is not None and waste_cap is not None:
         return min_len, waste_cap, "explicit"
-    source = "default" if min_len is None and waste_cap is None \
-        else "explicit+default"
-    return (min_len if min_len is not None else MIN_LEN,
-            waste_cap if waste_cap is not None else WASTE_CAP,
+    cfg = tuning.config_for("serving_grid", backend, n=n)
+    resolved_min = cfg.grid_min_len if cfg.grid_min_len is not None \
+        else MIN_LEN
+    resolved_cap = cfg.grid_waste_cap if cfg.grid_waste_cap is not None \
+        else WASTE_CAP
+    source = cfg.source if min_len is None and waste_cap is None \
+        else f"explicit+{cfg.source}"
+    return (min_len if min_len is not None else resolved_min,
+            waste_cap if waste_cap is not None else resolved_cap,
             source)
 
 

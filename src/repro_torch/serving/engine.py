@@ -66,8 +66,15 @@ exception that is neither injected nor a detected corruption is checked
 with ``torch.cuda.synchronize``: a device fault that broke the context
 re-raises instead of being turned into a flush of ``LaunchError``s.
 
+Autotune, as in the reference: the size grid resolves through
+``bucketing.grid_for`` at every flush (explicit knobs, else the tuning
+cache when ``repro_torch.autotune`` is enabled, else the defaults), each
+bucket's kernel takes the cached launch knobs for its size class, and
+every ``launch`` trace instant carries the config's source, the kernel
+and the cost model's prediction (``autotune.costmodel.predict_launch``).
+
 Not in this slice: ``submit_scene`` (the scene graph, ROADMAP.md queue 1
-item 7) and the autotune grid and launch annotations (item 5).
+item 7).
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch import errors, quantize
+from repro_torch.autotune import cache as tuning
 from repro_torch.core import transform_chain as tc
 from repro_torch.kernels import (chain_apply_batch, chain_apply_batch_q,
                                  chain_diag_batch, chain_diag_batch_q,
@@ -208,11 +216,28 @@ class BatchPlan:
     qformat: str | None = None     # Qm.n name for fixed-point plans
 
 
+#: plan kind -> the batch kernel family the tuning cache keys it by
+_KERNEL_BY_KIND = {"diag": "chain_diag_batch",
+                   "matrix": "chain_apply_batch",
+                   "projective": "chain_project_batch"}
+
+
+def _batch_config(kernel: str, backend: str, dtype: str,
+                  pts3: torch.Tensor) -> tuning.KernelConfig:
+    """A bucket launch's knobs: the tuning cache's winner for the packed
+    (B, L) size class when autotuning is enabled, else the defaults (the
+    reference looks them up at trace time, the port at every launch).
+    Knobs steer the grid only: every config gives the same bits."""
+    return tuning.config_for(kernel, backend, dtype,
+                             pts3.shape[0] * pts3.shape[1])
+
+
 def _compile_batch_q(structure: tuple, backend: str,
                      qname: str) -> BatchPlan:
     """A fixed-point bucket executor: the int16 batch kernels with the
-    format's fraction count as the requantising shift.  Projective
-    structures never get here (``submit`` rejects chain + qformat)."""
+    format's fraction count as the requantising shift and the format's
+    cached launch knobs.  Projective structures never get here
+    (``submit`` rejects chain + qformat)."""
     dim, _ = structure
     kind = tc.plan_kind_of(structure)
     fmt = quantize.as_qformat(qname)
@@ -220,14 +245,18 @@ def _compile_batch_q(structure: tuple, backend: str,
         def fn(folded, pts3):
             """Q-format diagonal transform over a (B, L) bucket."""
             s, t = folded
+            cfg = _batch_config("chain_diag_batch_q", backend, fmt.name,
+                                pts3)
             return chain_diag_batch_q(pts3, s, t, n_frac=fmt.n,
-                                      backend=backend)
+                                      backend=backend, config=cfg)
     else:
         def fn(folded, pts3):
             """Q-format matrix transform over a (B, L) bucket."""
             a, t = folded
+            cfg = _batch_config("chain_apply_batch_q", backend, fmt.name,
+                                pts3)
             return chain_apply_batch_q(pts3, a, t, n_frac=fmt.n,
-                                       backend=backend)
+                                       backend=backend, config=cfg)
     return BatchPlan(kind=kind, dim=dim, backend=backend, fn=fn,
                      qformat=fmt.name)
 
@@ -235,21 +264,29 @@ def _compile_batch_q(structure: tuple, backend: str,
 def _compile_batch(structure: tuple, backend: str) -> BatchPlan:
     dim, _ = structure
     kind = tc.plan_kind_of(structure)
+    kernel = _KERNEL_BY_KIND[kind]
     if kind == "diag":
         def fn(folded, pts3):
             """Diagonal transform over a (B, L) bucket."""
             s, t = folded
-            return chain_diag_batch(pts3, s, t, backend=backend)
+            cfg = _batch_config(kernel, backend,
+                                tuning.dtype_name(pts3.dtype), pts3)
+            return chain_diag_batch(pts3, s, t, backend=backend, config=cfg)
     elif kind == "matrix":
         def fn(folded, pts3):
             """Matrix transform over a (B, L) bucket."""
             a, t = folded
-            return chain_apply_batch(pts3, a, t, backend=backend)
+            cfg = _batch_config(kernel, backend,
+                                tuning.dtype_name(pts3.dtype), pts3)
+            return chain_apply_batch(pts3, a, t, backend=backend, config=cfg)
     else:
         def fn(folded, pts3):
             """Projective transform + cull over a (B, L) bucket."""
             h, lo, hi = folded
-            return chain_project_batch(pts3, h, lo, hi, backend=backend)
+            cfg = _batch_config(kernel, backend,
+                                tuning.dtype_name(pts3.dtype), pts3)
+            return chain_project_batch(pts3, h, lo, hi, backend=backend,
+                                       config=cfg)
     return BatchPlan(kind=kind, dim=dim, backend=backend, fn=fn)
 
 
@@ -478,8 +515,14 @@ class GeometryServer:
         self.fault_config = fault_config or FaultConfig()
         #: optional seeded fault injector (serving.faults.FaultInjector)
         self.injector = injector
+        # size-grid knobs: explicit args win; unset knobs come from the
+        # tuning cache when autotuning is enabled, else the defaults
+        # (bucketing.grid_for).  The explicit args are kept and the grid
+        # re-resolves at every flush, so toggling
+        # repro_torch.autotune.set_enabled moves a live server's grid.
+        self._grid_args = (min_len, waste_cap)
         self.min_len, self.waste_cap, self.grid_source = bucketing.grid_for(
-            min_len=min_len, waste_cap=waste_cap)
+            self.backend, min_len=min_len, waste_cap=waste_cap)
         #: shard cap: a bucket whose packed B*L exceeds this splits into
         #: multiple launches along the batch axis
         self.max_points_per_launch = max_points_per_launch
@@ -811,8 +854,11 @@ class GeometryServer:
         ONE place ``stats["launches"]`` moves and the one place ``launch``
         instants come from, so ``count("launch") == stats["launches"]``
         holds by construction.  The instant carries the reference's
-        fields but its autotune ones (``config``, ``kernel`` and the
-        cost model's ``pred_*``), which come with the autotune slice."""
+        fields: the rung, plan kind, the autotune config's source, the
+        opcount HBM bytes this launch moves, and the cost model's
+        prediction (kernel, bytes, FLOPs, M1 cycles), attached at
+        dispatch time so the profiler folds predicted-vs-observed ratios
+        out of the span stream."""
         # the _q suffix keeps the lanes separately countable, as in
         # ``TransformChain``
         nbytes = opcount.packed_chain_bytes(
@@ -825,11 +871,24 @@ class GeometryServer:
         report.launches += 1
         trc = obst.active()
         if trc.enabled:
+            from repro_torch.autotune import costmodel  # traced path only
+            dtype = plan.qformat if plan.qformat is not None \
+                else tuning.dtype_name(packed.dtype)
+            kernel = _KERNEL_BY_KIND[plan.kind] \
+                + ("_q" if plan.qformat else "")
+            cfg = tuning.config_for(kernel, plan.backend, dtype,
+                                    len(reqs) * lpad)
+            pred = costmodel.predict_launch(
+                plan.kind, len(reqs), lpad, plan.dim,
+                qformat=plan.qformat, itemsize=packed.element_size())
             trc.instant(
                 "launch", tickets=tuple(r.ticket for r in reqs),
                 track=track, backend=plan.backend, kind=plan.kind,
                 q=plan.qformat, rung=rung, attempt=attempt,
-                rows=len(reqs), lpad=lpad, hbm_bytes=nbytes)
+                rows=len(reqs), lpad=lpad, kernel=pred.kernel,
+                hbm_bytes=nbytes, pred_hbm_bytes=pred.hbm_bytes,
+                pred_flops=pred.flops, pred_m1_cycles=pred.m1_cycles,
+                config=cfg.source)
 
     # -- flush: dispatch, unpack, recover ------------------------------------
 
@@ -846,6 +905,12 @@ class GeometryServer:
         trc = obst.active()
         fsid = trc.begin("flush", requests=len(pending)) \
             if trc.enabled else None
+        # grid lookup keyed by this flush's traffic scale (largest request
+        # length): grids are tuned per scale
+        self.min_len, self.waste_cap, self.grid_source = bucketing.grid_for(
+            self.backend, min_len=self._grid_args[0],
+            waste_cap=self._grid_args[1],
+            n=max((p.n for p in pending), default=0))
         results: dict[int, typing.Any] = {}
         buckets: dict[tuple, list[_Pending]] = {}
         for p in pending:

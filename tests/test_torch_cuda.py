@@ -1312,3 +1312,215 @@ def test_async_drain_on_card_equals_the_sync_flush(cuda_device):
     assert eng.server.last_report == sync.last_report
     for t, w in zip(tickets, want):
         assert _same_bits(np.asarray(t.result()), np.asarray(w))
+
+
+# -- autotune: every launch knob on the card ---------------------------------
+
+def _chain_calls(dev, rng, kernel, shape):
+    """``cfg -> result`` of a chain op at ``shape`` on the card (the
+    search's own seeded entry)."""
+    from repro_torch.autotune import search
+    return search._chain_entry(kernel, "cuda", dev, shape,
+                               "q8.7" if kernel.endswith("_q") else "float32")
+
+
+def _outs(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+@pytest.mark.parametrize("kernel", ["chain_diag", "chain_apply",
+                                    "chain_project", "chain_diag_q",
+                                    "chain_apply_q"])
+def test_every_single_chain_candidate_equals_the_default(cuda_device, kernel):
+    """Every candidate of a single-chain kernel gives the default config's
+    bits (masks included), through its scalar kernel and, for
+    ``chain_project_1d`` from 2**19 points, its 16-byte one."""
+    from repro_torch.autotune import DEFAULTS, search
+    rng = np.random.default_rng(90)
+    for n in (37, 100_003, (1 << 19) + 3):
+        for d in (2, 3):
+            run = _chain_calls(cuda_device, rng, kernel, (n, d))
+            want = _outs(run(DEFAULTS[kernel]))
+            for cfg in search.candidates_for(kernel):
+                got = _outs(run(cfg))
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (n, d, cfg.describe())
+
+
+@pytest.mark.parametrize("kernel", ["chain_diag_batch", "chain_apply_batch",
+                                    "chain_project_batch",
+                                    "chain_diag_batch_q",
+                                    "chain_apply_batch_q"])
+def test_every_batch_chain_candidate_equals_the_default(cuda_device, kernel):
+    """Every candidate of a batch kernel -- waves for its 16-byte kernel,
+    threads x waves for its scalar one, both spaces at both kinds of
+    shape -- gives the default config's bits."""
+    from repro_torch.autotune import DEFAULTS, search
+    rng = np.random.default_rng(91)
+    cands = search.chain_batch_candidates(kernel) \
+        + search.chain_batch_candidates(kernel, vectors=False)
+    for shape in ((5, 13, 2), (3, 6, 3), (1100, 8, 3), (6, 4096, 2),
+                  (4, 1024, 3)):
+        run = _chain_calls(cuda_device, rng, kernel, shape)
+        want = _outs(run(DEFAULTS[kernel]))
+        for cfg in cands:
+            got = _outs(run(cfg))
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                (shape, cfg.describe())
+
+
+def test_every_matmul_candidate_on_the_card(cuda_device):
+    """Every (bn, stages) of ``matmul_2d``'s wgmma regime within
+    ``matmul_bound`` of the plain version; the ring's stages move no bit
+    at a given BN."""
+    import torch_bounds as bounds
+    from repro_torch import kernels
+    from repro_torch.autotune import search
+    rng = np.random.default_rng(92)
+    for m, k, n in ((1024, 1024, 1024), (130, 1024, 70), (256, 512, 384)):
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                             ).to(cuda_device, torch.bfloat16)
+        y = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                             ).to(cuda_device, torch.bfloat16)
+        want = matrix_ref.matmul(x, y)
+        bound = bounds.matmul_bound(x, y, want)
+        by_bn = {}
+        for cfg in search.matmul_candidates():
+            got = kernels.matmul(x, y, config=cfg)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= bound).all()), (m, k, n, cfg.describe())
+            first = by_bn.setdefault(cfg.bn, got)
+            assert torch.equal(got, first), (m, k, n, cfg.describe())
+
+
+def test_every_rmsnorm_candidate_on_the_card(cuda_device):
+    """Every feasible ``row_warps`` within ``rmsnorm_bound`` of the plain
+    version, and the count the kernel picks itself bit for bit."""
+    import torch_bounds as bounds
+    from repro_torch import kernels
+    from repro_torch.autotune import costmodel, search
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    rng = np.random.default_rng(93)
+    for (m, n), dtype in (((8192, 1600), torch.bfloat16),
+                          ((4, 3200), torch.float32),
+                          ((300, 64), torch.float32)):
+        x = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)
+                             ).to(cuda_device, dtype)
+        g = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)
+                             ).to(cuda_device)
+        want = rms_ref.rmsnorm(x, g, 1e-6)
+        base = kernels.rmsnorm(x, g)
+        own = costmodel.rmsnorm_warps(m, n * x.element_size() // 16)
+        ran = 0
+        for cfg in search.rmsnorm_candidates():
+            if not costmodel.rmsnorm_cost(m, n, cfg,
+                                          itemsize=x.element_size()).feasible:
+                continue
+            got = kernels.rmsnorm(x, g, config=cfg)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= bounds.rmsnorm_bound(want, n)).all()), \
+                (m, n, cfg.row_warps)
+            if cfg.row_warps == own:
+                assert torch.equal(got, base)
+            ran += 1
+        assert ran >= 1
+
+
+def test_infeasible_knobs_raise_on_the_card(cuda_device):
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms_k
+    x = torch.ones(64, 2, device=cuda_device)
+    s, t = torch.ones(2, device=cuda_device), torch.zeros(2, device=cuda_device)
+    with pytest.raises(ValueError, match="block_threads"):
+        diag_k.chain_diag_1d(x.reshape(-1), s, t, d=2, block_threads=100)
+    with pytest.raises(ValueError, match="waves"):
+        diag_k.chain_diag_batch_2d(x[None], s[None], t[None], waves=-2)
+    b = torch.ones(64, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bn"):
+        matrix_k.matmul_2d(b, b, bn=256)
+    with pytest.raises(ValueError, match="stages"):
+        matrix_k.matmul_2d(b, b, stages=5)
+    f = torch.ones(4, 3200, device=cuda_device)
+    g = torch.ones(3200, device=cuda_device)
+    with pytest.raises(ValueError, match="row_warps"):
+        rms_k.rmsnorm_2d(f, g, row_warps=1)          # 800 vectors a row
+    # rows of 33 bfloat16 values (66 bytes) take the scalar kernel only
+    with pytest.raises(ValueError, match="row_warps"):
+        rms_k.rmsnorm_2d(torch.ones(4, 33, device=cuda_device,
+                                    dtype=torch.bfloat16),
+                         torch.ones(33, device=cuda_device), row_warps=4)
+    # and so does a base off 16-byte alignment
+    buf = torch.ones(4 * 1600 + 1, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="row_warps"):
+        rms_k.rmsnorm_2d(buf[1:].view(4, 1600),
+                         torch.ones(1600, device=cuda_device), row_warps=4)
+
+
+def test_tuned_serve_on_the_card_is_bitwise(cuda_device):
+    """A server under tuning -- a tuned grid and non-default launch knobs
+    for every batch kernel -- returns the untuned server's results and
+    per-request ``apply``/``project``'s, bit for bit, with the tuned
+    config in every launch instant."""
+    from repro_torch import autotune, obs
+    from repro_torch.autotune import cache as tcache
+    reqs = workload.mixed_lane_workload(7, 64, max_points=2048)
+    untuned = serving.GeometryServer(device=cuda_device)
+    for c, p, q in reqs:
+        untuned.submit(c, p, qformat=q)
+    want = untuned.flush()
+    cache = tcache.TuningCache()
+    cache.put("serving_grid", "cuda", "float32", 0, tcache.KernelConfig(
+        "serving_grid", grid_min_len=16, grid_waste_cap=0.25,
+        source="tuned"))
+    for kernel, dtype in (("chain_diag_batch", "float32"),
+                          ("chain_apply_batch", "float32"),
+                          ("chain_project_batch", "float32"),
+                          ("chain_diag_batch_q", "q8.7"),
+                          ("chain_apply_batch_q", "q8.7")):
+        cache.put(kernel, "cuda", dtype, 0, tcache.KernelConfig(
+            kernel, block_threads=128, waves=2, source="tuned"))
+    tcache.set_cache(cache)
+    autotune.set_enabled(True)
+    try:
+        tuned = serving.GeometryServer(device=cuda_device)
+        trc = obs.Tracer()
+        with obs.installed(trc):
+            for c, p, q in reqs:
+                tuned.submit(c, p, qformat=q)
+            got = tuned.flush()
+        assert (tuned.min_len, tuned.waste_cap) == (16, 0.25)
+    finally:
+        autotune.set_enabled(None)
+        tcache.set_cache(None)
+    assert {s.attrs["config"] for s in trc.spans if s.name == "launch"} \
+        == {"tuned"}
+    for (c, p, q), g, w in zip(reqs, got, want):
+        assert _same_bits(np.asarray(g), np.asarray(w))
+        if q is None and not c.is_projective:
+            assert _same_bits(np.asarray(g),
+                              c.apply(p, device=cuda_device).cpu().numpy())
+        if c.is_projective:
+            assert _same_bits(g.mask, w.mask)
+
+
+def test_tuners_time_the_kernels_on_the_card(cuda_device):
+    """The tuners run on the card through the kernels (the default always
+    trial 0) and cache under the ``cuda`` backend."""
+    from repro_torch.autotune import search
+    from repro_torch.autotune.cache import TuningCache
+    cache = TuningCache()
+    _build.reset_launch_counts()
+    reps = [search.tune_chain("chain_apply", n_points=1 << 16, d=2,
+                              cache=cache, iters=2),
+            search.tune_chain_batch("chain_diag_batch_q", bsz=8, lpad=4096,
+                                    d=3, dtype="q8.7", cache=cache, iters=2),
+            search.tune_matmul(m=512, k=512, n=512, cache=cache, iters=2),
+            search.tune_rmsnorm(m=1024, n=1600, dtype="bfloat16",
+                                cache=cache, iters=2)]
+    counts = _build.launch_counts()
+    assert counts["chain_matrix_1d"] > 0 and counts["matmul_2d"] > 0
+    assert counts["chain_diag_batch_2d_q"] > 0 and counts["rmsnorm_2d"] > 0
+    for rep in reps:
+        assert rep.backend == "cuda" and len(rep.trials) > 1
+        assert rep.trials[0].config.source == "default"
+        assert all(t.seconds > 0 for t in rep.trials)
+    assert all("|cuda|" in k for k in cache.entries)

@@ -10,9 +10,10 @@ fields, and ``run_chaos_soak(seed=11, n_requests=64)`` gives exactly the
 counters of ``tests/torch_chaos.py`` -- the one-rung ladder on the CPU,
 and the two-rung one (the card's shape, ``("cuda", "ref")``) with the
 port's ladder patched to ``("ref", "ref")`` here.  A VirtualClock trace
-of the soak has the reference's spans, events and fields, but for the
-autotune fields of the ``launch`` instant and the ``plan.trace`` instants
-of jit traces, which eager PyTorch does not have.
+of the soak has the reference's spans, events and fields, the ``launch``
+instant's autotune fields (``config``, ``kernel``, ``pred_*``) included,
+but for the ``plan.trace`` instants of jit traces, which eager PyTorch
+does not have.
 """
 import collections
 import json
@@ -523,16 +524,10 @@ def test_scenario_matches_reference(scenario, ladder, monkeypatch):
 # the chaos soak
 # ---------------------------------------------------------------------------
 
-_AUTOTUNE = {"config", "kernel", "pred_hbm_bytes", "pred_flops",
-             "pred_m1_cycles"}
-
-
 def _event(d: dict) -> str:
-    """A span or event as a comparable string: ids left out (a skipped
-    ``plan.trace`` shifts them), and the autotune fields of ``launch``."""
+    """A span or event as a comparable string, every field but the ids
+    (a skipped ``plan.trace`` shifts them)."""
     d = {k: v for k, v in d.items() if k not in ("sid", "parent")}
-    d["attrs"] = {k: v for k, v in d.get("attrs", {}).items()
-                  if k not in _AUTOTUNE}
     return json.dumps(d, sort_keys=True, default=str)
 
 

@@ -76,7 +76,11 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.serving.clock",
                    "repro_torch.serving.admission",
                    "repro_torch.serving.async_engine",
-                   "repro_torch.serving.faults"):
+                   "repro_torch.serving.faults",
+                   "repro_torch.autotune", "repro_torch.autotune.__main__",
+                   "repro_torch.autotune.cache",
+                   "repro_torch.autotune.costmodel",
+                   "repro_torch.autotune.search", "repro_torch.obs.profile"):
         assert module in names.split(), module
 
 
@@ -169,6 +173,34 @@ def test_fault_and_async_serving_load_no_jax_or_repro():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["0", "ref", "repro_torch.obs.trace"]
+
+
+_AUTOTUNE_PROBE = r"""
+import sys
+import repro_torch.autotune.__main__ as cli
+from repro_torch import autotune
+from repro_torch.autotune import costmodel, search
+from repro_torch.obs import profile
+cache, reports = search.smoke_search(device="cpu", measure=lambda c: 1.0)
+tracer, _ = profile.profile_smoke_workload(8, device="cpu")
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(len(cache), costmodel.morphosys_cycles("translation", 64),
+      profile.Profile.from_tracer(tracer).byte_ratio_exact, ",".join(bad))
+"""
+
+
+def test_autotune_and_profiler_load_no_jax_or_repro():
+    """``repro_torch.autotune`` (its CLI included) and
+    ``repro_torch.obs.profile``, imported first in a fresh interpreter and
+    run once, pull in neither jax nor ``repro`` -- the tuning cache is a
+    copy of the JAX package's jax-free module, not an import of it."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _AUTOTUNE_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["7", "96", "True"]
 
 
 def test_model_stack_loads_no_jax_or_repro():

@@ -126,8 +126,13 @@ def test_bucketing_matches_reference():
     assert bucketing.MIN_LEN == jbucketing.MIN_LEN
     assert bucketing.WASTE_CAP == jbucketing.WASTE_CAP
     assert bucketing.waste_fraction(48, 64) == jbucketing.waste_fraction(48, 64)
-    assert bucketing.grid_for() == (8, 0.5, "default")
-    assert bucketing.grid_for(min_len=16) == (16, 0.5, "explicit+default")
+    # the reference's signature (the backend whose tuning cache entry
+    # applies); tuning is off by default in both packages
+    assert bucketing.grid_for("ref") == jbucketing.grid_for("ref") \
+        == (8, 0.5, "default")
+    assert bucketing.grid_for("ref", min_len=16) == \
+        jbucketing.grid_for("ref", min_len=16) == \
+        (16, 0.5, "explicit+default")
     with pytest.raises(ValueError):
         bucketing.padded_length(5, waste_cap=1.0)
 
