@@ -82,6 +82,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      4 eps32 [(sum_m |p_m H_mc| + |H_dc|) + |v_c| (sum_m |p_m H_md| +
      |H_dd|)] / |w| for projective ones, whose masks must equal the
      float64 mask wherever every margin exceeds that bound;
+  8a. scene: ``repro_torch.scene`` on the serving path, the scene
+     benchmark's two animated scenes (``tests/torch_scenes.py``) at 8
+     branch roots of 64 leaves, 16 384 points a leaf, 30 frames: the
+     diag scene in 2D, the matrix scene in 3D under a rotating camera;
+     each frame re-poses one branch root and serves every leaf through
+     ``submit_scene`` on q8.7 and float32 and through
+     ``submit(world_chain)`` on float32, one flush (``scene_phase``:
+     folds == dirtied every frame, results bitwise equal to their twins,
+     to the same frame through the plain versions on the card
+     (``backend="ref"``, the same buckets), to per-request ``apply`` and
+     to the numpy Q oracle, the counters
+     pinned, one ``submit_scene_async`` burst bitwise equal to the sync
+     frame); serve ms a frame and fold counts printed;
   8. serve (hymba-1.5b): the model stack's serving path at full width
      (1.59 B parameters, bfloat16, random weights from seed 0): batch 4,
      2048-token prompts (numpy seed 0) and 16 generated tokens through
@@ -90,12 +103,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      the serve and read after the prefill and after the decode, each of
      ``rmsnorm_2d`` (5L+1 a pass), ``rope_3d`` (2L), ``flash_attention_3d``
      and ``ssd_intra`` (L, prefill only) and ``vecadd_2d`` (2L) held to
-     its expected count; then the same model on the plain versions
+     its expected count; served twice, tokens and logits bitwise equal;
+     then the same model on the plain versions
      (``dispatch.use_backend("ref")``) teacher-forced with the served
-     tokens, every step's logits within HYMBA_LOGITS_RTOL (relative RMS)
-     of the kernel path's, and the greedy-token agreement reported; the
-     distinct sizes each kernel was launched with in the serve are kept
-     for phase 9;
+     tokens, every step's logits within ``logits_rtol`` (relative RMS)
+     of the kernel path's, and every greedy token equal to the plain
+     path's but at a near-tie (``model_phase``); the distinct sizes each
+     kernel was launched with in the serve are kept for phase 9;
+  8b. serve (granite-moe-3b-a800m): the same for the MoE family (3.37 B
+     parameters, 40 experts top 8, attention only: ``rmsnorm_2d`` 2L+1,
+     ``rope_3d`` 2L, ``flash_attention_3d`` L without a window, GQA
+     group 3, ``vecadd_2d`` 2L a prefill), with the same gates;
   9. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
@@ -166,8 +184,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      bound of the plain version, against ``F.rms_norm``,
      ``scaled_dot_product_attention`` with the same mask, ``torch.add``
      or a composite (rotate-half RoPE; the bfloat16 masked-matmul SSD);
-     every size a kernel was launched with in the hymba serve must be
-     among the sizes these checks launched it with;
+     the granite serve's shapes too (``rmsnorm_2d`` at (8192, 1536) and
+     (4, 1536), ``rope_3d`` at (96 | 32, 2048 | 1, 64), flash at (96,
+     32, 2048, 64) without a window and ``vecadd_2d`` at (8192, 1536)
+     and (4, 1536), bfloat16; timed: the norm, q's RoPE, flash and the
+     residual add at the prefill shape); every size a kernel was
+     launched with in either serve must be among the sizes these checks
+     launched it with;
  10. autotune (after every timed phase, before the chaos soak): (a)
      every candidate of every tunable kernel launched once at the served
      shapes -- the five single-chain kernels at 16 384 and 2**24 points,
@@ -225,6 +248,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
  12. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
+     each kernel also carries its launches in the scene and the granite
+     serves, and the model kernels a ``granite`` row;
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
      decode rows, ``ssd_intra`` its mamba2-130m row,
      ``chain_matrix_batch_2d`` its largest d = 3 bucket's row,
@@ -251,10 +276,11 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import autotune, configs, graphics, obs, quantize, serving  # noqa: E402
+from repro_torch import autotune, configs, graphics, obs, quantize, scene, serving  # noqa: E402
 from repro_torch.autotune import cache as tcache  # noqa: E402
 from repro_torch.autotune import costmodel, search  # noqa: E402
 from repro_torch.core import analysis  # noqa: E402
+from repro_torch.core import transform_chain as tc  # noqa: E402
 from repro_torch.core import transform_engine as te  # noqa: E402
 from repro_torch.core.morphosys import intel, programs  # noqa: E402
 from repro_torch.kernels import _build, dispatch, opcount  # noqa: E402
@@ -282,6 +308,7 @@ from repro_torch.serving import workload  # noqa: E402
 
 import torch_bounds as bounds  # noqa: E402
 import torch_chaos  # noqa: E402
+import torch_scenes  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -315,19 +342,30 @@ T1, T2, SV, THETA = (3.0, 2.0), (-1.0, 5.0), (1.3, 0.8), 0.3
 #: routines have no published listing and the reconstruction is faster
 EMULATOR_EXACT = {("translation", 8), ("translation", 64),
                   ("scaling", 8), ("scaling", 64)}
-#: the serve (hymba-1.5b) phase: full width, batch 4, 2048-token prompts
-HYMBA_ARCH, HYMBA_BATCH, HYMBA_PROMPT, HYMBA_GEN = "hymba-1.5b", 4, 2048, 16
-#: the kernel path's logits against the plain path's, relative RMS, a
-#: step -- an envelope, not the correctness check (phase 9 holds each
-#: kernel to its per-element bound at every shape of the path): about 6
-#: sites a layer round differently on the two paths (five rmsnorm_2d
-#: and one flash_attention_3d output, which may land one bfloat16 ulp
-#: apart, 2**-8 to 2**-7 relative -- the tensor-core flash kernel also
-#: rounds P to bfloat16, within 2**-9 max|v| of its output; rope_3d and
-#: vecadd_2d are bitwise, SSD float32), so over 32 layers and the final norm
-#: sqrt(6 * 32 + 1) * 2**-7 = 0.109 if each is a full ulp at the top of
-#: the range and they add in quadrature (PERF.md)
-HYMBA_LOGITS_RTOL = math.sqrt(6 * 32 + 1) * 2.0 ** -7
+#: the model serve phases (hymba-1.5b, granite-moe-3b-a800m): full
+#: width, batch 4, 2048-token prompts, 16 tokens
+HYMBA_ARCH, GRANITE_ARCH = "hymba-1.5b", "granite-moe-3b-a800m"
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 2048, 16
+#: rounding sites a layer where the kernel path's bfloat16 output may
+#: land one ulp (2**-8 to 2**-7 relative) from the plain path's: a hybrid
+#: layer's five rmsnorm_2d outputs and its flash_attention_3d output (the
+#: tensor-core flash kernel also rounds P to bfloat16, within 2**-9
+#: max|v| of its output); a dense or MoE layer's two rmsnorm_2d outputs
+#: and its flash output.  rope_3d and vecadd_2d are bitwise, SSD float32.
+MODEL_SITES = {"hybrid": 6, "dense": 3, "moe": 3}
+
+
+def logits_rtol(cfg) -> float:
+    """The kernel path's logits against the plain path's, relative RMS,
+    a step -- an envelope, not the correctness check (phase 9 holds each
+    kernel to its per-element bound at every shape of the path): each of
+    the MODEL_SITES a layer over L layers, and the final norm, a full
+    ulp at the top of the range, added in quadrature:
+    sqrt(sites * L + 1) * 2**-7 (hymba-1.5b 0.109, granite-moe-3b-a800m
+    0.077; PERF.md)."""
+    return math.sqrt(MODEL_SITES[cfg.family] * cfg.n_layers + 1) * 2.0 ** -7
+
+
 #: the recovery counters a clean serve must leave at 0: the ladder must
 #: never hide a kernel that fails on the card
 RECOVERY_KEYS = ("launch_failures", "retries", "backend_fallbacks",
@@ -959,6 +997,146 @@ def graphics_phase(device: str = "cuda") -> tuple[dict, dict]:
     return counts, summary
 
 
+# -- the scene graph on the serving path -------------------------------------
+
+def scene_serve(srv, g, names, pts) -> list:
+    """One frame's serve: every leaf as q8.7 and as float32 through
+    ``submit_scene``, and as float32 through ``submit`` of its world
+    chain (its twin), in one flush; three results a leaf, in order."""
+    for n, p in zip(names, pts):
+        srv.submit_scene(g, n, p, qformat=Q8_7.name)
+        srv.submit_scene(g, n, p)
+        srv.submit(g.world_chain(n), p)
+    return srv.flush()
+
+
+def scene_plain_serve(srv, g, names, pts) -> list:
+    """``scene_serve``'s frame through ``submit`` of each leaf's world
+    chain alone, in the same order and buckets, so a ``backend="ref"``
+    server gives the plain versions' results of every scene request
+    without touching the scene's fold counters."""
+    for n, p in zip(names, pts):
+        chain = g.world_chain(n)
+        srv.submit(chain, p, qformat=Q8_7.name)
+        srv.submit(chain, p)
+        srv.submit(chain, p)
+    return srv.flush()
+
+
+def scene_phase(device: str = "cuda") -> tuple[dict, dict]:
+    """The scene graph (``repro_torch.scene``) on the serving path:
+    ``benchmarks/scene_bench.py``'s two animated scenes (copied in
+    ``tests/torch_scenes.py``) at ``torch_scenes.CARD`` -- world ->
+    camera -> 8 branch roots -> 64 leaves each, 16 384 points a leaf, 30
+    frames -- the diag scene in 2D and the matrix scene in 3D under a
+    rotating camera.  A warm frame, then each frame re-poses one branch
+    root and serves every leaf (``scene_serve``) in one flush on the
+    card, launch counts zeroed just before the flush and read just after.
+    Gates, every frame: folds == dirtied nodes; each scene result
+    bitwise equal to its ``submit(world_chain)`` twin and to the same
+    frame on a ``backend="ref"`` server on the card
+    (``scene_plain_serve``: the batch kernels' plain versions on the
+    same inputs, in the same buckets); float32 results bitwise equal to
+    per-request ``apply`` and q8.7 results to the numpy Qm.n oracle
+    (both on a fresh fold of the world chain, recomputed when the leaf's
+    world digest changes); after the frames, the counters
+    exactly ``torch_scenes.CARD_COUNTERS``, no q fallback and no
+    recovery step; then one ``submit_scene_async`` burst of the last
+    frame, drained, bitwise equal to the sync results.  Returns (launch
+    counts of the frames' flushes, the summary)."""
+    card = torch_scenes.CARD
+    counts = dict.fromkeys(KERNELS, 0)
+    summary = {"phase": "scene", **card}
+    rng = np.random.default_rng(torch_scenes.SCENE_SEED)
+    for kind in ("diag", "matrix"):
+        g, names = torch_scenes.BUILD[kind][0](scene, tc, card["branches"],
+                                               card["leaves"])
+        pts = torch_scenes.leaf_points(rng, len(names), card["points"], g.dim)
+        srv = serving.GeometryServer(device=device)
+        plain = serving.GeometryServer(device=device, backend="ref")
+        scene_serve(srv, g, names, pts)           # plans, cold folds
+        scene.reset_stats()
+        serving.reset_stats()
+        oracles = {}       # leaf -> (world digest, q8.7 oracle, apply)
+        kind_counts = dict.fromkeys(KERNELS, 0)
+        frame_ms, folds, launches = [], [], []
+        for frame in range(1, card["frames"] + 1):
+            before = scene.stats["folds"]
+            dirtied = torch_scenes.edit(scene, tc, g, kind, frame,
+                                        card["branches"])
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = scene_serve(srv, g, names, pts)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            got = _build.launch_counts()
+            for k, v in got.items():
+                counts[k] += v
+                kind_counts[k] += v
+            launches.append(sum(got.values()))
+            folds.append(scene.stats["folds"] - before)
+            want = scene_plain_serve(plain, g, names, pts)
+            if not all(bitwise_equal(a, b) for a, b in zip(res, want)):
+                raise SystemExit(f"scene ({kind}): frame {frame} differs "
+                                 f"from its plain versions")
+            if folds[-1] != dirtied:
+                raise SystemExit(f"scene ({kind}): frame {frame} folded "
+                                 f"{folds[-1]} nodes, dirtied {dirtied}")
+            for i, (n, p) in enumerate(zip(names, pts)):
+                q, f, twin = res[3 * i:3 * i + 3]
+                digest = g.world_digest(n)
+                if n not in oracles or oracles[n][0] != digest:
+                    chain = g.world_chain(n)
+                    oracles[n] = (digest, q_oracle(chain, p),
+                                  chain.apply(p, device=device).cpu().numpy())
+                _, want_q, want_f = oracles[n]
+                if not (bitwise_equal(f, twin) and bitwise_equal(f, want_f)
+                        and bitwise_equal(q, want_q)):
+                    raise SystemExit(f"scene ({kind}): frame {frame}, leaf "
+                                     f"{n}: a result differs from its twin, "
+                                     f"apply or the Q oracle")
+        stats = {k: scene.stats[k] for k in torch_scenes.CARD_COUNTERS}
+        if stats != torch_scenes.CARD_COUNTERS:
+            raise SystemExit(f"scene ({kind}): counters {stats}, pinned "
+                             f"{torch_scenes.CARD_COUNTERS}")
+        require_clean(serving.stats, f"scene ({kind})")
+        if serving.stats["q_fallbacks"]:
+            raise SystemExit(f"scene ({kind}): q8.7 requests fell back")
+        want_kernels = [BATCH[kind], Q_BATCH[kind]]
+        require_launched(kind_counts, want_kernels, f"scene ({kind})")
+
+        # one async burst of the last frame against its sync results
+        eng = serving.AsyncGeometryServer(
+            device=device, clock=serving.VirtualClock(),
+            admission=serving.AdmissionConfig(
+                max_queue_depth=3 * len(names), tenant_share=1.0))
+        tickets = []
+        for n, p in zip(names, pts):
+            tickets.append(eng.submit_scene_async(g, n, p,
+                                                  qformat=Q8_7.name))
+            tickets.append(eng.submit_scene_async(g, n, p))
+            tickets.append(eng.submit_async(g.world_chain(n), p))
+        eng.drain()
+        if not all(bitwise_equal(t.result(), w)
+                   for t, w in zip(tickets, res)):
+            raise SystemExit(f"scene ({kind}): the async burst differs "
+                             f"from the sync frame")
+        n_points = 3 * len(names) * card["points"]
+        summary[kind] = {
+            "nodes": len(g), "leaves": len(names),
+            "requests_per_frame": 3 * len(names),
+            "points_per_frame": n_points,
+            "serve_ms_per_frame": float(np.median(frame_ms)),
+            "serve_ms_frames": frame_ms,
+            "points_per_s": n_points / float(np.median(frame_ms)) * 1e3,
+            "folds_per_frame": folds, "launches_per_frame": launches,
+            "counters": stats, "bitwise_vs_plain": True,
+            "bitwise_vs_twin_apply_oracle": True,
+            "async_burst_bitwise": True,
+            "kernels": {k: kind_counts[k] for k in want_kernels}}
+        del oracles, res, want, tickets, eng, srv, plain
+    return counts, summary
+
+
 # -- fault tolerance and the async front end ----------------------------------
 
 def kinds_launched(reqs) -> list:
@@ -1581,32 +1759,54 @@ def _tree_numel(tree) -> int:
     return tree.numel()
 
 
+def path_kernels(cfg) -> list:
+    """The model kernels a family's serving path launches: the hybrid
+    path all five, a dense or MoE path all but ``ssd_intra``."""
+    return [k for k in MODEL_PATH_KERNELS
+            if k != "ssd_intra" or cfg.family in ("ssm", "hybrid")]
+
+
 def expected_launches(cfg, gen: int) -> tuple[dict, dict]:
-    """(prefill, decode) launches of the model kernels for a hybrid model
-    of L layers: a layer's prefill runs rmsnorm_2d 5 times (the attention
-    norm, the SSM's gated norm, the two branch gains, the MLP norm),
-    rope_3d twice (q, k), flash_attention_3d and ssd_intra once and
-    vecadd_2d twice (two residual adds); the final norm adds one
-    rmsnorm_2d.  A decode step is the same without flash attention and
-    SSD (``_cached_attention`` and the recurrent step are plain torch)."""
+    """(prefill, decode) launches of the model kernels for a model of L
+    layers.  A hybrid layer's prefill runs rmsnorm_2d 5 times (the
+    attention norm, the SSM's gated norm, the two branch gains, the MLP
+    norm), rope_3d twice (q, k), flash_attention_3d and ssd_intra once
+    and vecadd_2d twice (two residual adds).  A dense or MoE layer is
+    attention only: rmsnorm_2d twice (the attention and MLP norms), rope_3d
+    twice, flash_attention_3d once, vecadd_2d twice (the MoE FFN's
+    products, gathers and combine are torch ops, as they are jnp ops in
+    the reference).  The final norm adds one rmsnorm_2d.  A decode step
+    is the same without flash attention and SSD (``_cached_attention``
+    and the recurrent step are plain torch)."""
     L = cfg.n_layers
-    step = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
+    norms = 5 if cfg.family == "hybrid" else 2
+    step = {"rmsnorm_2d": norms * L + 1, "rope_3d": 2 * L,
             "flash_attention_3d": 0, "ssd_intra": 0, "vecadd_2d": 2 * L}
-    prefill = dict(step, flash_attention_3d=L, ssd_intra=L)
+    prefill = dict(step, flash_attention_3d=L,
+                   ssd_intra=L if cfg.family == "hybrid" else 0)
     return prefill, {k: gen * v for k, v in step.items()}
 
 
-def hymba_phase(device: str = "cuda") -> tuple[dict, dict, dict]:
-    """Serve hymba-1.5b at full width from random weights (seed 0): batch
-    HYMBA_BATCH, HYMBA_PROMPT-token prompts, HYMBA_GEN tokens through
+def model_phase(arch: str, *,
+                device: str = "cuda") -> tuple[dict, dict, dict]:
+    """Serve ``arch`` at full width from random weights (seed 0): batch
+    MODEL_BATCH, MODEL_PROMPT-token prompts, MODEL_GEN tokens through
     ``serve_batch``, launch counts zeroed before it and read after the
-    prefill and after the decode; then the same model on the plain
+    prefill and after the decode; a second serve must give the same
+    tokens and logits bit for bit; then the same model on the plain
     versions (``use_backend("ref")``) teacher-forced with the kernel
-    path's tokens, every step's logits within HYMBA_LOGITS_RTOL (relative
-    RMS).  Returns (the launches of the served run, the distinct sizes of
-    those launches by kernel, the summary)."""
-    cfg = configs.get(HYMBA_ARCH)
+    path's tokens.  Gates against the plain path, every step: the logits
+    within ``logits_rtol(cfg)`` (relative RMS), and each greedy token
+    equal to the plain path's unless the plain path's top two logits
+    stand within the envelope's RMS difference, ``logits_rtol(cfg)``
+    times the RMS of its logits (a near-tie: a threshold fixed by the
+    plain path and the per-site bound, not by this run's disagreement).
+    A failed gate does not stop the others; the phase fails with all of
+    them.  Returns (the launches of the first served run, the distinct
+    sizes of those launches by kernel, the summary)."""
+    cfg = configs.get(arch)
     model = build(cfg)
+    kernels = path_kernels(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     torch.cuda.synchronize()
@@ -1615,11 +1815,11 @@ def hymba_phase(device: str = "cuda") -> tuple[dict, dict, dict]:
     # the analytic count leaves out conv_b and one of the three per-head
     # SSM vectors (models/config.py): 0.007 % of hymba-1.5b
     if abs(n_params - cfg.param_count()) > 1e-3 * cfg.param_count():
-        raise SystemExit(f"hymba: {n_params} parameters, param_count() "
+        raise SystemExit(f"{arch}: {n_params} parameters, param_count() "
                          f"{cfg.param_count()}")
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab_size,
-                           (HYMBA_BATCH, HYMBA_PROMPT)).astype(np.int32)
+                           (MODEL_BATCH, MODEL_PROMPT)).astype(np.int32)
     # warm-up (cuBLAS handles, the kernels' first launches), not counted
     serve_batch(cfg, params, prompts[:, :64], gen_tokens=2, model=model)
     torch.cuda.synchronize()
@@ -1627,78 +1827,112 @@ def hymba_phase(device: str = "cuda") -> tuple[dict, dict, dict]:
     _build.reset_launch_counts()
     trace = {}
     t0 = time.perf_counter()
-    tokens = serve_batch(cfg, params, prompts, gen_tokens=HYMBA_GEN,
+    tokens = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
                          model=model, trace=trace)
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     total, sizes = _build.launch_counts(), _build.launch_sizes()
     pre = trace["launches_prefill"]
     dec = {k: total[k] - pre[k] for k in total}
-    want_pre, want_dec = expected_launches(cfg, HYMBA_GEN)
+    want_pre, want_dec = expected_launches(cfg, MODEL_GEN)
     for name in MODEL_PATH_KERNELS:
         if pre[name] != want_pre[name] or dec[name] != want_dec[name]:
-            raise SystemExit(f"hymba: {name} launched {pre[name]} + "
+            raise SystemExit(f"{arch}: {name} launched {pre[name]} + "
                              f"{dec[name]}, expected {want_pre[name]} + "
                              f"{want_dec[name]}")
-    require_launched(total, MODEL_PATH_KERNELS, "hymba serve")
+    require_launched(total, kernels, f"{arch} serve")
     logits = trace["logits"]
-    if tokens.shape != (HYMBA_BATCH, HYMBA_GEN) or not all(
-            lg.shape == (HYMBA_BATCH, cfg.vocab_size)
+    if tokens.shape != (MODEL_BATCH, MODEL_GEN) or not all(
+            lg.shape == (MODEL_BATCH, cfg.vocab_size)
             and bool(torch.isfinite(lg).all()) for lg in logits):
-        raise SystemExit("hymba: bad tokens or non-finite logits")
+        raise SystemExit(f"{arch}: bad tokens or non-finite logits")
+    failures = []
+    # the second serve: the same bits (no atomics reorder an add)
+    again = {}
+    tokens2 = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
+                          model=model, trace=again)
+    repeat_bitwise = bool(np.array_equal(tokens2, tokens)) and all(
+        torch.equal(a, b) for a, b in zip(logits, again["logits"]))
+    if not repeat_bitwise:
+        failures.append("two serves differ")
 
     # the plain path on the card, teacher-forced with the kernel path's tokens
     tok = torch.from_numpy(tokens).long().to(device)
     with dispatch.use_backend("ref"):
         _build.reset_launch_counts()
-        cache = model.init_cache(HYMBA_BATCH, HYMBA_PROMPT + HYMBA_GEN,
+        cache = model.init_cache(MODEL_BATCH, MODEL_PROMPT + MODEL_GEN,
                                  device=device)
         lg, cache = model.prefill(
             params, {"tokens": torch.from_numpy(prompts).long().to(device)},
             cache)
         ref_logits = [lg]
-        for i in range(HYMBA_GEN):
-            lg, cache = model.decode(params, tok[:, i], HYMBA_PROMPT + i,
+        for i in range(MODEL_GEN):
+            lg, cache = model.decode(params, tok[:, i], MODEL_PROMPT + i,
                                      cache)
             ref_logits.append(lg)
         torch.cuda.synchronize()
         if any(_build.launch_counts().values()):
-            raise SystemExit("hymba: the plain path launched a kernel")
-    rel_rms, max_abs, agree = [], [], []
-    for a, b in zip(logits, ref_logits):
-        d = (a - b).double()
-        rel_rms.append(float(d.pow(2).mean().sqrt()
-                             / b.double().pow(2).mean().sqrt()))
+            raise SystemExit(f"{arch}: the plain path launched a kernel")
+    rtol = logits_rtol(cfg)
+    rel_rms, max_abs, agree, ties, differ = [], [], [], [], []
+    for step, (a, b) in enumerate(zip(logits, ref_logits)):
+        d, b = (a - b).double(), b.double()
+        scale = float(b.pow(2).mean().sqrt())
+        rel_rms.append(float(d.pow(2).mean().sqrt()) / scale)
         max_abs.append(float(d.abs().max()))
-        agree.append(float((a.argmax(-1) == b.argmax(-1)).double().mean()))
-    if max(rel_rms) > HYMBA_LOGITS_RTOL:
-        raise SystemExit(f"hymba: logits {max(rel_rms)} (relative RMS) from "
-                         f"the plain path, above {HYMBA_LOGITS_RTOL}")
+        same = a.argmax(-1) == b.argmax(-1)
+        agree.append(float(same.double().mean()))
+        top2 = b.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        tie = rtol * scale
+        ties.append(int((margin <= tie).sum()))
+        for row in torch.nonzero(~same).flatten().tolist():
+            differ.append({"step": step, "row": row,
+                           "plain_margin": float(margin[row]),
+                           "near_tie_margin": tie,
+                           "near_tie": bool(margin[row] <= tie)})
+    if max(rel_rms) > rtol:
+        failures.append(f"logits {max(rel_rms)} (relative RMS) from the "
+                        f"plain path, above {rtol}")
+    plain_tokens = torch.stack([lg.argmax(-1) for lg in ref_logits[:-1]],
+                               dim=1).cpu().numpy()
+    beyond = [t for t in differ if not t["near_tie"]]
+    if beyond:
+        failures.append(f"greedy tokens differ from the plain path's "
+                        f"beyond a near-tie: {beyond}")
+    if failures:
+        raise SystemExit(f"{arch}: " + "; ".join(failures))
     decode_ms = trace["decode_ms"]
     summary = {
-        "phase": "serve (hymba-1.5b)", "arch": cfg.name,
+        "phase": f"serve ({arch})", "arch": cfg.name, "family": cfg.family,
         "params": n_params, "param_count": cfg.param_count(),
-        "dtype": cfg.dtype, "batch": HYMBA_BATCH, "prompt": HYMBA_PROMPT,
-        "gen_tokens": HYMBA_GEN, "init_s": init_s,
+        "dtype": cfg.dtype, "batch": MODEL_BATCH, "prompt": MODEL_PROMPT,
+        "gen_tokens": MODEL_GEN, "init_s": init_s,
         "prefill_ms": trace["prefill_ms"],
-        "prefill_tokens_per_s": HYMBA_BATCH * HYMBA_PROMPT
+        "prefill_tokens_per_s": MODEL_BATCH * MODEL_PROMPT
         / trace["prefill_ms"] * 1e3,
         "decode_ms_per_token": float(np.median(decode_ms)),
         "decode_ms_steps": decode_ms,
-        "decode_tokens_per_s": HYMBA_BATCH * len(decode_ms)
+        "decode_tokens_per_s": MODEL_BATCH * len(decode_ms)
         / sum(decode_ms) * 1e3,
         "wall_s": wall_s,
-        "served_tokens_per_s": HYMBA_BATCH * HYMBA_GEN / wall_s,
+        "served_tokens_per_s": MODEL_BATCH * MODEL_GEN / wall_s,
         "peak_memory_GB": peak / 1e9,
-        "launches_prefill": {k: pre[k] for k in MODEL_PATH_KERNELS},
-        "launches_decode": {k: dec[k] for k in MODEL_PATH_KERNELS},
+        "launches_prefill": {k: pre[k] for k in kernels},
+        "launches_decode": {k: dec[k] for k in kernels},
         "logits_rel_rms_vs_plain": rel_rms, "logits_rel_rms_max": max(rel_rms),
-        "logits_rtol": HYMBA_LOGITS_RTOL, "logits_max_abs_diff": max_abs,
+        "logits_rtol": rtol, "logits_max_abs_diff": max_abs,
         "greedy_agreement": agree,
         "greedy_agreement_mean": float(np.mean(agree)),
+        "tokens_equal_plain": bool(np.array_equal(plain_tokens, tokens)),
+        "tokens_differing": differ, "near_tie_rows_by_step": ties,
+        "near_tie_rows": sum(ties),
         "tokens_first_row": tokens[0].tolist(),
+        "repeat_bitwise": repeat_bitwise,
+        "repeat_prefill_ms": again["prefill_ms"],
+        "repeat_decode_ms_per_token": float(np.median(again["decode_ms"])),
     }
-    del params, cache, logits, ref_logits
+    del params, cache, logits, ref_logits, again
     torch.cuda.empty_cache()
     return total, sizes, summary
 
@@ -1767,7 +2001,7 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
             q, k, v, scale=scale, causal=True, window=window)
         plain = lambda: fa_ref.flash_attention(        # noqa: E731
             q, k, v, scale=scale, causal=True, window=window)
-        b = HYMBA_BATCH if bhq % HYMBA_BATCH == 0 else 1
+        b = MODEL_BATCH if bhq % MODEL_BATCH == 0 else 1
         q4 = q.view(b, bhq // b, s, d)
         k4, v4 = k.view(b, bhkv // b, t, d), v.view(b, bhkv // b, t, d)
         qp, kp = torch.arange(s, device=dev), torch.arange(t, device=dev)
@@ -2280,7 +2514,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": _build.sources()})
@@ -2309,7 +2543,11 @@ def main() -> int:
     eager_counts, summary = primitives_phase()
     emit(summary)
     require_launched(eager_counts, EAGER_KERNELS, "primitives")
-    hymba_counts, hymba_sizes, summary = hymba_phase()
+    scene_counts, summary = scene_phase()
+    emit(summary)
+    hymba_counts, hymba_sizes, summary = model_phase(HYMBA_ARCH)
+    emit(summary)
+    granite_counts, granite_sizes, summary = model_phase(GRANITE_ARCH)
     emit(summary)
 
     rng = np.random.default_rng(SEED)
@@ -2452,10 +2690,10 @@ def main() -> int:
                check_only=True)
     # the residual adds of the hymba-1.5b serve (batch 4, prompt 2048:
     # 8192 rows), prefill and decode, beside the kernels line's row
-    rows_n = HYMBA_BATCH * HYMBA_PROMPT
+    rows_n = MODEL_BATCH * MODEL_PROMPT
     vecadd_hymba = eager_case("vecadd_2d", (rows_n, 1600), bf16, rng,
                               "hymba prefill residual add")
-    eager_case("vecadd_2d", (HYMBA_BATCH, 1600), bf16, rng,
+    eager_case("vecadd_2d", (MODEL_BATCH, 1600), bf16, rng,
                "hymba decode residual add", check_only=True)
     # vecadd_2d's scalar kernel (a base off 16-byte alignment) and the
     # 16-byte one's scalar tail (totals no multiple of 8), M = 1
@@ -2481,7 +2719,7 @@ def main() -> int:
             ((4097, 8), f32, "column, N = 8", ()),
             ((999, 12), f32, "column, N = 12", ()),
             ((rows_n, 1600), bf16, "column, N = 1600", ()),
-            ((HYMBA_BATCH, 1600), bf16, "column, M = 4", ()),
+            ((MODEL_BATCH, 1600), bf16, "column, M = 4", ()),
             ((1, 1 << 20), f32, "column, M = 1", ()),
             ((CLOUD_POINTS, 3), f32, "scalar, N = 3", ()),
             ((4097, 100), bf16, "scalar, N = 100", ()),
@@ -2492,12 +2730,12 @@ def main() -> int:
                    misaligned=off)
     # the model kernels at every shape the serve gives them; the last row
     # of each kernel is the kernels line's
-    last = HYMBA_PROMPT + HYMBA_GEN - 1
+    last = MODEL_PROMPT + MODEL_GEN - 1
     # rmsnorm.cu's scalar kernel (x off 16-byte alignment; rows of 33 or
     # 100 values, no multiple of 16 bytes) and both kernels at M = 1
     for shape, dtype, size, off in (
             ((rows_n, 1600), bf16, "prefill shape, off alignment", True),
-            ((HYMBA_BATCH, 3200), f32, "decode SSM shape, off alignment",
+            ((MODEL_BATCH, 3200), f32, "decode SSM shape, off alignment",
              True),
             ((rows_n, 33), bf16, "N = 33", False),
             ((rows_n, 100), f32, "N = 100", False),
@@ -2508,32 +2746,32 @@ def main() -> int:
                    misaligned=off)
     # rope.cu's scalar kernel: a half row of no multiple of 16 bytes (D =
     # 20 in bfloat16) and x one element off 16-byte alignment
-    for shape, size, off in (((20, HYMBA_PROMPT, 20), "D = 20", False),
-                             ((100, HYMBA_PROMPT, 64),
+    for shape, size, off in (((20, MODEL_PROMPT, 20), "D = 20", False),
+                             ((100, MODEL_PROMPT, 64),
                               "prefill q, off alignment", True),
                              ((20, 1, 64), "decode k, off alignment", True)):
         model_case("rope_3d", shape, bf16, rng, size, check_only=True,
                    misaligned=off)
     rope_decode = {}
     for name, shape, dtype, size, window, pos0, only in (
-            ("rmsnorm_2d", (HYMBA_BATCH, 3200), f32,
+            ("rmsnorm_2d", (MODEL_BATCH, 3200), f32,
              "decode SSM gated norm", None, 0, True),
             ("rmsnorm_2d", (rows_n, 3200), f32, "SSM gated norm", None, 0,
              False),
-            ("rmsnorm_2d", (HYMBA_BATCH, 1600), bf16, "decode", None, 0,
+            ("rmsnorm_2d", (MODEL_BATCH, 1600), bf16, "decode", None, 0,
              False),
             ("rmsnorm_2d", (rows_n, 1600), bf16, "prefill", None, 0, False),
             ("rope_3d", (20, 1, 64), bf16, "decode k", None, last, False),
             ("rope_3d", (100, 1, 64), bf16, "decode q", None, last, False),
-            ("rope_3d", (20, HYMBA_PROMPT, 64), bf16, "prefill k", None, 0,
+            ("rope_3d", (20, MODEL_PROMPT, 64), bf16, "prefill k", None, 0,
              False),
-            ("rope_3d", (100, HYMBA_PROMPT, 64), bf16, "prefill q", None, 0,
+            ("rope_3d", (100, MODEL_PROMPT, 64), bf16, "prefill q", None, 0,
              False),
             ("flash_attention_3d", (100, 20, 2000, 64), bf16,
              "prompt 2000, window edge inside a tile", 1000, 0, True),
             ("flash_attention_3d", (100, 20, 2000, 64), bf16,
              "prompt 2000", 1024, 0, True),
-            ("flash_attention_3d", (100, 20, HYMBA_PROMPT, 64), bf16,
+            ("flash_attention_3d", (100, 20, MODEL_PROMPT, 64), bf16,
              "prefill", 1024, 0, False),
             ("ssd_intra", (32, 256, 50, 64, 16), f32, "prefill, float32",
              None, 0, True),
@@ -2547,16 +2785,47 @@ def main() -> int:
     # heads of 64, state 128), beside the kernels line's hymba row
     ssd_mamba2 = model_case("ssd_intra", (32, 256, 24, 64, 128), bf16, rng,
                             "mamba2-130m prefill")
-    # every size the serve launched a kernel with was checked above
+    # the model kernels at every shape the granite-moe-3b-a800m serve
+    # gives them: attention only, 24 query and 8 kv heads of 64 (a GQA
+    # group of 3), no window, d = 1536; the timed rows are the kernels
+    # line's "granite" entries
+    gcfg = configs.get(GRANITE_ARCH)
+    gq, gkv = MODEL_BATCH * gcfg.n_heads, MODEL_BATCH * gcfg.n_kv_heads
+    ghd, gd = gcfg.head_dim, gcfg.d_model
+    granite = {}
+    for name, shape, size, pos0, only in (
+            ("rmsnorm_2d", (MODEL_BATCH, gd), "granite decode", 0, True),
+            ("rmsnorm_2d", (rows_n, gd), "granite prefill", 0, False),
+            ("rope_3d", (gkv, 1, ghd), "granite decode k", last, True),
+            ("rope_3d", (gq, 1, ghd), "granite decode q", last, True),
+            ("rope_3d", (gkv, MODEL_PROMPT, ghd), "granite prefill k", 0,
+             True),
+            ("rope_3d", (gq, MODEL_PROMPT, ghd), "granite prefill q", 0,
+             False),
+            ("flash_attention_3d", (gq, gkv, MODEL_PROMPT, ghd),
+             "granite prefill", 0, False)):
+        row = model_case(name, shape, bf16, rng, size, window=gcfg.window,
+                         pos0=pos0, check_only=only)
+        if not only:
+            granite[name] = row
+    granite["vecadd_2d"] = eager_case("vecadd_2d", (rows_n, gd), bf16, rng,
+                                      "granite prefill residual add")
+    eager_case("vecadd_2d", (MODEL_BATCH, gd), bf16, rng,
+               "granite decode residual add", check_only=True)
+    # every size the serves launched a kernel with was checked above
     checked = _build.launch_sizes()
-    for name in MODEL_PATH_KERNELS:
-        missed = hymba_sizes[name] - checked[name]
-        if missed:
-            raise SystemExit(f"{name}: the hymba serve launched it with sizes "
-                             f"{sorted(missed)}, which no check held against "
-                             f"its plain version")
-    emit({"phase": "hymba shapes checked",
-          "sizes": {k: sorted(hymba_sizes[k]) for k in MODEL_PATH_KERNELS}})
+    for arch, served in ((HYMBA_ARCH, hymba_sizes),
+                         (GRANITE_ARCH, granite_sizes)):
+        for name in MODEL_PATH_KERNELS:
+            missed = served[name] - checked[name]
+            if missed:
+                raise SystemExit(f"{name}: the {arch} serve launched it with "
+                                 f"sizes {sorted(missed)}, which no check "
+                                 f"held against its plain version")
+    emit({"phase": "model shapes checked",
+          "sizes": {arch: {k: sorted(served[k]) for k in MODEL_PATH_KERNELS}
+                    for arch, served in ((HYMBA_ARCH, hymba_sizes),
+                                         (GRANITE_ARCH, granite_sizes))}})
     # the primitives phase's comparison with the kernels alone: the
     # sequential pipeline's four launches against the fused chain's one
     fused = kernel_case("chain_matrix_1d", (CLOUD_POINTS, 2), rng, cloud)
@@ -2600,6 +2869,8 @@ def main() -> int:
                         "launches_graphics": graphics_counts[name],
                         "launches_primitives": eager_counts[name],
                         "launches_hymba": hymba_counts[name],
+                        "launches_granite": granite_counts[name],
+                        "launches_scene": scene_counts[name],
                         "launches_chaos_soak": soak_counts[name],
                         "launches_chaos_mixed": chaos_counts[name],
                         "launches_async": async_counts[name],
@@ -2632,6 +2903,14 @@ def main() -> int:
         k: ssd_mamba2[k] for k in ("shape", "dtype", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "composite_ms", "copy_ms")}
+    for name, r in granite.items():
+        kernels[list(KERNELS).index(name)]["granite"] = {
+            k: r.get(k) for k in ("shape", "dtype", "window", "max_abs_err",
+                                  "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "composite_ms", "copy_ms")}
+        kernels[list(KERNELS).index(name)]["granite"]["launches"] = \
+            granite_counts[name]
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -62,7 +62,10 @@ def model_params_from_reference(cfg, params, *,
     arrays: every leaf as a tensor of the same dtype on ``device`` (the
     GPU unless the caller asks for the CPU), and ``params["layers"]`` --
     stacked by ``jax.vmap`` with a leading axis of ``cfg.n_layers`` --
-    split into a list of one dict per layer."""
+    split into a list of one dict per layer.  Every subtree of a layer
+    comes across whole: an MoE layer's ``moe`` dict (``router`` float32,
+    ``w_gate``/``w_up`` (e, d, d_ff), ``w_down`` (e, d_ff, d)) as the
+    SwiGLU ``mlp`` dict of a dense one."""
     from repro_torch.kernels import dispatch
     dev = dispatch.resolve_device(device)
     out = {k: _tree(v, lambda a: _tensor(a, dev))

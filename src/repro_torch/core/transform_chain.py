@@ -31,10 +31,13 @@ wrap), at half the bytes per point.  Affine chains only.
 ``folded()`` and ``as_homogeneous()`` hand the host fold back as tensors
 (``Transform2D.matrix`` is ``as_homogeneous``).
 
-Not in this slice: the carry-fold API comes with the scene graph.  There
-is no traced-parameter fold (the JAX package's ``_fold_jnp``, which
-``folded`` takes for traced parameters): PyTorch runs eagerly and
-parameters are concrete values.
+The carry-fold API (``fold_carry_identity``/``_extend``/``_finish``) is
+the reference's: ``fold_structure`` folds from the identity carry, and
+the scene graph (``repro_torch.scene``) resumes a saved carry through the
+same loop, so a cached world fold is bit-identical to a fold from
+scratch.  There is no traced-parameter fold (the JAX package's
+``_fold_jnp``, which ``folded`` takes for traced parameters): PyTorch
+runs eagerly and parameters are concrete values.
 
 Byte economy vs. sequential primitive dispatch (k-long chain over N points
 of dim d, itemsize 4): sequential moves ~2*k*N*d*4 bytes; the fused plan
@@ -95,7 +98,7 @@ def reset_stats() -> None:
 # alone or packed into a serving bucket, and whether the port or the JAX
 # package folds it: the functions below are that package's, verbatim
 # (their ``carry`` argument serves the scene graph's incremental folds,
-# which arrive with that slice).
+# through ``fold_carry_extend`` below).
 
 def _vec(v, dim: int) -> np.ndarray:
     v = np.asarray(v, np.float32)
@@ -312,18 +315,92 @@ def plan_kind_of(structure: tuple) -> str:
 def fold_structure(structure: tuple, params) -> tuple[np.ndarray, ...]:
     """Fold ONE parameter set for ``structure``: float32 (s, t) if the
     structure is diagonal, (A, t) if it is a general affine, and
-    (H, lo, hi) if it is projective.  Shared by ``TransformChain.apply``
-    and the serving engine's bucket packing, so a request's composed
-    parameters are bit-identical however it is dispatched.  It runs the
-    op sequence of the JAX package's ``fold_structure`` (a fold from the
-    identity), so the two packages agree bit for bit."""
+    (H, lo, hi) if it is projective.  This host fold is shared verbatim
+    by ``TransformChain.apply``, the serving engine's bucket packing, and
+    (through the carry API below) the scene graph's cached subchain
+    folds, so a request's composed parameters are bit-identical however
+    it is dispatched."""
     kind = plan_kind_of(structure)
-    dim, kinds = structure
+    dim = structure[0]
+    carry = fold_carry_extend(kind, dim, fold_carry_identity(kind, dim),
+                              structure[1], params)
+    return fold_carry_finish(kind, carry)
+
+
+# -- incremental (carry-state) folds ----------------------------------------
+#
+# The scene graph (``repro_torch.scene``) folds shared chain prefixes once and
+# extends each node's world fold from its parent's saved state.  For the
+# bitwise contract to survive that, the incremental fold must BE the
+# one-pass fold: the ``_fold_*`` loops above thread an explicit carry, and
+# ``fold_carry_extend`` re-enters the same loop with a saved carry.  The
+# op sequence is therefore *identical* to folding the concatenated chain
+# in one ``fold_structure`` call -- bit-identical results by construction,
+# not by accident of float algebra.  The carry per plan kind:
+#
+#   diag        (s, t)                  q = s (.) p + t
+#   matrix      (A, t)                  q = p @ A + t
+#   projective  (H, lo, hi, culled)     q = divide([p, 1] @ H), cull flag
+#                                       carried so the after-cull
+#                                       restrictions stay exact
+#
+# A subchain folds under the plan kind of the FULL chain it belongs to
+# (the lattice diag < matrix < projective is monotone under
+# concatenation), so a diagonal prefix extended by a rotating suffix is
+# folded with the matrix loop from the start -- exactly what the one-pass
+# fold of the whole chain does.
+
+def fold_carry_identity(kind: str, dim: int) -> tuple:
+    """The identity carry state for an incremental fold of plan kind
+    ``kind`` ("diag" | "matrix" | "projective") in ``dim`` dimensions --
+    ``fold_carry_extend`` from this state reproduces ``fold_structure``
+    bit for bit."""
     if kind == "diag":
-        return _fold_diag(dim, kinds, params)
+        return (np.ones((dim,), np.float32), np.zeros((dim,), np.float32))
     if kind == "matrix":
-        return _fold_matrix(dim, kinds, params)
-    return _fold_projective(dim, kinds, params)[:3]
+        return (np.eye(dim, dtype=np.float32),
+                np.zeros((dim,), np.float32))
+    if kind == "projective":
+        return (np.eye(dim + 1, dtype=np.float32),
+                np.full((dim,), -np.inf, np.float32),
+                np.full((dim,), np.inf, np.float32),
+                False)
+    raise ValueError(f"unknown fold kind {kind!r}")
+
+
+def fold_carry_extend(kind: str, dim: int, carry: tuple, kinds,
+                      params) -> tuple:
+    """Extend a saved fold carry by the primitives ``(kinds, params)`` --
+    the incremental half of ``fold_structure``.  Running the concatenated
+    chain through one ``fold_structure`` call and running it here in
+    pieces execute the SAME loop over the same primitives, so the two are
+    bit-identical; the scene graph's fold-CSE correctness rests on this.
+
+    ``kind`` must be the plan kind of the FULL chain the pieces belong to
+    (``plan_kind_of`` of the concatenated structure); a subchain whose
+    primitives cannot be expressed under ``kind`` raises ``ValueError``.
+    """
+    have = {k for k, _ in kinds}
+    if kind == "diag":
+        if have - _DIAG_KINDS:
+            raise ValueError(f"subchain kinds {have - _DIAG_KINDS} cannot "
+                             "fold under a diagonal carry")
+        return _fold_diag(dim, kinds, params, carry)
+    if kind == "matrix":
+        if have & _PROJ_KINDS:
+            raise ValueError(f"subchain kinds {have & _PROJ_KINDS} cannot "
+                             "fold under an affine-matrix carry")
+        return _fold_matrix(dim, kinds, params, carry)
+    if kind == "projective":
+        return _fold_projective(dim, kinds, params, carry)
+    raise ValueError(f"unknown fold kind {kind!r}")
+
+
+def fold_carry_finish(kind: str, carry: tuple) -> tuple[np.ndarray, ...]:
+    """Turn a fold carry into the public folded-parameter tuple that
+    ``fold_structure`` returns (drops the projective carry's internal
+    ``culled`` flag)."""
+    return carry[:3] if kind == "projective" else carry
 
 
 # -- plans -------------------------------------------------------------------

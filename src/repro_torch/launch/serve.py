@@ -5,10 +5,16 @@ Prompts are padded into one prefill batch, then the batch decodes in
 lock-step, one ``Model.decode`` per token, with greedy sampling:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --prompt-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --device cpu
 
-The default ``--arch`` is mamba2-130m, as in the JAX launcher.  Without
+The dense, MoE, SSM and hybrid families serve (the MoE FFN of
+``models/moe.py`` on granite-moe-3b-a800m and dbrx-132b; dbrx-132b's
+264 GB of bfloat16 weights need more than one card, so it serves only
+``--reduced`` until the model is sharded).  The default ``--arch`` is
+mamba2-130m, as in the JAX launcher.  Without
 ``--device cpu`` it runs on the GPU and raises when there is none.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0.
 """

@@ -1,26 +1,31 @@
-"""Residual blocks of the dense, SSM and hybrid families, the port of the
-JAX package's ``models/blocks.py`` (its serving half: ``init``,
+"""Residual blocks of the dense, MoE, SSM and hybrid families, the port of
+the JAX package's ``models/blocks.py`` (its serving half: ``init``,
 ``init_cache``, ``prefill``, ``decode``).
 
 One layer's cache, per family:
 
-  dense  : the attention cache dict (k, v, kpos)
-  ssm    : {state, conv}
-  hybrid : {"attn": ..., "ssm": ...}
+  dense/moe : the attention cache dict (k, v, kpos)
+  ssm       : {state, conv}
+  hybrid    : {"attn": ..., "ssm": ...}
 
 A hybrid layer runs, in prefill: the attention norm (``rmsnorm_2d``),
 attention (``rope_3d`` on q and k, ``flash_attention_3d``) and the SSM
 branch (``ssd_intra``, its gated norm) on the same normed input, a norm
 of each branch by its gain, their mean as the residual delta
 (``vecadd_2d``), then the MLP norm, the SwiGLU MLP and a second residual
-add.  The MoE and encoder-decoder blocks, and full-sequence ``apply``
-(training), come with later slices.
+add.  A dense or MoE layer is the attention norm, attention, a residual
+add, the MLP norm, then the SwiGLU MLP -- or, when the config sets
+experts, the top-k MoE FFN (``moe.moe_ffn``), whose ``aux`` term
+``_ffn`` returns and serving ignores, as in the reference -- and a
+second residual add.  The encoder-decoder blocks, and full-sequence
+``apply`` (training), come with later slices.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, mlp_init, residual_add, rmsnorm
@@ -47,15 +52,22 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
         p["ssm_gain"] = ones()
     if cfg.d_ff:
         p["mlp_norm"] = ones()
-        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        if cfg.n_experts:
+            p["moe"] = moe_mod.init(generator, cfg, dtype)
+        else:
+            p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """The channel mixer's delta, or None without one."""
+    """The channel mixer: (delta, aux), delta None without one; aux is
+    the MoE load-balance term (0.0 for the SwiGLU MLP)."""
     if not cfg.d_ff:
-        return None
-    return mlp(p["mlp"], rmsnorm(x, p["mlp_norm"], cfg.norm_eps))
+        return None, 0.0
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts:
+        return moe_mod.moe_ffn(p["moe"], h, cfg)
+    return mlp(p["mlp"], h), 0.0
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -96,7 +108,7 @@ def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
     else:
         a, new_cache = attn.prefill(p["attn"], h, cfg, cache, start=start)
         x = residual_add(x, a.to(x.dtype))
-    delta = _ffn(p, x, cfg)
+    delta, _ = _ffn(p, x, cfg)
     if delta is not None:
         x = residual_add(x, delta.to(x.dtype))
     return x, new_cache
@@ -117,7 +129,7 @@ def decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, pos: int):
     else:
         a, new_cache = attn.decode_step(p["attn"], h, cfg, cache, pos)
         x = residual_add(x, a.to(x.dtype))
-    delta = _ffn(p, x, cfg)
+    delta, _ = _ffn(p, x, cfg)
     if delta is not None:
         x = residual_add(x, delta.to(x.dtype))
     return x, new_cache

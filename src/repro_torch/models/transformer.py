@@ -1,16 +1,17 @@
-"""Model assembly for serving: the decoder-only LMs of the dense, SSM and
-hybrid families, the port of the JAX package's ``models/transformer.py``
-(``init``, ``init_cache``, ``prefill``, ``decode``, ``build``).
+"""Model assembly for serving: the decoder-only LMs of the dense, MoE,
+SSM and hybrid families, the port of the JAX package's
+``models/transformer.py`` (``init``, ``init_cache``, ``prefill``,
+``decode``, ``build``).
 
 Parameters are plain dicts of tensors: ``embed`` (V, d), ``final_norm``
 (d,) float32, ``unembed`` (V, d) unless the embeddings are tied, and
 ``layers``, a list of one dict per layer (the JAX package stacks the
 layers on a leading axis for ``lax.scan``; a Python loop over the list
 takes its place).  The cache is a list of one layer cache each, updated
-in place.  ``build`` raises ``NotPortedError`` for the MoE,
-encoder-decoder and VLM families, and for any config that sets experts,
-sinusoidal positions or a frontend (the fields the JAX package's model
-branches on); ``forward``/``loss`` come with the training slice.
+in place.  ``build`` raises ``NotPortedError`` for the encoder-decoder
+and VLM families, and for any config that sets sinusoidal positions or
+a frontend (the fields the JAX package's model branches on that the port
+does not run yet); ``forward``/``loss`` come with the training slice.
 """
 from __future__ import annotations
 
@@ -23,17 +24,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed, embed_init, logits_head, rmsnorm
 
 #: the families this port serves
-SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 #: the ROADMAP.md item that ports each family it does not serve yet
-NOT_PORTED = {"moe": "queue 1 item 10 (MoE serving)",
-              "encdec": "queue 1 item 10 (enc-dec serving)",
-              "vlm": "queue 1 item 10 (VLM serving)"}
+NOT_PORTED = {"encdec": "queue 1 item 10.2 (enc-dec serving)",
+              "vlm": "queue 1 item 10.3 (VLM serving)"}
 #: the config fields the JAX package's model branches on and the port
 #: does not run yet, whatever the family: (what, ROADMAP.md sub-item,
 #: test of the config that sets the field)
 NOT_PORTED_FIELDS = (
-    ("experts (n_experts > 0)", "queue 1 item 10.1 (MoE serving)",
-     lambda cfg: cfg.n_experts > 0),
     ("sinusoidal positions (pos_embed != 'rope')",
      "queue 1 item 10.2 (enc-dec serving)",
      lambda cfg: cfg.pos_embed != "rope"),

@@ -265,7 +265,7 @@ class AsyncGeometryServer:
         return self._admission.depth
 
     def submit_async(self, chain, points, *, tenant: str = "default",
-                     qformat=None) -> Ticket:
+                     qformat=None, fold=None) -> Ticket:
         """Admit + validate one request; returns its awaitable ticket.
 
         Gate order: admission first (backpressure must shed load BEFORE
@@ -273,9 +273,9 @@ class AsyncGeometryServer:
         boundary.  Raises the typed taxonomy either way --
         ``QueueFullError`` / ``RateLimitError`` with stable codes for
         backpressure, the intake family for malformed payloads -- so a
-        caller's error handling is one ``except RequestError``.  (The
-        scene path, ``submit_scene_async``, comes with the scene-graph
-        slice, ROADMAP.md queue 1 item 7.)"""
+        caller's error handling is one ``except RequestError``.
+        ``fold`` is ``GeometryServer.validate``'s: a scene-cached world
+        fold (``submit_scene_async``) in place of ``chain.fold()``."""
         trc = obst.active()
         sid = trc.begin("request.submit", tenant=tenant) \
             if trc.enabled else None
@@ -291,7 +291,8 @@ class AsyncGeometryServer:
                         code=getattr(e, "code", type(e).__name__))
             raise
         try:
-            p = self._server.validate(chain, points, qformat=qformat)
+            p = self._server.validate(chain, points, qformat=qformat,
+                                      fold=fold)
         except BaseException as e:
             # never queued: the slot (but not the spent rate token --
             # the tenant did submit) goes back
@@ -320,6 +321,20 @@ class AsyncGeometryServer:
         if sid is not None:
             trc.end(sid, ticket=p.ticket, outcome="admitted")
         return ticket
+
+    def submit_scene_async(self, scene, name: str, points, *,
+                           tenant: str = "default", qformat=None) -> Ticket:
+        """Scene-aware ``submit_async``: the request's chain is the
+        node's world chain and its fold comes from the scene's shared
+        ``FoldCache`` (``SceneGraph.world_fold``), so a burst of
+        requests under one prefix folds it once.  Admission, grouping,
+        the flush policy and the sync/async bitwise equivalence are the
+        ordinary ``submit_async`` path (``GeometryServer.submit_scene``
+        states the equality)."""
+        chain = scene.world_chain(name)
+        fold = scene.world_fold(name) if len(chain) else None
+        return self.submit_async(chain, points, tenant=tenant,
+                                 qformat=qformat, fold=fold)
 
     def _group_key(self, p: engine._Pending) -> tuple:
         """The flush-policy grouping key: the engine's own bucket key,

@@ -73,8 +73,10 @@ bucket's kernel takes the cached launch knobs for its size class, and
 every ``launch`` trace instant carries the config's source, the kernel
 and the cost model's prediction (``autotune.costmodel.predict_launch``).
 
-Not in this slice: ``submit_scene`` (the scene graph, ROADMAP.md queue 1
-item 7).
+``submit_scene`` serves a scene node's points through the scene's cached
+world fold (``repro_torch.scene``), which ``validate(fold=)`` injects in
+place of ``chain.fold()``: the same buckets, kernels and checks as
+``submit(scene.world_chain(name), ...)``, and bitwise the same results.
 """
 from __future__ import annotations
 
@@ -581,22 +583,49 @@ class GeometryServer:
         reach a packed bucket."""
         return self.enqueue(self.validate(chain, points, qformat=qformat))
 
+    def submit_scene(self, scene, name: str, points, *,
+                     qformat=None) -> int:
+        """Queue one request against a scene node: the chain is the
+        node's world chain (``SceneGraph.world_chain``) and the fold is
+        the scene's CACHED world fold, resolved through its shared
+        ``FoldCache`` instead of refolded here, so requests under a
+        common prefix fold that prefix once, not once a request.
+
+        Everything downstream is the ordinary lane: the same bucket key,
+        packed kernels, validation boundary and ``qformat=`` routing
+        (the cached fold quantises through ``quantize.quantize_fold`` at
+        pack time as a per-request fold does).  The cached fold is
+        bit-identical to ``chain.fold()`` by the carry-fold construction
+        (``transform_chain.fold_carry_extend``), so results are bitwise
+        equal to submitting ``scene.world_chain(name)`` through
+        ``submit``."""
+        chain = scene.world_chain(name)
+        fold = scene.world_fold(name) if len(chain) else None
+        return self.enqueue(self.validate(chain, points, qformat=qformat,
+                                          fold=fold))
+
     def validate(self, chain: tc.TransformChain, points, *,
-                 qformat=None) -> _Pending:
+                 qformat=None, fold=None) -> _Pending:
         """The intake half of ``submit``: assign a ticket id, run the
         validation boundary, and return the queue entry WITHOUT queueing
         it.  The async front-end (``serving.async_engine``) validates at
         arrival and enqueues when its flush policy schedules the entry,
         so both paths share one boundary and one ticket sequence.
         Rejected submissions burn their id: the id in a typed error is
-        never reused."""
+        never reused.
+
+        ``fold`` injects precomputed folded parameters (the scene
+        graph's cached world fold) in place of the ``chain.fold()`` this
+        method would otherwise run; it MUST be bit-identical to
+        ``chain.fold()`` (the scene cache is, by construction) and
+        passes the same finiteness and q-overflow checks either way."""
         ticket = self._ticket
         self._ticket += 1
         trc = obst.active()
         sid = trc.begin("request.validate", ticket=ticket) \
             if trc.enabled else None
         try:
-            p = self._validate(chain, points, qformat, ticket)
+            p = self._validate(chain, points, qformat, ticket, fold=fold)
         except errors.RequestError as e:
             self._bump("rejected_requests")
             if sid is not None:
@@ -627,10 +656,12 @@ class GeometryServer:
         self.last_report = []
 
     def _validate(self, chain: tc.TransformChain, points, qformat,
-                  ticket: int) -> _Pending:
+                  ticket: int, fold=None) -> _Pending:
         """Build the queue entry, raising the typed taxonomy on anything
         the packed lane could choke on later, and apply the q-overflow
-        policy to fixed-point requests."""
+        policy to fixed-point requests.  ``fold`` skips the
+        ``chain.fold()`` recompute (scene-cached folds); every check
+        downstream of the fold runs on the injected value unchanged."""
         cfg = self.fault_config
         if isinstance(points, torch.Tensor):
             points = points.detach().cpu().numpy()
@@ -655,13 +686,15 @@ class GeometryServer:
                 and not np.isfinite(pts).all():
             raise errors.NonFiniteError("points contain NaN/Inf",
                                         ticket=ticket)
-        fold = None
-        if len(chain):
-            fold = chain.fold()
+        if not len(chain):
+            fold = None
+        else:
+            if fold is None:
+                fold = chain.fold()
             # projective folds legitimately carry +/-inf cull bounds
             parts = fold[:1] if chain.is_projective else fold
-            if cfg.validate_finite \
-                    and not all(np.isfinite(f).all() for f in parts):
+            if cfg.validate_finite and not all(
+                    np.isfinite(np.asarray(f)).all() for f in parts):
                 raise errors.NonFiniteError(
                     "chain parameters fold to NaN/Inf", ticket=ticket)
         q_fallback = False

@@ -6,7 +6,9 @@ eager ``affine_2d``/``vecadd_2d``/``matmul_2d`` in float32 and bfloat16,
 but ``matmul_2d``'s tensor-core regime, held within a bound; the model
 kernels within ``torch_bounds``),
 the launch counters, and the GPU server bitwise equal to the CPU server,
-to the plain path and to per-request ``apply``/``project``.
+to the plain path and to per-request ``apply``/``project`` (the scene
+graph's ``submit_scene`` lanes too); the reduced MoE model through the
+kernels, and ``moe_ffn`` deterministic on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -1237,6 +1239,140 @@ def test_reduced_hymba_serves_on_card_through_the_kernels(cuda_device):
     assert np.array_equal(toks, ref_toks)
     for a, b in zip(trace["logits"], ref_trace["logits"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_reduced_granite_serves_on_card_through_the_kernels(cuda_device):
+    """The reduced granite-moe-3b-a800m (MoE, attention only) serves on the
+    card: a prefill launches rmsnorm_2d 2L+1, rope_3d 2L,
+    flash_attention_3d L and vecadd_2d 2L times and no ssd_intra, a
+    decode step the same without flash; the tokens equal the plain
+    path's on the card, the logits agree to float32 rounding, and a
+    second serve gives the same bits."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    cfg = configs.get("granite-moe-3b-a800m").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = np.random.default_rng(66).integers(0, cfg.vocab_size, (4, 48))
+    L, gen = cfg.n_layers, 8
+    _build.reset_launch_counts()
+    trace, again = {}, {}
+    toks = serve_batch(cfg, params, prompts, gen_tokens=gen, model=model,
+                       trace=trace)
+    pre, total = trace["launches_prefill"], _build.launch_counts()
+    assert pre["rmsnorm_2d"] == 2 * L + 1 and pre["rope_3d"] == 2 * L
+    assert pre["flash_attention_3d"] == L and pre["vecadd_2d"] == 2 * L
+    assert total["ssd_intra"] == 0
+    dec = {k: total[k] - pre[k] for k in pre}
+    assert dec["rmsnorm_2d"] == gen * (2 * L + 1)
+    assert dec["rope_3d"] == gen * 2 * L and dec["vecadd_2d"] == gen * 2 * L
+    assert dec["flash_attention_3d"] == 0
+    assert np.array_equal(serve_batch(cfg, params, prompts, gen_tokens=gen,
+                                      model=model, trace=again), toks)
+    assert all(torch.equal(a, b)
+               for a, b in zip(trace["logits"], again["logits"]))
+    ref_trace = {}
+    with dispatch.use_backend("ref"):
+        _build.reset_launch_counts()
+        ref_toks = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                               model=model, trace=ref_trace)
+        assert sum(_build.launch_counts().values()) == 0
+    assert np.array_equal(toks, ref_toks)
+    for a, b in zip(trace["logits"], ref_trace["logits"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+#: the seed of the MoE card test's weights and tokens: every token's k-th
+#: and (k+1)-th router probabilities differ by more than MOE_MARGIN on
+#: the CPU, in float32 and in bfloat16, for the prompt and the decode
+#: group (asserted), so the card's routing must equal the CPU's
+MOE_SEED, MOE_MARGIN = 4, 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_is_deterministic_and_matches_the_cpu(cuda_device,
+                                                              dtype):
+    """``moe_ffn`` at granite-moe-3b-a800m's width (1536, 40 experts, top
+    8; two layers' worth of tokens) on the card: the same routing as on
+    the CPU, the output within float rounding of the CPU's (bfloat16:
+    the gate and up products in float32 on both), and two calls bitwise
+    equal (no atomics in the combine).  Weights and tokens are made on
+    the CPU from MOE_SEED and copied to the card."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get("granite-moe-3b-a800m")
+    k = cfg.experts_per_token
+    cpu = moe.init(torch.Generator().manual_seed(MOE_SEED), cfg, dtype)
+    params = {n: v.to(cuda_device) for n, v in cpu.items()}
+    x = torch.from_numpy(np.random.default_rng(MOE_SEED).standard_normal(
+        (2, 256, cfg.d_model)).astype(np.float32)).to(dtype)
+    for xc in (x, x[:, :1]):        # a prompt, and a decode step's group
+        rc = moe.route(cpu["router"], xc, cfg)
+        top = torch.sort(rc.probs, dim=-1, descending=True).values
+        assert float((top[..., k - 1] - top[..., k]).min()) > MOE_MARGIN
+        xs = xc.to(cuda_device)
+        y, aux = moe.moe_ffn(params, xs, cfg)
+        y2, aux2 = moe.moe_ffn(params, xs, cfg)
+        assert torch.equal(y, y2) and torch.equal(aux, aux2)
+        r = moe.route(params["router"], xs, cfg)
+        assert torch.equal(r.expert_ids.cpu(), rc.expert_ids)
+        yc, _ = moe.moe_ffn(cpu, xc, cfg)
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+        assert float((y.cpu().float() - yc.float()).abs().max()) \
+            <= tol * float(yc.float().abs().max())
+
+
+def test_scene_lanes_on_card_equal_submit_apply_and_the_cpu(cuda_device):
+    """``submit_scene`` on a CUDA server, for the diag and the matrix
+    scene, q8.7 and float32: bitwise equal to ``submit(world_chain)`` in
+    the same flush, to per-request ``apply`` on the card, to the CPU
+    server's results, and through ``submit_scene_async`` to the sync
+    flush; the batch kernels launched."""
+    import torch_scenes as ts
+    from repro_torch import scene
+    from repro_torch.core import transform_chain as tc
+    rng = np.random.default_rng(ts.SCENE_SEED)
+    for kind in ("diag", "matrix"):
+        g, names = ts.BUILD[kind][0](scene, tc, 3, 4)
+        pts = ts.leaf_points(rng, len(names), 1000, g.dim)
+        ts.edit(scene, tc, g, kind, 1, 3)
+        res = {}
+        for dev in (cuda_device, "cpu"):
+            srv = serving.GeometryServer(device=dev)
+            _build.reset_launch_counts()
+            for n, p in zip(names, pts):
+                srv.submit_scene(g, n, p, qformat="q8.7")
+                srv.submit_scene(g, n, p)
+                srv.submit(g.world_chain(n), p)
+            res[str(dev)] = srv.flush()
+        got, want = res[str(cuda_device)], res["cpu"]
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+        for i, (n, p) in enumerate(zip(names, pts)):
+            q, f, twin = got[3 * i:3 * i + 3]
+            assert _same_bits(f, twin)
+            chain = g.world_chain(n)
+            assert _same_bits(f, chain.apply(p, device=cuda_device)
+                              .cpu().numpy())
+            assert _same_bits(q, chain.apply(p, dtype="q8.7",
+                                             device=cuda_device)
+                              .cpu().numpy())
+        eng = serving.AsyncGeometryServer(device=cuda_device,
+                                          clock=serving.VirtualClock())
+        _build.reset_launch_counts()
+        tickets = []
+        for n, p in zip(names, pts):
+            tickets.append(eng.submit_scene_async(g, n, p, qformat="q8.7"))
+            tickets.append(eng.submit_scene_async(g, n, p))
+            tickets.append(eng.submit_async(g.world_chain(n), p))
+        eng.drain()
+        counts = _build.launch_counts()
+        batch = {"diag": "chain_diag_batch_2d",
+                 "matrix": "chain_matrix_batch_2d"}[kind]
+        assert counts[batch] > 0 and counts[batch + "_q"] > 0
+        assert all(_same_bits(np.asarray(t.result()), w)
+                   for t, w in zip(tickets, got))
 
 
 def test_chaos_soak_on_card_gives_the_two_rung_counters(cuda_device):

@@ -80,7 +80,9 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.autotune", "repro_torch.autotune.__main__",
                    "repro_torch.autotune.cache",
                    "repro_torch.autotune.costmodel",
-                   "repro_torch.autotune.search", "repro_torch.obs.profile"):
+                   "repro_torch.autotune.search", "repro_torch.obs.profile",
+                   "repro_torch.scene", "repro_torch.scene.cache",
+                   "repro_torch.scene.graph", "repro_torch.models.moe"):
         assert module in names.split(), module
 
 
@@ -203,6 +205,41 @@ def test_autotune_and_profiler_load_no_jax_or_repro():
     assert res.stdout.split() == ["7", "96", "True"]
 
 
+_SCENE_MOE_PROBE = r"""
+import sys
+import numpy as np
+import torch
+from repro_torch import configs, scene, serving
+from repro_torch.core.transform_chain import TransformChain
+from repro_torch.models import build, moe
+g = scene.SceneGraph(2, cache=scene.FoldCache())
+g.add("w", TransformChain.identity(2).scale(2.0))
+g.add("l", TransformChain.identity(2).translate(1.0, 0.0), parent="w")
+srv = serving.GeometryServer(device="cpu")
+srv.submit_scene(g, "l", np.ones((4, 2), np.float32))
+out = srv.flush()[0]
+cfg = configs.get("granite-moe-3b-a800m").reduced()
+params = build(cfg).init(torch.Generator().manual_seed(0))
+y, aux = moe.moe_ffn(params["layers"][0]["moe"], torch.ones(2, 3, 64), cfg)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(out[0].tolist(), tuple(y.shape), dict(scene.stats)["folds"],
+      ",".join(bad))
+"""
+
+
+def test_scene_and_moe_load_no_jax_or_repro():
+    """The scene graph on the serving path and the MoE FFN, imported first
+    in a fresh interpreter and run once, pull in neither jax nor
+    ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _SCENE_MOE_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["[3.0,", "2.0]", "(2,", "3,", "64)", "2"]
+
+
 def test_model_stack_loads_no_jax_or_repro():
     """The model stack -- ``repro_torch.models``, ``.configs``,
     ``.launch.serve`` and the four kernel families -- imported first in a
@@ -250,6 +287,13 @@ def test_default_device_entry_points_raise_without_cuda():
     from repro_torch.models import build
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "hymba-1.5b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "granite-moe-3b-a800m", "--reduced"])
+    from repro_torch import scene
+    g = scene.SceneGraph(2, cache=scene.FoldCache())
+    g.add("r", chain)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.GeometryServer().submit_scene(g, "r", np.ones((4, 2)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build(configs.get("mamba2-130m").reduced()).init_cache(1, 8)
 
