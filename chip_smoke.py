@@ -114,6 +114,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      parameters, 40 experts top 8, attention only: ``rmsnorm_2d`` 2L+1,
      ``rope_3d`` 2L, ``flash_attention_3d`` L without a window, GQA
      group 3, ``vecadd_2d`` 2L a prefill), with the same gates;
+  8c. serve (granite-moe-3b-a800m int8 KV cache): the same weights with
+     ``kv_cache_dtype="int8"`` (a linear cache: no window), the same
+     gates and launches; beside them, ungated, each decode step's logits
+     against the same model with a bfloat16 cache teacher-forced with the
+     same tokens (relative RMS beside ``int8_rms_bound``, sqrt(2L+1)
+     2**-7 = 0.063) and both caches' bytes;
+  8d. serve (whisper-medium): the enc-dec family at full width and depth
+     (24 + 24 layers, 959.2 M parameters), batch 4, 1500 zero encoder
+     frames (whisper's 30-second window) and the prompts' first token,
+     16 tokens from position 1: ``rmsnorm_2d`` 2E+1+3L+1,
+     ``flash_attention_3d`` E+2L (the encoder without a mask, the
+     decoder's self- and cross-attention) and ``vecadd_2d`` 2E+3L a
+     prefill, 3L+1, L (cross-attention) and 3L a decode step, no
+     ``rope_3d``; the same gates, envelope 0.109;
+  8e. serve (internvl2-76b): the VLM family at full width (d 8192, 64
+     query and 8 kv heads of 128, d_ff 28672, vocab 128 256), its 80
+     layers cut to 4 (5.52 B parameters; the full model's 141 GB wait
+     for sharding), the hymba serve's batch and lengths, the first 256
+     positions a zero patch prefix; launches as a dense layer's, the
+     same gates, envelope 0.028;
   9. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
@@ -188,9 +208,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      (4, 1536), ``rope_3d`` at (96 | 32, 2048 | 1, 64), flash at (96,
      32, 2048, 64) without a window and ``vecadd_2d`` at (8192, 1536)
      and (4, 1536), bfloat16; timed: the norm, q's RoPE, flash and the
-     residual add at the prefill shape); every size a kernel was
-     launched with in either serve must be among the sizes these checks
-     launched it with;
+     residual add at the prefill shape); whisper-medium's, all timed
+     (``rmsnorm_2d`` and ``vecadd_2d`` at (6000, 1024) and (4, 1024),
+     flash at (64, 64, 1500 | 1, 64) without a mask against 1500 keys
+     and at (64, 64, 1, 64) causal against 1 key) and internvl2-76b's,
+     all timed (``rmsnorm_2d`` and ``vecadd_2d`` at (8192, 8192) and (4,
+     8192), ``rope_3d`` at (256 | 32, 2048 | 1, 128), flash at (256, 32,
+     2048, 128), group 8); every size a kernel was launched with in any
+     of the five serves must be among the sizes these checks launched it
+     with;
  10. autotune (after every timed phase, before the chaos soak): (a)
      every candidate of every tunable kernel launched once at the served
      shapes -- the five single-chain kernels at 16 384 and 2**24 points,
@@ -248,8 +274,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
  12. the ``kernels`` line (launches from the mixed serve, for the int16
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
-     each kernel also carries its launches in the scene and the granite
-     serves, and the model kernels a ``granite`` row;
+     each kernel also carries its launches in the scene, granite (with
+     both caches), whisper and internvl2 serves, and the model kernels a
+     ``granite`` row and ``whisper`` and ``internvl2`` rows by shape;
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
      decode rows, ``ssd_intra`` its mamba2-130m row,
      ``chain_matrix_batch_2d`` its largest d = 3 bucket's row,
@@ -258,6 +285,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -302,7 +330,7 @@ from repro_torch.kernels.rope import ref as rope_ref  # noqa: E402
 from repro_torch.kernels.rope import rope as rope_k  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_k  # noqa: E402
-from repro_torch.launch.serve import serve_batch  # noqa: E402
+from repro_torch.launch.serve import serve_batch, serve_inputs  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 
@@ -342,28 +370,55 @@ T1, T2, SV, THETA = (3.0, 2.0), (-1.0, 5.0), (1.3, 0.8), 0.3
 #: routines have no published listing and the reconstruction is faster
 EMULATOR_EXACT = {("translation", 8), ("translation", 64),
                   ("scaling", 8), ("scaling", 64)}
-#: the model serve phases (hymba-1.5b, granite-moe-3b-a800m): full
-#: width, batch 4, 2048-token prompts, 16 tokens
+#: the model serve phases: full width, batch 4, 16 generated tokens;
+#: hymba-1.5b, granite-moe-3b-a800m (also with an int8 KV cache) and
+#: internvl2-76b on 2048-token prompts, whisper-medium on WHISPER_FRAMES
+#: encoder frames
 HYMBA_ARCH, GRANITE_ARCH = "hymba-1.5b", "granite-moe-3b-a800m"
+WHISPER_ARCH, VLM_ARCH = "whisper-medium", "internvl2-76b"
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 2048, 16
+#: whisper's 30-second window after its stride-2 conv (arXiv:2212.04356
+#: section 2.2): the encoder's length and the cross-attention's keys
+WHISPER_FRAMES = 1500
+#: internvl2-76b's depth on one card: its 80 layers are 141 GB in
+#: bfloat16 and wait for sharding; 4 layers at full width are 11 GB
+VLM_LAYERS = 4
 #: rounding sites a layer where the kernel path's bfloat16 output may
 #: land one ulp (2**-8 to 2**-7 relative) from the plain path's: a hybrid
 #: layer's five rmsnorm_2d outputs and its flash_attention_3d output (the
 #: tensor-core flash kernel also rounds P to bfloat16, within 2**-9
-#: max|v| of its output); a dense or MoE layer's two rmsnorm_2d outputs
-#: and its flash output.  rope_3d and vecadd_2d are bitwise, SSD float32.
-MODEL_SITES = {"hybrid": 6, "dense": 3, "moe": 3}
+#: max|v| of its output); a dense, MoE or VLM layer's two rmsnorm_2d
+#: outputs and its flash output; an enc-dec decoder layer's three norms
+#: and two flash outputs (self and cross), an encoder layer's two norms
+#: and one flash output (ENCODER_SITES).  rope_3d and vecadd_2d are
+#: bitwise, SSD float32.
+MODEL_SITES = {"hybrid": 6, "dense": 3, "moe": 3, "vlm": 3, "encdec": 5}
+ENCODER_SITES = 3
 
 
 def logits_rtol(cfg) -> float:
     """The kernel path's logits against the plain path's, relative RMS,
     a step -- an envelope, not the correctness check (phase 9 holds each
     kernel to its per-element bound at every shape of the path): each of
-    the MODEL_SITES a layer over L layers, and the final norm, a full
-    ulp at the top of the range, added in quadrature:
-    sqrt(sites * L + 1) * 2**-7 (hymba-1.5b 0.109, granite-moe-3b-a800m
-    0.077; PERF.md)."""
-    return math.sqrt(MODEL_SITES[cfg.family] * cfg.n_layers + 1) * 2.0 ** -7
+    the MODEL_SITES a layer over L layers, ENCODER_SITES over E encoder
+    layers, and the final norms (the encoder's too), a full ulp at the
+    top of the range, added in quadrature: sqrt(sites * L + 3 E + norms)
+    * 2**-7 (hymba-1.5b 0.109, granite-moe-3b-a800m 0.077, whisper-medium
+    sqrt(194) 2**-7 = 0.109, internvl2-76b at 4 layers 0.028; PERF.md)."""
+    sites = (MODEL_SITES[cfg.family] * cfg.n_layers
+             + ENCODER_SITES * cfg.encoder_layers + 1 + cfg.is_encdec)
+    return math.sqrt(sites) * 2.0 ** -7
+
+
+def int8_rms_bound(cfg) -> float:
+    """The int8 KV cache's decode logits against the bfloat16 cache's,
+    relative RMS, teacher-forced with the same tokens: an int8 step of
+    max|row| / 254 is about one bfloat16 ulp at the top of the range,
+    over K and V in each of L layers and the final norm, added in
+    quadrature: sqrt(2 L + 1) * 2**-7 (granite-moe-3b-a800m 0.063).  A
+    figure to record as met or missed, not a gate: the quantization is a
+    designed loss (the JAX package holds it to atol 0.15)."""
+    return math.sqrt(2 * cfg.n_layers + 1) * 2.0 ** -7
 
 
 #: the recovery counters a clean serve must leave at 0: the ladder must
@@ -1749,48 +1804,103 @@ def primitives_phase(device: str = "cuda") -> tuple[dict, dict]:
     return counts, summary
 
 
-# -- the model stack: serve (hymba-1.5b) ------------------------------------------
+# -- the model stack: the serve phases ------------------------------------------
 
-def _tree_numel(tree) -> int:
+def _leaves(tree) -> list:
     if isinstance(tree, dict):
-        return sum(_tree_numel(v) for v in tree.values())
+        tree = list(tree.values())
     if isinstance(tree, list):
-        return sum(_tree_numel(v) for v in tree)
-    return tree.numel()
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
 def path_kernels(cfg) -> list:
-    """The model kernels a family's serving path launches: the hybrid
-    path all five, a dense or MoE path all but ``ssd_intra``."""
+    """The model kernels a config's serving path launches: ``rope_3d``
+    where it uses RoPE, ``ssd_intra`` in the SSM and hybrid families,
+    the others always."""
     return [k for k in MODEL_PATH_KERNELS
-            if k != "ssd_intra" or cfg.family in ("ssm", "hybrid")]
+            if (k != "ssd_intra" or cfg.family in ("ssm", "hybrid"))
+            and (k != "rope_3d" or cfg.pos_embed == "rope")]
 
 
 def expected_launches(cfg, gen: int) -> tuple[dict, dict]:
     """(prefill, decode) launches of the model kernels for a model of L
-    layers.  A hybrid layer's prefill runs rmsnorm_2d 5 times (the
-    attention norm, the SSM's gated norm, the two branch gains, the MLP
-    norm), rope_3d twice (q, k), flash_attention_3d and ssd_intra once
-    and vecadd_2d twice (two residual adds).  A dense or MoE layer is
-    attention only: rmsnorm_2d twice (the attention and MLP norms), rope_3d
-    twice, flash_attention_3d once, vecadd_2d twice (the MoE FFN's
-    products, gathers and combine are torch ops, as they are jnp ops in
-    the reference).  The final norm adds one rmsnorm_2d.  A decode step
-    is the same without flash attention and SSD (``_cached_attention``
-    and the recurrent step are plain torch)."""
-    L = cfg.n_layers
-    norms = 5 if cfg.family == "hybrid" else 2
-    step = {"rmsnorm_2d": norms * L + 1, "rope_3d": 2 * L,
-            "flash_attention_3d": 0, "ssd_intra": 0, "vecadd_2d": 2 * L}
-    prefill = dict(step, flash_attention_3d=L,
-                   ssd_intra=L if cfg.family == "hybrid" else 0)
+    layers (and E encoder layers).  A hybrid layer's prefill runs
+    rmsnorm_2d 5 times (the attention norm, the SSM's gated norm, the two
+    branch gains, the MLP norm), rope_3d twice (q, k), flash_attention_3d
+    and ssd_intra once and vecadd_2d twice (two residual adds).  A dense,
+    MoE or VLM layer is attention only: rmsnorm_2d twice (the attention
+    and MLP norms), rope_3d twice, flash_attention_3d once, vecadd_2d
+    twice (the MoE FFN's products, gathers and combine are torch ops, as
+    they are jnp ops in the reference).  An enc-dec decoder layer adds
+    cross-attention -- a norm, flash_attention_3d against the encoder's
+    keys and a residual add -- and has no RoPE (sinusoidal positions, a
+    torch add); its prefill also runs the encoder, 2 norms, a flash and
+    2 adds a layer, and the encoder's final norm.  The final norm adds
+    one rmsnorm_2d.  A decode step is the same without the encoder, the
+    self-attention's flash and SSD (``_cached_attention`` and the
+    recurrent step are plain torch); cross-attention keeps its flash."""
+    L, E, enc = cfg.n_layers, cfg.encoder_layers, int(cfg.is_encdec)
+    norms = 5 if cfg.family == "hybrid" else 2 + enc
+    step = {"rmsnorm_2d": norms * L + 1,
+            "rope_3d": 2 * L if cfg.pos_embed == "rope" else 0,
+            "flash_attention_3d": enc * L, "ssd_intra": 0,
+            "vecadd_2d": (2 + enc) * L}
+    prefill = dict(step, rmsnorm_2d=step["rmsnorm_2d"] + 2 * E + enc,
+                   flash_attention_3d=L + enc * L + E,
+                   ssd_intra=L if cfg.family == "hybrid" else 0,
+                   vecadd_2d=step["vecadd_2d"] + 2 * E)
     return prefill, {k: gen * v for k, v in step.items()}
 
 
-def model_phase(arch: str, *,
+def init_params(cfg, device: str = "cuda") -> tuple[dict, float]:
+    """Random parameters of ``cfg`` from seed SEED on the card, and the
+    seconds they took."""
+    t0 = time.perf_counter()
+    params = build(cfg).init(torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def teacher_forced(model, params: dict, prompts: np.ndarray,
+                   tokens: np.ndarray,
+                   device: str = "cuda") -> tuple[list, int]:
+    """``model`` fed ``prompts`` through ``serve_inputs`` (the serve's
+    batch, first position and encoder length) and then ``tokens`` (B,
+    gen), one a step: the logits of the prefill and of every decode step,
+    and the bytes of its cache."""
+    b, s = prompts.shape
+    batch, pos, enc_len = serve_inputs(
+        model.cfg, torch.from_numpy(prompts).long().to(device))
+    cache = model.init_cache(b, s + tokens.shape[1], enc_len, device=device)
+    nbytes = _tree_bytes(cache)
+    tok = torch.from_numpy(tokens).long().to(device)
+    lg, cache = model.prefill(params, batch, cache)
+    logits = [lg]
+    for i in range(tokens.shape[1]):
+        lg, cache = model.decode(params, tok[:, i], pos + i, cache)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return logits, nbytes
+
+
+def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(RMS(a - b) / RMS(b), the RMS of b), in float64."""
+    d, b = (a - b).double(), b.double()
+    scale = float(b.pow(2).mean().sqrt())
+    return float(d.pow(2).mean().sqrt()) / scale, scale
+
+
+def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
+                weights: tuple[dict, float] | None = None,
                 device: str = "cuda") -> tuple[dict, dict, dict]:
-    """Serve ``arch`` at full width from random weights (seed 0): batch
-    MODEL_BATCH, MODEL_PROMPT-token prompts, MODEL_GEN tokens through
+    """Serve ``cfg`` from random weights (seed 0; ``weights``, the
+    (params, init_s) of ``init_params``, if given): batch MODEL_BATCH, ``prompt``-token prompts
+    (whisper-medium: ``prompt`` encoder frames), MODEL_GEN tokens through
     ``serve_batch``, launch counts zeroed before it and read after the
     prefill and after the decode; a second serve must give the same
     tokens and logits bit for bit; then the same model on the plain
@@ -1802,26 +1912,31 @@ def model_phase(arch: str, *,
     times the RMS of its logits (a near-tie: a threshold fixed by the
     plain path and the per-site bound, not by this run's disagreement).
     A failed gate does not stop the others; the phase fails with all of
-    them.  Returns (the launches of the first served run, the distinct
-    sizes of those launches by kernel, the summary)."""
-    cfg = configs.get(arch)
+    them.  With an int8 KV cache it also prints, ungated, the decode
+    logits' relative RMS against the same model with a bfloat16 cache
+    (the kernel path, teacher-forced with the same tokens) beside
+    ``int8_rms_bound(cfg)``, and the two caches' bytes.  Returns (the
+    launches of the first served run, the distinct sizes of those
+    launches by kernel, the summary)."""
     model = build(cfg)
     kernels = path_kernels(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=device).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = _tree_numel(params)
+    int8 = cfg.kv_cache_dtype == "int8"
+    name = cfg.name + (" int8 KV cache" if int8 else "")
+    params, init_s = weights or init_params(cfg, device)
+    n_params = sum(t.numel() for t in _leaves(params))
     # the analytic count leaves out conv_b and one of the three per-head
-    # SSM vectors (models/config.py): 0.007 % of hymba-1.5b
+    # SSM vectors (models/config.py): 0.007 % of hymba-1.5b; and the
+    # encoder's final norm, 1024 of whisper-medium's 959 M
     if abs(n_params - cfg.param_count()) > 1e-3 * cfg.param_count():
-        raise SystemExit(f"{arch}: {n_params} parameters, param_count() "
+        raise SystemExit(f"{name}: {n_params} parameters, param_count() "
                          f"{cfg.param_count()}")
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab_size,
-                           (MODEL_BATCH, MODEL_PROMPT)).astype(np.int32)
-    # warm-up (cuBLAS handles, the kernels' first launches), not counted
-    serve_batch(cfg, params, prompts[:, :64], gen_tokens=2, model=model)
+                           (MODEL_BATCH, prompt)).astype(np.int32)
+    # warm-up (cuBLAS handles, the kernels' first launches), not counted;
+    # a VLM's warm-up prompt holds its patch prefix
+    serve_batch(cfg, params, prompts[:, :max(64, 2 * cfg.n_frontend_tokens)],
+                gen_tokens=2, model=model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -1835,17 +1950,17 @@ def model_phase(arch: str, *,
     pre = trace["launches_prefill"]
     dec = {k: total[k] - pre[k] for k in total}
     want_pre, want_dec = expected_launches(cfg, MODEL_GEN)
-    for name in MODEL_PATH_KERNELS:
-        if pre[name] != want_pre[name] or dec[name] != want_dec[name]:
-            raise SystemExit(f"{arch}: {name} launched {pre[name]} + "
-                             f"{dec[name]}, expected {want_pre[name]} + "
-                             f"{want_dec[name]}")
-    require_launched(total, kernels, f"{arch} serve")
+    for kernel in MODEL_PATH_KERNELS:
+        if pre[kernel] != want_pre[kernel] or dec[kernel] != want_dec[kernel]:
+            raise SystemExit(f"{name}: {kernel} launched {pre[kernel]} + "
+                             f"{dec[kernel]}, expected {want_pre[kernel]} + "
+                             f"{want_dec[kernel]}")
+    require_launched(total, kernels, f"{name} serve")
     logits = trace["logits"]
     if tokens.shape != (MODEL_BATCH, MODEL_GEN) or not all(
             lg.shape == (MODEL_BATCH, cfg.vocab_size)
             and bool(torch.isfinite(lg).all()) for lg in logits):
-        raise SystemExit(f"{arch}: bad tokens or non-finite logits")
+        raise SystemExit(f"{name}: bad tokens or non-finite logits")
     failures = []
     # the second serve: the same bits (no atomics reorder an add)
     again = {}
@@ -1857,32 +1972,21 @@ def model_phase(arch: str, *,
         failures.append("two serves differ")
 
     # the plain path on the card, teacher-forced with the kernel path's tokens
-    tok = torch.from_numpy(tokens).long().to(device)
     with dispatch.use_backend("ref"):
         _build.reset_launch_counts()
-        cache = model.init_cache(MODEL_BATCH, MODEL_PROMPT + MODEL_GEN,
-                                 device=device)
-        lg, cache = model.prefill(
-            params, {"tokens": torch.from_numpy(prompts).long().to(device)},
-            cache)
-        ref_logits = [lg]
-        for i in range(MODEL_GEN):
-            lg, cache = model.decode(params, tok[:, i], MODEL_PROMPT + i,
-                                     cache)
-            ref_logits.append(lg)
-        torch.cuda.synchronize()
+        ref_logits, cache_bytes = teacher_forced(model, params, prompts,
+                                                 tokens, device)
         if any(_build.launch_counts().values()):
-            raise SystemExit(f"{arch}: the plain path launched a kernel")
+            raise SystemExit(f"{name}: the plain path launched a kernel")
     rtol = logits_rtol(cfg)
     rel_rms, max_abs, agree, ties, differ = [], [], [], [], []
     for step, (a, b) in enumerate(zip(logits, ref_logits)):
-        d, b = (a - b).double(), b.double()
-        scale = float(b.pow(2).mean().sqrt())
-        rel_rms.append(float(d.pow(2).mean().sqrt()) / scale)
-        max_abs.append(float(d.abs().max()))
+        rms, scale = _rel_rms(a, b)
+        rel_rms.append(rms)
+        max_abs.append(float((a - b).abs().max()))
         same = a.argmax(-1) == b.argmax(-1)
         agree.append(float(same.double().mean()))
-        top2 = b.topk(2, dim=-1).values
+        top2 = b.double().topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         tie = rtol * scale
         ties.append(int((margin <= tie).sum()))
@@ -1901,15 +2005,16 @@ def model_phase(arch: str, *,
         failures.append(f"greedy tokens differ from the plain path's "
                         f"beyond a near-tie: {beyond}")
     if failures:
-        raise SystemExit(f"{arch}: " + "; ".join(failures))
+        raise SystemExit(f"{name}: " + "; ".join(failures))
     decode_ms = trace["decode_ms"]
     summary = {
-        "phase": f"serve ({arch})", "arch": cfg.name, "family": cfg.family,
+        "phase": f"serve ({name})", "arch": cfg.name, "family": cfg.family,
+        "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
         "params": n_params, "param_count": cfg.param_count(),
-        "dtype": cfg.dtype, "batch": MODEL_BATCH, "prompt": MODEL_PROMPT,
-        "gen_tokens": MODEL_GEN, "init_s": init_s,
-        "prefill_ms": trace["prefill_ms"],
-        "prefill_tokens_per_s": MODEL_BATCH * MODEL_PROMPT
+        "dtype": cfg.dtype, "kv_cache_dtype": cfg.kv_cache_dtype,
+        "batch": MODEL_BATCH, "prompt": prompt, "gen_tokens": MODEL_GEN,
+        "init_s": init_s, "prefill_ms": trace["prefill_ms"],
+        "prefill_tokens_per_s": MODEL_BATCH * prompt
         / trace["prefill_ms"] * 1e3,
         "decode_ms_per_token": float(np.median(decode_ms)),
         "decode_ms_steps": decode_ms,
@@ -1917,7 +2022,7 @@ def model_phase(arch: str, *,
         / sum(decode_ms) * 1e3,
         "wall_s": wall_s,
         "served_tokens_per_s": MODEL_BATCH * MODEL_GEN / wall_s,
-        "peak_memory_GB": peak / 1e9,
+        "peak_memory_GB": peak / 1e9, "cache_bytes": cache_bytes,
         "launches_prefill": {k: pre[k] for k in kernels},
         "launches_decode": {k: dec[k] for k in kernels},
         "logits_rel_rms_vs_plain": rel_rms, "logits_rel_rms_max": max(rel_rms),
@@ -1932,19 +2037,40 @@ def model_phase(arch: str, *,
         "repeat_prefill_ms": again["prefill_ms"],
         "repeat_decode_ms_per_token": float(np.median(again["decode_ms"])),
     }
-    del params, cache, logits, ref_logits, again
+    if int8:
+        # the same model with a bfloat16 cache, teacher-forced with the
+        # int8 serve's tokens, on the kernel path
+        bf16_logits, bf16_bytes = teacher_forced(
+            build(dataclasses.replace(cfg, kv_cache_dtype="bfloat16")),
+            params, prompts, tokens, device)
+        vs_bf16 = [_rel_rms(a, b)[0]
+                   for a, b in zip(logits[1:], bf16_logits[1:])]
+        bound = int8_rms_bound(cfg)
+        summary.update({
+            "prefill_logits_equal_bf16_cache": bool(
+                torch.equal(logits[0], bf16_logits[0])),
+            "decode_rel_rms_vs_bf16_cache": vs_bf16,
+            "decode_rel_rms_vs_bf16_cache_max": max(vs_bf16),
+            "int8_rms_bound": bound,
+            "int8_rms_bound_met": max(vs_bf16) <= bound,
+            "bf16_cache_bytes": bf16_bytes,
+            "cache_bytes_ratio": cache_bytes / bf16_bytes})
+        del bf16_logits
+    del logits, ref_logits, again
     torch.cuda.empty_cache()
     return total, sizes, summary
 
 
 def model_case(name: str, shape: tuple, dtype: torch.dtype,
                rng: np.random.Generator, size: str, *, window=None,
-               pos0: int = 0, check_only: bool = False,
-               misaligned: bool = False) -> dict:
+               pos0: int = 0, t: int | None = None, causal: bool = True,
+               check_only: bool = False, misaligned: bool = False) -> dict:
     """Check one model kernel against its plain version on the card at a
     path shape (rope_3d bit for bit, its tables from position ``pos0``;
     the others within ``torch_bounds``; ``rmsnorm_2d``'s and ``rope_3d``'s
-    x one element off 16-byte alignment if ``misaligned``), then time it
+    x one element off 16-byte alignment if ``misaligned``; flash
+    attention's (BHq, BHkv, S, D) queries against ``t`` keys, S if None,
+    ``causal`` or not), then time it
     unless ``check_only`` beside its
     plain version, one
     PyTorch call where one computes the function (``rms_norm``,
@@ -1994,18 +2120,19 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
         ops, peak, bound = 6 * bh * s * (d // 2), FP32_OPS_PER_S, None
     elif name == "flash_attention_3d":
         bhq, bhkv, s, d = shape
-        t = s
+        t = s if t is None else t
         q, k, v = randn(bhq, s, d), randn(bhkv, t, d), randn(bhkv, t, d)
         scale = d ** -0.5
         run = lambda: fa_k.flash_attention_3d(        # noqa: E731
-            q, k, v, scale=scale, causal=True, window=window)
+            q, k, v, scale=scale, causal=causal, window=window)
         plain = lambda: fa_ref.flash_attention(        # noqa: E731
-            q, k, v, scale=scale, causal=True, window=window)
+            q, k, v, scale=scale, causal=causal, window=window)
         b = MODEL_BATCH if bhq % MODEL_BATCH == 0 else 1
         q4 = q.view(b, bhq // b, s, d)
         k4, v4 = k.view(b, bhkv // b, t, d), v.view(b, bhkv // b, t, d)
         qp, kp = torch.arange(s, device=dev), torch.arange(t, device=dev)
-        mask = kp[None, :] <= qp[:, None]
+        mask = kp[None, :] <= qp[:, None] if causal else \
+            torch.ones((s, t), dtype=torch.bool, device=dev)
         if window is not None:
             mask &= kp[None, :] > qp[:, None] - window
         lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
@@ -2068,6 +2195,8 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
            "dtype": str(dtype).removeprefix("torch."), "window": window,
            "pos0": pos0, "misaligned": misaligned, "within_bound": True,
            "max_abs_err": err}
+    if name == "flash_attention_3d":
+        row.update(t=t, causal=causal)
     if check_only:
         emit(row)
         return row
@@ -2545,9 +2674,24 @@ def main() -> int:
     require_launched(eager_counts, EAGER_KERNELS, "primitives")
     scene_counts, summary = scene_phase()
     emit(summary)
-    hymba_counts, hymba_sizes, summary = model_phase(HYMBA_ARCH)
+    hymba_counts, hymba_sizes, summary = model_phase(configs.get(HYMBA_ARCH))
     emit(summary)
-    granite_counts, granite_sizes, summary = model_phase(GRANITE_ARCH)
+    gcfg = configs.get(GRANITE_ARCH)
+    gweights = init_params(gcfg)
+    granite_counts, granite_sizes, summary = model_phase(
+        gcfg, weights=gweights)
+    emit(summary)
+    # the same weights with an int8 KV cache (linear: granite has no window)
+    int8_counts, int8_sizes, summary = model_phase(
+        dataclasses.replace(gcfg, kv_cache_dtype="int8"), weights=gweights)
+    emit(summary)
+    del gweights
+    torch.cuda.empty_cache()
+    whisper_counts, whisper_sizes, summary = model_phase(
+        configs.get(WHISPER_ARCH), prompt=WHISPER_FRAMES)
+    emit(summary)
+    vlm_counts, vlm_sizes, summary = model_phase(
+        dataclasses.replace(configs.get(VLM_ARCH), n_layers=VLM_LAYERS))
     emit(summary)
 
     rng = np.random.default_rng(SEED)
@@ -2812,10 +2956,59 @@ def main() -> int:
                                       "granite prefill residual add")
     eager_case("vecadd_2d", (MODEL_BATCH, gd), bf16, rng,
                "granite decode residual add", check_only=True)
+    # the model kernels at every shape the whisper-medium serve gives
+    # them: 16 query and kv heads of 64 (no GQA), no RoPE, d = 1024; the
+    # encoder's 4 x 1500 frames and the decoder's one token a row; flash
+    # without a mask over the encoder, the cross-attention's one query
+    # against the 1500 encoder keys (prefill and every decode step) and
+    # the decoder's causal self-attention prefill of one token
+    wcfg = configs.get(WHISPER_ARCH)
+    wq, wkv = MODEL_BATCH * wcfg.n_heads, MODEL_BATCH * wcfg.n_kv_heads
+    whd, wd = wcfg.head_dim, wcfg.d_model
+    enc_rows = MODEL_BATCH * WHISPER_FRAMES
+    whisper = {}
+    for name, shape, size, t, causal in (
+            ("rmsnorm_2d", (MODEL_BATCH, wd), "whisper decoder", None, True),
+            ("rmsnorm_2d", (enc_rows, wd), "whisper encoder", None, True),
+            ("flash_attention_3d", (wq, wkv, 1, whd),
+             "whisper decoder self-attention prefill", 1, True),
+            ("flash_attention_3d", (wq, wkv, 1, whd),
+             "whisper cross-attention", WHISPER_FRAMES, False),
+            ("flash_attention_3d", (wq, wkv, WHISPER_FRAMES, whd),
+             "whisper encoder", None, False)):
+        whisper.setdefault(name, {})[size] = model_case(
+            name, shape, bf16, rng, size, t=t, causal=causal)
+    for shape, size in (((MODEL_BATCH, wd), "whisper decoder residual add"),
+                        ((enc_rows, wd), "whisper encoder residual add")):
+        whisper.setdefault("vecadd_2d", {})[size] = eager_case(
+            "vecadd_2d", shape, bf16, rng, size)
+    # ... and the internvl2-76b serve: 64 query and 8 kv heads of 128 (a
+    # GQA group of 8), no window, d = 8192, the hymba serve's lengths
+    vcfg = configs.get(VLM_ARCH)
+    vq, vkv = MODEL_BATCH * vcfg.n_heads, MODEL_BATCH * vcfg.n_kv_heads
+    vhd, vd = vcfg.head_dim, vcfg.d_model
+    internvl2 = {}
+    for name, shape, size, pos0 in (
+            ("rmsnorm_2d", (MODEL_BATCH, vd), "internvl2 decode", 0),
+            ("rmsnorm_2d", (rows_n, vd), "internvl2 prefill", 0),
+            ("rope_3d", (vkv, 1, vhd), "internvl2 decode k", last),
+            ("rope_3d", (vq, 1, vhd), "internvl2 decode q", last),
+            ("rope_3d", (vkv, MODEL_PROMPT, vhd), "internvl2 prefill k", 0),
+            ("rope_3d", (vq, MODEL_PROMPT, vhd), "internvl2 prefill q", 0),
+            ("flash_attention_3d", (vq, vkv, MODEL_PROMPT, vhd),
+             "internvl2 prefill", 0)):
+        internvl2.setdefault(name, {})[size] = model_case(
+            name, shape, bf16, rng, size, window=vcfg.window, pos0=pos0)
+    for shape, size in (((MODEL_BATCH, vd), "internvl2 decode residual add"),
+                        ((rows_n, vd), "internvl2 prefill residual add")):
+        internvl2.setdefault("vecadd_2d", {})[size] = eager_case(
+            "vecadd_2d", shape, bf16, rng, size)
     # every size the serves launched a kernel with was checked above
     checked = _build.launch_sizes()
-    for arch, served in ((HYMBA_ARCH, hymba_sizes),
-                         (GRANITE_ARCH, granite_sizes)):
+    served_sizes = {HYMBA_ARCH: hymba_sizes, GRANITE_ARCH: granite_sizes,
+                    f"{GRANITE_ARCH} int8 KV cache": int8_sizes,
+                    WHISPER_ARCH: whisper_sizes, VLM_ARCH: vlm_sizes}
+    for arch, served in served_sizes.items():
         for name in MODEL_PATH_KERNELS:
             missed = served[name] - checked[name]
             if missed:
@@ -2824,8 +3017,7 @@ def main() -> int:
                                  f"held against its plain version")
     emit({"phase": "model shapes checked",
           "sizes": {arch: {k: sorted(served[k]) for k in MODEL_PATH_KERNELS}
-                    for arch, served in ((HYMBA_ARCH, hymba_sizes),
-                                         (GRANITE_ARCH, granite_sizes))}})
+                    for arch, served in served_sizes.items()}})
     # the primitives phase's comparison with the kernels alone: the
     # sequential pipeline's four launches against the fused chain's one
     fused = kernel_case("chain_matrix_1d", (CLOUD_POINTS, 2), rng, cloud)
@@ -2870,6 +3062,9 @@ def main() -> int:
                         "launches_primitives": eager_counts[name],
                         "launches_hymba": hymba_counts[name],
                         "launches_granite": granite_counts[name],
+                        "launches_granite_int8": int8_counts[name],
+                        "launches_whisper": whisper_counts[name],
+                        "launches_internvl2": vlm_counts[name],
                         "launches_scene": scene_counts[name],
                         "launches_chaos_soak": soak_counts[name],
                         "launches_chaos_mixed": chaos_counts[name],
@@ -2910,6 +3105,16 @@ def main() -> int:
                                   "library_ms", "composite_ms", "copy_ms")}
         kernels[list(KERNELS).index(name)]["granite"]["launches"] = \
             granite_counts[name]
+    for arch, timed, counts_arch in (("whisper", whisper, whisper_counts),
+                                     ("internvl2", internvl2, vlm_counts)):
+        for name, by_size in timed.items():
+            kernels[list(KERNELS).index(name)][arch] = {
+                "launches": counts_arch[name],
+                "rows": {size: {k: r.get(k) for k in (
+                    "shape", "t", "causal", "dtype", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "composite_ms", "copy_ms")}
+                    for size, r in by_size.items()}}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -9,8 +9,8 @@ run the same numpy fold.
 
 The model stack's parameters come across with
 ``model_params_from_reference``: the JAX parameter pytree as numpy
-arrays (``jax.tree.map(np.asarray, params)``), its layer axis unstacked
-into the port's list of per-layer dicts.
+arrays (``jax.tree.map(np.asarray, params)``), its layer axes unstacked
+into the port's lists of per-layer dicts.
 """
 from __future__ import annotations
 
@@ -62,14 +62,18 @@ def model_params_from_reference(cfg, params, *,
     arrays: every leaf as a tensor of the same dtype on ``device`` (the
     GPU unless the caller asks for the CPU), and ``params["layers"]`` --
     stacked by ``jax.vmap`` with a leading axis of ``cfg.n_layers`` --
-    split into a list of one dict per layer.  Every subtree of a layer
+    split into a list of one dict per layer, as is an enc-dec model's
+    ``params["enc_layers"]`` by ``cfg.encoder_layers``.  Every subtree of a layer
     comes across whole: an MoE layer's ``moe`` dict (``router`` float32,
     ``w_gate``/``w_up`` (e, d, d_ff), ``w_down`` (e, d_ff, d)) as the
     SwiGLU ``mlp`` dict of a dense one."""
     from repro_torch.kernels import dispatch
     dev = dispatch.resolve_device(device)
+    stacked = {"layers": cfg.n_layers, "enc_layers": cfg.encoder_layers}
     out = {k: _tree(v, lambda a: _tensor(a, dev))
-           for k, v in params.items() if k != "layers"}
-    out["layers"] = [_tree(params["layers"], lambda a, i=i: _tensor(a[i], dev))
-                     for i in range(cfg.n_layers)]
+           for k, v in params.items() if k not in stacked}
+    for key, n in stacked.items():
+        if key in params:
+            out[key] = [_tree(params[key], lambda a, i=i: _tensor(a[i], dev))
+                        for i in range(n)]
     return out

@@ -12,9 +12,8 @@ This module depends on numpy only.  ``repro_torch.core`` (the chain
 compiler) and ``repro_torch.serving`` (the engine) both raise these;
 ``repro_torch.serving.errors`` re-exports the taxonomy.  The codes and
 messages are the same as the JAX package's, so logs from either read
-alike.  ``NotPortedError`` stands apart: it marks a part of the model
-stack the port does not run yet and names the ROADMAP item that ports
-it.
+alike.  ``Int8RingCacheError`` stands apart: it refuses an int8 KV
+cache laid out as a ring, which the JAX package cannot decode either.
 """
 from __future__ import annotations
 
@@ -108,15 +107,22 @@ def _is_float64(dtype) -> bool:
     return str(dtype).rsplit(".", 1)[-1] == "float64"
 
 
-class NotPortedError(NotImplementedError):
-    """A part of the JAX package's model stack that the port does not run
-    yet: the MoE, encoder-decoder and VLM families (``models.build``) and
-    the int8 KV cache (``attention.cache_spec``).  ``roadmap`` names the
-    ROADMAP.md item that ports it; ``code`` is "not-ported"."""
-    code = "not-ported"
+class Int8RingCacheError(NotImplementedError):
+    """An int8 KV cache that would be written as a ring buffer (a sliding
+    window no longer than the cache).  The JAX package's ring writes cast
+    keys and values to int8 unscaled and drop ``kscale``/``vscale``, so
+    its first decode raises ``KeyError: 'kscale'`` (ROADMAP.md queue 3
+    item 4); the port refuses the layout at ``attention.cache_spec`` (and
+    a ring write to an int8 cache) rather than invent one.  ``code`` is
+    "int8-ring"."""
+    code = "int8-ring"
 
-    def __init__(self, what: str, roadmap: str):
-        self.what = what
-        self.roadmap = roadmap
-        super().__init__(f"{what} is not ported to PyTorch yet "
-                         f"(ROADMAP.md {roadmap})")
+    def __init__(self, name: str, window: int, max_len: int):
+        self.window = window
+        self.max_len = max_len
+        super().__init__(
+            f"{name}: an int8 KV cache with a ring of {window} slots "
+            f"(window {window} <= max_len {max_len}) is not supported: the "
+            "JAX package's ring write drops the int8 scales (ROADMAP.md "
+            "queue 3 item 4); use kv_cache_dtype='bfloat16' or max_len < "
+            "window")

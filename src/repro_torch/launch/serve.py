@@ -10,11 +10,14 @@ lock-step, one ``Model.decode`` per token, with greedy sampling:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --device cpu
 
-The dense, MoE, SSM and hybrid families serve (the MoE FFN of
-``models/moe.py`` on granite-moe-3b-a800m and dbrx-132b; dbrx-132b's
-264 GB of bfloat16 weights need more than one card, so it serves only
-``--reduced`` until the model is sharded).  The default ``--arch`` is
-mamba2-130m, as in the JAX launcher.  Without
+Every model family serves: dense, MoE (the MoE FFN of ``models/moe.py``
+on granite-moe-3b-a800m and dbrx-132b), SSM, hybrid, VLM (internvl2-76b,
+zero patch embeddings in place of the vision frontend) and enc-dec
+(whisper-medium, zero frame embeddings in place of the audio frontend;
+``serve_inputs`` builds both stubs).  dbrx-132b's 264 GB and
+internvl2-76b's 141 GB of bfloat16 weights need more than one card, so
+they serve only ``--reduced`` until the model is sharded.  The default
+``--arch`` is mamba2-130m, as in the JAX launcher.  Without
 ``--device cpu`` it runs on the GPU and raises when there is none.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0.
 """
@@ -64,6 +67,26 @@ class _Clock:
         return list(self.spans)
 
 
+def serve_inputs(cfg, prompts: torch.Tensor) -> tuple[dict, int, int]:
+    """The JAX launcher's input stubs for prompts (B, S) integers on the
+    serving device: (the prefill batch, the first decode position, the
+    encoder length ``enc_len`` for ``init_cache``).  A vision frontend
+    gets zero ``patches`` (B, n_frontend_tokens, d); an audio one zero
+    ``frames`` (B, S, d) and the decoder only the prompts' first token,
+    so an enc-dec model decodes from position 1 against S encoder
+    positions; any other model from position S, with no encoder."""
+    b, s = prompts.shape
+    batch = {"tokens": prompts}
+    zeros = dict(dtype=torch.float32, device=prompts.device)
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.zeros((b, cfg.n_frontend_tokens,
+                                        cfg.d_model), **zeros)
+    elif cfg.frontend == "audio":
+        batch["frames"] = torch.zeros((b, s, cfg.d_model), **zeros)
+        batch["tokens"] = prompts[:, :1]
+    return batch, (1 if cfg.is_encdec else s), (s if cfg.is_encdec else 0)
+
+
 def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
                 model=None, trace: dict | None = None) -> np.ndarray:
     """prompts (B, S_prompt) integers -> generated tokens (B, gen_tokens)
@@ -77,14 +100,15 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
     model = model or build(cfg)
     dev = params["embed"].device
     b, s = prompts.shape
-    cache = model.init_cache(b, s + gen_tokens, device=dev)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                              device=dev)
+    batch, pos, enc_len = serve_inputs(cfg, tokens)
+    cache = model.init_cache(b, s + gen_tokens, enc_len, device=dev)
     clock = _Clock(dev)
     logits_seen = []
 
     t0 = clock.start()
-    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    logits, cache = model.prefill(params, batch, cache)
     clock.stop(t0)
     if trace is not None:
         trace["launches_prefill"] = _build.launch_counts()
@@ -94,7 +118,7 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
     for i in range(gen_tokens):
         out.append(tok)
         t0 = clock.start()
-        logits, cache = model.decode(params, tok, s + i, cache)
+        logits, cache = model.decode(params, tok, pos + i, cache)
         clock.stop(t0)
         logits_seen.append(logits)
         tok = torch.argmax(logits, dim=-1)

@@ -1,21 +1,27 @@
 """GQA attention with RoPE, sliding windows and ring-buffer KV caches, the
 port of the JAX package's ``models/attention.py`` (its serving half).
 
-Two entry modes share one parameter set:
+Three entry modes share one parameter set:
+  * ``attend``      -- full-sequence attention without a cache (the
+                       enc-dec encoder runs it with ``causal=False``);
   * ``prefill``     -- fills a cache (linear for full attention, ring
                        buffer for SWA) and returns outputs for every
                        position, through the ``flash_attention_3d`` kernel;
   * ``decode_step`` -- one new token against the cache
                        (``_cached_attention``, plain torch, as the JAX
                        package's is plain jnp).
+The enc-dec decoder's cross-attention adds ``encode_kv`` (the encoder
+output's keys and values, once a prefill) and ``cross_attend`` (the
+decoder's queries against them, ``flash_attention_3d`` without a mask).
 
 q and k go through the ``rope_3d`` kernel as contiguous (B, H, S, D)
 buffers: ``_split_heads`` copies the heads out of the (B, S, H*D)
 product once, where the JAX package keeps a transposed view.  Caches are
 updated in place (the JAX package returns new arrays): a decode step
-writes one slot instead of copying the cache.  ``attend``,
-``cross_attend`` and ``encode_kv`` (training and the enc-dec family)
-come with later slices; the int8 KV cache raises ``NotPortedError``.
+writes one slot instead of copying the cache.  A linear cache may hold
+int8 keys and values with a float32 scale a (slot, head)
+(``kv_cache_dtype="int8"``); an int8 ring raises
+``errors.Int8RingCacheError``, as the JAX package cannot decode one.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.errors import NotPortedError
+from repro_torch.errors import Int8RingCacheError
 from repro_torch.kernels import attention as k_attention
 from repro_torch.kernels import rope as k_rope
 from repro_torch.kernels.flash_attention import ref as attn_ref
@@ -69,6 +75,38 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# full-sequence attention (the encoder) and cross-attention
+# ---------------------------------------------------------------------------
+
+def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+           causal: bool = True) -> torch.Tensor:
+    """x (B, S, d) attending over itself without a cache -> (B, S, d);
+    ``causal=False`` for the enc-dec encoder."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
+    out = k_attention(q, k, v, causal=causal, window=cfg.window)
+    return _merge_heads(out) @ params["wo"]
+
+
+def cross_attend(params: dict, x: torch.Tensor, kv_cache: dict,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention: x (B, S, d) against the encoder's k/v
+    (B, Hkv, T, D) of ``encode_kv``, unmasked -> (B, S, d)."""
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
+    out = k_attention(q, kv_cache["k"], kv_cache["v"], causal=False)
+    return _merge_heads(out) @ params["wo"]
+
+
+def encode_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The cross-attention keys and values of the encoder output
+    (B, T, d): {"k", "v"} of (B, Hkv, T, D), once a prefill."""
+    k = _split_heads(enc_out @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(enc_out @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
 # KV cache (linear for full attention, ring buffer for SWA)
 # ---------------------------------------------------------------------------
 
@@ -81,36 +119,69 @@ class CacheSpec:
     length: int          # cache slots: T_max (full) or window (SWA)
     head_dim: int
     ring: bool           # True for SWA ring buffer
-    dtype: str = "bfloat16"
+    dtype: str = "bfloat16"   # bfloat16 | int8 (per-slot-scaled KV quant)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> CacheSpec:
     """A ring of ``window`` slots when the window is shorter than
-    ``max_len``, else ``max_len`` linear slots, in the activation dtype."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotPortedError("the int8 KV cache (kv_cache_dtype='int8')",
-                             "queue 1 item 10")
+    ``max_len``, else ``max_len`` linear slots; int8 when the config asks
+    for it, else the config's dtype.  ``prefill`` and ``decode_step``
+    write a cache of exactly ``window`` slots as a ring, so an int8 cache
+    with ``window <= max_len`` raises ``Int8RingCacheError``."""
     ring = cfg.window is not None and cfg.window < max_len
+    dtype = "int8" if cfg.kv_cache_dtype == "int8" else cfg.dtype
+    if dtype == "int8" and cfg.window is not None and cfg.window <= max_len:
+        raise Int8RingCacheError(cfg.name, cfg.window, max_len)
     return CacheSpec(batch, cfg.n_kv_heads, cfg.window if ring else max_len,
-                     cfg.head_dim, ring, cfg.dtype)
+                     cfg.head_dim, ring, dtype)
 
 
 def init_cache(spec: CacheSpec, device: torch.device) -> dict:
     """Zeroed k/v (B, Hkv, slots, D) and ``kpos`` (slots,) int32, the
-    absolute position held in each slot (-1 = empty)."""
+    absolute position held in each slot (-1 = empty); an int8 cache adds
+    float32 ``kscale``/``vscale`` (B, Hkv, slots, 1)."""
     shape = (spec.batch, spec.n_kv_heads, spec.length, spec.head_dim)
     dt = getattr(torch, spec.dtype)
-    return {"kpos": torch.full((spec.length,), -1, dtype=torch.int32,
-                               device=device),
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    cache = {"kpos": torch.full((spec.length,), -1, dtype=torch.int32,
+                                device=device),
+             "k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if spec.dtype == "int8":
+        for name in ("kscale", "vscale"):
+            cache[name] = torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def _quantize(x: torch.Tensor):
+    """int8 words and their float32 scale max|x| / 127 over the last
+    axis; the words round half to even (``torch.round``, as
+    ``jnp.round``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.round(xf / torch.clamp_min(scale, 1e-9)).to(torch.int8)
+    return q, scale
+
+
+def _cache_kv(cache: dict, which: str) -> torch.Tensor:
+    """Read k or v from the cache, dequantized to float32 if int8."""
+    x = cache[which]
+    if x.dtype == torch.int8:
+        return x.float() * cache[which[0] + "scale"]
+    return x
 
 
 def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                   start: int) -> dict:
     s = k_new.shape[2]
-    cache["k"][:, :, start:start + s] = k_new.to(cache["k"].dtype)
-    cache["v"][:, :, start:start + s] = v_new.to(cache["v"].dtype)
+    if cache["k"].dtype == torch.int8:
+        for name, val in (("k", k_new), ("v", v_new)):
+            q, scale = _quantize(val)
+            cache[name][:, :, start:start + s] = q
+            cache[name + "scale"][:, :, start:start + s] = scale
+    else:
+        cache["k"][:, :, start:start + s] = k_new.to(cache["k"].dtype)
+        cache["v"][:, :, start:start + s] = v_new.to(cache["v"].dtype)
     cache["kpos"][start:start + s] = torch.arange(
         start, start + s, dtype=torch.int32, device=cache["kpos"].device)
     return cache
@@ -118,6 +189,8 @@ def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 
 def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                 start: int, window: int) -> dict:
+    if cache["k"].dtype == torch.int8:   # no scales: refuse, never truncate
+        raise Int8RingCacheError("int8 cache", window, cache["kpos"].shape[0])
     s = k_new.shape[2]
     positions = torch.arange(start, start + s, dtype=torch.int32,
                              device=cache["kpos"].device)
@@ -134,14 +207,14 @@ def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 def _cached_attention(q: torch.Tensor, cache: dict, qpos: torch.Tensor,
                       window: int | None) -> torch.Tensor:
     """Attend q (B, Hq, S, D) over the cache slots by their absolute
-    positions (linear and ring layouts alike), in float32."""
+    positions (linear, ring and int8 layouts alike), in float32."""
     kpos = cache["kpos"]
     group = q.shape[1] // cache["k"].shape[1]
     mask = (kpos >= 0)[None, :] & (kpos[None, :] <= qpos[:, None])
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
-    k = attn_ref._expand_kv(cache["k"], group)
-    v = attn_ref._expand_kv(cache["v"], group)
+    k = attn_ref._expand_kv(_cache_kv(cache, "k"), group)
+    v = attn_ref._expand_kv(_cache_kv(cache, "v"), group)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     logits = logits * (q.shape[-1] ** -0.5)
     logits = torch.where(mask[None, None], logits,
@@ -176,10 +249,7 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     window = cfg.window
     ring = window is not None and cache["kpos"].shape[0] == window
     if ring:
-        slot = pos % window
-        cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-        cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-        cache["kpos"][slot] = pos
+        cache = _write_ring(cache, k, v, pos, window)
     else:
         cache = _write_linear(cache, k.to(cfg.activation_dtype),
                               v.to(cfg.activation_dtype), pos)

@@ -1,24 +1,30 @@
-"""Residual blocks of the dense, MoE, SSM and hybrid families, the port of
-the JAX package's ``models/blocks.py`` (its serving half: ``init``,
+"""Residual blocks of every family, the port of the JAX package's
+``models/blocks.py`` (its serving half: ``init``, ``apply``,
 ``init_cache``, ``prefill``, ``decode``).
 
 One layer's cache, per family:
 
-  dense/moe : the attention cache dict (k, v, kpos)
-  ssm       : {state, conv}
-  hybrid    : {"attn": ..., "ssm": ...}
+  dense/moe/vlm : the attention cache dict (k, v, kpos; an int8 cache
+                  adds kscale, vscale)
+  ssm           : {state, conv}
+  hybrid        : {"attn": ..., "ssm": ...}
+  encdec dec    : {"self": attention cache, "cross": {k, v}}
 
 A hybrid layer runs, in prefill: the attention norm (``rmsnorm_2d``),
 attention (``rope_3d`` on q and k, ``flash_attention_3d``) and the SSM
 branch (``ssd_intra``, its gated norm) on the same normed input, a norm
 of each branch by its gain, their mean as the residual delta
 (``vecadd_2d``), then the MLP norm, the SwiGLU MLP and a second residual
-add.  A dense or MoE layer is the attention norm, attention, a residual
-add, the MLP norm, then the SwiGLU MLP -- or, when the config sets
-experts, the top-k MoE FFN (``moe.moe_ffn``), whose ``aux`` term
+add.  A dense, MoE or VLM layer is the attention norm, attention, a
+residual add, the MLP norm, then the SwiGLU MLP -- or, when the config
+sets experts, the top-k MoE FFN (``moe.moe_ffn``), whose ``aux`` term
 ``_ffn`` returns and serving ignores, as in the reference -- and a
-second residual add.  The encoder-decoder blocks, and full-sequence
-``apply`` (training), come with later slices.
+second residual add.  An enc-dec decoder layer (``role=
+"encdec_decoder"``) puts cross-attention between the two: the cross norm,
+``cross_attend`` against the encoder's keys and values (``encode_kv``
+in prefill, the cache's ``cross`` in decode) and a third residual add.
+The encoder's layers (``role="encoder"``) run ``apply``, the
+full-sequence block of an attention layer, without a causal mask.
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, mlp_init, residual_add, rmsnorm
 
 
-def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
-    """One decoder layer's parameters; norm gains are float32 ones."""
+def init(generator: torch.Generator, cfg: ModelConfig, dtype,
+         role: str = "decoder") -> dict:
+    """One layer's parameters; norm gains are float32 ones.  role:
+    decoder | encoder | encdec_decoder (adds ``cross_norm``, ``cross``)."""
     d = cfg.d_model
     dev = generator.device
 
@@ -50,6 +58,9 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
         p["ssm"] = ssm_mod.init(generator, cfg, dtype)
         p["attn_gain"] = ones()
         p["ssm_gain"] = ones()
+    if role == "encdec_decoder":
+        p["cross_norm"] = ones()
+        p["cross"] = attn.init(generator, cfg, dtype)
     if cfg.d_ff:
         p["mlp_norm"] = ones()
         if cfg.n_experts:
@@ -70,26 +81,70 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return mlp(p["mlp"], h), 0.0
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device):
-    """One layer's empty cache for ``batch`` sequences of ``max_len``."""
-    if cfg.family == "ssm":
-        return ssm_mod.init_cache(cfg, batch, device)
-    c = attn.init_cache(attn.cache_spec(cfg, batch, max_len), device)
-    if cfg.family == "hybrid":
-        return {"attn": c, "ssm": ssm_mod.init_cache(cfg, batch, device)}
-    return c
-
-
 def _hybrid_delta(p: dict, a: torch.Tensor, s: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     return 0.5 * (rmsnorm(a, p["attn_gain"], cfg.norm_eps)
                   + rmsnorm(s, p["ssm_gain"], cfg.norm_eps))
 
 
+def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True):
+    """The full-sequence block of an attention layer without a cache (the
+    enc-dec encoder's, ``causal=False``): (x, aux) out.  Serving runs no
+    other: the SSM and hybrid mixers and the cross-attention branch of
+    the JAX package's ``apply`` come with the training forward (ROADMAP.md
+    queue 1 item 10.5), and until then those families raise."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"blocks.apply for the {cfg.family} family is the training "
+            "forward's (ROADMAP.md queue 1 item 10.5)")
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    x = residual_add(x, attn.attend(p["attn"], h, cfg,
+                                    causal=causal).to(x.dtype))
+    delta, aux = _ffn(p, x, cfg)
+    if delta is not None:
+        x = residual_add(x, delta.to(x.dtype))
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# cached paths
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               role: str = "decoder", enc_len: int = 0, *,
+               device: torch.device):
+    """One layer's empty cache for ``batch`` sequences of ``max_len``; an
+    enc-dec decoder layer's adds the cross keys and values of ``enc_len``
+    encoder positions, zeroed until prefill writes them."""
+    if cfg.family == "ssm":
+        return ssm_mod.init_cache(cfg, batch, device)
+    c = attn.init_cache(attn.cache_spec(cfg, batch, max_len), device)
+    if cfg.family == "hybrid":
+        return {"attn": c, "ssm": ssm_mod.init_cache(cfg, batch, device)}
+    if role == "encdec_decoder":
+        shape = (batch, cfg.n_kv_heads, enc_len, cfg.head_dim)
+        return {"self": c, "cross": {
+            name: torch.zeros(shape, dtype=cfg.activation_dtype,
+                              device=device) for name in ("k", "v")}}
+    return c
+
+
+def _write_cross(cache: dict, kv: dict, cfg: ModelConfig) -> None:
+    """Store ``encode_kv``'s keys and values, in the activation dtype, in
+    the cross cache in place."""
+    for name, val in kv.items():
+        if cache[name].shape != val.shape:
+            raise ValueError(f"the cross cache holds {tuple(cache[name].shape)}"
+                             f" but the encoder gave {tuple(val.shape)}: "
+                             "init_cache's enc_len must be the encoder's "
+                             "length")
+        cache[name].copy_(val.to(cfg.activation_dtype))
+
+
 def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
-            start: int = 0):
-    """Prompt pass filling the cache.  Returns (x, new_cache)."""
+            start: int = 0, enc_out: torch.Tensor | None = None):
+    """Prompt pass filling the cache (an enc-dec decoder layer's against
+    the encoder output ``enc_out``).  Returns (x, new_cache)."""
     if cfg.family == "ssm":
         h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
         delta, new_cache = ssm_mod.forward(p["ssm"], h, cfg,
@@ -105,6 +160,18 @@ def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
                                        return_state=True)
         x = residual_add(x, _hybrid_delta(p, a, s, cfg).to(x.dtype))
         new_cache = {"attn": attn_cache, "ssm": ssm_cache}
+    elif "cross" in p:
+        a, self_cache = attn.prefill(p["attn"], h, cfg, cache["self"],
+                                     start=start)
+        x = residual_add(x, a.to(x.dtype))
+        if enc_out is None:
+            raise ValueError("an enc-dec decoder layer needs enc_out")
+        cross_kv = attn.encode_kv(p["cross"], enc_out, cfg)
+        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        x = residual_add(x, attn.cross_attend(p["cross"], h, cross_kv,
+                                              cfg).to(x.dtype))
+        _write_cross(cache["cross"], cross_kv, cfg)
+        new_cache = {"self": self_cache, "cross": cache["cross"]}
     else:
         a, new_cache = attn.prefill(p["attn"], h, cfg, cache, start=start)
         x = residual_add(x, a.to(x.dtype))
@@ -126,6 +193,14 @@ def decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, pos: int):
         s, ssm_cache = ssm_mod.decode_step(p["ssm"], h, cfg, cache["ssm"])
         x = residual_add(x, _hybrid_delta(p, a, s, cfg).to(x.dtype))
         new_cache = {"attn": attn_cache, "ssm": ssm_cache}
+    elif "cross" in p:
+        a, self_cache = attn.decode_step(p["attn"], h, cfg, cache["self"],
+                                         pos)
+        x = residual_add(x, a.to(x.dtype))
+        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        x = residual_add(x, attn.cross_attend(p["cross"], h, cache["cross"],
+                                              cfg).to(x.dtype))
+        new_cache = {"self": self_cache, "cross": cache["cross"]}
     else:
         a, new_cache = attn.decode_step(p["attn"], h, cfg, cache, pos)
         x = residual_add(x, a.to(x.dtype))

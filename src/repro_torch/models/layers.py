@@ -5,10 +5,14 @@ Every residual add routes through the paper's vector-vector primitive
 derived-scalar scaling kernel (``kernels.rmsnorm``, ``rmsnorm_2d``): the
 model stack is built out of the paper's linear-algebra classes.  The
 embedding, the logits head and the SwiGLU MLP are plain torch products,
-as the JAX package leaves them to XLA outside any Pallas kernel.
-``cross_entropy`` comes with the training slice.
+as the JAX package leaves them to XLA outside any Pallas kernel; so is
+the add of ``sinusoidal_positions`` (whisper's positions), a plain
+``+`` in the callers as in the reference.  ``cross_entropy`` comes with
+the training slice.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -82,3 +86,16 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     """silu(x @ W_gate) * (x @ W_up) @ W_down in x's dtype."""
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# -- positions ---------------------------------------------------------------
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Classic transformer sinusoids (whisper's position encoding):
+    positions (S,) -> (S, d) float32, sin then cos over d // 2
+    frequencies 10000**(-i / max(d // 2 - 1, 1))."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / max(half - 1, 1))
+    ang = positions.float()[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,42 +1,36 @@
-"""Model assembly for serving: the decoder-only LMs of the dense, MoE,
-SSM and hybrid families, the port of the JAX package's
-``models/transformer.py`` (``init``, ``init_cache``, ``prefill``,
-``decode``, ``build``).
+"""Model assembly for serving: the decoder-only LMs (dense, MoE, SSM,
+hybrid, VLM) and the whisper-style encoder-decoder, the port of the JAX
+package's ``models/transformer.py`` (``init``, ``init_cache``,
+``prefill``, ``decode``, ``build``).
 
 Parameters are plain dicts of tensors: ``embed`` (V, d), ``final_norm``
 (d,) float32, ``unembed`` (V, d) unless the embeddings are tied, and
 ``layers``, a list of one dict per layer (the JAX package stacks the
 layers on a leading axis for ``lax.scan``; a Python loop over the list
-takes its place).  The cache is a list of one layer cache each, updated
-in place.  ``build`` raises ``NotPortedError`` for the encoder-decoder
-and VLM families, and for any config that sets sinusoidal positions or
-a frontend (the fields the JAX package's model branches on that the port
-does not run yet); ``forward``/``loss`` come with the training slice.
+takes its place); an enc-dec model adds ``enc_layers``, a list of
+``encoder_layers`` dicts, and ``enc_final_norm``.  The cache is a list
+of one layer cache each, updated in place.  ``forward``/``loss`` come
+with the training slice.
+
+Batch dict convention, as in the JAX package:
+  LM      : {"tokens": (B, S) integers}
+  VLM     : + {"patches": (B, P, d) precomputed patch embeddings (stub)}
+  enc-dec : {"frames": (B, S_enc, d) precomputed frame embeddings (stub),
+             "tokens": the decoder side}
+``launch.serve.serve_inputs`` builds the stubs the serving launcher feeds.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.errors import NotPortedError
 from repro_torch.kernels import dispatch
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed, embed_init, logits_head, rmsnorm
+from repro_torch.models.layers import (embed, embed_init, logits_head,
+                                       rmsnorm, sinusoidal_positions)
 
-#: the families this port serves
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-#: the ROADMAP.md item that ports each family it does not serve yet
-NOT_PORTED = {"encdec": "queue 1 item 10.2 (enc-dec serving)",
-              "vlm": "queue 1 item 10.3 (VLM serving)"}
-#: the config fields the JAX package's model branches on and the port
-#: does not run yet, whatever the family: (what, ROADMAP.md sub-item,
-#: test of the config that sets the field)
-NOT_PORTED_FIELDS = (
-    ("sinusoidal positions (pos_embed != 'rope')",
-     "queue 1 item 10.2 (enc-dec serving)",
-     lambda cfg: cfg.pos_embed != "rope"),
-    ("a frontend (frontend is not None)", "queue 1 item 10.3 (VLM serving)",
-     lambda cfg: cfg.frontend is not None))
+#: the families this port serves: every family of the JAX package
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 class Model:
@@ -44,14 +38,13 @@ class Model:
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in SERVED_FAMILIES:
-            raise NotPortedError(f"the {cfg.family} family ({cfg.name})",
-                                 NOT_PORTED.get(cfg.family, "queue 1 item 10"))
-        # the reference branches on these fields, not on the family: a
-        # served family with one of them set would build another model
-        for what, roadmap, is_set in NOT_PORTED_FIELDS:
-            if is_set(cfg):
-                raise NotPortedError(f"{what} in {cfg.name}", roadmap)
+            raise ValueError(f"unknown model family {cfg.family!r} "
+                             f"({cfg.name}); one of {SERVED_FAMILIES}")
         self.cfg = cfg
+
+    @property
+    def _role(self) -> str:
+        return "encdec_decoder" if self.cfg.is_encdec else "decoder"
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on the generator's device, at the JAX
@@ -59,24 +52,61 @@ class Model:
         ``torch``'s generator)."""
         cfg = self.cfg
         dtype = cfg.activation_dtype
+        dev = generator.device
         params = {
             "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype),
             "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                     device=generator.device),
+                                     device=dev),
         }
         if not cfg.tie_embeddings:
             params["unembed"] = embed_init(generator, cfg.vocab_size,
                                            cfg.d_model, dtype)
-        params["layers"] = [blocks.init(generator, cfg, dtype)
+        params["layers"] = [blocks.init(generator, cfg, dtype, self._role)
                             for _ in range(cfg.n_layers)]
+        if cfg.is_encdec:
+            params["enc_layers"] = [blocks.init(generator, cfg, dtype,
+                                                "encoder")
+                                    for _ in range(cfg.encoder_layers)]
+            params["enc_final_norm"] = torch.ones(
+                (cfg.d_model,), dtype=torch.float32, device=dev)
         return params
 
-    def init_cache(self, batch: int, max_len: int, *,
+    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        """The token embeddings, the VLM's patch prefix in place of the
+        first ``patches.shape[1]`` positions, plus sinusoidal positions
+        where the config uses them."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"])
+        if cfg.frontend == "vision" and "patches" in batch:
+            p = batch["patches"].to(x.dtype)
+            x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
+        if cfg.pos_embed == "sinusoidal":
+            pos = sinusoidal_positions(
+                torch.arange(x.shape[1], device=x.device), cfg.d_model)
+            x = x + pos[None].to(x.dtype)
+        return x
+
+    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over precomputed frame embeddings (the audio
+        stub): sinusoidal positions, the layers without a causal mask,
+        then the encoder's final norm."""
+        cfg = self.cfg
+        x = frames.to(cfg.activation_dtype)
+        pos = sinusoidal_positions(torch.arange(x.shape[1], device=x.device),
+                                   cfg.d_model)
+        x = x + pos[None].to(x.dtype)
+        for lp in params["enc_layers"]:
+            x, _ = blocks.apply(lp, x, cfg, causal=False)
+        return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0, *,
                    device: str | torch.device = "cuda") -> list:
         """One empty layer cache per layer, on ``device`` (the GPU unless
-        the caller asks for the CPU)."""
+        the caller asks for the CPU); an enc-dec model's holds the cross
+        keys and values of ``enc_len`` encoder positions."""
         dev = dispatch.resolve_device(device)
-        return [blocks.init_cache(self.cfg, batch, max_len, dev)
+        return [blocks.init_cache(self.cfg, batch, max_len, self._role,
+                                  enc_len, device=dev)
                 for _ in range(self.cfg.n_layers)]
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -86,12 +116,16 @@ class Model:
         return logits_head(x, table, cfg.logit_softcap)[:, 0]
 
     def prefill(self, params: dict, batch: dict, cache: list):
-        """Prompt pass over ``batch["tokens"]`` (B, S).  Returns the
-        last position's logits (B, V) float32 and the filled cache."""
-        x = embed(params["embed"], batch["tokens"])
+        """Prompt pass over ``batch["tokens"]`` (B, S) (and the batch's
+        ``patches`` or ``frames``).  Returns the last position's logits
+        (B, V) float32 and the filled cache."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        enc_out = (self._encode(params, batch["frames"]) if cfg.is_encdec
+                   else None)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.prefill(lp, x, self.cfg, c, start=0)
+            x, c = blocks.prefill(lp, x, cfg, c, start=0, enc_out=enc_out)
             new_cache.append(c)
         return self._head(params, x[:, -1:]), new_cache
 
@@ -99,16 +133,19 @@ class Model:
                cache: list):
         """One step: tokens (B,) at absolute position ``pos``.  Returns
         logits (B, V) float32 and the cache."""
+        cfg = self.cfg
         x = embed(params["embed"], tokens[:, None])
+        if cfg.pos_embed == "sinusoidal":
+            p = sinusoidal_positions(
+                torch.full((1,), pos, device=x.device), cfg.d_model)
+            x = x + p[None].to(x.dtype)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.decode(lp, x, self.cfg, c, pos)
+            x, c = blocks.decode(lp, x, cfg, c, pos)
             new_cache.append(c)
         return self._head(params, x), new_cache
 
 
 def build(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``; raises ``NotPortedError`` for a family the
-    port does not serve yet, and for a config of a served family that
-    sets a field of ``NOT_PORTED_FIELDS``."""
+    """The model of ``cfg`` (any of ``SERVED_FAMILIES``)."""
     return Model(cfg)

@@ -7,8 +7,10 @@ but ``matmul_2d``'s tensor-core regime, held within a bound; the model
 kernels within ``torch_bounds``),
 the launch counters, and the GPU server bitwise equal to the CPU server,
 to the plain path and to per-request ``apply``/``project`` (the scene
-graph's ``submit_scene`` lanes too); the reduced MoE model through the
-kernels, and ``moe_ffn`` deterministic on the card.
+graph's ``submit_scene`` lanes too); the reduced MoE, enc-dec and VLM
+models through the kernels (flash attention also at whisper-medium's and
+internvl2-76b's serve shapes), an int8-cache decode step against the
+CPU's, and ``moe_ffn`` deterministic on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -1282,6 +1284,140 @@ def test_reduced_granite_serves_on_card_through_the_kernels(cuda_device):
     assert np.array_equal(toks, ref_toks)
     for a, b in zip(trace["logits"], ref_trace["logits"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("bhq, bhkv, s, t, d, causal", [
+    (64, 64, 1500, 1500, 64, False),    # whisper's encoder
+    (64, 64, 1, 1500, 64, False),       # its cross-attention, one query
+    (64, 64, 1, 1, 64, True),           # its self-attention prefill
+    (256, 32, 2048, 2048, 128, True)])  # internvl2-76b's prefill, group 8
+def test_flash_kernel_at_the_encdec_and_vlm_serve_shapes(cuda_device, bhq,
+                                                         bhkv, s, t, d,
+                                                         causal):
+    """The bfloat16 (wgmma) kernel at the serve shapes of whisper-medium
+    (no mask with S = T = 1500, whose last kv tile is ragged; one query
+    row of a 128-row tile against 1500 keys; one against one, causal) and
+    internvl2-76b (D = 128, a GQA group of 8), within ``flash_bound`` of
+    its plain version."""
+    bounds, fa_k, fa_ref = (_model_kernels()[i] for i in (0, 5, 6))
+    rng = np.random.default_rng([64, s, t, d])
+    q = _dense(rng, (bhq, s, d), torch.bfloat16, cuda_device)
+    k = _dense(rng, (bhkv, t, d), torch.bfloat16, cuda_device)
+    v = _dense(rng, (bhkv, t, d), torch.bfloat16, cuda_device)
+    scale = d ** -0.5
+    got = fa_k.flash_attention_3d(q, k, v, scale=scale, causal=causal)
+    want = fa_ref.flash_attention(q, k, v, scale=scale, causal=causal)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bounds.flash_bound(q, k, v, scale, want)).all())
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b"])
+def test_reduced_encdec_and_vlm_serve_on_card_through_the_kernels(
+        cuda_device, arch):
+    """The reduced whisper-medium (enc-dec: zero frames, decoding from
+    position 1) and internvl2-76b (VLM: a zero patch prefix) serve on the
+    card: whisper's prefill launches rmsnorm_2d 2E+1+3L+1,
+    flash_attention_3d E+2L and vecadd_2d 2E+3L times and no rope_3d, a
+    decode step 3L+1, L (cross-attention) and 3L; internvl2's as a dense
+    model's; the tokens equal the plain path's on the card, the logits
+    agree to float32 rounding, and a second serve gives the same bits."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    cfg = configs.get(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = np.random.default_rng(67).integers(0, cfg.vocab_size, (4, 48))
+    L, E, gen = cfg.n_layers, cfg.encoder_layers, 8
+    _build.reset_launch_counts()
+    trace, again = {}, {}
+    toks = serve_batch(cfg, params, prompts, gen_tokens=gen, model=model,
+                       trace=trace)
+    pre, total = trace["launches_prefill"], _build.launch_counts()
+    dec = {k: total[k] - pre[k] for k in pre}
+    if cfg.is_encdec:
+        assert pre["rmsnorm_2d"] == 2 * E + 1 + 3 * L + 1
+        assert pre["flash_attention_3d"] == E + 2 * L
+        assert pre["vecadd_2d"] == 2 * E + 3 * L
+        assert dec["rmsnorm_2d"] == gen * (3 * L + 1)
+        assert dec["flash_attention_3d"] == gen * L
+        assert dec["vecadd_2d"] == gen * 3 * L
+        assert total["rope_3d"] == 0
+    else:
+        assert pre["rmsnorm_2d"] == 2 * L + 1 and pre["rope_3d"] == 2 * L
+        assert pre["flash_attention_3d"] == L and pre["vecadd_2d"] == 2 * L
+        assert dec["flash_attention_3d"] == 0
+    assert total["ssd_intra"] == 0
+    assert np.array_equal(serve_batch(cfg, params, prompts, gen_tokens=gen,
+                                      model=model, trace=again), toks)
+    assert all(torch.equal(a, b)
+               for a, b in zip(trace["logits"], again["logits"]))
+    ref_trace = {}
+    with dispatch.use_backend("ref"):
+        _build.reset_launch_counts()
+        ref_toks = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                               model=model, trace=ref_trace)
+        assert sum(_build.launch_counts().values()) == 0
+    assert np.array_equal(toks, ref_toks)
+    for a, b in zip(trace["logits"], ref_trace["logits"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_int8_cache_decode_step_on_card_matches_the_cpu(cuda_device):
+    """One decode step of the reduced granite-moe-3b-a800m with an int8 KV
+    cache, on the card through the kernels and on the CPU through the
+    plain versions, from the same prefilled cache: every slot the step
+    does not write stays bitwise, the new slot's int8 words differ by at
+    most one step (float32 rounding may move a value across a rounding
+    boundary of x / scale), its scales agree to float32 rounding, and the
+    logits within 1e-3 of their largest (a word one step off moves one
+    key or value element by max|row| / 127, within 1e-3 through two
+    reduced layers)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models import build
+    cfg = dataclasses.replace(configs.get("granite-moe-3b-a800m").reduced(),
+                              kv_cache_dtype="int8")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(68).integers(
+        0, cfg.vocab_size, (4, 40)))
+    batch, pos, _ = serve_inputs(cfg, prompts)
+    cache = model.init_cache(4, 48, device="cpu")
+    logits, cache = model.prefill(params, batch, cache)
+    tok = logits.argmax(-1)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    card_cache = to(cache, cuda_device)
+    _build.reset_launch_counts()
+    got, card_cache = model.decode(to(params, cuda_device),
+                                   tok.to(cuda_device), pos, card_cache)
+    assert _build.launch_counts()["rmsnorm_2d"] == 2 * cfg.n_layers + 1
+    want, cache = model.decode(params, tok, pos, cache)
+    got_cache = to(card_cache, "cpu")
+    for g, w in zip(got_cache, cache):
+        assert g["k"].dtype == torch.int8 and torch.equal(g["kpos"], w["kpos"])
+        for name in ("k", "v", "kscale", "vscale"):
+            old, new = (torch.cat([a[:, :, :pos], a[:, :, pos + 1:]], dim=2)
+                        for a in (g[name], w[name]))
+            assert torch.equal(old, new), name
+        for name in ("k", "v"):
+            step = (g[name][:, :, pos].int() - w[name][:, :, pos].int()).abs()
+            assert int(step.max()) <= 1, name
+            sg, sw = g[name + "scale"][:, :, pos], w[name + "scale"][:, :, pos]
+            assert float((sg - sw).abs().max()) <= 1e-5 * float(sw.abs().max())
+    got = got.cpu()
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
 #: the seed of the MoE card test's weights and tokens: every token's k-th

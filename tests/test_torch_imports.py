@@ -287,8 +287,9 @@ def test_default_device_entry_points_raise_without_cuda():
     from repro_torch.models import build
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "hymba-1.5b", "--reduced"])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--arch", "granite-moe-3b-a800m", "--reduced"])
+    for arch in ("granite-moe-3b-a800m", "whisper-medium", "internvl2-76b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--reduced"])
     from repro_torch import scene
     g = scene.SceneGraph(2, cache=scene.FoldCache())
     g.add("r", chain)

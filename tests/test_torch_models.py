@@ -1,21 +1,29 @@
 """The port's serving path against the JAX package's: the reduced
 ``hymba-1.5b`` (hybrid), ``h2o-danube-1.8b`` (dense, sliding window),
 ``mamba2-130m`` (SSM), ``granite-moe-3b-a800m`` and ``dbrx-132b`` (MoE:
-4 experts, top 2, at ``reduced()``) configs, with the JAX parameters
-carried across by ``convert.model_params_from_reference``.
+4 experts, top 2, at ``reduced()``), ``whisper-medium`` (enc-dec: two
+encoder and two decoder layers, sinusoidal positions, zero frames) and
+``internvl2-76b`` (VLM: an 8-position zero patch prefix) configs, and
+the int8 KV cache on the reduced ``granite-moe-3b-a800m`` and ``yi-6b``
+(the JAX package's own int8 case), with the JAX parameters carried
+across by ``convert.model_params_from_reference``.
 
 The JAX model runs under ``dispatch.use_backend("interpret")`` (its
 Pallas kernel bodies), the port on CPU tensors (its plain versions).  A
 48-token prompt goes into a 64-slot cache (16 tokens generated), so the
-window-32 ring of hymba and danube wraps.  Held equal:
+window-32 ring of hymba and danube wraps.  Both packages get the batch,
+the first decode position and the encoder length of the port's
+``launch.serve.serve_inputs`` (the JAX launcher's stubs).  Held equal:
 
-  * prefill logits and every layer's cache (kpos exactly; k, v, the SSM
-    state and the conv tail), then each of the 16 decode steps' logits
-    and caches, the JAX package's greedy tokens fed to both;
+  * prefill logits and every layer's cache (kpos and the int8 words
+    exactly; k, v, their int8 scales, the enc-dec cross keys and values,
+    the SSM state and the conv tail), then each of the 16 decode steps'
+    logits and caches, the JAX package's greedy tokens fed to both;
   * the tokens of ``serve_batch``, exactly;
-  * ``build`` raising ``NotPortedError`` for the enc-dec and VLM
-    families (ROADMAP.md queue 1 items 10.2 and 10.3), and
-    ``cache_spec`` for the int8 KV cache (item 10.4).
+  * every shipped config builds; an int8 cache that would be written as
+    a ring (window <= max_len) raises ``Int8RingCacheError`` in the port
+    where the JAX package's first decode raises ``KeyError`` (ROADMAP.md
+    queue 3 item 4), and one shorter than the window matches it.
 
 Tolerance: |port - JAX| <= 1e-4 max|JAX| per tensor.  The reduced
 configs are float32 end to end; every op agrees to a few float32 ulp
@@ -28,6 +36,8 @@ experts and slots in both packages: an ulp cannot flip a top-k choice
 unless two router probabilities tie to within it, which these seeds do
 not reach (``tests/test_torch_moe.py`` asserts that margin per token).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,13 +52,16 @@ from repro.launch.serve import serve_batch as jax_serve_batch
 from repro.models import build as jax_build
 from repro_torch import configs
 from repro_torch.convert import model_params_from_reference
-from repro_torch.errors import NotPortedError
-from repro_torch.launch.serve import serve_batch
+from repro_torch.errors import Int8RingCacheError
+from repro_torch.launch.serve import serve_batch, serve_inputs
 from repro_torch.models import attention as attn
 from repro_torch.models import build
 
 ARCHS = ["hymba-1.5b", "h2o-danube-1.8b", "mamba2-130m",
-         "granite-moe-3b-a800m", "dbrx-132b"]
+         "granite-moe-3b-a800m", "dbrx-132b", "whisper-medium",
+         "internvl2-76b"]
+#: the archs whose reduced config is also run with an int8 KV cache
+INT8_ARCHS = ["granite-moe-3b-a800m", "yi-6b"]
 BATCH, PROMPT, GEN = 2, 48, 16
 RTOL = 1e-4
 _RUNS = {}
@@ -73,12 +86,14 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
-def _run(arch: str) -> dict:
+def _run(arch: str, kv_cache_dtype: str = "bfloat16") -> dict:
     """Both packages on one arch, run once and shared by the tests."""
-    if arch in _RUNS:
-        return _RUNS[arch]
-    cfg = jax_configs.get(arch).reduced()
-    pcfg = configs.get(arch).reduced()
+    if (arch, kv_cache_dtype) in _RUNS:
+        return _RUNS[arch, kv_cache_dtype]
+    cfg = dataclasses.replace(jax_configs.get(arch).reduced(),
+                              kv_cache_dtype=kv_cache_dtype)
+    pcfg = dataclasses.replace(configs.get(arch).reduced(),
+                               kv_cache_dtype=kv_cache_dtype)
     assert pcfg.name == cfg.name
     jm = jax_build(cfg)
     params = jm.init(jax.random.PRNGKey(0))
@@ -87,17 +102,19 @@ def _run(arch: str) -> dict:
     prompts = np.random.default_rng([75, len(arch)]).integers(
         0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
     run = {"cfg": pcfg, "n_layers": cfg.n_layers}
+    batch, pos, enc_len = serve_inputs(pcfg, torch.from_numpy(prompts).long())
+    jbatch = {k: jnp.asarray(v.numpy().astype(
+        np.int32 if k == "tokens" else np.float32)) for k, v in batch.items()}
     with jax_dispatch.use_backend("interpret"):
         run["jax_tokens"] = np.asarray(jax_serve_batch(
             cfg, params, prompts, gen_tokens=GEN, model=jm))
         prefill, decode = jax.jit(jm.prefill), jax.jit(jm.decode)
-        cache = jm.init_cache(BATCH, PROMPT + GEN)
-        logits, cache = prefill(params, {"tokens": jnp.asarray(prompts)},
-                                cache)
+        cache = jm.init_cache(BATCH, PROMPT + GEN, enc_len)
+        logits, cache = prefill(params, jbatch, cache)
         steps = [(np.asarray(logits), jax.tree.map(np.asarray, cache))]
         for i in range(GEN):
             tok = jnp.asarray(run["jax_tokens"][:, i])
-            logits, cache = decode(params, tok, PROMPT + i, cache)
+            logits, cache = decode(params, tok, pos + i, cache)
             steps.append((np.asarray(logits),
                           jax.tree.map(np.asarray, cache)))
     run["jax_steps"] = steps
@@ -105,21 +122,20 @@ def _run(arch: str) -> dict:
     pm = build(pcfg)
     run["port_tokens"] = serve_batch(pcfg, pparams, prompts, gen_tokens=GEN,
                                      model=pm)
-    pcache = pm.init_cache(BATCH, PROMPT + GEN, device="cpu")
+    pcache = pm.init_cache(BATCH, PROMPT + GEN, enc_len, device="cpu")
 
     def snap(c):   # the port updates caches in place: copy each step's
         return [{k: v.clone().numpy() for k, v in _flat(layer).items()}
                 for layer in c]
 
-    logits, pcache = pm.prefill(pparams, {"tokens": torch.from_numpy(
-        prompts).long()}, pcache)
+    logits, pcache = pm.prefill(pparams, batch, pcache)
     psteps = [(logits.numpy(), snap(pcache))]
     for i in range(GEN):
         tok = torch.from_numpy(run["jax_tokens"][:, i]).long()
-        logits, pcache = pm.decode(pparams, tok, PROMPT + i, pcache)
+        logits, pcache = pm.decode(pparams, tok, pos + i, pcache)
         psteps.append((logits.numpy(), snap(pcache)))
     run["port_steps"] = psteps
-    _RUNS[arch] = run
+    _RUNS[arch, kv_cache_dtype] = run
     return run
 
 
@@ -157,46 +173,118 @@ def test_serve_batch_tokens_match_jax(arch):
     assert np.array_equal(run["port_tokens"], run["jax_tokens"])
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b"])
-def test_build_raises_not_ported_for_other_families(arch):
-    cfg = configs.get(arch)
-    with pytest.raises(NotPortedError, match="queue 1 item 10") as err:
-        build(cfg)
-    assert cfg.family in str(err.value) and err.value.code == "not-ported"
-    assert isinstance(err.value, NotImplementedError)
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_prefill_logits_and_caches_match_jax(arch):
+    run = _run(arch, "int8")
+    pc = run["port_steps"][0][1][0]
+    assert pc["/k"].dtype == np.int8 and pc["/kscale"].dtype == np.float32
+    assert pc["/kscale"].shape == pc["/k"].shape[:3] + (1,)
+    _check_step(run, 0)
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("pos_embed", "sinusoidal", "queue 1 item 10.2"),
-    ("frontend", "vision", "queue 1 item 10.3")])
-def test_build_raises_not_ported_for_unported_fields(field, value, item):
-    """A served family with a field the JAX model branches on and the
-    port does not run yet (sinusoidal positions, a frontend) would build
-    another model than the reference's: ``build`` refuses it, naming the
-    sub-item that ports the field; the ten shipped configs build (the
-    MoE ones too), or raise for their family."""
-    import dataclasses
-    cfg = dataclasses.replace(configs.get("h2o-danube-1.8b").reduced(),
-                              **{field: value})
-    with pytest.raises(NotPortedError, match=item) as err:
-        build(cfg)
-    assert field.split("_")[-1] in str(err.value)
-    for arch in configs.list_archs():
-        shipped = configs.get(arch)
-        if shipped.family in ("dense", "moe", "ssm", "hybrid"):
-            assert build(shipped).cfg is shipped
-        else:
-            with pytest.raises(NotPortedError,
-                               match=f"the {shipped.family} family"):
-                build(shipped)
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_decode_steps_logits_and_caches_match_jax(arch):
+    run = _run(arch, "int8")
+    for step in range(1, GEN + 1):
+        _check_step(run, step)
 
 
-def test_int8_kv_cache_raises_not_ported():
-    import dataclasses
-    cfg = dataclasses.replace(configs.get("yi-6b").reduced(),
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_serve_batch_tokens_match_jax(arch):
+    run = _run(arch, "int8")
+    assert np.array_equal(run["port_tokens"], run["jax_tokens"])
+
+
+def test_int8_ring_cache_raises_typed_error():
+    """h2o-danube's window of 32 makes a cache of 64 slots a ring, and one
+    of 32 slots is written as one too: the JAX package fills either and
+    then fails to decode (its ring write drops the int8 scales); the port
+    refuses both at ``cache_spec``, and a ring write to an int8 cache,
+    with a typed error that names ROADMAP.md queue 3 item 4."""
+    cfg = dataclasses.replace(jax_configs.get("h2o-danube-1.8b").reduced(),
                               kv_cache_dtype="int8")
-    with pytest.raises(NotPortedError, match="int8"):
-        attn.cache_spec(cfg, 2, 64)
+    jm = jax_build(cfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    tokens = jnp.zeros((BATCH, 40), jnp.int32)
+    for max_len, prompt in ((64, 40), (32, 24)):
+        logits, cache = jm.prefill(params, {"tokens": tokens[:, :prompt]},
+                                   jm.init_cache(BATCH, max_len))
+        assert "kscale" not in cache
+        with pytest.raises(KeyError, match="kscale"):
+            jm.decode(params, tokens[:, prompt - 1], prompt, cache)
+
+    pcfg = dataclasses.replace(configs.get("h2o-danube-1.8b").reduced(),
+                               kv_cache_dtype="int8")
+    for max_len in (64, 32):
+        with pytest.raises(Int8RingCacheError,
+                           match="queue 3 item 4") as err:
+            attn.cache_spec(pcfg, BATCH, max_len)
+        assert err.value.code == "int8-ring"
+        assert isinstance(err.value, NotImplementedError)
+        with pytest.raises(Int8RingCacheError):
+            build(pcfg).init_cache(BATCH, max_len, device="cpu")
+    ring = attn.init_cache(attn.CacheSpec(BATCH, pcfg.n_kv_heads, 32,
+                                          pcfg.head_dim, True, "int8"),
+                           torch.device("cpu"))
+    kv = torch.ones(BATCH, pcfg.n_kv_heads, 1, pcfg.head_dim)
+    with pytest.raises(Int8RingCacheError):
+        attn._write_ring(ring, kv, kv, 0, 32)
+
+
+def test_int8_cache_shorter_than_the_window_matches_jax():
+    """With max_len < window the int8 cache of h2o-danube is linear in
+    both packages: a 24-token prompt and 6 decode steps into 31 slots
+    give the JAX package's logits and caches (int8 words equal)."""
+    cfg = dataclasses.replace(jax_configs.get("h2o-danube-1.8b").reduced(),
+                              kv_cache_dtype="int8")
+    pcfg = dataclasses.replace(configs.get("h2o-danube-1.8b").reduced(),
+                               kv_cache_dtype="int8")
+    spec = attn.cache_spec(pcfg, BATCH, 31)
+    assert not spec.ring and spec.dtype == "int8" and spec.length == 31
+    jm, pm = jax_build(cfg), build(pcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    pparams = model_params_from_reference(
+        pcfg, jax.tree.map(np.asarray, params), device="cpu")
+    tokens = np.random.default_rng(31).integers(
+        0, cfg.vocab_size, (BATCH, 30)).astype(np.int32)
+    with jax_dispatch.use_backend("interpret"):
+        jl, jc = jm.prefill(params, {"tokens": jnp.asarray(tokens[:, :24])},
+                            jm.init_cache(BATCH, 31))
+    pl, pc = pm.prefill(pparams, {"tokens": torch.from_numpy(
+        tokens[:, :24]).long()}, pm.init_cache(BATCH, 31, device="cpu"))
+    for pos in range(24, 31):
+        _close(pl.numpy(), np.asarray(jl), f"logits before {pos}")
+        jflat = _flat(jax.tree.map(np.asarray, jc))
+        for i, layer in enumerate(pc):
+            assert "/kscale" in jflat
+            for name, arr in _flat(layer).items():
+                _close(arr.numpy(), jflat[name][i], f"layer {i} {name}")
+        if pos == 30:
+            break
+        with jax_dispatch.use_backend("interpret"):
+            jl, jc = jm.decode(params, jnp.asarray(tokens[:, pos]), pos, jc)
+        pl, pc = pm.decode(pparams, torch.from_numpy(tokens[:, pos]).long(),
+                           pos, pc)
+
+
+@pytest.mark.parametrize("arch", configs.list_archs())
+def test_every_shipped_config_builds(arch):
+    """Every family serves: ``build`` takes each shipped config, and its
+    model holds the JAX package's parameter tree (the reduced config's
+    names and shapes; layer stacks as lists)."""
+    cfg = configs.get(arch)
+    assert build(cfg).cfg is cfg
+    rcfg = jax_configs.get(arch).reduced()
+    shapes = jax.eval_shape(jax_build(rcfg).init, jax.random.PRNGKey(0))
+    ours = build(configs.get(arch).reduced()).init(torch.Generator())
+    for key in ("layers", "enc_layers"):
+        if key in shapes:
+            assert len(ours[key]) == jax.tree.leaves(shapes[key])[0].shape[0]
+            shapes[key] = jax.tree.map(lambda a: a.shape[1:], shapes[key])
+            ours[key] = ours[key][0]
+    want = {k: tuple(v.shape if hasattr(v, "shape") else v)
+            for k, v in _flat(shapes).items()}
+    assert {k: tuple(v.shape) for k, v in _flat(ours).items()} == want
 
 
 def test_configs_and_param_counts_match_jax():
