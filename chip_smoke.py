@@ -134,6 +134,23 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      for sharding), the hymba serve's batch and lengths, the first 256
      positions a zero patch prefix; launches as a dense layer's, the
      same gates, envelope 0.028;
+  8f. train (hymba-1.5b): full width and depth (32 layers, 1.59 B
+     parameters), bfloat16, remat "dots", ``SyntheticLMData`` (seed 0)
+     at a global batch of 4 x 2048 tokens, 2 rows a micro-batch
+     (accumulation over 2), ``AdamWConfig(total_steps=3,
+     warmup_steps=1)``: step 1's loss, gradients (relative RMS, all
+     flattened together) and global gradient norm on the kernel path
+     within ``logits_rtol`` (0.109) of the same step under
+     ``use_backend("ref")``, every gradient present and finite; step 1
+     twice from the same state bit for bit; three steps of
+     ``launch.train.train_loop``, three finite losses; in every step each
+     model kernel's launches (twice a pass's layers under "dots", whose
+     backward recomputes each layer's kernels, plus the final norm) and
+     plain backwards (``kernels.grad.backward_counts``, one a forward
+     launch) exactly ``expected_train_launches``; the step's ms, tokens/s,
+     peak memory and forward/backward/optimizer/plain-backward ms from
+     CUDA events (``train_phase``); it runs after the serves and before
+     the chaos, async and autotune phases;
   9. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
@@ -275,8 +292,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      kernels from the q-mixed serve, for the eager ones from the
      primitives phase, for the model kernels from the hymba serve;
      each kernel also carries its launches in the scene, granite (with
-     both caches), whisper and internvl2 serves, and the model kernels a
+     both caches), whisper and internvl2 serves and the training, and
+     the model kernels a
      ``granite`` row and ``whisper`` and ``internvl2`` rows by shape;
+     the five model kernels also a ``train`` row (the training
+     micro-batch's shape, its launches and plain backwards a step and the
+     ms of its plain vjp, ``plain_backward_case``);
      ``vecadd_2d`` also carries its hymba prefill row, ``rope_3d`` its
      decode rows, ``ssd_intra`` its mamba2-130m row,
      ``chain_matrix_batch_2d`` its largest d = 3 bucket's row,
@@ -311,9 +332,17 @@ from repro_torch.core import analysis  # noqa: E402
 from repro_torch.core import transform_chain as tc  # noqa: E402
 from repro_torch.core import transform_engine as te  # noqa: E402
 from repro_torch.core.morphosys import intel, programs  # noqa: E402
-from repro_torch.kernels import _build, dispatch, opcount  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
+from repro_torch.distributed import elastic  # noqa: E402
+from repro_torch.distributed.steps import (make_train_step,  # noqa: E402
+                                           value_and_grad)
+from repro_torch.kernels import _build, dispatch, grad, opcount  # noqa: E402
+from repro_torch.kernels import attention as attention_op  # noqa: E402
 from repro_torch.kernels import matmul as matmul_op  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_op  # noqa: E402
+from repro_torch.kernels import rope as rope_op  # noqa: E402
+from repro_torch.kernels import ssd_intra as ssd_op  # noqa: E402
+from repro_torch.kernels import vecadd as vecadd_op  # noqa: E402
 from repro_torch.kernels.affine import affine as diag_k  # noqa: E402
 from repro_torch.kernels.affine import ref as diag_ref  # noqa: E402
 from repro_torch.kernels.fixedpoint import fixedpoint as q_k  # noqa: E402
@@ -331,7 +360,10 @@ from repro_torch.kernels.rope import rope as rope_k  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_k  # noqa: E402
 from repro_torch.launch.serve import serve_batch, serve_inputs  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim.adamw import global_norm, leaves  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
 
 import torch_bounds as bounds  # noqa: E402
@@ -383,6 +415,10 @@ WHISPER_FRAMES = 1500
 #: internvl2-76b's depth on one card: its 80 layers are 141 GB in
 #: bfloat16 and wait for sharding; 4 layers at full width are 11 GB
 VLM_LAYERS = 4
+#: the train phase: hymba-1.5b at full width and depth, SyntheticLMData
+#: (seed 0) at a global batch of 4 x 2048 tokens (the hymba serve's
+#: lengths), 2 rows a micro-batch (accumulation over 2), three steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 3
 #: rounding sites a layer where the kernel path's bfloat16 output may
 #: land one ulp (2**-8 to 2**-7 relative) from the plain path's: a hybrid
 #: layer's five rmsnorm_2d outputs and its flash_attention_3d output (the
@@ -2219,6 +2255,273 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
     return row
 
 
+# -- the model stack: training ----------------------------------------------------
+
+def _named(tree, path: str = "") -> list:
+    """(path, leaf) pairs of a parameter tree in ``leaves``' order."""
+    if isinstance(tree, dict):
+        return [it for k, v in tree.items() for it in _named(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [it for i, v in enumerate(tree)
+                for it in _named(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def expected_train_launches(cfg, accum: int) -> tuple[dict, dict]:
+    """(launches, plain backwards) of the model kernels in one train step
+    of a hybrid model of L layers under remat "dots" over ``accum``
+    micro-batches.  A forward pass launches rmsnorm_2d 5L+1 times,
+    rope_3d 2L, flash_attention_3d and ssd_intra L and vecadd_2d 2L (the
+    serve's prefill counts); the backward pass recomputes every layer --
+    the kernels are opaque to the selective-checkpoint policy, which
+    keeps only the dense products' outputs -- but not the final norm, so
+    a step launches each kernel twice its layers' count, rmsnorm_2d
+    once more; every forward launch of the kept graph runs one plain
+    backward (``kernels.grad``)."""
+    L = cfg.n_layers
+    fwd = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
+           "flash_attention_3d": L, "ssd_intra": L, "vecadd_2d": 2 * L}
+    launches = {k: accum * (2 * v - (k == "rmsnorm_2d"))
+                for k, v in fwd.items()}
+    return launches, {k: accum * v for k, v in fwd.items()}
+
+
+def _train_batch(cfg, device: str = "cuda") -> tuple[dict, int]:
+    """``SyntheticLMData``'s step-0 batch, (accum, micro, ...) on the
+    card, and accum."""
+    accum = elastic.replan_accum(TRAIN_BATCH, TRAIN_MICRO)
+    data = SyntheticLMData(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    raw = data.global_batch(0)
+    return {k: torch.from_numpy(v.reshape((accum, TRAIN_BATCH // accum)
+                                          + v.shape[1:])).to(device)
+            for k, v in raw.items()}, accum
+
+
+def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
+    """Train hymba-1.5b at full width and depth (bfloat16, remat "dots")
+    on the card, the phase's gates (a)-(d), each failure gathered and the
+    phase failed with all of them:
+
+      (a) step 1's loss and gradients (``value_and_grad`` over the two
+          micro-batches of ``SyntheticLMData(seed 0)``'s step 0, from
+          ``Model.init``'s parameters, seed 0) on the kernel path, and
+          the same under ``dispatch.use_backend("ref")``: the launches
+          and plain backwards of ``expected_train_launches``, none on the
+          plain path; the losses, the relative RMS of all gradients
+          flattened together and the global gradient norms within
+          ``logits_rtol(cfg)``; every gradient present and finite; the
+          worst tensor's relative RMS printed with its name, ungated;
+      (b) step 1 (``make_train_step``) twice from the same parameters,
+          AdamW state and batch: the same loss and parameters bit for
+          bit;
+      (c) three steps of ``launch.train.train_loop`` (``AdamWConfig(
+          total_steps=3, warmup_steps=1)``): every step's launches and
+          plain backwards as in (a), three finite losses (printed, not
+          required to fall), the step's ms (CUDA events; the median of
+          steps 2-3), tokens/s, the peak memory, and each step's forward,
+          backward (recomputation included) and optimizer ms and its
+          plain backwards' ms (CUDA events around each Function's vjp);
+      (d) the distinct sizes of (c)'s launches, for the shape checks.
+
+    The summary carries the card's name and power limit beside its
+    figures.  Returns (each step's launches, the sizes, the summary)."""
+    cfg = dataclasses.replace(configs.get(HYMBA_ARCH), remat="dots")
+    model = build(cfg)
+    batch, accum = _train_batch(cfg, device)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    want_launch, want_bwd = expected_train_launches(cfg, accum)
+    rtol = logits_rtol(cfg)
+    failures = []
+
+    def counted(what: str) -> tuple[dict, dict]:
+        got = {k: _build.launch_counts()[k] for k in MODEL_PATH_KERNELS}
+        bwd = grad.backward_counts()
+        if got != want_launch or bwd != want_bwd:
+            failures.append(f"{what}: launches {got} and plain backwards "
+                            f"{bwd}, expected {want_launch} and {want_bwd}")
+        return got, bwd
+
+    # (a) the kernel path against the plain path
+    params, init_s = init_params(cfg, device)
+    names = [n for n, _ in _named(params)]
+    n_params = sum(t.numel() for t in leaves(params))
+    _build.reset_launch_counts()
+    grad.reset_backward_counts()
+    loss_k, grads_k = value_and_grad(model, params, batch, accum)
+    torch.cuda.synchronize()
+    launches_a, backwards_a = counted("step 1 (kernel path)")
+    with dispatch.use_backend("ref"):
+        _build.reset_launch_counts()
+        loss_r, grads_r = value_and_grad(model, params, batch, accum)
+        torch.cuda.synchronize()
+        if any(_build.launch_counts().values()):
+            raise SystemExit("train: the plain path launched a kernel")
+    gk, gr = leaves(grads_k), leaves(grads_r)
+    if len(gk) != len(names) or any(g is None for g in gk):
+        failures.append("a parameter got no gradient")
+    nonfinite = [n for n, g in zip(names, gk)
+                 if g is not None and not bool(torch.isfinite(g).all())]
+    if nonfinite:
+        failures.append(f"non-finite gradients: {nonfinite}")
+    diff2 = sum(float((a.double() - b.double()).pow(2).sum())
+                for a, b in zip(gk, gr))
+    ref2 = sum(float(b.double().pow(2).sum()) for b in gr)
+    grads_rel_rms = math.sqrt(diff2 / ref2)
+    per_tensor = [(_rel_rms(a, b)[0], n) for n, a, b in zip(names, gk, gr)
+                  if float(b.double().pow(2).sum()) > 0]
+    worst_rms, worst_name = max(per_tensor)
+    gnorm_k, gnorm_r = float(global_norm(grads_k)), float(global_norm(grads_r))
+    loss_rel = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    gnorm_rel = abs(gnorm_k - gnorm_r) / gnorm_r
+    for what, val in (("loss", loss_rel), ("gradients (relative RMS)",
+                                           grads_rel_rms),
+                      ("global gradient norm", gnorm_rel)):
+        if not val <= rtol:
+            failures.append(f"{what} {val} from the plain path, above {rtol}")
+    del grads_k, grads_r, gk, gr
+    torch.cuda.empty_cache()
+
+    # (b) step 1 twice from the same state
+    opt_state = adamw_init(params)
+    step = make_train_step(model, opt_cfg, accum)
+    p1, s1, m1 = step(params, opt_state, batch)
+    del s1
+    p2, s2, m2 = step(params, opt_state, batch)
+    del s2
+    repeat_bitwise = torch.equal(m1["loss"], m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(leaves(p1), leaves(p2)))
+    if not repeat_bitwise:
+        failures.append("step 1 repeated from the same state differs")
+    del params, opt_state, p1, p2
+    torch.cuda.empty_cache()
+
+    # (c) three steps of train_loop
+    steps, sizes, timing = [], {}, {}
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        got, bwd = counted(f"train_loop step {i + 1}")
+        steps.append({"step": i + 1, "loss": metrics["loss"],
+                      "ms": metrics["ms"], "lr": metrics["lr"],
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "launches": got, "plain_backwards": bwd,
+                      "spans": len(spans)})
+        for k, v in _build.launch_sizes().items():
+            sizes.setdefault(k, set()).update(v)
+        _build.reset_launch_counts()
+        grad.reset_backward_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    grad.reset_backward_counts()
+    t0 = time.perf_counter()
+    with grad.timed() as spans:
+        _, history = train_loop(
+            cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, micro_per_shard=TRAIN_MICRO, opt_cfg=opt_cfg,
+            seed=SEED, device=device, on_step=on_step, timing=timing,
+            log_every=1)
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        bounds_ = [0] + [row.pop("spans") for row in steps]
+        for i, row in enumerate(steps):
+            row["plain_backward_ms"] = grad.elapsed_ms(
+                spans[bounds_[i]:bounds_[i + 1]])
+            for part in ("forward", "backward", "optimizer"):
+                per = accum if part != "optimizer" else 1
+                row[f"{part}_ms"] = sum(a.elapsed_time(b) for a, b in
+                                        timing[part][i * per:(i + 1) * per])
+            row["plain_backward_share"] = row["plain_backward_ms"] / row["ms"]
+    if len(history) != TRAIN_STEPS or not all(math.isfinite(x)
+                                              for x in history):
+        failures.append(f"losses {history}: not {TRAIN_STEPS} finite ones")
+    if failures:
+        raise SystemExit("train (hymba-1.5b): " + "; ".join(failures))
+    later = steps[1:]
+    step_ms = float(np.median([r["ms"] for r in later]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {
+        "phase": f"train ({cfg.name})", "arch": cfg.name,
+        "layers": cfg.n_layers, "params": n_params,
+        "dtype": cfg.dtype, "remat": cfg.remat,
+        "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "accum": accum,
+        "tokens_per_step": tokens, "init_s": init_s,
+        "step1_loss_kernel": float(loss_k), "step1_loss_plain": float(loss_r),
+        "step1_loss_rel_diff": loss_rel,
+        "grads_rel_rms_vs_plain": grads_rel_rms,
+        "grad_norm_kernel": gnorm_k, "grad_norm_plain": gnorm_r,
+        "grad_norm_rel_diff": gnorm_rel, "rtol": rtol,
+        "worst_tensor_rel_rms": worst_rms, "worst_tensor": worst_name,
+        "launches_step1": launches_a, "plain_backwards_step1": backwards_a,
+        "expected_launches": want_launch,
+        "expected_plain_backwards": want_bwd,
+        "repeat_bitwise": repeat_bitwise, "losses": history,
+        "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "forward_ms": float(np.median([r["forward_ms"] for r in later])),
+        "backward_ms": float(np.median([r["backward_ms"] for r in later])),
+        "optimizer_ms": float(np.median([r["optimizer_ms"] for r in later])),
+        "plain_backward_ms": float(np.median(
+            [r["plain_backward_ms"] for r in later])),
+        "plain_backward_share": float(np.median(
+            [r["plain_backward_share"] for r in later])),
+        "peak_memory_GB": peak / 1e9, "wall_s": wall_s, "steps": steps,
+        "card": card_line()}
+    torch.cuda.empty_cache()
+    return steps, sizes, summary
+
+
+def plain_backward_case(name: str, shape: tuple, dtype: torch.dtype,
+                        rng: np.random.Generator, *, window=None) -> dict:
+    """The plain vjp ``kernels.grad`` runs for ``name`` at a training
+    shape: the op called on inputs that require grad (its ``grad_fn``
+    must be the kernel's Function), then one backward of that node timed
+    (``time_ms``: the plain version recomputed and differentiated)."""
+    dev = torch.device("cuda")
+
+    def randn(*s, dt=dtype, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                .to(dev) * scale).to(dt).requires_grad_(True)
+    if name == "vecadd_2d":
+        xs = [randn(*shape), randn(*shape)]
+        out, fn = vecadd_op(*xs), "VecAdd"
+    elif name == "rmsnorm_2d":
+        xs = [randn(*shape, scale=3.0), randn(shape[1], dt=torch.float32)]
+        out, fn = rmsnorm_op(*xs, eps=1e-5), "RMSNorm"
+    elif name == "rope_3d":
+        bh, s, d = shape
+        cos, sin = rope_ref.rope_tables(torch.arange(s, device=dev), d)
+        xs = [randn(bh, s, d)]
+        out, fn = rope_op(xs[0], cos, sin), "Rope"
+    elif name == "flash_attention_3d":
+        bhq, bhkv, s, d = shape
+        b = TRAIN_MICRO
+        xs = [randn(b, bhq // b, s, d), randn(b, bhkv // b, s, d),
+              randn(b, bhkv // b, s, d)]
+        out, fn = attention_op(*xs, window=window), "FlashAttention"
+    else:
+        bc, lc, h, p, n = shape
+        cum = torch.cumsum(-torch.from_numpy(rng.uniform(
+            0.001, 0.1, (bc, lc, h)).astype(np.float32)).to(dev), dim=1)
+        xs = [randn(bc, lc, h, p), randn(bc, lc, n), randn(bc, lc, n),
+              cum.requires_grad_(True)]
+        out, fn = ssd_op(*xs), "SSDIntra"
+    outs = out if isinstance(out, tuple) else (out,)
+    if type(outs[0].grad_fn).__name__ != fn + "Backward":
+        raise SystemExit(f"{name}: the op's grad_fn is "
+                         f"{type(outs[0].grad_fn).__name__}, not {fn}'s")
+    cots = [torch.randn_like(o) for o in outs]
+    ms, host_us = time_ms(lambda: torch.autograd.grad(outs, xs, cots,
+                                                      retain_graph=True))
+    row = {"kernel": name, "size": "train plain backward",
+           "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+           "grad_fn": fn + "Backward", "plain_backward_ms": ms,
+           "plain_backward_host_us": host_us}
+    emit(row)
+    return row
+
+
 # -- per-kernel checks and timings ---------------------------------------------
 
 _L2_FLUSH = None
@@ -2693,6 +2996,12 @@ def main() -> int:
     vlm_counts, vlm_sizes, summary = model_phase(
         dataclasses.replace(configs.get(VLM_ARCH), n_layers=VLM_LAYERS))
     emit(summary)
+    # training, after the serves and before the chaos, async and autotune
+    # phases (the soak leaves the process's host pages slow, PERF.md 7)
+    train_steps, train_sizes, summary = train_phase()
+    emit(summary)
+    train_counts = {k: sum(r["launches"].get(k, 0) for r in train_steps)
+                    for k in KERNELS}
 
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -3003,11 +3312,39 @@ def main() -> int:
                         ((rows_n, vd), "internvl2 prefill residual add")):
         internvl2.setdefault("vecadd_2d", {})[size] = eager_case(
             "vecadd_2d", shape, bf16, rng, size)
-    # every size the serves launched a kernel with was checked above
+    # the model kernels at every shape hymba-1.5b's training gives them
+    # (a micro-batch of 2 x 2048 tokens), each also with the plain vjp
+    # its kernels.grad Function runs in the backward pass
+    tq, tkv = TRAIN_MICRO * 25, TRAIN_MICRO * 5
+    train_rows = {}
+    for name, shape, dtype, size, window in (
+            ("rmsnorm_2d", (TRAIN_MICRO * TRAIN_SEQ, 3200), f32,
+             "train SSM gated norm", None),
+            ("rmsnorm_2d", (TRAIN_MICRO * TRAIN_SEQ, 1600), bf16, "train",
+             None),
+            ("rope_3d", (tkv, TRAIN_SEQ, 64), bf16, "train k", None),
+            ("rope_3d", (tq, TRAIN_SEQ, 64), bf16, "train q", None),
+            ("flash_attention_3d", (tq, tkv, TRAIN_SEQ, 64), bf16, "train",
+             1024),
+            ("ssd_intra", (TRAIN_MICRO * TRAIN_SEQ // 256, 256, 50, 64, 16),
+             bf16, "train", None)):
+        row = model_case(name, shape, dtype, rng, size, window=window)
+        row.update(plain_backward_case(name, shape, dtype, rng,
+                                       window=window))
+        train_rows[name] = row
+    row = eager_case("vecadd_2d", (TRAIN_MICRO * TRAIN_SEQ, 1600), bf16, rng,
+                     "train residual add")
+    row.update(plain_backward_case("vecadd_2d",
+                                   (TRAIN_MICRO * TRAIN_SEQ, 1600), bf16,
+                                   rng))
+    train_rows["vecadd_2d"] = row
+    # every size the serves and the training launched a kernel with was
+    # checked above
     checked = _build.launch_sizes()
     served_sizes = {HYMBA_ARCH: hymba_sizes, GRANITE_ARCH: granite_sizes,
                     f"{GRANITE_ARCH} int8 KV cache": int8_sizes,
-                    WHISPER_ARCH: whisper_sizes, VLM_ARCH: vlm_sizes}
+                    WHISPER_ARCH: whisper_sizes, VLM_ARCH: vlm_sizes,
+                    f"{HYMBA_ARCH} training": train_sizes}
     for arch, served in served_sizes.items():
         for name in MODEL_PATH_KERNELS:
             missed = served[name] - checked[name]
@@ -3065,6 +3402,7 @@ def main() -> int:
                         "launches_granite_int8": int8_counts[name],
                         "launches_whisper": whisper_counts[name],
                         "launches_internvl2": vlm_counts[name],
+                        "launches_train": train_counts[name],
                         "launches_scene": scene_counts[name],
                         "launches_chaos_soak": soak_counts[name],
                         "launches_chaos_mixed": chaos_counts[name],
@@ -3115,6 +3453,15 @@ def main() -> int:
                     "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "composite_ms", "copy_ms")}
                     for size, r in by_size.items()}}
+    for name, r in train_rows.items():
+        kernels[list(KERNELS).index(name)]["train"] = {
+            "launches_per_step": train_steps[-1]["launches"][name],
+            "plain_backwards_per_step":
+                train_steps[-1]["plain_backwards"][name],
+            **{k: r.get(k) for k in (
+                "shape", "dtype", "window", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "composite_ms",
+                "copy_ms", "plain_backward_ms")}}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -10,7 +10,9 @@ run the same numpy fold.
 The model stack's parameters come across with
 ``model_params_from_reference``: the JAX parameter pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``), its layer axes unstacked
-into the port's lists of per-layer dicts.
+into the port's lists of per-layer dicts; the AdamW state of its
+training step with ``opt_state_from_reference``, so both packages can
+start a step from the same weights and the same state.
 """
 from __future__ import annotations
 
@@ -76,4 +78,19 @@ def model_params_from_reference(cfg, params, *,
         if key in params:
             out[key] = [_tree(params[key], lambda a, i=i: _tensor(a[i], dev))
                         for i in range(n)]
+    return out
+
+
+def opt_state_from_reference(cfg, opt_state, *,
+                             device: str | torch.device = "cuda") -> dict:
+    """The port's AdamW state (``optim.adamw_init``'s layout) for the JAX
+    package's, given as numpy arrays (``jax.tree.map(np.asarray,
+    opt_state)``): ``step`` as an int, and the float32 ``master``,
+    ``m`` and ``v`` trees unstacked as ``model_params_from_reference``
+    unstacks the parameters, on ``device`` (the GPU unless the caller
+    asks for the CPU)."""
+    out = {"step": int(np.asarray(opt_state["step"]))}
+    for name in ("master", "m", "v"):
+        out[name] = model_params_from_reference(cfg, opt_state[name],
+                                                device=device)
     return out

@@ -8,7 +8,10 @@ its hand-written CUDA kernels (``affine.py`` / ``matmul.py`` /
 ``projective.py`` / ``fixedpoint.py`` / ``rmsnorm.py`` / ``rope.py`` /
 ``flash_attention.py`` / ``ssd.py``, sources in ``csrc/``) and the
 dispatching ops (``ops.py``).  Importing this package builds nothing: a kernel is
-compiled at its first launch.
+compiled at its first launch.  The model stack's kernels run under
+autograd through ``grad.py`` (the kernel forward, the plain version's
+vjp backward); every other kernel raises on an input that requires
+grad.
 
 As in the JAX package, ``repro_torch.kernels.affine``, ``.matmul``,
 ``.rmsnorm`` and ``.rope`` are the eager ops here; the family

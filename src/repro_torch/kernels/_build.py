@@ -172,11 +172,28 @@ class CudaKernel:
         self.sizes.add(args[self.n_ptrs:])
 
 
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """Raise when autograd records a launch: a kernel's output is a fresh
+    tensor with no ``grad_fn``, so an input that requires grad would get
+    no gradient.  The model kernels' ops launch through
+    ``kernels.grad``'s Functions, whose forward runs with grad mode off;
+    no other kernel has a backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a CUDA kernel was called on an input that requires grad: its "
+            "output would carry no gradient; the model kernels' ops route "
+            "such calls through kernels.grad, the other kernels have no "
+            "backward (call them under torch.no_grad() or on detached "
+            "inputs)")
+
+
 def check_operands(x: torch.Tensor, *params: torch.Tensor, d: int,
                    dtype: torch.dtype = torch.float32) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
-    (float32 for the float lane, int16 for the Qm.n lane) on x's device
-    and d is a dimension the kernels are built for."""
+    (float32 for the float lane, int16 for the Qm.n lane) on x's device,
+    none recorded by autograd (``check_no_grad``), and d is a dimension
+    the kernels are built for."""
+    check_no_grad(x, *params)
     if d not in (2, 3):
         raise ValueError(f"the chain kernels take d in (2, 3), got {d}")
     for a in (x, *params):
@@ -196,8 +213,10 @@ DENSE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def check_dense(*tensors: torch.Tensor) -> int:
     """Raise unless every tensor is a contiguous CUDA tensor on the first
-    one's device, all of one dtype of ``DENSE_DTYPES``; returns that
-    dtype's flag (0 float32, 1 bfloat16)."""
+    one's device, all of one dtype of ``DENSE_DTYPES``, none recorded by
+    autograd (``check_no_grad``); returns that dtype's flag (0 float32,
+    1 bfloat16)."""
+    check_no_grad(*tensors)
     first = tensors[0]
     for a in tensors:
         if not a.is_cuda or a.device != first.device:

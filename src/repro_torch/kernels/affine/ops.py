@@ -3,7 +3,10 @@
 
 Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
 launches the kernel, a CPU tensor runs the plain version, and
-``backend="ref"`` asks for the plain version on any device.  The eager
+``backend="ref"`` asks for the plain version on any device.  ``vecadd``
+(the model's residual add) launches ``vecadd_2d`` through
+``kernels.grad.VecAdd`` when autograd records the call; every other
+kernel here raises on a CUDA input that requires grad.  The eager
 primitives take inputs of any rank, flattened to (M, N) with N the
 trailing dim, and scalar or (N,) row parameters; each records its HBM
 bytes through ``opcount`` with the JAX package's formulas, so sequential
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.autotune.cache import KernelConfig
-from repro_torch.kernels import dispatch, opcount
+from repro_torch.kernels import dispatch, grad, opcount
 from repro_torch.kernels.affine import affine as K
 from repro_torch.kernels.affine import ref
 
@@ -63,9 +66,12 @@ def vecadd(x: torch.Tensor, z, *, backend: str | None = None) -> torch.Tensor:
     if b == "ref":
         return ref.vecadd(x, z)
     n = x.shape[-1]
-    out = K.vecadd_2d(x.contiguous().reshape(-1, n),
-                      z.contiguous().reshape(-1, n))
-    return out.reshape(x.shape)
+    x2, z2 = x.contiguous().reshape(-1, n), z.contiguous().reshape(-1, n)
+    if grad.wanted(x2, z2):
+        out = grad.VecAdd.apply("vecadd_2d", K.vecadd_2d, ref.vecadd, x2, z2)
+    else:
+        out = K.vecadd_2d(x2, z2)
+    return out if out.shape == x.shape else out.reshape(x.shape)
 
 
 def chain_diag(points: torch.Tensor, s, t, *, backend: str | None = None,

@@ -3,7 +3,9 @@ computed from the row itself and applied in the same pass).
 
 Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
 launches ``rmsnorm_2d``, a CPU tensor (or ``backend="ref"``) runs the
-plain version.  The JAX package's TPU ``block_rows`` knob becomes the
+plain version; a CUDA call that autograd records launches through
+``kernels.grad.RMSNorm`` (the gain gets its gradient too).  The JAX
+package's TPU ``block_rows`` knob becomes the
 16-byte kernel's ``row_warps`` (the warps a row): an explicit ``config``
 wins, else the tuning cache when autotuning is enabled, else the
 kernel's own choice for the row.
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch.autotune import cache as tuning
 from repro_torch.autotune.cache import KernelConfig
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.rmsnorm import ref
 from repro_torch.kernels.rmsnorm import rmsnorm as K
 
@@ -30,7 +32,13 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *, eps: float = 1e-6,
     n = x.shape[-1]
     cfg = config or tuning.config_for("rmsnorm", b,
                                       tuning.dtype_name(x.dtype), x.numel())
-    out = K.rmsnorm_2d(x.contiguous().reshape(-1, n),
-                       gain.to(torch.float32).contiguous(), eps=eps,
-                       row_warps=cfg.row_warps)
-    return out.reshape(x.shape)
+    x2, g32 = x.contiguous().reshape(-1, n), gain.to(torch.float32).contiguous()
+
+    def kernel(x2, g32):
+        return K.rmsnorm_2d(x2, g32, eps=eps, row_warps=cfg.row_warps)
+    if grad.wanted(x2, g32):
+        out = grad.RMSNorm.apply("rmsnorm_2d", kernel,
+                                 lambda a, g: ref.rmsnorm(a, g, eps), x2, g32)
+    else:
+        out = kernel(x2, g32)
+    return out if out.shape == x.shape else out.reshape(x.shape)

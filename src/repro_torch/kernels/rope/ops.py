@@ -2,13 +2,14 @@
 
 Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
 launches ``rope_3d``, a CPU tensor (or ``backend="ref"``) runs the plain
-version.
+version; a CUDA call that autograd records launches through
+``kernels.grad.Rope``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.rope import ref
 from repro_torch.kernels.rope import rope as K
 
@@ -25,6 +26,10 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
     if b == "ref":
         return ref.rope(x, cos, sin)
     s, d = x.shape[-2:]
-    out = K.rope_3d(x.contiguous().reshape(-1, s, d),
-                    cos.to(x.dtype).contiguous(), sin.to(x.dtype).contiguous())
-    return out.reshape(x.shape)
+    args = (x.contiguous().reshape(-1, s, d), cos.to(x.dtype).contiguous(),
+            sin.to(x.dtype).contiguous())
+    if grad.wanted(*args):
+        out = grad.Rope.apply("rope_3d", K.rope_3d, ref.rope, *args)
+    else:
+        out = K.rope_3d(*args)
+    return out if out.shape == x.shape else out.reshape(x.shape)

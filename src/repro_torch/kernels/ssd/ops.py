@@ -2,13 +2,14 @@
 
 Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
 launches ``ssd_intra``, a CPU tensor (or ``backend="ref"``, or
-``use_backend("ref")`` around the model) runs the plain version.
+``use_backend("ref")`` around the model) runs the plain version; a CUDA
+call that autograd records launches through ``kernels.grad.SSDIntra``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.ssd import ref
 from repro_torch.kernels.ssd import ssd as K
 
@@ -22,5 +23,9 @@ def ssd_intra(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
     be = dispatch.backend_for(xdt.device, backend)
     if be == "ref":
         return ref.ssd_intra(xdt, b_in, c_in, cum)
-    return K.ssd_intra(xdt.contiguous(), b_in.contiguous(),
-                       c_in.contiguous(), cum.to(torch.float32).contiguous())
+    args = (xdt.contiguous(), b_in.contiguous(), c_in.contiguous(),
+            cum.to(torch.float32).contiguous())
+    if grad.wanted(*args):
+        return grad.SSDIntra.apply("ssd_intra", K.ssd_intra, ref.ssd_intra,
+                                   *args)
+    return K.ssd_intra(*args)

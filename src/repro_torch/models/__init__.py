@@ -1,5 +1,5 @@
-"""The model stack's serving path (every family: dense, MoE, SSM,
-hybrid, VLM and enc-dec), the port of the JAX package's
+"""The model stack (every family: dense, MoE, SSM, hybrid, VLM and
+enc-dec; serving and training), the port of the JAX package's
 ``repro.models``."""
 from repro_torch.models.config import (ModelConfig, attention_flops,
                                        flops_per_token)

@@ -1,9 +1,9 @@
 """GQA attention with RoPE, sliding windows and ring-buffer KV caches, the
-port of the JAX package's ``models/attention.py`` (its serving half).
+port of the JAX package's ``models/attention.py``.
 
 Three entry modes share one parameter set:
-  * ``attend``      -- full-sequence attention without a cache (the
-                       enc-dec encoder runs it with ``causal=False``);
+  * ``attend``      -- full-sequence attention without a cache (training,
+                       and the enc-dec encoder with ``causal=False``);
   * ``prefill``     -- fills a cache (linear for full attention, ring
                        buffer for SWA) and returns outputs for every
                        position, through the ``flash_attention_3d`` kernel;
@@ -79,13 +79,15 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-           causal: bool = True) -> torch.Tensor:
+           causal: bool = True, block_kv: int = 4096) -> torch.Tensor:
     """x (B, S, d) attending over itself without a cache -> (B, S, d);
-    ``causal=False`` for the enc-dec encoder."""
+    ``causal=False`` for the enc-dec encoder; ``block_kv`` is the
+    training path's KV block (the JAX package's default)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
-    out = k_attention(q, k, v, causal=causal, window=cfg.window)
+    out = k_attention(q, k, v, causal=causal, window=cfg.window,
+                      block_kv=block_kv)
     return _merge_heads(out) @ params["wo"]
 
 

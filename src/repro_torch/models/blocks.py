@@ -1,6 +1,6 @@
 """Residual blocks of every family, the port of the JAX package's
-``models/blocks.py`` (its serving half: ``init``, ``apply``,
-``init_cache``, ``prefill``, ``decode``).
+``models/blocks.py`` (``init``, ``apply``, ``init_cache``, ``prefill``,
+``decode``).
 
 One layer's cache, per family:
 
@@ -23,8 +23,12 @@ second residual add.  An enc-dec decoder layer (``role=
 "encdec_decoder"``) puts cross-attention between the two: the cross norm,
 ``cross_attend`` against the encoder's keys and values (``encode_kv``
 in prefill, the cache's ``cross`` in decode) and a third residual add.
-The encoder's layers (``role="encoder"``) run ``apply``, the
-full-sequence block of an attention layer, without a causal mask.
+``apply`` is the full-sequence block without a cache, the training
+forward's (and the encoder's, ``role="encoder"``, without a causal
+mask): the same mixers as prefill for every family -- an SSM layer's
+norm and SSD mixer, a hybrid layer's two branches and their
+``0.5 * (norm + norm)`` delta -- and, given ``cross_kv`` (``encode_kv``
+of the encoder output), the enc-dec decoder's cross-attention.
 """
 from __future__ import annotations
 
@@ -87,19 +91,30 @@ def _hybrid_delta(p: dict, a: torch.Tensor, s: torch.Tensor,
                   + rmsnorm(s, p["ssm_gain"], cfg.norm_eps))
 
 
-def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True):
-    """The full-sequence block of an attention layer without a cache (the
-    enc-dec encoder's, ``causal=False``): (x, aux) out.  Serving runs no
-    other: the SSM and hybrid mixers and the cross-attention branch of
-    the JAX package's ``apply`` come with the training forward (ROADMAP.md
-    queue 1 item 10.5), and until then those families raise."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"blocks.apply for the {cfg.family} family is the training "
-            "forward's (ROADMAP.md queue 1 item 10.5)")
+def _mixer_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                causal: bool) -> torch.Tensor:
+    """The token mixer over the full sequence: the residual delta."""
+    if cfg.family == "ssm":
+        return ssm_mod.forward(p["ssm"], rmsnorm(x, p["ssm_norm"],
+                                                 cfg.norm_eps), cfg)
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    x = residual_add(x, attn.attend(p["attn"], h, cfg,
-                                    causal=causal).to(x.dtype))
+    a = attn.attend(p["attn"], h, cfg, causal=causal)
+    if cfg.family == "hybrid":
+        return _hybrid_delta(p, a, ssm_mod.forward(p["ssm"], h, cfg), cfg)
+    return a
+
+
+def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
+          cross_kv: dict | None = None):
+    """The full-sequence block without a cache (training and the enc-dec
+    encoder): the mixer's residual add, the cross-attention's when
+    ``cross_kv`` is given, the FFN's.  (x, aux) out, aux the MoE
+    load-balance term (0.0 without experts)."""
+    x = residual_add(x, _mixer_full(p, x, cfg, causal).to(x.dtype))
+    if cross_kv is not None:
+        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        x = residual_add(x, attn.cross_attend(p["cross"], h, cross_kv,
+                                              cfg).to(x.dtype))
     delta, aux = _ffn(p, x, cfg)
     if delta is not None:
         x = residual_add(x, delta.to(x.dtype))

@@ -7,8 +7,8 @@ model stack is built out of the paper's linear-algebra classes.  The
 embedding, the logits head and the SwiGLU MLP are plain torch products,
 as the JAX package leaves them to XLA outside any Pallas kernel; so is
 the add of ``sinusoidal_positions`` (whisper's positions), a plain
-``+`` in the callers as in the reference.  ``cross_entropy`` comes with
-the training slice.
+``+`` in the callers as in the reference.  ``cross_entropy`` is the
+training loss, plain torch as the reference's is plain jnp.
 """
 from __future__ import annotations
 
@@ -99,3 +99,22 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
         half, dtype=torch.float32, device=positions.device) / max(half - 1, 1))
     ang = positions.float()[:, None] * freq[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# -- losses --------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Token-mean cross entropy in float32 with a z-loss (``z_loss *
+    logsumexp**2`` a token); labels below 0 are masked out and the
+    denominator is floored at 1."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    return (nll * mask).sum() / denom

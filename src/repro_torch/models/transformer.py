@@ -1,7 +1,7 @@
-"""Model assembly for serving: the decoder-only LMs (dense, MoE, SSM,
-hybrid, VLM) and the whisper-style encoder-decoder, the port of the JAX
-package's ``models/transformer.py`` (``init``, ``init_cache``,
-``prefill``, ``decode``, ``build``).
+"""Model assembly: the decoder-only LMs (dense, MoE, SSM, hybrid, VLM)
+and the whisper-style encoder-decoder, the port of the JAX package's
+``models/transformer.py`` (``init``, ``forward``, ``loss``,
+``init_cache``, ``prefill``, ``decode``, ``build``).
 
 Parameters are plain dicts of tensors: ``embed`` (V, d), ``final_norm``
 (d,) float32, ``unembed`` (V, d) unless the embeddings are tied, and
@@ -9,11 +9,20 @@ Parameters are plain dicts of tensors: ``embed`` (V, d), ``final_norm``
 layers on a leading axis for ``lax.scan``; a Python loop over the list
 takes its place); an enc-dec model adds ``enc_layers``, a list of
 ``encoder_layers`` dicts, and ``enc_final_norm``.  The cache is a list
-of one layer cache each, updated in place.  ``forward``/``loss`` come
-with the training slice.
+of one layer cache each, updated in place.
+
+``forward``/``loss`` are the training pass.  Each layer (the encoder's
+too) runs under the config's ``remat`` policy while autograd records:
+``"full"`` saves nothing and recomputes the layer in the backward pass,
+``"dots"`` saves the outputs of the dense products (``aten.mm`` and
+``aten.addmm``) and recomputes the rest -- the counterpart of the JAX
+package's ``dots_with_no_batch_dims_saveable``: ``bmm`` and ``einsum``,
+with their batch dims, are recomputed -- and ``"none"`` runs plain.  The
+hand-written kernels are opaque to the dispatcher, so under ``"dots"``
+and ``"full"`` every layer's kernels launch again in the backward pass.
 
 Batch dict convention, as in the JAX package:
-  LM      : {"tokens": (B, S) integers}
+  LM      : {"tokens": (B, S) integers, "labels": (B, S) integers}
   VLM     : + {"patches": (B, P, d) precomputed patch embeddings (stub)}
   enc-dec : {"frames": (B, S_enc, d) precomputed frame embeddings (stub),
              "tokens": the decoder side}
@@ -22,15 +31,31 @@ Batch dict convention, as in the JAX package:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import dispatch
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed, embed_init, logits_head,
-                                       rmsnorm, sinusoidal_positions)
+from repro_torch.models.layers import (cross_entropy, embed, embed_init,
+                                       logits_head, rmsnorm,
+                                       sinusoidal_positions)
 
-#: the families this port serves: every family of the JAX package
+#: the families this port serves and trains: every family of the JAX package
 SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+REMAT_POLICIES = ("none", "dots", "full")
+#: the products ``remat="dots"`` saves: the dense ones without batch dims
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 class Model:
@@ -96,8 +121,50 @@ class Model:
                                    cfg.d_model)
         x = x + pos[None].to(x.dtype)
         for lp in params["enc_layers"]:
-            x, _ = blocks.apply(lp, x, cfg, causal=False)
+            x, _ = self._layer(
+                lambda h, lp=lp: blocks.apply(lp, h, cfg, causal=False), x)
         return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    def _layer(self, body, x: torch.Tensor):
+        """``body(x)`` under the config's remat policy when autograd
+        records it (plain otherwise: nothing is saved to recompute)."""
+        remat = self.cfg.remat
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {remat!r}; one of "
+                             f"{REMAT_POLICIES}")
+        if remat == "none" or not torch.is_grad_enabled():
+            return body(x)
+        if remat == "full":
+            return checkpoint(body, x, use_reentrant=False)
+        return checkpoint(body, x, use_reentrant=False,
+                          context_fn=_dots_context)
+
+    def forward(self, params: dict, batch: dict):
+        """Full-sequence logits: (logits (B, S, V) float32, aux), aux the
+        layers' summed MoE load-balance term (0 without experts)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        enc_out = (self._encode(params, batch["frames"]) if cfg.is_encdec
+                   else None)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in params["layers"]:
+            def body(h, lp=lp):
+                ckv = (attn_mod.encode_kv(lp["cross"], enc_out, cfg)
+                       if cfg.is_encdec else None)
+                return blocks.apply(lp, h, cfg, causal=True, cross_kv=ckv)
+            x, aux_l = self._layer(body, x)
+            aux = aux + aux_l
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        return logits_head(x, table, cfg.logit_softcap), aux
+
+    def loss(self, params: dict, batch: dict):
+        """(ce + router_aux_weight * aux, {"ce", "aux"}) of ``forward``
+        against ``batch["labels"]`` (labels below 0 masked)."""
+        logits, aux = self.forward(params, batch)
+        ce = cross_entropy(logits, batch["labels"])
+        total = ce + self.cfg.router_aux_weight * aux
+        return total, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0, *,
                    device: str | torch.device = "cuda") -> list:

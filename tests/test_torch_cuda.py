@@ -1796,3 +1796,154 @@ def test_tuners_time_the_kernels_on_the_card(cuda_device):
         assert rep.trials[0].config.source == "default"
         assert all(t.seconds > 0 for t in rep.trials)
     assert all("|cuda|" in k for k in cache.entries)
+
+
+# -- the model kernels under autograd (kernels.grad) -----------------------------
+
+def _train_inputs(name, dev, rng):
+    """The training micro-batch's shapes (hymba-1.5b, 2 x 2048 tokens):
+    (op, kernel, plain, inputs, which require grad, the Function)."""
+    from repro_torch.kernels import attention, rmsnorm, rope, ssd_intra, \
+        vecadd
+    from repro_torch.kernels.affine import ref as affine_ref
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms_k
+    from repro_torch.kernels.rope import ref as rope_ref
+    from repro_torch.kernels.rope import rope as rope_k
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd import ssd as ssd_k
+
+    def randn(*s, dtype=torch.bfloat16, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                .to(dev) * scale).to(dtype)
+    if name == "vecadd_2d":
+        xs = (randn(4096, 1600), randn(4096, 1600))
+        return (vecadd, diag_k.vecadd_2d, affine_ref.vecadd, xs,
+                (True, True), "VecAdd")
+    if name in ("rmsnorm_2d", "rmsnorm_2d f32"):
+        n, dt = (1600, torch.bfloat16) if name == "rmsnorm_2d" \
+            else (3200, torch.float32)
+        xs = (randn(4096, n, dtype=dt, scale=3.0),
+              1.0 + randn(n, dtype=torch.float32, scale=0.1))
+        return (lambda x, g: rmsnorm(x, g, eps=1e-5),
+                lambda x, g: rms_k.rmsnorm_2d(x, g, eps=1e-5),
+                lambda x, g: rms_ref.rmsnorm(x, g, 1e-5), xs, (True, True),
+                "RMSNorm")
+    if name == "rope_3d":
+        cos, sin = (t.to(torch.bfloat16).contiguous() for t in
+                    rope_ref.rope_tables(torch.arange(2048, device=dev), 64))
+        return (rope, rope_k.rope_3d, rope_ref.rope,
+                (randn(50, 2048, 64), cos, sin), (True, False, False),
+                "Rope")
+    if name == "flash_attention_3d":
+        kw = dict(scale=0.125, causal=True, window=1024)
+        xs = (randn(2, 25, 2048, 64), randn(2, 5, 2048, 64),
+              randn(2, 5, 2048, 64))
+        return (lambda q, k, v: attention(q, k, v, window=1024),
+                lambda q, k, v: fa_k.flash_attention_3d(
+                    q.reshape(50, 2048, 64), k.reshape(10, 2048, 64),
+                    v.reshape(10, 2048, 64), **kw).reshape(q.shape),
+                lambda q, k, v: fa_ref.autodiff_attention(q, k, v, **kw),
+                xs, (True, True, True), "FlashAttention")
+    cum = torch.cumsum(-torch.from_numpy(rng.uniform(
+        0.001, 0.1, (16, 256, 50)).astype(np.float32)).to(dev), dim=1)
+    xs = (randn(16, 256, 50, 64), randn(16, 256, 16), randn(16, 256, 16),
+          cum)
+    return (ssd_intra, ssd_k.ssd_intra, ssd_ref.ssd_intra, xs,
+            (True, True, True, True), "SSDIntra")
+
+
+@pytest.mark.parametrize("name", ["vecadd_2d", "rmsnorm_2d",
+                                  "rmsnorm_2d f32", "rope_3d",
+                                  "flash_attention_3d", "ssd_intra"])
+def test_grad_function_on_card_at_training_shapes(cuda_device, name):
+    """The op on inputs that require grad launches the kernel through its
+    ``kernels.grad`` Function: the output equals the kernel's forward
+    bit for bit, the ``grad_fn`` is the Function's, one launch and one
+    plain backward run, and every input's gradient equals direct
+    autograd of the plain version (the Function's backward is that
+    vjp) for the same cotangent."""
+    from repro_torch.kernels import grad
+    rng = np.random.default_rng([27, len(name)])
+    op, kernel, plain, inputs, needs, fn = _train_inputs(name, cuda_device,
+                                                         rng)
+    xs = [x.clone().requires_grad_(n) for x, n in zip(inputs, needs)]
+    ys = [x.clone().requires_grad_(n) for x, n in zip(inputs, needs)]
+    _build.reset_launch_counts()
+    grad.reset_backward_counts()
+    got = op(*xs)
+    kname = name.split()[0]
+    assert _build.launch_counts()[kname] == 1
+    with torch.no_grad():
+        want_fwd = kernel(*inputs)
+    got = got if isinstance(got, tuple) else (got,)
+    want_fwd = want_fwd if isinstance(want_fwd, tuple) else (want_fwd,)
+    assert type(got[0].grad_fn).__name__ == fn + "Backward"
+    assert all(torch.equal(a, b) for a, b in zip(got, want_fwd))
+    want = plain(*ys)
+    want = want if isinstance(want, tuple) else (want,)
+    cots = [torch.randn_like(w) for w in want]
+    torch.autograd.backward(got, cots)
+    torch.autograd.backward(want, cots)
+    assert grad.backward_counts() == {kname: 1}
+    for x, y, n in zip(xs, ys, needs):
+        if n:
+            assert bool(torch.isfinite(x.grad).all())
+            assert torch.equal(x.grad, y.grad), name
+
+
+def test_ops_without_a_backward_raise_on_the_card(cuda_device):
+    """A geometry or eager kernel op given a CUDA input that requires
+    grad raises (its output would carry no gradient); under no_grad it
+    launches."""
+    from repro_torch.kernels import affine, matmul
+    x = torch.ones(64, 2, device=cuda_device, requires_grad=True)
+    for call in (lambda: matmul(x, torch.eye(2, device=cuda_device)),
+                 lambda: affine(x, 2.0, 1.0),
+                 lambda: chain_diag(x, 2.0, 1.0),
+                 lambda: chain_apply(x, torch.eye(2), torch.zeros(2)),
+                 lambda: chain_project(
+                     torch.ones(64, 3, device=cuda_device,
+                                requires_grad=True), torch.eye(4))):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+    with torch.no_grad():
+        assert matmul(x, torch.eye(2, device=cuda_device)).grad_fn is None
+
+
+def test_reduced_hymba_train_step_on_card(cuda_device):
+    """Reduced hymba's train step through the kernels (remat "dots", two
+    micro-batches): the launches and plain backwards of
+    ``expected_train_launches``, a finite loss and gradient norm within
+    1e-3 relative of the same step on the CPU's plain versions."""
+    from repro_torch import configs
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import grad
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_map
+    cfg = configs.get("hymba-1.5b").reduced()
+    params = build(cfg).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(27)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1, 256)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=-1)}
+    step = make_train_step(build(cfg), AdamWConfig(), 2)
+    _, _, cpu = step(params, adamw_init(params), batch)
+    dev_params = tree_map(lambda p: p.to(cuda_device), params)
+    _build.reset_launch_counts()
+    grad.reset_backward_counts()
+    _, _, met = step(dev_params, adamw_init(dev_params),
+                     {k: v.to(cuda_device) for k, v in batch.items()})
+    L = cfg.n_layers
+    fwd = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
+           "flash_attention_3d": L, "ssd_intra": L, "vecadd_2d": 2 * L}
+    counts = _build.launch_counts()
+    assert {k: counts[k] for k in fwd} == {
+        k: 2 * (2 * v - (k == "rmsnorm_2d")) for k, v in fwd.items()}
+    assert grad.backward_counts() == {k: 2 * v for k, v in fwd.items()}
+    assert bool(torch.isfinite(met["loss"]))
+    for key in ("loss", "grad_norm"):
+        a, b = float(met[key]), float(cpu[key])
+        assert abs(a - b) <= 1e-3 * abs(b), key

@@ -2,8 +2,9 @@
 package, module by module, on the CPU: ``layers.sinusoidal_positions``,
 ``attention.attend`` (causal and not), ``attention.encode_kv`` with
 ``cross_attend`` (one query and several against a longer encoder),
-``blocks.apply`` (the whisper encoder's and decoder's attention blocks;
-the SSM and hybrid mixers refused) and ``Model._encode`` (the encoder),
+``blocks.apply`` (the whisper encoder's and decoder's attention blocks,
+a decoder layer with its cross-attention, and the SSM and hybrid
+mixers) and ``Model._encode`` (the encoder),
 ``launch.serve.serve_inputs`` (the JAX launcher's stubs) and
 ``convert.model_params_from_reference`` unstacking ``enc_layers``.
 
@@ -145,12 +146,36 @@ def test_block_apply_matches_jax(stack, causal):
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-130m"])
 def test_block_apply_refuses_ssm_mixers(arch):
-    """Serving never runs the SSM or hybrid mixer over a full sequence
-    without a cache; ``apply`` refuses them until the training forward."""
+    """``apply`` once refused the SSM and hybrid mixers (serving runs
+    them only through a cache); the training forward runs them over a
+    full sequence: the SSD mixer, and the hybrid's two branches with
+    their ``0.5 * (norm + norm)`` delta, against the JAX package's
+    ``apply`` on the first layer (8 positions, a padded chunk)."""
     cfg, pcfg, params, tparams = _model_params(arch)
-    with pytest.raises(NotImplementedError, match="10.5"):
-        blocks.apply(tparams["layers"][0],
-                     torch.zeros(2, 8, pcfg.d_model), pcfg)
+    jx, tx = _x((2, 8, cfg.d_model), 9)
+    layer = jax.tree.map(lambda a: a[0], params["layers"])
+    with jax_dispatch.use_backend("interpret"):
+        want, aux = jax_blocks.apply(layer, jx, cfg)
+    got, got_aux = blocks.apply(tparams["layers"][0], tx, pcfg)
+    assert got_aux == aux == 0.0
+    _close(got, want, arch)
+
+
+def test_block_apply_with_cross_kv_matches_jax():
+    """A whisper decoder layer's full-sequence block with its
+    cross-attention against ``encode_kv`` of a 40-position encoder
+    output (the training forward's), causal."""
+    cfg, pcfg, params, tparams = _model_params("whisper-medium")
+    jx, tx = _x((2, 24, cfg.d_model), 10)
+    jenc, tenc = _x((2, 40, cfg.d_model), 11)
+    layer = jax.tree.map(lambda a: a[0], params["layers"])
+    with jax_dispatch.use_backend("interpret"):
+        kv = jax_attn.encode_kv(layer["cross"], jenc, cfg)
+        want, _ = jax_blocks.apply(layer, jx, cfg, causal=True, cross_kv=kv)
+    tl = tparams["layers"][0]
+    got, _ = blocks.apply(tl, tx, pcfg, causal=True,
+                          cross_kv=attn.encode_kv(tl["cross"], tenc, pcfg))
+    _close(got, want, "cross")
 
 
 def test_encoder_stack_matches_jax():

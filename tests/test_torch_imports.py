@@ -82,7 +82,15 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.autotune.costmodel",
                    "repro_torch.autotune.search", "repro_torch.obs.profile",
                    "repro_torch.scene", "repro_torch.scene.cache",
-                   "repro_torch.scene.graph", "repro_torch.models.moe"):
+                   "repro_torch.scene.graph", "repro_torch.models.moe",
+                   "repro_torch.kernels.grad", "repro_torch.optim",
+                   "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                   "repro_torch.data", "repro_torch.data.pipeline",
+                   "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+                   "repro_torch.distributed",
+                   "repro_torch.distributed.steps",
+                   "repro_torch.distributed.elastic",
+                   "repro_torch.launch.train"):
         assert module in names.split(), module
 
 
@@ -251,6 +259,38 @@ def test_model_stack_loads_no_jax_or_repro():
     assert res.stdout.split() == ["1589616896", "64"]
 
 
+_TRAIN_PROBE = r"""
+import sys, tempfile
+from repro_torch import configs
+from repro_torch.checkpoint import latest_step
+from repro_torch.kernels import grad
+from repro_torch.launch.train import train_loop
+cfg = configs.get("mamba2-130m").reduced()
+with tempfile.TemporaryDirectory() as d:
+    _, hist = train_loop(cfg, steps=2, global_batch=2, seq_len=16,
+                         device="cpu", ckpt_dir=d, ckpt_interval=1,
+                         log_every=100)
+    step = latest_step(d)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(len(hist), step, grad.backward_counts(), ",".join(bad))
+"""
+
+
+def test_training_stack_loads_no_jax_or_repro():
+    """The training path -- ``launch.train``, the optimizer, the data
+    pipeline, the checkpoint store, the step builders and
+    ``kernels.grad`` -- imported first in a fresh interpreter and run for
+    two steps on the CPU pulls in neither jax nor ``repro`` (the data
+    generator is a copy of the JAX package's, not an import of it)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines()[-1].split() == ["2", "2", "{}"]
+
+
 def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
     hits = [f"{p}:{i}" for p in sorted((SRC / "repro_torch").rglob("*.py"))
@@ -297,6 +337,16 @@ def test_default_device_entry_points_raise_without_cuda():
         serving.GeometryServer().submit_scene(g, "r", np.ones((4, 2)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build(configs.get("mamba2-130m").reduced()).init_cache(1, 8)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "mamba2-130m", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train_loop(configs.get("hymba-1.5b").reduced(), steps=1,
+                         global_batch=2, seq_len=16)
+    from repro_torch.convert import opt_state_from_reference
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_state_from_reference(None, {"step": 0, "master": {}, "m": {},
+                                        "v": {}})
 
 
 def test_cuda_backend_on_cpu_tensor_raises():
