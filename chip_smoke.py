@@ -333,7 +333,7 @@ from repro_torch.core import transform_chain as tc  # noqa: E402
 from repro_torch.core import transform_engine as te  # noqa: E402
 from repro_torch.core.morphosys import intel, programs  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
-from repro_torch.distributed import elastic  # noqa: E402
+from repro_torch.distributed import compression, elastic, sharding  # noqa: E402
 from repro_torch.distributed.steps import (make_train_step,  # noqa: E402
                                            value_and_grad)
 from repro_torch.kernels import _build, dispatch, grad, opcount  # noqa: E402
@@ -360,8 +360,10 @@ from repro_torch.kernels.rope import rope as rope_k  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_k  # noqa: E402
 from repro_torch.launch.serve import serve_batch, serve_inputs  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.adamw import global_norm, leaves  # noqa: E402
 from repro_torch.serving import workload  # noqa: E402
@@ -413,7 +415,7 @@ MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 2048, 16
 #: section 2.2): the encoder's length and the cross-attention's keys
 WHISPER_FRAMES = 1500
 #: internvl2-76b's depth on one card: its 80 layers are 141 GB in
-#: bfloat16 and wait for sharding; 4 layers at full width are 11 GB
+#: bfloat16, more than one card holds; 4 layers at full width are 11 GB
 VLM_LAYERS = 4
 #: the train phase: hymba-1.5b at full width and depth, SyntheticLMData
 #: (seed 0) at a global batch of 4 x 2048 tokens (the hymba serve's
@@ -2372,6 +2374,7 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
     per_tensor = [(_rel_rms(a, b)[0], n) for n, a, b in zip(names, gk, gr)
                   if float(b.double().pow(2).sum()) > 0]
     worst_rms, worst_name = max(per_tensor)
+    compress = compression_check(grads_k)
     gnorm_k, gnorm_r = float(global_norm(grads_k)), float(global_norm(grads_r))
     loss_rel = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
     gnorm_rel = abs(gnorm_k - gnorm_r) / gnorm_r
@@ -2398,11 +2401,20 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
     torch.cuda.empty_cache()
 
     # (c) three steps of train_loop
-    steps, sizes, timing = [], {}, {}
+    steps, sizes, timing, step1 = [], {}, {}, {}
 
     def on_step(i, metrics):
         torch.cuda.synchronize()
         got, bwd = counted(f"train_loop step {i + 1}")
+        if i == 1:
+            step1["ms2"] = metrics["ms"]
+        if i == 0:   # what phase 8g holds its mesh step against
+            step1.update(loss=metrics["loss"],
+                         grad_norm=float(metrics["grad_norm"]),
+                         ms=metrics["ms"], launches=got,
+                         plain_backwards=bwd,
+                         params=leaf_digests(metrics["params"]),
+                         opt_state=leaf_digests(metrics["opt_state"]))
         steps.append({"step": i + 1, "loss": metrics["loss"],
                       "ms": metrics["ms"], "lr": metrics["lr"],
                       "grad_norm": float(metrics["grad_norm"]),
@@ -2458,7 +2470,8 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
         "expected_launches": want_launch,
         "expected_plain_backwards": want_bwd,
         "repeat_bitwise": repeat_bitwise, "losses": history,
-        "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "compression_int8": compress, "step_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
         "forward_ms": float(np.median([r["forward_ms"] for r in later])),
         "backward_ms": float(np.median([r["backward_ms"] for r in later])),
         "optimizer_ms": float(np.median([r["optimizer_ms"] for r in later])),
@@ -2469,7 +2482,210 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
         "peak_memory_GB": peak / 1e9, "wall_s": wall_s, "steps": steps,
         "card": card_line()}
     torch.cuda.empty_cache()
-    return steps, sizes, summary
+    return steps, sizes, summary, step1
+
+
+def leaf_digests(tree) -> list:
+    """Two int64 digests of every leaf's bits (a DTensor's local shard),
+    in ``leaves`` order: the sum of its words, and their sum weighted by
+    position (mod 65521, plus 1) -- equal bits give equal digests; the
+    step count, a Python int, is kept as it is."""
+    out = []
+    for t in leaves(tree):
+        if not isinstance(t, torch.Tensor):
+            out.append(t)
+            continue
+        t = t.to_local() if sharding.is_dtensor(t) else t
+        words = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+        bits = t.detach().contiguous().view(words[t.element_size()]) \
+            .flatten().to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * w).sum())))
+        del bits, w
+    return out
+
+
+def compression_check(grads) -> dict:
+    """``quantize_int8`` then ``dequantize_int8`` of every gradient leaf
+    (zero error feedback) on the card and on the CPU: the words, scales,
+    dequantized values and new errors must agree bit for bit."""
+    t0 = time.perf_counter()
+    differ = []
+    for name, g in _named(grads):
+        z = torch.zeros_like(g, dtype=torch.float32)
+        q, sc, err = compression.quantize_int8(g, z)
+        deq = compression.dequantize_int8(q, sc)
+        gc = g.cpu()
+        qc, scc, errc = compression.quantize_int8(
+            gc, torch.zeros_like(gc, dtype=torch.float32))
+        deqc = compression.dequantize_int8(qc, scc)
+        if not all(torch.equal(a.cpu(), b) for a, b in
+                   ((q, qc), (sc, scc), (err, errc), (deq, deqc))):
+            differ.append(name)
+        del z, q, sc, err, deq, gc, qc, scc, errc, deqc
+    if differ:
+        raise SystemExit(f"train: int8 compression differs between the "
+                         f"card and the CPU on {differ}")
+    return {"leaves": len(_named(grads)), "bitwise_card_cpu": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_train_phase(step1: dict, device: str = "cuda") -> dict:
+    """Phase 8g: step 1 of phase 8f's ``train_loop`` again -- the same
+    seed, batch, ``AdamWConfig`` and remat -- on a 1x1 mesh
+    (``make_local_mesh()`` over a one-rank NCCL group): parameters,
+    optimizer state and batch are DTensors, the model gathers each
+    layer's parameters, DTensor's autograd reduces the gradients.
+    Gates: the loss, the global gradient norm and the digests of every
+    parameter and optimizer leaf after the step equal phase 8f's step 1
+    bit for bit; every parameter leaf is a DTensor with the placements of
+    ``params_specs``; the launches and plain backwards equal phase 8f's
+    per-step counts.  A second step, ungated, gives the mesh step's ms
+    once DTensor's sharding propagation is cached.  Records both steps'
+    ms beside 8f's steps 1 and 2 and the collectives (``CommDebugMode``)
+    and redistributions counted over the two steps."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = dataclasses.replace(configs.get(HYMBA_ARCH), remat="dots")
+    accum = elastic.replan_accum(TRAIN_BATCH, TRAIN_MICRO)
+    want_launch, want_bwd = expected_train_launches(cfg, accum)
+    mesh = mesh_mod.make_local_mesh()
+    failures, got = [], {}
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        if i == 1:
+            got["ms2"] = metrics["ms"]
+            return
+        got.update(
+            launches={k: _build.launch_counts()[k]
+                      for k in MODEL_PATH_KERNELS},
+            plain_backwards=grad.backward_counts(), loss=metrics["loss"],
+            grad_norm=float(metrics["grad_norm"].full_tensor()),
+            ms=metrics["ms"])
+        params = metrics["params"]
+        specs = sharding.sanitize_specs(
+            params, sharding.params_specs(params, mesh), mesh)
+        wrong = [name for (name, p), (_, spec) in
+                 zip(_named(params), _named(specs))
+                 if not sharding.is_dtensor(p) or tuple(p.placements)
+                 != sharding.placements(spec, mesh)]
+        if wrong:
+            failures.append(f"parameters not placed by params_specs: "
+                            f"{wrong[:5]}")
+        got["params"] = leaf_digests(params)
+        got["opt_state"] = leaf_digests(metrics["opt_state"])
+
+    _build.reset_launch_counts()
+    grad.reset_backward_counts()
+    sharding.reset_redistribution_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CommDebugMode() as comm:
+        train_loop(cfg, steps=2, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                   micro_per_shard=TRAIN_MICRO,
+                   opt_cfg=AdamWConfig(total_steps=TRAIN_STEPS,
+                                       warmup_steps=1),
+                   seed=SEED, device=device, on_step=on_step, mesh=mesh,
+                   log_every=1)
+    wall_s = time.perf_counter() - t0
+    for key in ("loss", "grad_norm"):
+        if got[key] != step1[key]:
+            failures.append(f"{key} {got[key]}, phase 8f's step 1 "
+                            f"{step1[key]}")
+    for key in ("params", "opt_state"):
+        off = [i for i, (a, b) in enumerate(zip(got[key], step1[key]))
+               if a != b]
+        if off or len(got[key]) != len(step1[key]):
+            failures.append(f"{key} leaves {off[:8]} differ from phase "
+                            f"8f's step 1")
+    if got["launches"] != want_launch or got["plain_backwards"] != want_bwd:
+        failures.append(f"launches {got['launches']} and plain backwards "
+                        f"{got['plain_backwards']}, expected {want_launch} "
+                        f"and {want_bwd}")
+    if failures:
+        raise SystemExit("train on a mesh (hymba-1.5b): "
+                         + "; ".join(failures))
+    torch.cuda.empty_cache()
+    return {"phase": "train on a mesh (hymba-1.5b)", "mesh": "1x1",
+            "mesh_dims": list(mesh.mesh_dim_names), "backend": "nccl",
+            "loss": got["loss"], "grad_norm": got["grad_norm"],
+            "bitwise_vs_8f_step1": True, "leaves_compared":
+            len(got["params"]) + len(got["opt_state"]),
+            "launches": got["launches"],
+            "plain_backwards": got["plain_backwards"],
+            "step_ms": got["ms"], "step1_ms_8f": step1["ms"],
+            "step2_ms": got["ms2"], "step2_ms_8f": step1["ms2"],
+            "wall_s": wall_s,
+            "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "collectives": {str(k): v for k, v in
+                            comm.get_comm_counts().items()},
+            "collectives_total": comm.get_total_counts(),
+            "redistributions": sharding.redistribution_counts(),
+            "card": card_line()}
+
+
+def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
+    """Phase 8h: the granite serve (``MODEL_BATCH`` prompts of
+    ``MODEL_PROMPT`` tokens, ``MODEL_GEN`` greedy tokens, the same
+    weights) without a mesh and then under ``mesh_context(
+    make_local_mesh())``, where every MoE layer takes the mesh path
+    (``local_map`` on the 1x1 mesh's shards, one all-reduce of y over
+    ``model``).  Gates: logits and tokens bit for bit equal to the serve
+    without a mesh; the MoE mesh-path counter L x (1 + MODEL_GEN); each
+    model kernel's launches equal to the serve's without a mesh.
+    Records the prefill and decode ms of both and the collectives and
+    redistributions counted."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    params = weights[0]
+    model = build(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (MODEL_BATCH, MODEL_PROMPT)).astype(np.int32)
+    _build.reset_launch_counts()
+    plain = {}
+    tokens = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
+                         model=model, trace=plain)
+    plain_counts = {k: _build.launch_counts()[k] for k in MODEL_PATH_KERNELS}
+    mesh = mesh_mod.make_local_mesh()
+    with mesh_mod.mesh_context(mesh):   # warm-up, not counted
+        serve_batch(cfg, params, prompts[:, :64], gen_tokens=2, model=model)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    moe_mod.reset_mesh_calls()
+    sharding.reset_redistribution_counts()
+    meshed = {}
+    with mesh_mod.mesh_context(mesh), CommDebugMode() as comm:
+        tokens_m = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
+                               model=model, trace=meshed)
+    counts = {k: _build.launch_counts()[k] for k in MODEL_PATH_KERNELS}
+    calls, want_calls = moe_mod.mesh_calls(), cfg.n_layers * (1 + MODEL_GEN)
+    failures = []
+    same = bool(np.array_equal(tokens, tokens_m)) and all(
+        torch.equal(a, b) for a, b in zip(plain["logits"], meshed["logits"]))
+    if not same:
+        failures.append("logits or tokens differ from the serve without a "
+                        "mesh")
+    if calls != want_calls:
+        failures.append(f"MoE mesh path ran {calls} times, expected "
+                        f"{want_calls}")
+    if counts != plain_counts:
+        failures.append(f"launches {counts}, without a mesh {plain_counts}")
+    if failures:
+        raise SystemExit(f"serve on a mesh ({cfg.name}): "
+                         + "; ".join(failures))
+    return {"phase": f"serve on a mesh ({cfg.name})", "mesh": "1x1",
+            "bitwise_vs_no_mesh": True, "moe_mesh_calls": calls,
+            "launches": counts,
+            "prefill_ms": meshed["prefill_ms"],
+            "prefill_ms_no_mesh": plain["prefill_ms"],
+            "decode_ms_per_token": float(np.median(meshed["decode_ms"])),
+            "decode_ms_per_token_no_mesh": float(
+                np.median(plain["decode_ms"])),
+            "collectives": {str(k): v for k, v in
+                            comm.get_comm_counts().items()},
+            "collectives_total": comm.get_total_counts(),
+            "redistributions": sharding.redistribution_counts(),
+            "card": card_line()}
 
 
 def plain_backward_case(name: str, shape: tuple, dtype: torch.dtype,
@@ -2984,6 +3200,7 @@ def main() -> int:
     granite_counts, granite_sizes, summary = model_phase(
         gcfg, weights=gweights)
     emit(summary)
+    emit(mesh_serve_phase(gcfg, gweights))
     # the same weights with an int8 KV cache (linear: granite has no window)
     int8_counts, int8_sizes, summary = model_phase(
         dataclasses.replace(gcfg, kv_cache_dtype="int8"), weights=gweights)
@@ -2998,8 +3215,10 @@ def main() -> int:
     emit(summary)
     # training, after the serves and before the chaos, async and autotune
     # phases (the soak leaves the process's host pages slow, PERF.md 7)
-    train_steps, train_sizes, summary = train_phase()
+    train_steps, train_sizes, summary, step1 = train_phase()
     emit(summary)
+    emit(mesh_train_phase(step1))
+    del step1
     train_counts = {k: sum(r["launches"].get(k, 0) for r in train_steps)
                     for k in KERNELS}
 

@@ -22,6 +22,13 @@ cannot hold, are saved widened to float32 (lossless) and narrowed back
 on restore.  Async saves run on a daemon thread; the device-to-host
 copy happens on the caller's thread, so the step's tensors are
 snapshotted before the next step replaces them.
+
+A sharded run's tree holds DTensors: every rank gathers each full tensor
+(``full_tensor``), rank 0 alone writes, and the ranks meet at a barrier
+once the write is done (``CheckpointManager.wait``).  The checkpoint is
+therefore mesh-independent, as the reference's full host arrays are: a
+run resumes on another mesh by loading full arrays and re-placing them
+(``distributed.elastic.place``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor
 
 
 def _tree_items(tree, path: str = "") -> list:
@@ -66,10 +75,22 @@ def _host(v) -> np.ndarray:
 
 
 def _snapshot(v):
-    """A leaf copied to the host, its dtype kept."""
+    """A leaf copied to the host, its dtype kept; a DTensor's full tensor
+    (a collective: every rank of its mesh takes part)."""
     if isinstance(v, torch.Tensor):
+        if is_dtensor(v):
+            v = v.full_tensor()
         return v.detach().to("cpu", copy=True)
     return np.array(v) if isinstance(v, np.ndarray) else v
+
+
+def _rank_of(tree) -> int | None:
+    """This process's rank when ``tree`` holds DTensors (a sharded run),
+    else None."""
+    if any(is_dtensor(v) for _, v in _tree_items(tree)):
+        import torch.distributed as dist
+        return dist.get_rank()
+    return None
 
 
 def _dtype_name(v) -> str:
@@ -177,6 +198,7 @@ class CheckpointManager:
         self.interval = interval
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._rank: int | None = None
 
     def maybe_save(self, step: int, tree, *, blocking: bool = False,
                    extra: dict | None = None) -> bool:
@@ -190,6 +212,9 @@ class CheckpointManager:
         # snapshot on the caller's thread: the next step replaces the tensors
         host_tree = _unflatten(tree, iter(_snapshot(v)
                                           for _, v in _tree_items(tree)))
+        self._rank = _rank_of(tree)
+        if self._rank not in (None, 0):   # a sharded run: rank 0 writes
+            return True
         if blocking:
             save_checkpoint(self.directory, step, host_tree, keep=self.keep,
                             extra=extra)
@@ -202,7 +227,13 @@ class CheckpointManager:
         return True
 
     def wait(self) -> None:
-        """Block until the pending async save, if any, is written."""
+        """Block until the pending async save, if any, is written (in a
+        sharded run every rank then meets at a barrier, so none reads a
+        checkpoint before rank 0 has written it)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._rank is not None:
+            import torch.distributed as dist
+            dist.barrier()
+            self._rank = None

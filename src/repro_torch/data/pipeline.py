@@ -11,13 +11,15 @@ next-token structure (labels are tokens shifted by one over a
 Markov-noised stream) so small models show a real, decreasing loss.
 
 Host sharding: ``local_batch(step, host_id, n_hosts)`` returns only this
-host's rows, which concatenate to the global batch.
+host's rows, which concatenate to the global batch.  ``make_batch_specs``
+gives the dry-run's storage-free stand-ins of a batch.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +80,25 @@ class SyntheticLMData:
         g = self.global_batch(step)
         per = self.cfg.global_batch // n_hosts
         return {k: v[host_id * per:(host_id + 1) * per] for k, v in g.items()}
+
+
+def make_batch_specs(cfg: DataConfig, *, device: str = "meta") -> dict:
+    """Stand-ins for one global batch (the dry-run's inputs): tensors of
+    the reference's shapes and dtypes on ``device`` (``meta``: no
+    storage), ``patches``/``frames`` by the frontend."""
+    c = cfg
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    specs = {
+        "tokens": spec((c.global_batch, c.seq_len), torch.int32),
+        "labels": spec((c.global_batch, c.seq_len), torch.int32),
+    }
+    if c.frontend == "vision":
+        specs["patches"] = spec(
+            (c.global_batch, c.n_frontend_tokens, c.d_model), torch.float32)
+    elif c.frontend == "audio":
+        specs["frames"] = spec(
+            (c.global_batch, c.seq_len, c.d_model), torch.float32)
+    return specs

@@ -1,8 +1,8 @@
-"""The train and serve step builders and the elastic accumulation plan on
-one device, the port of the JAX package's ``repro.distributed`` (its
-mesh, sharding rules, gradient compression and ``elastic.place`` come
-with the multi-card slice).  ``steps`` imports the model layer; import
-it directly."""
-from repro_torch.distributed import elastic
+"""Distribution of the port, the counterpart of the JAX package's
+``repro.distributed``: the sharding rules over a ``DeviceMesh``
+(``sharding``), int8 gradient compression across pods (``compression``)
+and elastic re-meshing (``elastic``).  ``steps`` imports the model
+layer; import it directly."""
+from repro_torch.distributed import compression, elastic, sharding
 
-__all__ = ["elastic"]
+__all__ = ["sharding", "compression", "elastic"]

@@ -1,0 +1,457 @@
+"""Sharding rules: parameter, optimizer, batch and cache specs over a
+``DeviceMesh``, the port of the JAX package's ``distributed/sharding.py``.
+
+Layout: mesh axes ``("pod", "data", "model")`` or ``("data", "model")``.
+
+  * ``fsdp`` = ("pod", "data") -- ZeRO-3 weight shard + batch shard,
+  * ``tp``   = "model"         -- Megatron-style tensor parallel.
+
+A spec is a tuple with one entry a tensor dim: None (whole), a mesh
+axis name, or a tuple of names (the dim split over their product, the
+first major), as a JAX ``PartitionSpec``.  ``placements`` turns it into
+DTensor placements, one a mesh dim.
+
+The port's parameters are a list of per-layer dicts, where the JAX
+package stacks the layers on a leading axis; its expert weights are (E,
+d, ff).  The rules therefore match a leaf's *name* (``wq``, ``w_gate``,
+``router``...) and act on its last two dims, so every port leaf's local
+shard is the reference's shard with the layer axis dropped.
+
+KV caches: heads shard over ``model`` when divisible; otherwise the
+cache *length* dim does (sequence-sharded decode).
+
+``constrain`` is the activation constraint: a no-op for a plain tensor
+and off a mesh; on a DTensor it redistributes to the named placements.
+``gathered`` is the ZeRO-3 use of a parameter: its DTensor redistributed
+to whole on every rank, whose backward reduces the gradient back to the
+parameter's shards.
+"""
+from __future__ import annotations
+
+import contextlib
+import re
+from typing import TYPE_CHECKING
+
+import torch
+
+if TYPE_CHECKING:  # the models import this module (constrain)
+    from repro_torch.models.config import ModelConfig
+
+#: the ambient meshes, innermost last (``mesh_context``)
+_MESHES: list = []
+#: redistributions inserted by ``constrain`` and the kernel ops
+_REDISTRIBUTIONS = {"constrain": 0, "kernel": 0}
+
+
+def ambient_mesh():
+    """The mesh of the innermost ``mesh_context``, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Make ``mesh`` the ambient mesh inside (nests; resets on exit)."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def redistribution_counts() -> dict[str, int]:
+    """Redistributions since the last reset, by the site that asked."""
+    return dict(_REDISTRIBUTIONS)
+
+
+def reset_redistribution_counts() -> None:
+    for k in _REDISTRIBUTIONS:
+        _REDISTRIBUTIONS[k] = 0
+
+
+def is_dtensor(x) -> bool:
+    if type(x) in _PLAIN:          # the hot path imports nothing
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def axis_names(mesh) -> tuple[tuple[str, ...], str]:
+    """(the fsdp axes in mesh order, the tp axis name)."""
+    tp = "model"
+    return tuple(n for n in mesh.mesh_dim_names if n != tp), tp
+
+
+def axis_size(mesh, axes) -> int:
+    """The product of the named axes' sizes (1 for none)."""
+    names = mesh.mesh_dim_names
+    n = 1
+    for a in (axes,) if isinstance(axes, str) else axes:
+        n *= mesh.shape[names.index(a)]
+    return n
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def tree_map_with_path(fn, tree, *rest, path: str = ""):
+    """``fn(path, leaf, *rest_leaves)`` over a tree of dicts and lists;
+    the path joins the keys and indices with ``/`` (``layers/3/attn/wq``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(
+            fn, v, *(r[i] for r in rest),
+            path=f"{path}/{i}" if path else str(i))
+            for i, v in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def _map_specs(fn, spec_tree, *rest):
+    """``fn`` over the specs (tuples) of a spec tree and matching leaves."""
+    if _is_spec(spec_tree):
+        return fn(spec_tree, *rest)
+    if isinstance(spec_tree, dict):
+        return {k: _map_specs(fn, v, *(r[k] for r in rest))
+                for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [_map_specs(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(spec_tree)]
+    raise TypeError(f"not a spec tree: {spec_tree!r}")
+
+
+# ---------------------------------------------------------------------------
+# parameters, optimizer state, batches, caches
+# ---------------------------------------------------------------------------
+
+_COL = "col"   # (.., d_in, d_out_tp):  (fsdp, tp)
+_ROW = "row"   # (.., d_in_tp, d_out):  (tp, fsdp)
+_PARAM_RULES: list[tuple[str, str]] = [
+    (r"(^|/)(embed|unembed)$", "embed"),           # (V, d): (tp, fsdp)
+    (r"(^|/)(wq|wk|wv)$", _COL),
+    (r"(^|/)(w_gate|w_up)$", _COL),
+    (r"(^|/)in_proj$", _COL),
+    (r"(^|/)router$", "router"),                   # (d, E): (fsdp, None)
+    (r"(^|/)(wo|w_down|out_proj)$", _ROW),
+    # conv_w stays replicated: its channel layout is (heads x headdim)
+    # interleaved, which a model-axis shard cannot re-express after the
+    # (B,S,di)->(B,S,h,p) reshape
+    (r"(^|/)conv_w$", "replicate"),
+]
+
+
+def param_spec(path_str: str, ndim: int, fsdp, tp) -> tuple:
+    """The spec of the parameter at ``path_str`` of ``ndim`` dims: its
+    rule's entries on the last two dims, the leading ones whole."""
+    if ndim <= 1:
+        return (None,) * ndim
+    lead = (None,) * (ndim - 2)
+    for pattern, kind in _PARAM_RULES:
+        if re.search(pattern, path_str):
+            if kind in ("embed", _ROW):
+                return (*lead, tp, fsdp)
+            if kind == _COL:
+                return (*lead, fsdp, tp)
+            if kind == "router":
+                return (*lead, fsdp, None)
+            return (*lead, None, None)
+    return (*lead, None, None)                     # unknown 2D+: whole
+
+
+def params_specs(params_shape, mesh):
+    """The spec tree of a parameter (or shape) tree."""
+    fsdp, tp = axis_names(mesh)
+    return tree_map_with_path(
+        lambda path, leaf: param_spec(path, len(leaf.shape), fsdp, tp),
+        params_shape)
+
+
+def opt_specs(opt_shape, pspecs):
+    """The optimizer state mirrors the parameters' specs (float32)."""
+    return {"step": (), "master": pspecs, "m": pspecs, "v": pspecs}
+
+
+def batch_specs(batch_shape, mesh, *, accum_dim: bool):
+    """A training batch (accum, micro, ...) or a serving batch (B, ...):
+    the batch dim shards over all the fsdp axes."""
+    fsdp, _ = axis_names(mesh)
+
+    def spec(_, leaf):
+        n = len(leaf.shape)
+        if accum_dim:
+            return (None, fsdp, *(None,) * (n - 2))
+        return (fsdp, *(None,) * (n - 1))
+
+    return tree_map_with_path(spec, batch_shape)
+
+
+def cache_specs(cache_shape, cfg: "ModelConfig", mesh):
+    """Specs of the serving cache (a list of per-layer caches: attention,
+    SSM, hybrid, enc-dec), each leaf's the reference's without the
+    layer axis."""
+    fsdp, tp = axis_names(mesh)
+    heads = bool(cfg.n_kv_heads) and cfg.n_kv_heads % axis_size(mesh, tp) == 0
+
+    def spec(path, leaf):
+        n = len(leaf.shape)
+        name = path.rsplit("/", 1)[-1]
+        if name == "kpos":
+            return (None,) * n
+        if name == "state":                        # (B, h, p, n)
+            return (fsdp, None, tp, None)
+        if name == "conv":                         # (B, w-1, ch)
+            return (fsdp, None, tp)
+        # attention k/v (self or cross) and int8 scales: (B, Hkv, T, D)
+        return (fsdp, tp, None, None) if heads else (fsdp, None, tp, None)
+
+    return tree_map_with_path(spec, cache_shape)
+
+
+def sanitize_specs(shape_tree, spec_tree, mesh):
+    """Drop spec axes whose mesh size does not divide the tensor dim: odd
+    vocabularies (32001, 49155, 50280, 51865) and batch-1 cells fall back
+    to whole on that dim, as the reference's arguments do."""
+    def fix(spec, leaf):
+        dims = tuple(getattr(leaf, "shape", ()))
+        return tuple(
+            None if a is None or i >= len(dims)
+            or dims[i] % axis_size(mesh, a) else a
+            for i, a in enumerate(spec))
+
+    return _map_specs(fix, spec_tree, shape_tree)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of ``spec``: ``Shard(d)`` on each mesh dim that
+    shards tensor dim d, ``Replicate()`` on the rest -- and on a mesh dim
+    of size 1, which splits nothing (the same local shard; DTensor cannot
+    propagate every shard of a size-1 dim through a view)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * mesh.ndim
+    names = mesh.mesh_dim_names
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in (entry,) if isinstance(entry, str) else entry:
+            j = names.index(a)
+            if mesh.size(j) > 1:
+                out[j] = Shard(d)
+    return tuple(out)
+
+
+def to_shardings(spec_tree, mesh, shape_tree=None):
+    """A tree of ``(mesh, placements)``, the specs first sanitized against
+    ``shape_tree`` when it is given."""
+    if shape_tree is not None:
+        spec_tree = sanitize_specs(shape_tree, spec_tree, mesh)
+    return _map_specs(lambda s: (mesh, placements(s, mesh)), spec_tree)
+
+
+def shard_map(f, *, mesh, in_specs, out_specs, in_grad_specs=None):
+    """``f`` on every rank's local shards: a thin ``local_map``, the
+    counterpart of ``jax.shard_map``, with specs in place of
+    placements."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pl(specs):
+        return None if specs is None else tuple(
+            None if s is None else placements(s, mesh) for s in specs)
+    # one output's placements go as a list (a tuple holds one per output)
+    outs = list(placements(out_specs, mesh)) if _is_spec(out_specs) \
+        else pl(out_specs)
+    return local_map(f, out_placements=outs, in_placements=pl(in_specs),
+                     in_grad_placements=pl(in_grad_specs), device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def constrain(x, *axes):
+    """Best-effort activation constraint under the ambient mesh.
+
+    ``axes`` name mesh axes per dim ("batch" expands to all the fsdp
+    axes); axes missing from the mesh or not dividing the dim are
+    dropped, and with nothing left the call is a no-op.  A plain tensor,
+    or no mesh, passes through; a DTensor is redistributed to the
+    placements (every dim not named whole; a mesh dim of size 1 is
+    ``Replicate()``, see ``placements``)."""
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    names = set(mesh.mesh_dim_names)
+    fsdp = tuple(n for n in ("pod", "data") if n in names)
+    spec = []
+    for i, ax in enumerate(axes):
+        group = () if ax is None else fsdp if ax == "batch" else \
+            (ax,) if isinstance(ax, str) else tuple(ax)
+        group = tuple(a for a in group if a in names)
+        size = axis_size(mesh, group)
+        spec.append(None if not group or x.shape[i] % size else group)
+    if all(s is None for s in spec):
+        return x
+    dmesh = x.device_mesh
+    # a size-1 mesh dim keeps a partial sum (it is the identity there)
+    want = tuple(p if dmesh.size(j) == 1 and p.is_partial() else w
+                 for j, (w, p) in enumerate(zip(
+                     placements(tuple(spec), dmesh), x.placements)))
+    if tuple(x.placements) == want:
+        return x
+    _REDISTRIBUTIONS["constrain"] += 1
+    return x.redistribute(x.device_mesh, want)
+
+
+def whole(x):
+    """``x`` replicated on every rank: a DTensor redistributed to
+    ``Replicate()`` everywhere (differentiable), anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    want = (Replicate(),) * x.device_mesh.ndim
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def gathered(tree):
+    """Every DTensor leaf of a parameter tree gathered for use
+    (``whole``): the ZeRO-3 all-gather, whose backward reduce-scatters
+    the gradient to the leaf's shards.  A tree of plain tensors comes
+    back as it is."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gathered(v) for v in tree)
+    return whole(tree)
+
+
+def on_shards(fn, x, whole: tuple):
+    """``fn(x)`` for an op that DTensor cannot run on ``x`` itself (no
+    sharding strategy for it or its backward): on a DTensor it runs on
+    the local shard, the dims in ``whole`` made whole first, and comes
+    back a DTensor (``local_call``); a plain tensor goes to ``fn``."""
+    if not is_dtensor(x):
+        return fn(x)
+    free = tuple(d for d in range(x.dim()) if d not in whole)
+    return local_call(fn, (x,), (free,))
+
+
+def local_call(fn, tensors, free_dims, *, n_out: int = 1):
+    """Run a kernel op ``fn`` on the local shards of DTensor arguments.
+
+    ``tensors`` are the op's tensor arguments; ``free_dims[i]`` the dims
+    of tensor i that may stay sharded (the kernel neither reduces nor
+    contracts over them).  Every DTensor is first redistributed to the
+    first tensor's placements on its free dims and whole elsewhere (a
+    partial sum reduced) -- the collective GSPMD would insert, counted --
+    then ``fn`` runs on the local tensors and each output comes back as a
+    DTensor with the first tensor's placements.  Plain tensors pass as
+    they are (the same on every rank)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    first = next(t for t in tensors if isinstance(t, DTensor))
+    mesh = first.device_mesh
+    lead = [p if p.is_shard() and p.dim in free_dims[0] else Replicate()
+            for p in first.placements]
+    local = []
+    for t, free in zip(tensors, free_dims):
+        if not isinstance(t, DTensor):
+            local.append(t)
+            continue
+        want = tuple(p if p.is_shard() and p.dim in free else Replicate()
+                     for p in lead)
+        if tuple(t.placements) != want:
+            _REDISTRIBUTIONS["kernel"] += 1
+            t = t.redistribute(mesh, want)
+        # a whole input used by split rows gets a partial gradient there
+        grads = tuple(Partial() if w.is_replicate() and p.is_shard() else w
+                      for w, p in zip(want, lead))
+        local.append(t.to_local(grad_placements=grads))
+    out = fn(*local)
+    outs = out if n_out > 1 else (out,)
+    wrapped = tuple(_from_local(o.contiguous(), mesh, tuple(lead))
+                    for o in outs)
+    return wrapped if n_out > 1 else wrapped[0]
+
+
+def _from_local(local: torch.Tensor, mesh, where: tuple):
+    """A contiguous local shard as a DTensor with the contiguous strides
+    of its global shape (``from_local``'s own inference scales the
+    strides of size-1 dims, which makes ``matmul`` expand a weight to a
+    batched product instead of folding it into one)."""
+    from torch.distributed.tensor import DTensor
+    shape = list(local.shape)
+    for j, p in enumerate(where):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(j)
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(local, mesh, where, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def write_at(dest, dim: int, index, value) -> None:
+    """``dest[..., index, ...] = value`` along ``dim`` in place, ``index``
+    a slice or a 1-D integer tensor of global positions.  A DTensor
+    ``dest`` (a cache split along ``dim`` or any other dim) takes the
+    write on each rank's local shard: ``value`` is first placed as
+    ``dest`` on every other dim and made whole along ``dim``, then each
+    rank writes the positions that fall in its shard."""
+    if not is_dtensor(dest):
+        idx = [slice(None)] * dest.dim()
+        idx[dim] = index
+        dest[tuple(idx)] = value
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, where = dest.device_mesh, tuple(dest.placements)
+    want = tuple(Replicate() if p.is_shard() and p.dim == dim else p
+                 for p in where)
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+    if tuple(value.placements) != want:
+        value = value.redistribute(mesh, want)
+    value = value.to_local()
+    local = dest.to_local()
+    # this rank's first global position along dim: its shard index over
+    # the mesh dims that split dim (the first major), in chunks of the
+    # ceiling size, as DTensor splits
+    coord, index_, parts = mesh.get_coordinate(), 0, 1
+    for j, p in enumerate(where):
+        if p.is_shard() and p.dim == dim:
+            index_ = index_ * mesh.size(j) + coord[j]
+            parts *= mesh.size(j)
+    n = local.shape[dim]
+    lo = index_ * -(-dest.shape[dim] // parts)
+    if isinstance(index, slice):
+        pos = torch.arange(index.start or 0, index.stop,
+                           device=local.device)
+    else:
+        pos = index.to(local.device)
+    # which new entry lands on each local slot, by shapes alone (no
+    # data-dependent indexing: the dry-run traces this on fake tensors)
+    hit = (pos[None, :] - lo) == torch.arange(n, device=local.device)[:, None]
+    src = (hit * torch.arange(pos.numel(), device=local.device)).sum(1)
+    shape = [1] * local.dim()
+    shape[dim] = n
+    take = hit.any(1).reshape(shape)
+    local.copy_(torch.where(take, value.index_select(dim, src), local))
+
+
+def any_dtensor(*tensors) -> bool:
+    """Whether any argument is a DTensor (a plain tensor is told apart by
+    its type alone, so the kernel ops' hot path imports nothing)."""
+    return any(is_dtensor(t) for t in tensors)
+
+
+_PLAIN = (torch.Tensor, torch.nn.Parameter, type(None), int, float)

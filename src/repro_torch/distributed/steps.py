@@ -1,5 +1,5 @@
 """Train and serve step builders, the port of the JAX package's
-``distributed/steps.py`` on one device.
+``distributed/steps.py``.
 
 Training accumulates gradients over micro-batches: the batch's leaves
 carry a leading ``accum`` axis; with ``accum == 1`` the step is one
@@ -7,7 +7,12 @@ value-and-grad, otherwise a loop sums each micro-batch's gradients in
 float32 and divides by ``accum``.  The optimizer runs in float32
 (``optim.adamw_update``).  The steps are functional, as the
 reference's: they return new parameters and state and leave the old
-ones as they were.
+ones as they were.  On a mesh the parameters, the optimizer state and
+the batch are DTensors (``launch.train.train_loop(mesh=)``): the model
+gathers each layer's parameters for use, and DTensor's autograd reduces
+every gradient back to its parameter's shards over the fsdp axes (in
+the parameters' bfloat16, the implicit compression), so the same code
+is the ZeRO-3 step.
 """
 from __future__ import annotations
 
@@ -34,34 +39,51 @@ def _span(timing: dict | None, name: str):
     timing.setdefault(name, []).append((start, end))
 
 
+def micro_grads(model: Model, params, mb: dict, *,
+                timing: dict | None = None):
+    """(loss, gradients in the parameters' dtypes) of one micro-batch
+    ``mb``: one pass of ``value_and_grad``'s loop."""
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with _span(timing, "forward"):
+        loss, _ = model.loss(ps, mb)
+    with _span(timing, "backward"):   # an unused parameter gets 0s,
+        grads = torch.autograd.grad(    # as under jax.grad
+            loss, leaves(ps), allow_unused=True, materialize_grads=True)
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def grad_accumulator(params):
+    """float32 zeros of every parameter (a DTensor's keep its placement)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+
+
+def accumulate(model: Model, params, mb: dict, gacc, *,
+               timing: dict | None = None):
+    """One pass of ``value_and_grad``'s loop: the micro-batch's
+    gradients added into ``gacc`` in place; returns its loss."""
+    loss, grads = micro_grads(model, params, mb, timing=timing)
+    tree_map(lambda a, g: a.add_(g), gacc, grads)
+    return loss
+
+
 def value_and_grad(model: Model, params, batch: dict, accum_steps: int, *,
                    timing: dict | None = None):
     """(mean loss, float32 gradients of every parameter) over the
     ``accum_steps`` micro-batches of ``batch`` (leaves (accum, micro,
     ...)).  ``timing``, a dict, collects CUDA-event spans of each
     micro-batch's ``forward`` and ``backward``."""
-    def one(mb):
-        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        with _span(timing, "forward"):
-            loss, _ = model.loss(ps, mb)
-        with _span(timing, "backward"):   # an unused parameter gets 0s,
-            grads = torch.autograd.grad(    # as under jax.grad
-                loss, leaves(ps), allow_unused=True, materialize_grads=True)
-        it = iter(grads)
-        return loss.detach(), tree_map(lambda _: next(it), params)
-
     if accum_steps == 1:
-        loss, grads = one({k: v[0] for k, v in batch.items()})
+        loss, grads = micro_grads(model, params,
+                                  {k: v[0] for k, v in batch.items()},
+                                  timing=timing)
         return loss, tree_map(lambda g: g.float(), grads)
-    gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
-    lsum = 0.0
-    for i in range(accum_steps):
-        loss, grads = one({k: v[i] for k, v in batch.items()})
-        tree_map(lambda a, g: a.add_(g), gacc, grads)
-        del grads
-        lsum = lsum + loss
-    return lsum / accum_steps, tree_map(lambda g: g.div_(accum_steps), gacc)
+    gacc = grad_accumulator(params)
+    losses = [accumulate(model, params, {k: v[i] for k, v in batch.items()},
+                         gacc, timing=timing) for i in range(accum_steps)]
+    return sum(losses) / accum_steps, tree_map(
+        lambda g: g.div_(accum_steps), gacc)
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, accum_steps: int):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.autotune.cache import KernelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch, grad, opcount
 from repro_torch.kernels.affine import affine as K
 from repro_torch.kernels.affine import ref
@@ -56,7 +57,13 @@ def translate(x: torch.Tensor, t, *,
 
 
 def vecadd(x: torch.Tensor, z, *, backend: str | None = None) -> torch.Tensor:
-    """y = x + z elementwise (Table 1), z cast to x's dtype first."""
+    """y = x + z elementwise (Table 1), z cast to x's dtype first.  On
+    DTensors the kernel adds the local shards, z first placed as x."""
+    if sharding.any_dtensor(x, z):
+        every = tuple(range(x.dim()))
+        return sharding.local_call(
+            lambda a, c: vecadd(a, c, backend=backend), (x, z),
+            (every, every))
     z = torch.as_tensor(z, device=x.device).to(x.dtype)
     if z.shape != x.shape:
         raise ValueError(f"vecadd wants operands of one shape, got "

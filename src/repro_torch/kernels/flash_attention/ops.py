@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.flash_attention import flash_attention as K
 from repro_torch.kernels.flash_attention import ref
@@ -27,7 +28,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Scaled dot-product attention, GQA-aware (Hq may exceed Hkv):
     ``causal`` masks with ``q_offset`` placing the queries in the
     sequence, ``window`` keeps the last ``window`` keys of each query,
-    ``block_kv`` sets the training path's KV block."""
+    ``block_kv`` sets the training path's KV block.  On DTensors the
+    kernel runs on the local batch rows, every other dim (the keys it
+    reduces over among them) made whole."""
+    if sharding.any_dtensor(q, k, v):
+        return sharding.local_call(
+            lambda a, b_, c: attention(a, b_, c, scale=scale, causal=causal,
+                                       window=window, q_offset=q_offset,
+                                       block_kv=block_kv, backend=backend),
+            (q, k, v), ((0,), (0,), (0,)))
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5

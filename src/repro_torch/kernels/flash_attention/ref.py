@@ -120,7 +120,9 @@ def banded_swa_attention(q, k, v, *, scale: float, window: int) -> torch.Tensor:
         q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad))
                    for x in (q, k, v))
     nb = q.shape[2] // win
-    qb, kb, vb = (x.reshape(b, hq, nb, win, d) for x in (q, k, v))
+    from repro_torch.distributed.sharding import constrain
+    qb, kb, vb = (constrain(x.reshape(b, hq, nb, win, d), "batch", None,
+                            "model", None, None) for x in (q, k, v))
     zero = torch.zeros((b, hq, 1, win, d), dtype=k.dtype, device=k.device)
     kband = torch.cat([torch.cat([zero, kb[:, :, :-1]], dim=2), kb], dim=3)
     vband = torch.cat([torch.cat([zero, vb[:, :, :-1]], dim=2), vb], dim=3)

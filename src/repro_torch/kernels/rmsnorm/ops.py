@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.autotune import cache as tuning
 from repro_torch.autotune.cache import KernelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.rmsnorm import ref
 from repro_torch.kernels.rmsnorm import rmsnorm as K
@@ -25,7 +26,13 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *, eps: float = 1e-6,
             backend: str | None = None,
             config: KernelConfig | None = None) -> torch.Tensor:
     """y = x / rms(x) * gain over the trailing dim of ``x`` (any rank);
-    ``gain`` is (N,), used in float32."""
+    ``gain`` is (N,), used in float32.  On DTensors the kernel runs on
+    the local rows, the trailing dim and the gain made whole first."""
+    if sharding.any_dtensor(x, gain):
+        return sharding.local_call(
+            lambda a, g: rmsnorm(a, g, eps=eps, backend=backend,
+                                 config=config), (x, gain),
+            (tuple(range(x.dim() - 1)), ()))
     b = dispatch.backend_for(x.device, backend)
     if b == "ref":
         return ref.rmsnorm(x, gain, eps)

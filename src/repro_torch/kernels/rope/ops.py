@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.rope import ref
 from repro_torch.kernels.rope import rope as K
@@ -21,7 +22,12 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
     """Apply rotary embedding to x (..., S, D); cos/sin (S, D/2), cast to
     x's dtype.  The kernel takes x as a contiguous (BH, S, D) buffer: a
     strided view (heads split off a (B, S, H*D) product) is copied once
-    here, so callers hand it over contiguous."""
+    here, so callers hand it over contiguous.  On DTensors the kernel
+    rotates the local shard, the positions and head dim made whole."""
+    if sharding.any_dtensor(x, cos, sin):
+        return sharding.local_call(
+            lambda a, c, s: rope(a, c, s, backend=backend), (x, cos, sin),
+            (tuple(range(x.dim() - 2)), (), ()))
     b = dispatch.backend_for(x.device, backend)
     if b == "ref":
         return ref.rope(x, cos, sin)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import dispatch, grad
 from repro_torch.kernels.ssd import ref
 from repro_torch.kernels.ssd import ssd as K
@@ -19,7 +20,12 @@ def ssd_intra(xdt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
     """Mamba-2 SSD intra-chunk core: the within-chunk term of the
     state-space dual (scores C B^T gated by the segment-sum decay ``cum``,
     applied to ``xdt``) and the per-chunk state contribution.  Shapes as
-    in ``ref.ssd_intra``; both outputs float32."""
+    in ``ref.ssd_intra``; both outputs float32.  On DTensors the kernel
+    runs on the local (batch x chunk) rows, the rest made whole."""
+    if sharding.any_dtensor(xdt, b_in, c_in, cum):
+        return sharding.local_call(
+            lambda *a: ssd_intra(*a, backend=backend),
+            (xdt, b_in, c_in, cum), ((0,),) * 4, n_out=2)
     be = dispatch.backend_for(xdt.device, backend)
     if be == "ref":
         return ref.ssd_intra(xdt, b_in, c_in, cum)

@@ -16,7 +16,9 @@ zero patch embeddings in place of the vision frontend) and enc-dec
 (whisper-medium, zero frame embeddings in place of the audio frontend;
 ``serve_inputs`` builds both stubs).  dbrx-132b's 264 GB and
 internvl2-76b's 141 GB of bfloat16 weights need more than one card, so
-they serve only ``--reduced`` until the model is sharded.  The default
+this one-card launcher serves them only ``--reduced``; on a mesh their
+parameters and cache are placed by ``distributed.sharding``'s rules
+(``launch.dryrun`` records what one card of the 16x16 mesh holds).  The default
 ``--arch`` is mamba2-130m, as in the JAX launcher.  Without
 ``--device cpu`` it runs on the GPU and raises when there is none.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0.

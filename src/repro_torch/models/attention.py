@@ -18,7 +18,9 @@ q and k go through the ``rope_3d`` kernel as contiguous (B, H, S, D)
 buffers: ``_split_heads`` copies the heads out of the (B, S, H*D)
 product once, where the JAX package keeps a transposed view.  Caches are
 updated in place (the JAX package returns new arrays): a decode step
-writes one slot instead of copying the cache.  A linear cache may hold
+writes one slot instead of copying the cache (a sharded cache, a
+DTensor, takes each write on the rank whose shard holds the slot:
+``sharding.write_at``).  A linear cache may hold
 int8 keys and values with a float32 scale a (slot, head)
 (``kv_cache_dtype="int8"``); an int8 ring raises
 ``errors.Int8RingCacheError``, as the JAX package cannot decode one.
@@ -29,6 +31,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import write_at
 from repro_torch.errors import Int8RingCacheError
 from repro_torch.kernels import attention as k_attention
 from repro_torch.kernels import rope as k_rope
@@ -176,16 +179,17 @@ def _cache_kv(cache: dict, which: str) -> torch.Tensor:
 def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                   start: int) -> dict:
     s = k_new.shape[2]
+    at = slice(start, start + s)
     if cache["k"].dtype == torch.int8:
         for name, val in (("k", k_new), ("v", v_new)):
             q, scale = _quantize(val)
-            cache[name][:, :, start:start + s] = q
-            cache[name + "scale"][:, :, start:start + s] = scale
+            write_at(cache[name], 2, at, q)
+            write_at(cache[name + "scale"], 2, at, scale)
     else:
-        cache["k"][:, :, start:start + s] = k_new.to(cache["k"].dtype)
-        cache["v"][:, :, start:start + s] = v_new.to(cache["v"].dtype)
-    cache["kpos"][start:start + s] = torch.arange(
-        start, start + s, dtype=torch.int32, device=cache["kpos"].device)
+        write_at(cache["k"], 2, at, k_new.to(cache["k"].dtype))
+        write_at(cache["v"], 2, at, v_new.to(cache["v"].dtype))
+    write_at(cache["kpos"], 0, at, torch.arange(
+        start, start + s, dtype=torch.int32, device=cache["kpos"].device))
     return cache
 
 
@@ -200,9 +204,9 @@ def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         k_new, v_new = k_new[:, :, -window:], v_new[:, :, -window:]
         positions = positions[-window:]
     slots = (positions % window).long()
-    cache["k"][:, :, slots] = k_new.to(cache["k"].dtype)
-    cache["v"][:, :, slots] = v_new.to(cache["v"].dtype)
-    cache["kpos"][slots] = positions
+    write_at(cache["k"], 2, slots, k_new.to(cache["k"].dtype))
+    write_at(cache["v"], 2, slots, v_new.to(cache["v"].dtype))
+    write_at(cache["kpos"], 0, slots, positions)
     return cache
 
 

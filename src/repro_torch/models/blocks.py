@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -110,14 +111,15 @@ def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
     encoder): the mixer's residual add, the cross-attention's when
     ``cross_kv`` is given, the FFN's.  (x, aux) out, aux the MoE
     load-balance term (0.0 without experts)."""
-    x = residual_add(x, _mixer_full(p, x, cfg, causal).to(x.dtype))
+    x = constrain(residual_add(x, _mixer_full(p, x, cfg, causal).to(x.dtype)),
+                  "batch", None, None)
     if cross_kv is not None:
         h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
         x = residual_add(x, attn.cross_attend(p["cross"], h, cross_kv,
                                               cfg).to(x.dtype))
     delta, aux = _ffn(p, x, cfg)
     if delta is not None:
-        x = residual_add(x, delta.to(x.dtype))
+        x = constrain(residual_add(x, delta.to(x.dtype)), "batch", None, None)
     return x, aux
 
 

@@ -26,8 +26,18 @@ The buffers are laid out expert-major, (e, b * c, d), so the three
 expert products are ``torch.bmm`` calls without a transpose.  The
 products and gathers run outside any kernel of the port, as they run
 outside any Pallas kernel in the JAX package.  Routing reads nothing
-back to the host: every size comes from shapes.  The mesh path
-(``moe_ffn`` under ``shard_map``) waits for the distributed slice.
+back to the host: every size comes from shapes.
+
+Under an ambient mesh (``sharding.mesh_context``) ``moe_ffn`` takes the
+reference's explicit distribution: ``_moe_local`` runs on every rank's
+shards in ``local_map`` -- the router whole, ``w_gate``/``w_up`` split
+on ff over ``model`` and ``w_down`` on its ff dim when ``model``
+divides ``d_ff``, x split on its batch over the fsdp axes when their
+width divides it -- then ONE all-reduce (sum) of y over ``model``, in
+x's dtype, and ``aux`` averaged over the fsdp and model axes.  Plain
+tensors (serving) enter as whole DTensors and leave whole; DTensors
+(training) keep their placements, and each input's gradient comes back
+partial where its shard's use was.  ``mesh_calls`` counts the path.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -131,10 +142,91 @@ def _bmm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), w.float())
 
 
+#: calls of the mesh path since the last reset
+_MESH_CALLS = 0
+
+
+def mesh_calls() -> int:
+    """``moe_ffn`` calls that took the mesh path since the last reset."""
+    return _MESH_CALLS
+
+
+def reset_mesh_calls() -> None:
+    global _MESH_CALLS
+    _MESH_CALLS = 0
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux float32 scalar)."""
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux float32 scalar);
+    distributed over the ambient mesh when there is one."""
+    mesh = sharding.ambient_mesh()
+    if mesh is None:
+        return _moe_local(params["router"], params["w_gate"],
+                          params["w_up"], params["w_down"], x, cfg)
+    return _moe_mesh(params, x, cfg, mesh)
+
+
+def _moe_mesh(params: dict, x, cfg: ModelConfig, mesh):
+    """``_moe_local`` on the shards of ``mesh`` (the reference's
+    ``shard_map``), one all-reduce of y over ``model``."""
+    global _MESH_CALLS
+    _MESH_CALLS += 1
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    fsdp, _ = sharding.axis_names(mesh)
+    names = mesh.mesh_dim_names
+    tp = "model" if "model" in names else None
+    ff_split = tp is not None and \
+        cfg.d_ff % sharding.axis_size(mesh, tp) == 0
+    b_split = bool(fsdp) and \
+        x.shape[0] % max(sharding.axis_size(mesh, fsdp), 1) == 0
+    R = Replicate()
+
+    def on(batch, model):   # placements: one for fsdp dims, one for tp
+        return tuple(R if mesh.size(j) == 1 and p.is_shard() else p
+                     for j, p in enumerate(model if n == tp else batch
+                                           for n in names))
+
+    rows = Shard(0) if b_split else R
+    part_b, part_m = (Partial() if b_split else R), \
+        (Partial() if ff_split else R)
+    ff_up, ff_down = (Shard(2), Shard(1)) if ff_split else (R, R)
+    n_aux = 1
+    for n in names:
+        if (n == tp and ff_split) or (n != tp and b_split):
+            n_aux *= mesh.size(names.index(n))
+
+    def local_fn(router, w_gate, w_up, w_down, xl):
+        y, aux = _moe_local(router, w_gate, w_up, w_down, xl, cfg)
+        return y, aux / n_aux
+
+    fn = local_map(
+        local_fn,
+        out_placements=(on(rows, part_m), on(part_b, part_m)),
+        in_placements=(on(R, R), on(R, ff_up), on(R, ff_up),
+                       on(R, ff_down), on(rows, R)),
+        in_grad_placements=(on(part_b, part_m), on(part_b, ff_up),
+                            on(part_b, ff_up), on(part_b, ff_down),
+                            on(rows, part_m)),
+        device_mesh=mesh, redistribute_inputs=True)
+    args = (params["router"], params["w_gate"], params["w_up"],
+            params["w_down"], x)
+    plain = not any(isinstance(a, DTensor) for a in args)
+    args = tuple(a if isinstance(a, DTensor) else DTensor.from_local(
+        a, mesh, (R,) * mesh.ndim, run_check=False) for a in args)
+    y, aux = fn(*args)
+    y = y.redistribute(mesh, on(rows, R))      # the all-reduce over model
+    aux = aux.redistribute(mesh, (R,) * mesh.ndim)
+    if plain:
+        return y.full_tensor(), aux.to_local()
+    return y, aux
+
+
+def _moe_local(router, w_gate, w_up, w_down, x: torch.Tensor,
+               cfg: ModelConfig):
+    """One shard's MoE FFN (all of it off a mesh)."""
     orig_b = x.shape[0]
-    r = route(params["router"], x, cfg)
+    r = route(router, x, cfg)
     x = _grouped(x)
     b, s, d = x.shape
     e, k, c = cfg.n_experts, cfg.experts_per_token, r.capacity
@@ -152,9 +244,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig):
     xe = buf[:e * b * c].view(e, b * c, d)
 
     # experts: SwiGLU, gate and up kept in float32 until silu(g) * u
-    h = F.silu(_bmm_f32(xe, params["w_gate"])) \
-        * _bmm_f32(xe, params["w_up"])
-    ye = torch.bmm(h.to(x.dtype), params["w_down"]).to(x.dtype)
+    h = F.silu(_bmm_f32(xe, w_gate)) * _bmm_f32(xe, w_up)
+    ye = torch.bmm(h.to(x.dtype), w_down).to(x.dtype)
     yflat = torch.cat([ye.reshape(e * b * c, d), ye.new_zeros((1, d))])
 
     # combine: each token's k entries in ascending sorted position

@@ -22,13 +22,16 @@ Differences from the JAX package, none in the function computed:
   * the gated norm (float32 rows of width d_inner) runs through the
     ``rmsnorm_2d`` op, the kernel on the card: it is the same function as
     the JAX package's ``rmsnorm_ref`` call;
-  * the sharding constraints (no-ops on one device) are dropped.
+  * the sharding constraints (``sharding.constrain``: no-ops off a mesh
+    and on plain tensors) shard the sequence over ``model``, as the
+    reference's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, on_shards
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import ssd_intra
 from repro_torch.models.config import ModelConfig
@@ -60,8 +63,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     history.  Returns (silu(conv + b), new_tail), in xbc's dtype."""
     width = w.shape[0]
     if tail is None:
-        tail = torch.zeros((xbc.shape[0], width - 1, xbc.shape[2]),
-                           dtype=xbc.dtype, device=xbc.device)
+        tail = xbc.new_zeros((xbc.shape[0], width - 1, xbc.shape[2]))
     xfull = torch.cat([tail.to(xbc.dtype), xbc], dim=1)
     out = sum(xfull[:, i:i + xbc.shape[1]] * w[i][None, None]
               for i in range(width))
@@ -94,12 +96,19 @@ def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk: int):
                                      for t in (x, dt, a_coef, b_in, c_in))
     sp = s + pad
     nc, lc = sp // chunk, chunk
-    xc = x.reshape(bsz, nc, lc, h, p)
-    dtc = dt.float().reshape(bsz, nc, lc, h)
-    ac = a_coef.float().reshape(bsz, nc, lc, h)
-    bc = b_in.reshape(bsz, nc, lc, n)
-    cc = c_in.reshape(bsz, nc, lc, n)
-    cum = torch.cumsum(ac, dim=2)                          # (B, nc, lc, h)
+
+    def r(t, *trailing):   # (B, S, ...) -> (B, nc, lc, ...), nc sharded
+        out = t.reshape(bsz, nc, lc, *trailing)
+        return constrain(out, "batch", "model", *(None,) * (out.dim() - 2))
+
+    xc = r(x, h, p)
+    dtc = r(dt.float(), h)
+    ac = r(a_coef.float(), h)
+    bc = r(b_in, n)
+    cc = r(c_in, n)
+    # (B, nc, lc, h); on a DTensor, the local shard's cumsum: DTensor has
+    # no strategy for its backward's flip in every torch release
+    cum = on_shards(lambda a: torch.cumsum(a, dim=2), ac, (2,))
     xdt = (xc.float() * dtc[..., None]).to(cdtype)
 
     y_flat, s_flat = ssd_intra(
@@ -127,10 +136,12 @@ def forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             return_state: bool = False):
     """Full-sequence SSD pass; x (B, S, d) -> y (B, S, d) (and the cache
     {state, conv} with ``return_state``)."""
-    proj = x @ params["in_proj"]
+    x = constrain(x, "batch", "model", None)
+    proj = constrain(x @ params["in_proj"], "batch", "model", None)
     z, xbc, dt_raw = _split(proj, cfg)
     xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_tail)
+    xbc = constrain(xbc, "batch", "model", None)
     di, n, h, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     xs = xbc[..., :di].reshape(*xbc.shape[:2], h, p)
     b_in = xbc[..., di:di + n]
@@ -177,7 +188,11 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"][None])  # (B, h)
     a = -torch.exp(params["A_log"])[None]                  # (1, h)
     decay = torch.exp(dt * a)                              # (B, h)
-    state = cache["state"] * decay[:, :, None, None] + \
+    # the einsums below flatten (h, p); DTensor cannot propagate a
+    # model-split p through that flattening, so the state is made whole
+    # on model first (batch-split only)
+    state = constrain(cache["state"], "batch", None, None, None) \
+        * decay[:, :, None, None] + \
         torch.einsum("bhp,bn,bh->bhpn", xs, b_in, dt)
     y = torch.einsum("bn,bhpn->bhp", c_in, state) + \
         params["D"][None, :, None] * xs

@@ -9,7 +9,11 @@ Parameters are plain dicts of tensors: ``embed`` (V, d), ``final_norm``
 layers on a leading axis for ``lax.scan``; a Python loop over the list
 takes its place); an enc-dec model adds ``enc_layers``, a list of
 ``encoder_layers`` dicts, and ``enc_final_norm``.  The cache is a list
-of one layer cache each, updated in place.
+of one layer cache each, updated in place.  On a mesh the parameters
+may be DTensors (``launch.train.train_loop(mesh=)``): each layer's are
+gathered whole for use inside the layer's body (``sharding.gathered``,
+recomputed under remat), the ZeRO-3 pattern; plain tensors pass as they
+are.
 
 ``forward``/``loss`` are the training pass.  Each layer (the encoder's
 too) runs under the config's ``remat`` policy while autograd records:
@@ -34,6 +38,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import gathered, whole
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
@@ -101,7 +106,7 @@ class Model:
         first ``patches.shape[1]`` positions, plus sinusoidal positions
         where the config uses them."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"])
+        x = embed(whole(params["embed"]), batch["tokens"])
         if cfg.frontend == "vision" and "patches" in batch:
             p = batch["patches"].to(x.dtype)
             x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
@@ -122,8 +127,9 @@ class Model:
         x = x + pos[None].to(x.dtype)
         for lp in params["enc_layers"]:
             x, _ = self._layer(
-                lambda h, lp=lp: blocks.apply(lp, h, cfg, causal=False), x)
-        return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+                lambda h, lp=lp: blocks.apply(gathered(lp), h, cfg,
+                                              causal=False), x)
+        return rmsnorm(x, whole(params["enc_final_norm"]), cfg.norm_eps)
 
     def _layer(self, body, x: torch.Tensor):
         """``body(x)`` under the config's remat policy when autograd
@@ -149,14 +155,15 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             def body(h, lp=lp):
+                lp = gathered(lp)
                 ckv = (attn_mod.encode_kv(lp["cross"], enc_out, cfg)
                        if cfg.is_encdec else None)
                 return blocks.apply(lp, h, cfg, causal=True, cross_kv=ckv)
             x, aux_l = self._layer(body, x)
             aux = aux + aux_l
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        x = rmsnorm(x, whole(params["final_norm"]), cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        return logits_head(x, table, cfg.logit_softcap), aux
+        return logits_head(x, whole(table), cfg.logit_softcap), aux
 
     def loss(self, params: dict, batch: dict):
         """(ce + router_aux_weight * aux, {"ce", "aux"}) of ``forward``
@@ -178,9 +185,9 @@ class Model:
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        x = rmsnorm(x, whole(params["final_norm"]), cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        return logits_head(x, table, cfg.logit_softcap)[:, 0]
+        return logits_head(x, whole(table), cfg.logit_softcap)[:, 0]
 
     def prefill(self, params: dict, batch: dict, cache: list):
         """Prompt pass over ``batch["tokens"]`` (B, S) (and the batch's
@@ -192,7 +199,8 @@ class Model:
                    else None)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.prefill(lp, x, cfg, c, start=0, enc_out=enc_out)
+            x, c = blocks.prefill(gathered(lp), x, cfg, c, start=0,
+                                  enc_out=enc_out)
             new_cache.append(c)
         return self._head(params, x[:, -1:]), new_cache
 
@@ -201,14 +209,14 @@ class Model:
         """One step: tokens (B,) at absolute position ``pos``.  Returns
         logits (B, V) float32 and the cache."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens[:, None])
+        x = embed(whole(params["embed"]), tokens[:, None])
         if cfg.pos_embed == "sinusoidal":
             p = sinusoidal_positions(
                 torch.full((1,), pos, device=x.device), cfg.d_model)
             x = x + p[None].to(x.dtype)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.decode(lp, x, cfg, c, pos)
+            x, c = blocks.decode(gathered(lp), x, cfg, c, pos)
             new_cache.append(c)
         return self._head(params, x), new_cache
 

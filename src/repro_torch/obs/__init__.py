@@ -27,8 +27,8 @@ package, so it keeps its own.
   * ``obs.slo``      -- multi-window burn-rate alerting over the latency
     and rejection error budgets, deterministic under a virtual clock.
 
-Not ported: ``obs.bench_history``, which reads the JAX package's
-benchmark record (ROADMAP.md queue 1 item 9).
+``obs.bench_history`` reads committed ``BENCH_*.json`` records as a time
+series, with the directional drift check.
 
 Quickstart::
 

@@ -67,8 +67,8 @@ def adamw_init(params) -> dict:
     def f32(a):
         return a.detach().to(torch.float32, copy=True)
 
-    def zeros(a):
-        return torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    def zeros(a):   # a DTensor parameter's zeros keep its placements
+        return torch.zeros_like(a, dtype=torch.float32)
     return {"step": 0, "master": tree_map(f32, params),
             "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 

@@ -90,6 +90,7 @@ import torch
 from repro_torch import errors, quantize
 from repro_torch.autotune import cache as tuning
 from repro_torch.core import transform_chain as tc
+from repro_torch.distributed import sharding
 from repro_torch.kernels import (chain_apply_batch, chain_apply_batch_q,
                                  chain_diag_batch, chain_diag_batch_q,
                                  chain_project_batch, dispatch, opcount)
@@ -399,6 +400,9 @@ class _Staged:
     points: torch.Tensor
     ready: torch.cuda.Event | None  # the copy stream's event (CUDA only)
     host: tuple                     # the pinned sources of the copies
+    #: under an ambient mesh of several ranks, (mesh, placements) of the
+    #: row shard this rank launches on (its outputs are gathered back)
+    spread: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -780,7 +784,44 @@ class GeometryServer:
     def _stage(self, stacked: tuple, packed: torch.Tensor) -> _Staged:
         """Host->device staging of one launch (the set-1 DMA): the pinned
         buffers are copied on the side stream, and an event marks when
-        they have landed.  On the CPU the host tensors are the operands."""
+        they have landed.  On the CPU the host tensors are the operands.
+        Under an ambient mesh of more than one rank every rank runs the
+        same server on the same submissions (SPMD) and stages its row
+        shard of the packed bucket, split over the fsdp axes as
+        ``batch_specs`` with ``sanitize_specs`` split it (whole when their
+        width does not divide the rows); ``_dispatch`` gathers the rows
+        back before the unpack."""
+        mesh = sharding.ambient_mesh()
+        if mesh is not None and mesh.size() > 1:
+            return self._stage_shard(stacked, packed, mesh)
+        return self._stage_whole(stacked, packed)
+
+    def _stage_shard(self, stacked: tuple, packed: torch.Tensor,
+                     mesh) -> _Staged:
+        """This rank's rows of a packed bucket and of its parameters (the
+        fsdp mesh dims split the rows, the first major, as a DTensor's
+        ``Shard(0)``)."""
+        spec = sharding.sanitize_specs(
+            packed, sharding.batch_specs(packed, mesh, accum_dim=False),
+            mesh)
+        where = sharding.placements(spec, mesh)
+        coord = mesh.get_coordinate()
+        index, parts = 0, 1
+        for j, p in enumerate(where):
+            if p.is_shard():
+                index = index * mesh.size(j) + coord[j]
+                parts *= mesh.size(j)
+        if parts == 1:
+            return self._stage_whole(stacked, packed)
+        n = packed.shape[0] // parts
+        rows = slice(index * n, (index + 1) * n)
+        staged = self._stage_whole(tuple(p[rows] for p in stacked),
+                                   packed[rows])
+        staged.spread = (mesh, where)
+        return staged
+
+    def _stage_whole(self, stacked: tuple, packed: torch.Tensor) -> _Staged:
+        """``_stage`` of whole operands: the one-device staging."""
         if not self._cuda:
             return _Staged(stacked, packed, None, ())
         with torch.cuda.stream(self._copy_stream):
@@ -809,6 +850,11 @@ class GeometryServer:
         projective = plan.kind == "projective"
         if not projective:
             outs = (outs,)
+        if staged.spread is not None:      # every rank's rows, in order
+            from torch.distributed.tensor import DTensor
+            mesh, where = staged.spread
+            outs = tuple(DTensor.from_local(o, mesh, where, run_check=False)
+                         .full_tensor() for o in outs)
         # the reference's output check, on the device: one flag a packed
         # row, padding included, as the reference checks the whole output
         validate = self.fault_config.validate_outputs \

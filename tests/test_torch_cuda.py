@@ -1947,3 +1947,70 @@ def test_reduced_hymba_train_step_on_card(cuda_device):
     for key in ("loss", "grad_norm"):
         a, b = float(met[key]), float(cpu[key])
         assert abs(a - b) <= 1e-3 * abs(b), key
+
+
+# -- the model kernels on DTensors: a one-rank NCCL mesh -------------------------
+
+def _dtensor_cases(dev):
+    """(name, op on plain tensors, its tensor arguments, free dims) of the
+    five model kernel ops at small bfloat16 shapes."""
+    from repro_torch.kernels import attention, rmsnorm, rope, ssd_intra, \
+        vecadd
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    from repro_torch.kernels.rope import ref as rope_ref
+    cs, sn = rope_ref.rope_tables(torch.arange(64, device=dev), 64, 10000.0,
+                         torch.float32)
+    return [
+        ("vecadd_2d", lambda a, b: vecadd(a, b), (rand(4, 64, 128),
+                                                  rand(4, 64, 128))),
+        ("rmsnorm_2d", lambda a, w: rmsnorm(a, w, eps=1e-6),
+         (rand(4, 64, 128), rand(128, dtype=torch.float32))),
+        ("rope_3d", lambda a: rope(a, cs, sn), (rand(4, 8, 64, 64),)),
+        ("flash_attention_3d", lambda q, k, v: attention(q, k, v, causal=True),
+         (rand(4, 8, 128, 64), rand(4, 2, 128, 64), rand(4, 2, 128, 64))),
+        ("ssd_intra", lambda x, b, c, cum: ssd_intra(x, b, c, cum),
+         (rand(8, 64, 4, 64), rand(8, 64, 16), rand(8, 64, 16),
+          -torch.rand((8, 64, 4), generator=g, device=dev).cumsum(1))),
+    ]
+
+
+@pytest.mark.parametrize("name", ["vecadd_2d", "rmsnorm_2d", "rope_3d",
+                                  "flash_attention_3d", "ssd_intra"])
+def test_model_kernel_on_a_dtensor_launches_on_the_local_shard(cuda_device,
+                                                              name):
+    """On a 1x1 NCCL mesh each model kernel op called on DTensors (batch
+    rows on ``data``) launches its kernel on the local shard once and
+    gives the plain-tensor call's bits, as a DTensor of the first
+    argument's placements; under autograd the plain vjp runs on the
+    local shard (one plain backward)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, \
+        distribute_tensor
+    from repro_torch.kernels import grad
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh()
+    _, op, args = next(c for c in _dtensor_cases(cuda_device)
+                       if c[0] == name)
+    want = op(*args)
+    placed = [distribute_tensor(a, mesh, (Shard(0), Replicate())
+                                if a.dim() > 1 else (Replicate(),) * 2,
+                                src_data_rank=None) for a in args]
+    _build.reset_launch_counts()
+    got = op(*placed)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == 1
+    outs = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    for o, w in zip(outs, wants):
+        assert isinstance(o, DTensor)
+        assert tuple(o.placements) == (Shard(0), Replicate())
+        assert torch.equal(o.to_local(), w)
+    grad.reset_backward_counts()
+    leaf = placed[0].detach().requires_grad_(True)
+    out = op(leaf, *placed[1:])
+    out = out[0] if isinstance(out, tuple) else out
+    out.float().sum().backward()
+    assert grad.backward_counts() == {name: 1}
+    assert isinstance(leaf.grad, DTensor)

@@ -90,8 +90,41 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.distributed",
                    "repro_torch.distributed.steps",
                    "repro_torch.distributed.elastic",
-                   "repro_torch.launch.train"):
+                   "repro_torch.launch.train",
+                   "repro_torch.distributed.sharding",
+                   "repro_torch.distributed.compression",
+                   "repro_torch.launch.mesh", "repro_torch.launch.cells",
+                   "repro_torch.launch.dryrun", "repro_torch.hlo_analysis",
+                   "repro_torch.roofline", "repro_torch.configs.shapes",
+                   "repro_torch.obs.bench_history"):
         assert module in names.split(), module
+
+
+_DIST_PROBE = r"""
+import sys
+import torch.distributed as dist
+from repro_torch.launch import cells, dryrun, mesh
+from repro_torch.distributed import compression, elastic, sharding
+from repro_torch import hlo_analysis, roofline
+from repro_torch.configs import shapes
+from repro_torch.obs import bench_history
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(dist.is_initialized(), sharding.ambient_mesh(), ",".join(bad))
+"""
+
+
+def test_distributed_modules_start_no_process_group():
+    """The distributed and dry-run modules, imported first in a fresh
+    interpreter, start no process group, set no ambient mesh and pull in
+    neither jax nor ``repro``: the dry-run's fake world and the meshes
+    come up inside ``run_cell``/``main`` and the mesh factories."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _DIST_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "None"]
 
 
 _Q_PROBE = r"""
