@@ -151,6 +151,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      peak memory and forward/backward/optimizer/plain-backward ms from
      CUDA events (``train_phase``); it runs after the serves and before
      the chaos, async and autotune phases;
+  8i. serve on a 1x2 mesh (yi-6b): full width (32 layers, 6.06 B
+     parameters, random weights from seed 0) on a ("data", "model") mesh
+     of (1, 2), two processes sharing the card in one gloo group (NCCL
+     refuses two ranks on one device), the weights placed by
+     ``params_specs``: each rank holds and runs 16 of the 32 query and 2
+     of the 4 kv heads, 5 504 of the 11 008 hidden columns and 32 000 of
+     the 64 000 vocabulary rows (``tp_serve_phase``); the hymba serve's
+     batch, lengths and 16 tokens through ``serve_batch``; the logits and
+     tokens against the same weights served without a mesh (rank 0,
+     teacher-forced) under ``model_phase``'s rules (envelope 0.077), two
+     mesh serves bitwise, each rank's launches exactly
+     ``expected_launches`` and its collectives exactly
+     ``tp_collectives`` (all-reduces only); the kernels at the ranks'
+     shapes are checked in phase 9;
   9. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
@@ -310,6 +324,7 @@ import dataclasses
 import json
 import math
 import os
+import queue
 import re
 import subprocess
 import sys
@@ -483,6 +498,13 @@ TUNE_MATMULS = ((1024, 1024, 1024), (4096, 4096, 4096))
 TUNE_RMSNORM = (8192, 1600)
 #: the kernel tuners' best-of count (CUDA-event windows a candidate)
 TUNE_ITERS = 10
+#: phase 8i: yi-6b, whose 32/4 heads, d_ff 11 008 and vocabulary 64 000 a
+#: 2-wide ``model`` axis divides (every split of the Megatron layout), on
+#: a (1, 2) mesh of two processes sharing the card over gloo (NCCL
+#: refuses two ranks on one device); the ranks' group timeout, seconds
+TP_ARCH, TP_MESH, TP_TIMEOUT = "yi-6b", (1, 2), 600
+#: each phase 8i rank's progress (and, if it hangs, its threads' stacks)
+TP_LOG = os.path.join(ROOT, "chiprun_out", "chip_smoke_tp_rank{rank}.log")
 #: the kernels the hybrid serving path launches
 MODEL_PATH_KERNELS = ["rmsnorm_2d", "rope_3d", "flash_attention_3d",
                       "ssd_intra", "vecadd_2d"]
@@ -1922,7 +1944,8 @@ def teacher_forced(model, params: dict, prompts: np.ndarray,
     for i in range(tokens.shape[1]):
         lg, cache = model.decode(params, tok[:, i], pos + i, cache)
         logits.append(lg)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     return logits, nbytes
 
 
@@ -1931,6 +1954,41 @@ def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     d, b = (a - b).double(), b.double()
     scale = float(b.pow(2).mean().sqrt())
     return float(d.pow(2).mean().sqrt()) / scale, scale
+
+
+def logits_gates(logits: list, ref_logits: list, rtol: float, ref: str,
+                 failures: list) -> tuple:
+    """``model_phase``'s gates of each step's logits against ``ref``'s,
+    the same inputs: the relative RMS within ``rtol``, and each greedy
+    token equal to the reference's unless the reference's top two logits
+    stand within ``rtol`` times the RMS of its logits (a near-tie).  A
+    failed gate is appended to ``failures``.  Returns (relative RMS, max
+    abs difference, token agreement, near-tie rows, differing tokens),
+    each a step."""
+    rel_rms, max_abs, agree, ties, differ = [], [], [], [], []
+    for step, (a, b) in enumerate(zip(logits, ref_logits)):
+        rms, scale = _rel_rms(a, b)
+        rel_rms.append(rms)
+        max_abs.append(float((a - b).abs().max()))
+        same = a.argmax(-1) == b.argmax(-1)
+        agree.append(float(same.double().mean()))
+        top2 = b.double().topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        tie = rtol * scale
+        ties.append(int((margin <= tie).sum()))
+        for row in torch.nonzero(~same).flatten().tolist():
+            differ.append({"step": step, "row": row,
+                           "plain_margin": float(margin[row]),
+                           "near_tie_margin": tie,
+                           "near_tie": bool(margin[row] <= tie)})
+    if max(rel_rms) > rtol:
+        failures.append(f"logits {max(rel_rms)} (relative RMS) from the "
+                        f"{ref}, above {rtol}")
+    beyond = [t for t in differ if not t["near_tie"]]
+    if beyond:
+        failures.append(f"greedy tokens differ from the {ref}'s beyond a "
+                        f"near-tie: {beyond}")
+    return rel_rms, max_abs, agree, ties, differ
 
 
 def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
@@ -2017,31 +2075,10 @@ def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
         if any(_build.launch_counts().values()):
             raise SystemExit(f"{name}: the plain path launched a kernel")
     rtol = logits_rtol(cfg)
-    rel_rms, max_abs, agree, ties, differ = [], [], [], [], []
-    for step, (a, b) in enumerate(zip(logits, ref_logits)):
-        rms, scale = _rel_rms(a, b)
-        rel_rms.append(rms)
-        max_abs.append(float((a - b).abs().max()))
-        same = a.argmax(-1) == b.argmax(-1)
-        agree.append(float(same.double().mean()))
-        top2 = b.double().topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        tie = rtol * scale
-        ties.append(int((margin <= tie).sum()))
-        for row in torch.nonzero(~same).flatten().tolist():
-            differ.append({"step": step, "row": row,
-                           "plain_margin": float(margin[row]),
-                           "near_tie_margin": tie,
-                           "near_tie": bool(margin[row] <= tie)})
-    if max(rel_rms) > rtol:
-        failures.append(f"logits {max(rel_rms)} (relative RMS) from the "
-                        f"plain path, above {rtol}")
+    rel_rms, max_abs, agree, ties, differ = logits_gates(
+        logits, ref_logits, rtol, "plain path", failures)
     plain_tokens = torch.stack([lg.argmax(-1) for lg in ref_logits[:-1]],
                                dim=1).cpu().numpy()
-    beyond = [t for t in differ if not t["near_tie"]]
-    if beyond:
-        failures.append(f"greedy tokens differ from the plain path's "
-                        f"beyond a near-tie: {beyond}")
     if failures:
         raise SystemExit(f"{name}: " + "; ".join(failures))
     decode_ms = trace["decode_ms"]
@@ -2688,6 +2725,273 @@ def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
             "card": card_line()}
 
 
+def tp_collectives(cfg, gen: int) -> dict:
+    """The collectives of one ``serve_batch`` on a mesh whose ``model``
+    axis splits every head, hidden column and vocabulary row (and a data
+    axis of 1): a pass (the prefill and each decode step) all-reduces the
+    embedding's masked rows, each layer's attention output and MLP
+    output (``wo``'s and ``w_down``'s partial sums), and the greedy pick
+    its best logit and then its index -- (1 + gen)(2L + 3) all-reduces,
+    nothing else."""
+    return {"all_reduce": (1 + gen) * (2 * cfg.n_layers + 3)}
+
+
+def vocab_gathered(logits, mesh) -> torch.Tensor:
+    """Logits split over ``model`` by vocabulary, whole on the host: each
+    rank's shard moved to the host and all-gathered there (gloo's
+    all-gather of CUDA tensors kills the process in torch 2.11; its
+    all-reduce, all the serve needs, works)."""
+    import torch.distributed as dist
+    local = logits.to_local().cpu()
+    parts = [torch.empty_like(local)
+             for _ in range(mesh.size(sharding.model_dim(mesh)))]
+    dist.all_gather(parts, local, group=mesh.get_group("model"))
+    return torch.cat(parts, dim=-1)
+
+
+def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
+            device: str, out) -> None:
+    """One rank of phase 8i: join the gloo group, place ``cfg``'s random
+    weights (seed SEED) on the (1, 2) mesh by ``params_specs``, serve
+    twice through ``serve_batch`` under ``mesh_context`` (the launches,
+    collectives, tokens and logits of each); rank 0 then serves the same
+    weights without a mesh (timed) and teacher-forces them with the mesh
+    serve's tokens.  Puts (rank, True, result) or (rank, False, the
+    traceback) on ``out``."""
+    import datetime
+    import faulthandler
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    os.makedirs(os.path.dirname(TP_LOG), exist_ok=True)
+    log = open(TP_LOG.format(rank=rank), "w")
+    # a rank that hangs writes every thread's stack to its log
+    faulthandler.enable(file=log)
+    faulthandler.dump_traceback_later(TP_TIMEOUT - 60, file=log)
+    t0 = time.perf_counter()
+
+    def note(msg: str) -> None:
+        log.write(f"{time.perf_counter() - t0:9.3f} s  {msg}\n")
+        log.flush()
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+        note("group joined")
+        mesh = mesh_mod.make_mesh(TP_MESH, ("data", "model"), devices=device)
+        note(f"mesh {mesh}")
+        model = build(cfg)
+        full = model.init(torch.Generator(device=device).manual_seed(SEED))
+        params = elastic.place(full, mesh, sharding.params_specs(full, mesh))
+        if rank:
+            del full
+        note("weights placed")
+        rng = np.random.default_rng(SEED)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (MODEL_BATCH, prompt)).astype(np.int32)
+        with mesh_mod.mesh_context(mesh):   # warm-up, not counted
+            serve_batch(cfg, params, prompts[:, :64], gen_tokens=2,
+                        model=model)
+        note("warm-up served")
+        runs = []
+        for _ in range(2):
+            _build.reset_launch_counts()
+            trace = {}
+            with mesh_mod.mesh_context(mesh), CommDebugMode() as comm:
+                tokens = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                                     model=model, trace=trace)
+            total = _build.launch_counts()
+            pre = trace["launches_prefill"]
+            runs.append({
+                "tokens": tokens,
+                "logits": [vocab_gathered(lg, mesh) for lg in
+                           trace["logits"]],
+                "launches_prefill": {k: pre[k] for k in MODEL_PATH_KERNELS},
+                "launches_decode": {k: total[k] - pre[k]
+                                    for k in MODEL_PATH_KERNELS},
+                "sizes": _build.launch_sizes(),
+                "collectives": {str(k).split(".")[-1]: v for k, v in
+                                comm.get_comm_counts().items()},
+                "prefill_ms": trace["prefill_ms"],
+                "decode_ms": trace["decode_ms"]})
+            note(f"served: prefill {trace['prefill_ms']} ms")
+        first, second = runs
+        result = {k: first[k] for k in (
+            "tokens", "launches_prefill", "launches_decode", "sizes",
+            "collectives", "prefill_ms", "decode_ms")}
+        result["repeat_bitwise"] = bool(np.array_equal(
+            first["tokens"], second["tokens"])) and all(
+            torch.equal(a, b) for a, b in zip(first["logits"],
+                                              second["logits"]))
+        result["repeat_collectives"] = second["collectives"]
+        result["local_params"] = sum(
+            p.to_local().numel() for p in leaves(params))
+        if rank == 0:
+            plain = {}
+            result["plain_tokens"] = serve_batch(
+                cfg, full, prompts, gen_tokens=gen, model=model, trace=plain)
+            result["plain_prefill_ms"] = plain["prefill_ms"]
+            result["plain_decode_ms"] = plain["decode_ms"]
+            ref, _ = teacher_forced(model, full, prompts, first["tokens"],
+                                    device)
+            # numpy across the queue: a tensor's shared memory would go
+            # with the process
+            result["logits"] = [lg.numpy() for lg in first["logits"]]
+            result["ref_logits"] = [lg.cpu().numpy() for lg in ref]
+            if device == "cuda":
+                result["peak_memory_GB"] = \
+                    torch.cuda.max_memory_allocated() / 1e9
+        note("done")
+        dist.barrier()
+        out.put((rank, True, result))
+    except BaseException:
+        note(traceback.format_exc())
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        log.close()
+
+
+def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
+                   gen: int = MODEL_GEN, device: str = "cuda") -> tuple:
+    """Phase 8i: ``cfg`` (yi-6b at full width, random weights from seed
+    SEED) served on a (1, 2) mesh of two processes sharing the card, one
+    gloo group, its ``model`` axis splitting the attention heads (32/4 ->
+    16/2 a rank), the SwiGLU hidden dim (11 008 -> 5 504) and the
+    vocabulary (64 000 -> 32 000): ``MODEL_BATCH`` prompts of ``prompt``
+    tokens, ``gen`` greedy tokens through ``serve_batch``.  Gates against
+    the same weights served without a mesh on the card (rank 0,
+    teacher-forced with the mesh serve's tokens): the logits within
+    ``logits_rtol(cfg)`` and the tokens equal but at near-ties
+    (``logits_gates``); two mesh serves bit for bit equal on each rank;
+    each rank's launches exactly ``expected_launches``; each rank's
+    collectives (``CommDebugMode``) exactly ``tp_collectives``.  Records
+    prefill and decode ms beside the serve without a mesh.  Returns (rank
+    0's launches, the kernel sizes either rank launched, the summary)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    cfg = cfg or configs.get(TP_ARCH)
+    world = TP_MESH[0] * TP_MESH[1]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    results, errors = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=tp_rank, args=(
+            r, world, os.path.join(tmp, "store"), cfg, prompt, gen, device,
+            q)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + TP_TIMEOUT
+        try:
+            while len(results) + len(errors) < world:
+                try:
+                    rank, ok, value = q.get(timeout=5)
+                except queue.Empty:
+                    gone = [r for r, p in enumerate(procs)
+                            if not p.is_alive() and r not in results]
+                    if gone and q.empty():   # died without a word
+                        errors += [f"rank {r} exited with code "
+                                   f"{procs[r].exitcode}, no result"
+                                   for r in gone]
+                    elif time.perf_counter() > deadline:
+                        errors.append(f"no result within {TP_TIMEOUT} s")
+                    if gone or time.perf_counter() > deadline:
+                        break
+                    continue
+                (results.__setitem__(rank, value) if ok
+                 else errors.append(f"rank {rank}:\n{value}"))
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    name = f"serve on a {TP_MESH[0]}x{TP_MESH[1]} mesh ({cfg.name})"
+    if errors:
+        logs = "".join(f"\nrank {r}'s log:\n" + open(
+            TP_LOG.format(rank=r)).read()[-3000:] for r in range(world)
+            if os.path.exists(TP_LOG.format(rank=r)))
+        raise SystemExit(f"{name}: " + "\n".join(errors) + logs)
+    wall_s = time.perf_counter() - t0
+    r0 = results[0]
+    failures = []
+    rtol = logits_rtol(cfg)
+    logits = [torch.from_numpy(lg) for lg in r0["logits"]]
+    rel_rms, max_abs, agree, ties, differ = logits_gates(
+        logits, [torch.from_numpy(lg) for lg in r0["ref_logits"]], rtol,
+        "serve without a mesh", failures)
+    want_pre, want_dec = expected_launches(cfg, gen)
+    want_comm = tp_collectives(cfg, gen)
+    kernels = path_kernels(cfg)
+    for rank, r in sorted(results.items()):
+        if not r["repeat_bitwise"]:
+            failures.append(f"rank {rank}: two mesh serves differ")
+        for k in kernels:
+            if (r["launches_prefill"][k], r["launches_decode"][k]) != (
+                    want_pre[k], want_dec[k]):
+                failures.append(
+                    f"rank {rank}: {k} launched {r['launches_prefill'][k]} "
+                    f"+ {r['launches_decode'][k]}, expected {want_pre[k]} + "
+                    f"{want_dec[k]}")
+        for comm in (r["collectives"], r["repeat_collectives"]):
+            got = {k: v for k, v in comm.items() if v}
+            if got != want_comm:
+                failures.append(f"rank {rank}: collectives {got}, "
+                                f"expected {want_comm}")
+    if r0["tokens"].shape != (MODEL_BATCH, gen) or not all(
+            lg.shape == (MODEL_BATCH, cfg.vocab_size)
+            and bool(torch.isfinite(lg).all()) for lg in logits):
+        failures.append("bad tokens or non-finite logits")
+    if failures:
+        raise SystemExit(f"{name}: " + "; ".join(failures))
+    sizes = {k: set().union(*(r["sizes"][k] for r in results.values()))
+             for k in MODEL_PATH_KERNELS}
+    summary = {
+        "phase": name, "arch": cfg.name, "mesh": "x".join(map(str, TP_MESH)),
+        "ranks": world, "backend": "gloo", "device": device,
+        "heads_per_rank": [cfg.n_heads // TP_MESH[1],
+                           cfg.n_kv_heads // TP_MESH[1]],
+        "d_ff_per_rank": cfg.d_ff // TP_MESH[1],
+        "vocab_per_rank": cfg.vocab_size // TP_MESH[1],
+        "local_params": [results[r]["local_params"] for r in sorted(results)],
+        "batch": MODEL_BATCH, "prompt": prompt, "gen_tokens": gen,
+        "prefill_ms": r0["prefill_ms"],
+        "prefill_ms_no_mesh": r0["plain_prefill_ms"],
+        "decode_ms_per_token": float(np.median(r0["decode_ms"])),
+        "decode_ms_per_token_no_mesh": float(np.median(
+            r0["plain_decode_ms"])),
+        "rank1_prefill_ms": results[1]["prefill_ms"],
+        "rank1_decode_ms_per_token": float(np.median(
+            results[1]["decode_ms"])),
+        "logits_rel_rms_vs_no_mesh": rel_rms,
+        "logits_rel_rms_max": max(rel_rms), "logits_rtol": rtol,
+        "logits_max_abs_diff": max_abs, "greedy_agreement": agree,
+        "tokens_differing": differ, "near_tie_rows": sum(ties),
+        "tokens_equal_free_running_no_mesh": bool(np.array_equal(
+            r0["tokens"], r0["plain_tokens"])),
+        "tokens_first_row": r0["tokens"][0].tolist(),
+        "repeat_bitwise": True,
+        "launches_prefill": r0["launches_prefill"],
+        "launches_decode": r0["launches_decode"],
+        "collectives": r0["collectives"], "collectives_expected": want_comm,
+        "peak_memory_GB_rank0": r0.get("peak_memory_GB"),
+        "wall_s": wall_s}
+    if device == "cuda":
+        summary["card"] = card_line()
+    launches = {k: r0["launches_prefill"][k] + r0["launches_decode"][k]
+                for k in MODEL_PATH_KERNELS}
+    return launches, sizes, summary
+
+
 def plain_backward_case(name: str, shape: tuple, dtype: torch.dtype,
                         rng: np.random.Generator, *, window=None) -> dict:
     """The plain vjp ``kernels.grad`` runs for ``name`` at a training
@@ -3207,6 +3511,9 @@ def main() -> int:
     emit(summary)
     del gweights
     torch.cuda.empty_cache()
+    # phase 8i: yi-6b split over a 2-wide model axis, two processes
+    tp_counts, tp_sizes, summary = tp_serve_phase()
+    emit(summary)
     whisper_counts, whisper_sizes, summary = model_phase(
         configs.get(WHISPER_ARCH), prompt=WHISPER_FRAMES)
     emit(summary)
@@ -3557,13 +3864,37 @@ def main() -> int:
                                    (TRAIN_MICRO * TRAIN_SEQ, 1600), bf16,
                                    rng))
     train_rows["vecadd_2d"] = row
+    # ... and phase 8i's ranks: yi-6b's 32/4 heads of 128 split over a
+    # 2-wide model axis (16 query and 2 kv heads a rank, a GQA group of
+    # 8), no window, d = 4096 (norms and residual adds on whole rows)
+    ycfg, tp = configs.get(TP_ARCH), TP_MESH[1]
+    yq, ykv = MODEL_BATCH * ycfg.n_heads // tp, \
+        MODEL_BATCH * ycfg.n_kv_heads // tp
+    yhd, yd = ycfg.head_dim, ycfg.d_model
+    yi_tp = {}
+    for name, shape, size, pos0 in (
+            ("rmsnorm_2d", (MODEL_BATCH, yd), "yi-6b mesh decode", 0),
+            ("rmsnorm_2d", (rows_n, yd), "yi-6b mesh prefill", 0),
+            ("rope_3d", (ykv, 1, yhd), "yi-6b mesh decode k", last),
+            ("rope_3d", (yq, 1, yhd), "yi-6b mesh decode q", last),
+            ("rope_3d", (ykv, MODEL_PROMPT, yhd), "yi-6b mesh prefill k", 0),
+            ("rope_3d", (yq, MODEL_PROMPT, yhd), "yi-6b mesh prefill q", 0),
+            ("flash_attention_3d", (yq, ykv, MODEL_PROMPT, yhd),
+             "yi-6b mesh prefill", 0)):
+        yi_tp.setdefault(name, {})[size] = model_case(
+            name, shape, bf16, rng, size, window=ycfg.window, pos0=pos0)
+    for shape, size in (((MODEL_BATCH, yd), "yi-6b mesh decode residual add"),
+                        ((rows_n, yd), "yi-6b mesh prefill residual add")):
+        yi_tp.setdefault("vecadd_2d", {})[size] = eager_case(
+            "vecadd_2d", shape, bf16, rng, size)
     # every size the serves and the training launched a kernel with was
     # checked above
     checked = _build.launch_sizes()
     served_sizes = {HYMBA_ARCH: hymba_sizes, GRANITE_ARCH: granite_sizes,
                     f"{GRANITE_ARCH} int8 KV cache": int8_sizes,
                     WHISPER_ARCH: whisper_sizes, VLM_ARCH: vlm_sizes,
-                    f"{HYMBA_ARCH} training": train_sizes}
+                    f"{HYMBA_ARCH} training": train_sizes,
+                    f"{TP_ARCH} on a 1x2 mesh": tp_sizes}
     for arch, served in served_sizes.items():
         for name in MODEL_PATH_KERNELS:
             missed = served[name] - checked[name]
@@ -3621,6 +3952,7 @@ def main() -> int:
                         "launches_granite_int8": int8_counts[name],
                         "launches_whisper": whisper_counts[name],
                         "launches_internvl2": vlm_counts[name],
+                        "launches_yi_mesh_rank0": tp_counts.get(name, 0),
                         "launches_train": train_counts[name],
                         "launches_scene": scene_counts[name],
                         "launches_chaos_soak": soak_counts[name],
@@ -3663,7 +3995,8 @@ def main() -> int:
         kernels[list(KERNELS).index(name)]["granite"]["launches"] = \
             granite_counts[name]
     for arch, timed, counts_arch in (("whisper", whisper, whisper_counts),
-                                     ("internvl2", internvl2, vlm_counts)):
+                                     ("internvl2", internvl2, vlm_counts),
+                                     ("yi_mesh_rank0", yi_tp, tp_counts)):
         for name, by_size in timed.items():
             kernels[list(KERNELS).index(name)][arch] = {
                 "launches": counts_arch[name],

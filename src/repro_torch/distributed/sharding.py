@@ -24,7 +24,16 @@ cache *length* dim does (sequence-sharded decode).
 and off a mesh; on a DTensor it redistributes to the named placements.
 ``gathered`` is the ZeRO-3 use of a parameter: its DTensor redistributed
 to whole on every rank, whose backward reduces the gradient back to the
-parameter's shards.
+parameter's shards; ``gathered(keep_model=True)`` is the Megatron use:
+the leaf gathered over the fsdp axes only, a col or row leaf keeping
+its ``model`` shard.  ``tp_block`` runs a block's body on every rank's
+local shards -- its heads, its hidden columns -- in plain tensors (the
+split products GSPMD makes of the reference's specs) and then the one
+all-reduce over ``model`` of its row product's partial sums.  Where the
+batch does not split over the fsdp axes (a batch-1 decode) and no
+gradient is recorded, the fsdp axes split the block's contractions
+instead, as XLA splits the reference's products there
+(``contraction_split``, ``col_product``).
 """
 from __future__ import annotations
 
@@ -321,16 +330,237 @@ def whole(x):
     return x.redistribute(x.device_mesh, want)
 
 
-def gathered(tree):
-    """Every DTensor leaf of a parameter tree gathered for use
-    (``whole``): the ZeRO-3 all-gather, whose backward reduce-scatters
-    the gradient to the leaf's shards.  A tree of plain tensors comes
-    back as it is."""
+def gathered(tree, *, keep_model: bool = False, keep_fsdp: bool = False):
+    """Every DTensor leaf of a parameter tree gathered for use: whole by
+    default, the ZeRO-3 all-gather.  ``keep_model``: a leaf split over
+    ``model`` keeps that split (a col leaf's output columns, a row leaf's
+    input rows, a table's vocabulary rows), gathered over the fsdp axes
+    only -- the Megatron use.  ``keep_fsdp``: a split over the fsdp axes
+    is kept too, for a block whose contractions the fsdp axes split
+    (``contraction_split``).  The backward reduce-scatters the gradient
+    to the leaf's shards over the axes gathered.  A tree of plain tensors
+    comes back as it is."""
     if isinstance(tree, dict):
-        return {k: gathered(v) for k, v in tree.items()}
+        return {k: gathered(v, keep_model=keep_model, keep_fsdp=keep_fsdp)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(gathered(v) for v in tree)
-    return whole(tree)
+        return type(tree)(gathered(v, keep_model=keep_model,
+                                   keep_fsdp=keep_fsdp) for v in tree)
+    if not is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate
+    mesh = tree.device_mesh
+    j = model_dim(mesh)
+    want = tuple(p if p.is_shard() and (keep_model if i == j else keep_fsdp)
+                 else Replicate() for i, p in enumerate(tree.placements))
+    if tuple(tree.placements) == want:
+        return tree
+    return tree.redistribute(mesh, want)
+
+
+def model_dim(mesh) -> int | None:
+    """The index of the ``model`` mesh dim, or None."""
+    names = mesh.mesh_dim_names
+    return names.index("model") if "model" in names else None
+
+
+def model_width(mesh=None) -> int:
+    """The ``model`` axis size of ``mesh`` (the ambient one by default; 1
+    off a mesh or without the axis)."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    j = None if mesh is None else model_dim(mesh)
+    return 1 if j is None else mesh.size(j)
+
+
+def split_on_model(t) -> bool:
+    """Whether ``t`` is a DTensor split along some dim over a ``model``
+    axis wider than 1 (a col or row leaf ``gathered`` with
+    ``keep_model``, a vocabulary-split logit)."""
+    if not is_dtensor(t):
+        return False
+    j = model_dim(t.device_mesh)
+    return j is not None and t.device_mesh.size(j) > 1 \
+        and t.placements[j].is_shard()
+
+
+def with_model(where: tuple, mesh, placement) -> tuple:
+    """``where`` (placements) with ``placement`` on the ``model`` dim."""
+    j = model_dim(mesh)
+    return tuple(placement if i == j else p for i, p in enumerate(where))
+
+
+def rows_of(t, mesh) -> tuple:
+    """Placements for a tensor split on its batch dim as ``t`` is (a
+    DTensor: its splits over the fsdp dims; a plain tensor: whole), whole
+    on ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    j = model_dim(mesh)
+    if not is_dtensor(t):
+        return (Replicate(),) * mesh.ndim
+    return tuple(Replicate() if i == j or not p.is_shard()
+                 else Shard(p.dim) for i, p in enumerate(t.placements))
+
+
+def model_offset(t, dim: int) -> int:
+    """This rank's first global index along ``dim`` of a DTensor split
+    along ``dim`` over ``model`` alone (a vocabulary-split table or
+    logit)."""
+    j = model_dim(t.device_mesh)
+    return t.device_mesh.get_coordinate()[j] * t.to_local().shape[dim]
+
+
+def tp_map(fn, args: tuple, where: tuple, out_where):
+    """``fn(*args)`` on every rank's local shards, in plain tensors: a
+    block's body at its ``model``-local shapes.
+
+    ``args`` are tensors or dicts of tensors.  ``where[i]`` is the
+    placements every DTensor leaf of ``args[i]`` is redistributed to
+    first (a plain leaf is placed whole and then so), or None to take
+    the leaves as they are (a plain leaf is used as it is, the same on
+    every rank).  Each DTensor leaf's gradient comes back split where the
+    leaf is and partial on every other mesh dim that some argument
+    splits (its local use was one part of a split computation).
+    ``out_where`` is the placements of the output (a tensor):
+    ``Partial()`` on ``model`` for a row product's partial sum
+    (``whole_on_model`` reduces it), ``Shard(d)`` for a split output."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.utils import _pytree as pytree
+    flat, spec = pytree.tree_flatten(list(args))
+    # the top-level argument of each flat leaf
+    owner = []
+    for i, a in enumerate(args):
+        owner += [i] * len(pytree.tree_leaves(a))
+    mesh = next(t.device_mesh for t in flat if isinstance(t, DTensor))
+    placed = []
+    for t, i in zip(flat, owner):
+        want = where[i]
+        if isinstance(t, torch.Tensor) and want is not None:
+            if not isinstance(t, DTensor):
+                t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                       run_check=False)
+            if tuple(t.placements) != tuple(want):
+                t = t.redistribute(mesh, tuple(want))
+        placed.append(t)
+    split = [any(isinstance(t, DTensor) and t.placements[j].is_shard()
+                 for t in placed) for j in range(mesh.ndim)]
+    local = []
+    for t in placed:
+        if isinstance(t, DTensor):
+            grads = tuple(p if p.is_shard() else
+                          Partial() if split[j] else Replicate()
+                          for j, p in enumerate(t.placements))
+            t = t.to_local(grad_placements=grads)
+        local.append(t)
+    out = fn(*pytree.tree_unflatten(local, spec))
+    return _from_local(out.contiguous(), mesh, tuple(out_where))
+
+
+#: the running ``tp_block`` bodies whose col products the fsdp axes
+#: split: (mesh, the fsdp mesh dims), innermost last
+_CONTRACTING: list = []
+
+
+def fsdp_dims(mesh) -> tuple:
+    """The fsdp mesh dims (every dim but ``model``) wider than 1."""
+    j = model_dim(mesh)
+    return tuple(i for i in range(mesh.ndim) if i != j and mesh.size(i) > 1)
+
+
+def split_on_fsdp(t) -> bool:
+    """Whether ``t`` is a DTensor split over an fsdp axis wider than 1."""
+    return is_dtensor(t) and any(t.placements[i].is_shard()
+                                 for i in fsdp_dims(t.device_mesh))
+
+
+def contraction_split(x) -> bool:
+    """Whether the fsdp axes split the dense contractions of a block fed
+    ``x`` instead of its batch: no gradient recorded, a DTensor ``x``
+    whole over fsdp axes wider than 1 (a batch they do not divide: a
+    batch-1 decode).  The reference's XLA keeps its col and row leaves'
+    fsdp shards there and splits their products; gathering them would
+    repeat each product on every fsdp rank."""
+    if torch.is_grad_enabled() or not is_dtensor(x):
+        return False
+    dims = fsdp_dims(x.device_mesh)
+    return bool(dims) and not any(x.placements[i].is_shard() for i in dims)
+
+
+def col_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; inside a ``tp_block`` body whose contractions the fsdp
+    axes split, x and w hold this rank's slice of the contracted dim and
+    the partial products are summed over those axes (functional
+    all-reduces)."""
+    y = x @ w
+    if _CONTRACTING:
+        from torch.distributed import _functional_collectives as funcol
+        mesh, dims = _CONTRACTING[-1]
+        for i in dims:
+            y = funcol.all_reduce(y, "sum", (mesh, i))
+            y = y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) \
+                else y
+    return y
+
+
+def tp_block(body, params: dict, x, *, rows_like=None, extra=(),
+             split_out=None):
+    """``body(params, x, *extra tensors)`` on each rank's shard of a block
+    whose col and row leaves are split over ``model`` (and over the fsdp
+    axes where ``contraction_split``): x whole on ``model``, split on its
+    batch as ``rows_like`` is (x itself by default; a cache when the
+    block writes one), ``extra`` (tensor tree, placements) pairs placed
+    so.  By default the body ends in a row product: its partial sums
+    over ``model`` are all-reduced (and, with the contraction split, its
+    slices of d gathered over fsdp) and the output comes back on x's
+    rows.  ``split_out``: the output's placement on ``model`` instead (a
+    col product's heads or vocabulary), kept as it is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    w = next(v for v in params.values() if is_dtensor(v))
+    mesh = w.device_mesh
+    rows = rows_of(x if rows_like is None else rows_like, mesh)
+    out = with_model(rows, mesh, split_out if split_out is not None else
+                     Partial() if split_on_model(w) else Replicate())
+    x_where, dims = rows, ()
+    if split_on_fsdp(w):
+        dims = fsdp_dims(mesh)
+        last = Shard(x.dim() - 1)
+        x_where = tuple(last if i in dims else p for i, p in enumerate(rows))
+        if split_out is None:    # the row product's slices of d
+            out = tuple(last if i in dims else p for i, p in enumerate(out))
+        _CONTRACTING.append((mesh, dims))
+    try:
+        y = tp_map(body, (params, x, *(t for t, _ in extra)),
+                   (None, x_where, *(p for _, p in extra)), out)
+    finally:
+        if dims:
+            _CONTRACTING.pop()
+    if split_out is not None:
+        return y
+    return y.redistribute(mesh, rows) if tuple(y.placements) != rows else y
+
+
+def whole_on_model(y):
+    """``y`` whole over ``model``, its other placements kept: a partial
+    result reduced -- the one all-reduce (sum, or the partial's own op) a
+    row product needs, GSPMD's -- or a split gathered.  A plain tensor
+    comes back as it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate
+    mesh = y.device_mesh
+    return y.redistribute(mesh, with_model(tuple(y.placements), mesh,
+                                           Replicate()))
+
+
+def replicate_as(t: torch.Tensor, like) -> torch.Tensor:
+    """A plain tensor computed alike on every rank (a position table),
+    as a whole DTensor on ``like``'s mesh when ``like`` is a DTensor, so
+    the two can meet in one op; otherwise ``t`` itself."""
+    if not is_dtensor(like) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
 
 
 def on_shards(fn, x, whole: tuple):

@@ -2,13 +2,15 @@
 
 Backend dispatch per ``repro_torch.kernels.dispatch``: a CUDA tensor
 launches ``flash_attention_3d``, a CPU tensor (or ``backend="ref"``)
-runs its plain version.  Serving's plain version is the kernel's
-function (``ref.flash_attention``).  A call that autograd records is
-the training path: the plain version is then the JAX ``ref`` backend's
-differentiable attention (``ref.autodiff_attention``: banded for a
-sliding window, else blockwise over ``block_kv`` keys), and a CUDA call
-launches the kernel through ``kernels.grad.FlashAttention``, whose
-backward is that attention's vjp.
+runs its plain version: the JAX ``ref`` backend's route
+(``ref.autodiff_attention``: banded for a causal sliding window from
+position 0, else blockwise over ``block_kv`` keys), with or without
+autograd, so the CPU path and the dry-run do the products the
+reference's do.  The kernel's own function (``ref.flash_attention``)
+stays the plain version the kernel is held against.  A call that
+autograd records is the training path: a CUDA call launches the kernel
+through ``kernels.grad.FlashAttention``, whose backward is the
+``ref`` route's vjp.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Scaled dot-product attention, GQA-aware (Hq may exceed Hkv):
     ``causal`` masks with ``q_offset`` placing the queries in the
     sequence, ``window`` keeps the last ``window`` keys of each query,
-    ``block_kv`` sets the training path's KV block.  On DTensors the
+    ``block_kv`` sets the plain route's KV block.  On DTensors the
     kernel runs on the local batch rows, every other dim (the keys it
     reduces over among them) made whole."""
     if sharding.any_dtensor(q, k, v):
@@ -43,14 +45,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     be = dispatch.backend_for(q.device, backend)
     train = grad.wanted(q, k, v)
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset)
-    if be == "ref" and train:
+    if be == "ref":
         return ref.autodiff_attention(q, k, v, block_kv=block_kv, **kw)
 
     def kernel(q, k, v):
-        fn = ref.flash_attention if be == "ref" else K.flash_attention_3d
-        out = fn(q.contiguous().reshape(b * hq, s, d),
-                 k.contiguous().reshape(b * hkv, t, d),
-                 v.contiguous().reshape(b * hkv, t, d), **kw)
+        out = K.flash_attention_3d(q.contiguous().reshape(b * hq, s, d),
+                                   k.contiguous().reshape(b * hkv, t, d),
+                                   v.contiguous().reshape(b * hkv, t, d),
+                                   **kw)
         return out.reshape(b, hq, s, d)
     if train:
         return grad.FlashAttention.apply(

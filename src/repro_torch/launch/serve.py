@@ -18,7 +18,11 @@ zero patch embeddings in place of the vision frontend) and enc-dec
 internvl2-76b's 141 GB of bfloat16 weights need more than one card, so
 this one-card launcher serves them only ``--reduced``; on a mesh their
 parameters and cache are placed by ``distributed.sharding``'s rules
-(``launch.dryrun`` records what one card of the 16x16 mesh holds).  The default
+(``launch.dryrun`` records what one card of the 16x16 mesh holds).
+``serve_batch`` given parameters placed on a mesh (DTensors, under
+``mesh_context``) places the prompts and the cache by the same rules
+and decodes greedily over the vocabulary split over ``model``
+(``layers.greedy``); its tokens come back whole on every rank.  The default
 ``--arch`` is mamba2-130m, as in the JAX launcher.  Without
 ``--device cpu`` it runs on the GPU and raises when there is none.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0.
@@ -32,8 +36,10 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.distributed import elastic, sharding
 from repro_torch.kernels import _build, dispatch
 from repro_torch.models import build
+from repro_torch.models.layers import greedy
 
 
 class _Clock:
@@ -106,6 +112,12 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
                              device=dev)
     batch, pos, enc_len = serve_inputs(cfg, tokens)
     cache = model.init_cache(b, s + gen_tokens, enc_len, device=dev)
+    mesh = sharding.ambient_mesh()
+    if mesh is not None and sharding.is_dtensor(params["embed"]):
+        batch = elastic.place(batch, mesh, sharding.batch_specs(
+            batch, mesh, accum_dim=False))
+        cache = elastic.place(cache, mesh, sharding.cache_specs(
+            cache, cfg, mesh))
     clock = _Clock(dev)
     logits_seen = []
 
@@ -116,15 +128,18 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
         trace["launches_prefill"] = _build.launch_counts()
     logits_seen.append(logits)
     out = []
-    tok = torch.argmax(logits, dim=-1)
+    tok = greedy(logits)
     for i in range(gen_tokens):
         out.append(tok)
         t0 = clock.start()
         logits, cache = model.decode(params, tok, pos + i, cache)
         clock.stop(t0)
         logits_seen.append(logits)
-        tok = torch.argmax(logits, dim=-1)
-    gen = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        tok = greedy(logits)
+    gen = torch.stack(out, dim=1)
+    if sharding.is_dtensor(gen):
+        gen = gen.full_tensor()
+    gen = gen.to(torch.int32).cpu().numpy()
     if trace is not None:
         ms = clock.ms()
         trace.update(prefill_ms=ms[0], decode_ms=ms[1:], logits=logits_seen,

@@ -24,6 +24,21 @@ DTensor, takes each write on the rank whose shard holds the slot:
 int8 keys and values with a float32 scale a (slot, head)
 (``kv_cache_dtype="int8"``); an int8 ring raises
 ``errors.Int8RingCacheError``, as the JAX package cannot decode one.
+
+On a mesh whose ``model`` axis splits ``wq``/``wk``/``wv`` by columns and
+``wo`` by rows (``blocks.for_use`` keeps the split when ``model`` divides
+both head counts), every entry mode runs Megatron's split: one
+``sharding.tp_block`` a call, plain tensors inside, ``_qkv``, RoPE, the
+flash kernel and ``_merge_heads`` at the rank's n_heads/tp query and
+n_kv_heads/tp kv heads (read off the local weights' widths, so the GQA
+group is unchanged), ``wo``'s local product a partial sum reduced over
+``model`` once.  The prefill and the decode read and write the rank's
+shard of the head-split cache that ``sharding.cache_specs`` lays out --
+exactly its local heads -- in place.  Where the batch does not split
+over the fsdp axes (a batch-1 decode), the projections also keep their
+fsdp shards and the fsdp axes split their contracted dim
+(``sharding.col_product``).  Where a head count does not divide, the
+weights come whole over ``model`` and the DTensor ops run as they are.
 """
 from __future__ import annotations
 
@@ -31,6 +46,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import write_at
 from repro_torch.errors import Int8RingCacheError
 from repro_torch.kernels import attention as k_attention
@@ -64,11 +80,22 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def _heads(w: torch.Tensor, cfg: ModelConfig) -> int:
+    """The heads of a (d, H*D) projection: all of them, or a rank's."""
+    return w.shape[-1] // cfg.head_dim
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    return _split_heads(sharding.col_product(x, w), _heads(w, cfg),
+                        cfg.head_dim)
+
+
 def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor, use_rope: bool):
-    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q = _proj_heads(x, params["wq"], cfg)
+    k = _proj_heads(x, params["wk"], cfg)
+    v = _proj_heads(x, params["wv"], cfg)
     if use_rope:
         cos, sin = rope_ref.rope_tables(positions, cfg.head_dim,
                                         cfg.rope_theta, torch.float32)
@@ -81,11 +108,41 @@ def _qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 # full-sequence attention (the encoder) and cross-attention
 # ---------------------------------------------------------------------------
 
+def _split(params: dict) -> bool:
+    """Whether the projections are split over ``model`` by heads (or over
+    the fsdp axes by their contracted dim)."""
+    w = params["wk"]
+    return sharding.split_on_model(w) or sharding.split_on_fsdp(w)
+
+
+def _heads_where(like, mesh) -> tuple:
+    """Placements of a (B, H, T, D) tensor split by heads over ``model``
+    and on its batch as ``like``."""
+    from torch.distributed.tensor import Shard
+    return sharding.with_model(sharding.rows_of(like, mesh), mesh, Shard(1))
+
+
+def _local_cache(cache: dict) -> dict:
+    """The rank's shard of a head-split cache (its batch rows and kv
+    heads; ``kpos`` whole), views the local body writes in place."""
+    if not all(sharding.is_dtensor(v) and not any(
+            p.is_shard() and p.dim > 1 for p in v.placements)
+            for v in cache.values()):
+        raise ValueError("attention on local shards needs its cache placed "
+                         "by sharding.cache_specs, split by batch and kv "
+                         "heads only")
+    return {k: v.to_local() for k, v in cache.items()}
+
+
 def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
            causal: bool = True, block_kv: int = 4096) -> torch.Tensor:
     """x (B, S, d) attending over itself without a cache -> (B, S, d);
     ``causal=False`` for the enc-dec encoder; ``block_kv`` is the
     training path's KV block (the JAX package's default)."""
+    if _split(params):
+        return sharding.tp_block(
+            lambda p, h: attend(p, h, cfg, causal=causal, block_kv=block_kv),
+            params, x)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
@@ -98,16 +155,31 @@ def cross_attend(params: dict, x: torch.Tensor, kv_cache: dict,
                  cfg: ModelConfig) -> torch.Tensor:
     """Decoder cross-attention: x (B, S, d) against the encoder's k/v
     (B, Hkv, T, D) of ``encode_kv``, unmasked -> (B, S, d)."""
-    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
+    if _split(params):
+        like = kv_cache["k"] if sharding.is_dtensor(kv_cache["k"]) else x
+        return sharding.tp_block(
+            lambda p, h, kv: cross_attend(p, h, kv, cfg), params, x,
+            rows_like=like, extra=((kv_cache, _heads_where(
+                like, params["wq"].device_mesh)),))
+    q = _proj_heads(x, params["wq"], cfg)
     out = k_attention(q, kv_cache["k"], kv_cache["v"], causal=False)
     return _merge_heads(out) @ params["wo"]
 
 
 def encode_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
     """The cross-attention keys and values of the encoder output
-    (B, T, d): {"k", "v"} of (B, Hkv, T, D), once a prefill."""
-    k = _split_heads(enc_out @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(enc_out @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
+    (B, T, d): {"k", "v"} of (B, Hkv, T, D), once a prefill (split by
+    heads over ``model`` with the projections)."""
+    if _split(params):
+        from torch.distributed.tensor import Replicate, Shard
+        heads = Shard(1) if sharding.split_on_model(params["wk"]) \
+            else Replicate()
+        return {name: sharding.tp_block(
+            lambda p, h: _proj_heads(h, p["w"], cfg), {"w": params[w]},
+            enc_out, split_out=heads) for name, w in (("k", "wk"),
+                                                      ("v", "wv"))}
+    k = _proj_heads(enc_out, params["wk"], cfg)
+    v = _proj_heads(enc_out, params["wv"], cfg)
     return {"k": k, "v": v}
 
 
@@ -230,13 +302,20 @@ def _cached_attention(q: torch.Tensor, cache: dict, qpos: torch.Tensor,
 
 
 def prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-            start: int = 0):
+            start: int = 0, block_kv: int = 1024):
     """Process a prompt x (B, S, d): fill the cache, return the
-    per-position outputs (B, S, d) and the cache."""
+    per-position outputs (B, S, d) and the cache; ``block_kv`` is the
+    plain path's KV block (the JAX package's prefill default)."""
+    if _split(params):
+        local = _local_cache(cache)
+        return sharding.tp_block(
+            lambda p, h: prefill(p, h, cfg, local, start, block_kv)[0],
+            params, x, rows_like=cache["k"]), cache
     b, s, _ = x.shape
     positions = torch.arange(start, start + s, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
-    out = k_attention(q, k, v, causal=True, window=cfg.window, q_offset=0)
+    out = k_attention(q, k, v, causal=True, window=cfg.window, q_offset=0,
+                      block_kv=block_kv)
     ring = cfg.window is not None and cache["kpos"].shape[0] == cfg.window
     if ring:
         cache = _write_ring(cache, k, v, start, cfg.window)
@@ -250,6 +329,11 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                 pos: int):
     """One token x (B, 1, d) at absolute position ``pos``: writes slot
     ``pos % window`` of a ring (``pos`` of a linear cache) and attends."""
+    if _split(params):
+        local = _local_cache(cache)
+        return sharding.tp_block(
+            lambda p, h: decode_step(p, h, cfg, local, pos)[0],
+            params, x, rows_like=cache["k"]), cache
     positions = torch.tensor([pos], device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
     window = cfg.window

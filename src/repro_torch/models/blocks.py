@@ -29,11 +29,23 @@ mask): the same mixers as prefill for every family -- an SSM layer's
 norm and SSD mixer, a hybrid layer's two branches and their
 ``0.5 * (norm + norm)`` delta -- and, given ``cross_kv`` (``encode_kv``
 of the encoder output), the enc-dec decoder's cross-attention.
+
+``for_use`` readies a layer's parameters on a mesh: the sub-blocks that
+split over ``model`` as the reference's specs lay them out keep their
+``model`` shards (``sharding.gathered(keep_model=True)``) -- attention
+when ``model`` divides both head counts, the SwiGLU MLP when it divides
+``d_ff`` (the leaves' sanitized specs), the MoE experts -- and the rest
+come whole: the SSM, and attention whose heads do not divide (hymba's
+25/5 heads; kv 8 on a 16-wide axis).  A batch the fsdp axes do not
+divide (a batch-1 decode) keeps attention's and the MLP's fsdp shards
+as well: the fsdp axes split their contractions, as XLA splits the
+reference's.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -73,6 +85,31 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype,
         else:
             p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype)
     return p
+
+
+def heads_split(cfg: ModelConfig, width: int) -> bool:
+    """Whether a ``model`` axis of ``width`` splits attention by heads."""
+    return width > 1 and bool(cfg.n_kv_heads) \
+        and cfg.n_heads % width == 0 and cfg.n_kv_heads % width == 0
+
+
+def for_use(p: dict, cfg: ModelConfig, x=None) -> dict:
+    """One layer's parameters gathered for use under the ambient mesh,
+    fed ``x``: attention (self and cross) whose heads ``model`` divides,
+    the MLP and the MoE experts over the fsdp axes only, keeping their
+    ``model`` shards; the rest whole.  Where the fsdp axes split the
+    contractions instead of x's batch (``sharding.contraction_split``),
+    attention and the MLP keep their fsdp shards too.  Plain tensors come
+    back as they are."""
+    width = sharding.model_width()
+    heads = heads_split(cfg, width)
+    split = ("mlp", "moe") + (("attn", "cross") if heads else ())
+    # attention's local body reads its cache whole on model or split by
+    # heads, never split by sequence
+    fsdp = ("mlp",) + (("attn", "cross") if heads or width == 1 else ()) \
+        if sharding.contraction_split(x) else ()
+    return {k: sharding.gathered(v, keep_model=k in split,
+                                 keep_fsdp=k in fsdp) for k, v in p.items()}
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):

@@ -9,6 +9,18 @@ as the JAX package leaves them to XLA outside any Pallas kernel; so is
 the add of ``sinusoidal_positions`` (whisper's positions), a plain
 ``+`` in the callers as in the reference.  ``cross_entropy`` is the
 training loss, plain torch as the reference's is plain jnp.
+
+On a mesh whose ``model`` axis splits a weight (``sharding.
+split_on_model``: the SwiGLU hidden dim, the vocabulary) the layer runs
+on each rank's shard in ``sharding.tp_map``, as GSPMD splits the
+reference's products: ``mlp`` on its local columns of ``w_gate``/
+``w_up`` and rows of ``w_down``, then one all-reduce (and with the
+fsdp axes splitting the contraction, ``sharding.contraction_split``,
+each rank's slice of d); ``embed`` a
+masked lookup of the local vocabulary rows, then one all-reduce;
+``logits_head`` the local vocabulary's logits (..., V/tp); and
+``cross_entropy`` and ``greedy`` reduce their max, sum, gold logit or
+index over ``model`` without gathering the logits.
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import vecadd as k_vecadd
 
@@ -56,19 +69,77 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` for integer ``tokens`` (any shape)."""
-    return table[tokens]
+    """Rows of ``table`` for integer ``tokens`` (any shape).  On a mesh
+    the lookup runs on each rank's tokens (``sharding.tp_map``: DTensor's
+    own ``index_put`` backward fails to propagate in some torch
+    releases); a table split over ``model`` by vocabulary rows gives each
+    rank's rows for the tokens it holds, zeros elsewhere, summed over
+    ``model`` (exact: one rank holds each row)."""
+    if not sharding.any_dtensor(table, tokens):
+        return table[tokens]
+    from torch.distributed.tensor import Partial
+    mesh = (table if sharding.is_dtensor(table) else tokens).device_mesh
+    rows = sharding.rows_of(tokens, mesh)
+    if not sharding.split_on_model(table):
+        return sharding.tp_map(lambda tab, tok: tab[tok], (table, tokens),
+                               (None, None), rows)
+    lo = sharding.model_offset(table, 0)
+
+    def local(tab, tok):
+        idx = tok - lo
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+    out = sharding.tp_map(local, (table, tokens), (None, None),
+                          sharding.with_model(rows, mesh, Partial()))
+    return sharding.whole_on_model(out)
 
 
 def logits_head(x: torch.Tensor, table: torch.Tensor,
                 softcap: float = 0.0) -> torch.Tensor:
     """x (..., d) @ table.T (V, d) -> (..., V) float32: the operands
     widened exactly to float32, so the products and their sum are float32
-    as with the JAX package's ``preferred_element_type``."""
-    out = torch.matmul(x.float(), table.float().t())
+    as with the JAX package's ``preferred_element_type``.  A table split
+    over ``model`` gives each rank its vocabulary's logits, (..., V/tp),
+    split over ``model`` on the last dim."""
+    if sharding.split_on_model(table) or sharding.split_on_fsdp(table):
+        from torch.distributed.tensor import Replicate, Shard
+        split = Shard(x.dim() - 1) if sharding.split_on_model(table) \
+            else Replicate()
+        return sharding.tp_block(
+            lambda p, a: logits_head(a, p["table"], softcap),
+            {"table": table}, x, split_out=split)
+    out = sharding.col_product(x.float(), table.float().t())
     if softcap:
         out = torch.tanh(out / softcap) * softcap
     return out
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the last dim, ties to the lowest index as
+    ``torch.argmax``; on logits split over ``model`` by vocabulary, each
+    rank's best is reduced to the global best (an all-reduce max), then
+    the lowest index holding it (an all-reduce min) -- bit for bit the
+    argmax of the gathered logits."""
+    if not sharding.split_on_model(logits):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import Partial
+    mesh = logits.device_mesh
+    lo = sharding.model_offset(logits, logits.dim() - 1)
+    vocab = logits.shape[-1]
+    rows = sharding.rows_of(logits, mesh)
+    best = sharding.whole_on_model(sharding.tp_map(
+        lambda lg: lg.amax(dim=-1), (logits,), (None,),
+        sharding.with_model(rows, mesh, Partial("max"))))
+
+    def first(lg, b):
+        at = torch.argmax(lg, dim=-1) + lo
+        return torch.where(lg.amax(dim=-1) == b, at,
+                           torch.full_like(at, vocab))
+    return sharding.whole_on_model(sharding.tp_map(
+        first, (logits, best), (None, None),
+        sharding.with_model(rows, mesh, Partial("min"))))
 
 
 # -- SwiGLU MLP ---------------------------------------------------------------
@@ -83,8 +154,18 @@ def mlp_init(generator: torch.Generator, d: int, d_ff: int, dtype) -> dict:
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """silu(x @ W_gate) * (x @ W_up) @ W_down in x's dtype."""
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    """silu(x @ W_gate) * (x @ W_up) @ W_down in x's dtype; with the hidden
+    dim split over ``model``, each rank's columns and rows, then one
+    all-reduce of the partial sums."""
+    w = params["w_gate"]
+    if sharding.split_on_model(w) or sharding.split_on_fsdp(w):
+        return sharding.tp_block(_mlp, params, x)
+    return _mlp(params, x)
+
+
+def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(sharding.col_product(x, params["w_gate"])) \
+        * sharding.col_product(x, params["w_up"])
     return h @ params["w_down"]
 
 
@@ -108,13 +189,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token-mean cross entropy in float32 with a z-loss (``z_loss *
     logsumexp**2`` a token); labels below 0 are masked out and the
     denominator is floored at 1."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp_min(0).long()[..., None])[..., 0]
+    if sharding.split_on_model(logits):
+        lse, gold = _vocab_split_lse_gold(logits.float(), labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp_min(0).long()[..., None])[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse ** 2
     mask = (labels >= 0).float()
     denom = torch.clamp_min(mask.sum(), 1.0)
     return (nll * mask).sum() / denom
+
+
+def _vocab_split_lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, the gold logit) over logits split over ``model`` by
+    vocabulary: the max (detached: the logsumexp's gradient does not
+    depend on it), the sum of exponentials and the gold logit (each rank
+    the labels in its vocabulary, zero elsewhere) reduced over
+    ``model``, as Megatron's vocabulary-parallel cross entropy."""
+    from torch.distributed.tensor import Partial
+    mesh = logits.device_mesh
+    lo = sharding.model_offset(logits, logits.dim() - 1)
+    rows = sharding.rows_of(logits, mesh)
+
+    def part(op):
+        return sharding.with_model(rows, mesh, Partial(op))
+    m = sharding.whole_on_model(sharding.tp_map(
+        lambda lg: lg.amax(dim=-1), (logits.detach(),), (None,), part("max")))
+    sumexp = sharding.whole_on_model(sharding.tp_map(
+        lambda lg, mx: torch.exp(lg - mx[..., None]).sum(dim=-1),
+        (logits, m), (None, None), part("sum")))
+
+    def gold_local(lg, y):
+        idx = y.long() - lo
+        hit = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(hit, g[..., 0], torch.zeros((), device=lg.device))
+    gold = sharding.whole_on_model(sharding.tp_map(
+        gold_local, (logits, labels.clamp_min(0)), (None, None), part("sum")))
+    return m + torch.log(sumexp), gold

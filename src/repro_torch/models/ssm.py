@@ -24,14 +24,20 @@ Differences from the JAX package, none in the function computed:
     the JAX package's ``rmsnorm_ref`` call;
   * the sharding constraints (``sharding.constrain``: no-ops off a mesh
     and on plain tensors) shard the sequence over ``model``, as the
-    reference's.
+    reference's; the products with ``in_proj`` and ``out_proj``, the
+    ``ssd_intra`` call and the inter-chunk output, which flatten the
+    (batch, sequence) rows split on both, run on each rank's local rows
+    (``sharding.local_call``), so no DTensor op flattens a doubly-split
+    dim.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, on_shards
+from repro_torch.distributed.sharding import (any_dtensor, constrain,
+                                              local_call, on_shards,
+                                              whole_on_model)
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import ssd_intra
 from repro_torch.models.config import ModelConfig
@@ -69,6 +75,32 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               for i in range(width))
     new_tail = xfull[:, -(width - 1):] if width > 1 else tail
     return F.silu(out + b[None, None].to(out.dtype)), new_tail
+
+
+def _rows_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, k) @ w (k, n); on DTensors the local rows' product, x
+    split on batch and sequence as it is and w whole."""
+    if any_dtensor(x, w):
+        return local_call(torch.matmul, (x, w), ((0, 1), ()))
+    return x @ w
+
+
+def _intra(xdt, bc, cc, cum):
+    """``ssd_intra`` over the (B, nc) chunks flattened: (y (B, nc, lc, h,
+    p), the chunk states (B, nc, h, p, n))."""
+    bsz, nc, lc, h, p = xdt.shape
+    n = bc.shape[-1]
+    y, s = ssd_intra(xdt.reshape(bsz * nc, lc, h, p),
+                     bc.reshape(bsz * nc, lc, n), cc.reshape(bsz * nc, lc, n),
+                     cum.reshape(bsz * nc, lc, h))
+    return y.reshape(bsz, nc, lc, h, p), s.reshape(bsz, nc, h, p, n)
+
+
+def _inter(cc, state_prev, cum):
+    """The chunks' outputs from the states entering them: (B, nc, lc, h,
+    p) float32."""
+    return torch.einsum("bcin,bchpn->bcihp", cc.float(), state_prev) \
+        * torch.exp(cum)[..., None]
 
 
 def _split(proj: torch.Tensor, cfg: ModelConfig):
@@ -111,11 +143,11 @@ def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk: int):
     cum = on_shards(lambda a: torch.cumsum(a, dim=2), ac, (2,))
     xdt = (xc.float() * dtc[..., None]).to(cdtype)
 
-    y_flat, s_flat = ssd_intra(
-        xdt.reshape(bsz * nc, lc, h, p), bc.reshape(bsz * nc, lc, n),
-        cc.reshape(bsz * nc, lc, n), cum.reshape(bsz * nc, lc, h))
-    y_intra = y_flat.reshape(bsz, nc, lc, h, p)
-    s_c = s_flat.reshape(bsz, nc, h, p, n)
+    if any_dtensor(xdt, bc, cc, cum):   # each rank's (B, nc) chunks
+        y_intra, s_c = local_call(_intra, (xdt, bc, cc, cum),
+                                  ((0, 1),) * 4, n_out=2)
+    else:
+        y_intra, s_c = _intra(xdt, bc, cc, cum)
 
     # -- inter-chunk: state_c = state_{c-1} * exp(cum_last_c) + S_c --------
     decays = torch.exp(cum[:, :, -1, :])[..., None, None]  # (B, nc, h, 1, 1)
@@ -125,8 +157,10 @@ def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk: int):
     states = torch.stack(states, dim=1)
     state_prev = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]],
                            dim=1)
-    y_inter = torch.einsum("bcin,bchpn->bcihp", cc.float(), state_prev) \
-        * torch.exp(cum)[..., None]
+    if any_dtensor(cc, state_prev, cum):   # each rank's (B, nc) chunks
+        y_inter = local_call(_inter, (cc, state_prev, cum), ((0, 1),) * 3)
+    else:
+        y_inter = _inter(cc, state_prev, cum)
     y = (y_intra + y_inter).reshape(bsz, sp, h, p)[:, :s]
     return y, states[:, -1]
 
@@ -137,7 +171,8 @@ def forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Full-sequence SSD pass; x (B, S, d) -> y (B, S, d) (and the cache
     {state, conv} with ``return_state``)."""
     x = constrain(x, "batch", "model", None)
-    proj = constrain(x @ params["in_proj"], "batch", "model", None)
+    proj = constrain(_rows_product(x, params["in_proj"]), "batch", "model",
+                     None)
     z, xbc, dt_raw = _split(proj, cfg)
     xbc, new_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_tail)
@@ -152,7 +187,7 @@ def forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = y + params["D"][None, None, :, None] * xs.float()
     y = y.reshape(*x.shape[:2], di)
     y = k_rmsnorm(y * F.silu(z.float()), params["norm_gain"], eps=cfg.norm_eps)
-    out = y.to(x.dtype) @ params["out_proj"]
+    out = _rows_product(y.to(x.dtype), params["out_proj"])
     if return_state:
         return out, {"state": state, "conv": new_tail}
     return out
@@ -191,8 +226,7 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # the einsums below flatten (h, p); DTensor cannot propagate a
     # model-split p through that flattening, so the state is made whole
     # on model first (batch-split only)
-    state = constrain(cache["state"], "batch", None, None, None) \
-        * decay[:, :, None, None] + \
+    state = whole_on_model(cache["state"]) * decay[:, :, None, None] + \
         torch.einsum("bhp,bn,bh->bhpn", xs, b_in, dt)
     y = torch.einsum("bn,bhpn->bhp", c_in, state) + \
         params["D"][None, :, None] * xs

@@ -11,9 +11,17 @@ takes its place); an enc-dec model adds ``enc_layers``, a list of
 ``encoder_layers`` dicts, and ``enc_final_norm``.  The cache is a list
 of one layer cache each, updated in place.  On a mesh the parameters
 may be DTensors (``launch.train.train_loop(mesh=)``): each layer's are
-gathered whole for use inside the layer's body (``sharding.gathered``,
-recomputed under remat), the ZeRO-3 pattern; plain tensors pass as they
-are.
+gathered for use inside the layer's body (``blocks.for_use``,
+recomputed under remat), the ZeRO-3 pattern over the fsdp axes, with
+the leaves that split over ``model`` keeping their shards (Megatron's
+split: heads, the SwiGLU hidden dim; ``models/attention.py``); the
+embedding and the head keep their vocabulary split where ``model``
+divides it (``layers.embed``, ``layers.logits_head``, whose logits
+come split over ``model``), and the head its fsdp shards where the fsdp
+axes split its contraction (``sharding.contraction_split``); plain
+tensors pass as they are.  The
+sinusoidal positions meet a DTensor activation as a whole DTensor
+(``sharding.replicate_as``).
 
 ``forward``/``loss`` are the training pass.  Each layer (the encoder's
 too) runs under the config's ``remat`` policy while autograd records:
@@ -38,7 +46,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import gathered, whole
+from repro_torch.distributed.sharding import (contraction_split, gathered,
+                                              replicate_as, whole)
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
@@ -106,14 +115,15 @@ class Model:
         first ``patches.shape[1]`` positions, plus sinusoidal positions
         where the config uses them."""
         cfg = self.cfg
-        x = embed(whole(params["embed"]), batch["tokens"])
+        x = embed(gathered(params["embed"], keep_model=True),
+                  batch["tokens"])
         if cfg.frontend == "vision" and "patches" in batch:
-            p = batch["patches"].to(x.dtype)
+            p = replicate_as(batch["patches"].to(x.dtype), x)
             x = torch.cat([p, x[:, p.shape[1]:]], dim=1)
         if cfg.pos_embed == "sinusoidal":
             pos = sinusoidal_positions(
                 torch.arange(x.shape[1], device=x.device), cfg.d_model)
-            x = x + pos[None].to(x.dtype)
+            x = x + replicate_as(pos[None].to(x.dtype), x)
         return x
 
     def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
@@ -124,11 +134,11 @@ class Model:
         x = frames.to(cfg.activation_dtype)
         pos = sinusoidal_positions(torch.arange(x.shape[1], device=x.device),
                                    cfg.d_model)
-        x = x + pos[None].to(x.dtype)
+        x = x + replicate_as(pos[None].to(x.dtype), x)
         for lp in params["enc_layers"]:
             x, _ = self._layer(
-                lambda h, lp=lp: blocks.apply(gathered(lp), h, cfg,
-                                              causal=False), x)
+                lambda h, lp=lp: blocks.apply(blocks.for_use(lp, cfg, h),
+                                              h, cfg, causal=False), x)
         return rmsnorm(x, whole(params["enc_final_norm"]), cfg.norm_eps)
 
     def _layer(self, body, x: torch.Tensor):
@@ -155,7 +165,7 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             def body(h, lp=lp):
-                lp = gathered(lp)
+                lp = blocks.for_use(lp, cfg, h)
                 ckv = (attn_mod.encode_kv(lp["cross"], enc_out, cfg)
                        if cfg.is_encdec else None)
                 return blocks.apply(lp, h, cfg, causal=True, cross_kv=ckv)
@@ -163,7 +173,8 @@ class Model:
             aux = aux + aux_l
         x = rmsnorm(x, whole(params["final_norm"]), cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        return logits_head(x, whole(table), cfg.logit_softcap), aux
+        return logits_head(x, gathered(table, keep_model=True),
+                           cfg.logit_softcap), aux
 
     def loss(self, params: dict, batch: dict):
         """(ce + router_aux_weight * aux, {"ce", "aux"}) of ``forward``
@@ -187,7 +198,9 @@ class Model:
         cfg = self.cfg
         x = rmsnorm(x, whole(params["final_norm"]), cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        return logits_head(x, whole(table), cfg.logit_softcap)[:, 0]
+        table = gathered(table, keep_model=True,
+                         keep_fsdp=contraction_split(x))
+        return logits_head(x, table, cfg.logit_softcap)[:, 0]
 
     def prefill(self, params: dict, batch: dict, cache: list):
         """Prompt pass over ``batch["tokens"]`` (B, S) (and the batch's
@@ -199,8 +212,8 @@ class Model:
                    else None)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.prefill(gathered(lp), x, cfg, c, start=0,
-                                  enc_out=enc_out)
+            x, c = blocks.prefill(blocks.for_use(lp, cfg, x), x, cfg, c,
+                                  start=0, enc_out=enc_out)
             new_cache.append(c)
         return self._head(params, x[:, -1:]), new_cache
 
@@ -209,14 +222,16 @@ class Model:
         """One step: tokens (B,) at absolute position ``pos``.  Returns
         logits (B, V) float32 and the cache."""
         cfg = self.cfg
-        x = embed(whole(params["embed"]), tokens[:, None])
+        x = embed(gathered(params["embed"], keep_model=True),
+                  tokens[:, None])
         if cfg.pos_embed == "sinusoidal":
             p = sinusoidal_positions(
                 torch.full((1,), pos, device=x.device), cfg.d_model)
-            x = x + p[None].to(x.dtype)
+            x = x + replicate_as(p[None].to(x.dtype), x)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.decode(gathered(lp), x, cfg, c, pos)
+            x, c = blocks.decode(blocks.for_use(lp, cfg, x), x, cfg, c,
+                                 pos)
             new_cache.append(c)
         return self._head(params, x), new_cache
 

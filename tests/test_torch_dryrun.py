@@ -12,7 +12,18 @@ analytic counts against the JAX package's.
   * a cell's argument bytes equal the sum of the reference's per-leaf
     shard bytes for the same cell (its subprocess: 8 host devices);
   * ``model_flops_for_cell`` and ``applicability``/``cells`` equal the
-    reference's for all 40 (arch, shape) pairs, exactly.
+    reference's for all 40 (arch, shape) pairs, exactly;
+  * the traced FLOPs a device at most 1.03x the reference's compiled
+    module's (its subprocess: 8 host devices) on the same mesh, where
+    the split over ``model`` and the plain attention route must match
+    the reference's: yi-6b ``decode_32k`` on (4, 2) (a head-sharded
+    cache), phi3-mini-3.8b ``prefill_32k`` on (2, 4), h2o-danube-1.8b
+    ``prefill_32k`` on (8, 1) (banded sliding-window attention),
+    whisper-medium ``prefill_32k`` on (4, 2) (enc-dec on a mesh) and
+    h2o-danube-1.8b ``long_500k`` on (8, 1) (one sequence: the data
+    axis splits the dense contractions);
+    hymba-1.5b ``prefill_32k`` traces on (4, 2) (its SSM's sequence
+    split; its 25/5 heads keep attention whole).
 """
 import json
 import os
@@ -201,3 +212,62 @@ def test_dryrun_cli_records_skips_and_cells(tmp_path):
     rec = json.loads(out.read_text().splitlines()[-1])
     assert rec["status"] == "SKIP" and "500k" in rec["reason"]
     assert rec["mesh"] == "16x16"
+
+
+#: (arch, shape, mesh) cells whose FLOPs a device must match the
+#: reference's within FLOPS_RTOL
+PARITY_CELLS = [("yi-6b", "decode_32k", (4, 2)),
+                ("phi3-mini-3.8b", "prefill_32k", (2, 4)),
+                ("h2o-danube-1.8b", "prefill_32k", (8, 1)),
+                ("whisper-medium", "prefill_32k", (4, 2)),
+                ("h2o-danube-1.8b", "long_500k", (8, 1))]
+FLOPS_RTOL = 1.03
+
+
+@pytest.fixture(scope="module")
+def reference_flops():
+    """The reference's FLOPs a device of each parity cell: its compiled
+    module's ``hlo_analysis`` on 8 host devices, in a subprocess."""
+    code = textwrap.dedent(r"""
+        import json, sys
+        import jax
+        from repro import hlo_analysis
+        from repro.launch import cells
+        from repro.launch.mesh import make_mesh
+        out = {}
+        for arch, shape, dims in json.loads(sys.argv[1]):
+            mesh = make_mesh(tuple(dims), ("data", "model"),
+                             devices=jax.devices()[:8])
+            cell = cells.build_cell(arch, shape, mesh)
+            out[f"{arch} {shape}"] = hlo_analysis.analyze(
+                cell.lowered.compile().as_text())["flops"]
+        print(json.dumps(out))
+    """)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code,
+                          json.dumps(PARITY_CELLS)], capture_output=True,
+                         text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch,shape,dims", PARITY_CELLS)
+def test_flops_per_device_match_the_reference(reference_flops, arch, shape,
+                                              dims):
+    rec = dryrun.run_cell(arch, shape, verbose=False,
+                          mesh=dryrun.fake_mesh(dims, ("data", "model")))
+    assert rec["status"] == "OK"
+    want = reference_flops[f"{arch} {shape}"]
+    assert want > 0
+    assert rec["hlo_flops_per_device"] <= FLOPS_RTOL * want, \
+        rec["hlo_flops_per_device"] / want
+
+
+def test_hybrid_prefill_traces_with_the_sequence_split():
+    rec = dryrun.run_cell("hymba-1.5b", "prefill_32k", verbose=False,
+                          mesh=dryrun.fake_mesh((4, 2), ("data", "model")))
+    assert rec["status"] == "OK"
+    assert rec["hlo_flops_per_device"] > 0
+    assert rec["collective_bytes_per_device"] > 0

@@ -124,10 +124,11 @@ def test_cpu_ops_stay_differentiable():
                                              (256, 256, False),
                                              (256, None, False)])
 def test_training_attention_picks_the_reference_rule(s, window, banded):
-    """A recorded CPU call is the training path: banded for causal
-    sliding-window self-attention from position 0 with window < S and a
-    multiple of 128, else blockwise with ``block_kv``; an unrecorded one
-    stays serving's ``flash_attention``."""
+    """A CPU call takes the JAX ``ref`` backend's rule, recorded by
+    autograd or not: banded for causal sliding-window self-attention from
+    position 0 with window < S and a multiple of 128, else blockwise with
+    ``block_kv``; the kernel's own function, ``flash_attention``, agrees
+    with it to float32 rounding."""
     rng = np.random.default_rng([27, s])
     q, k, v = _t(rng, 1, 2, s, 16), _t(rng, 1, 1, s, 16), _t(rng, 1, 1, s, 16)
     qr = q.clone().requires_grad_(True)
@@ -139,10 +140,12 @@ def test_training_attention_picks_the_reference_rule(s, window, banded):
         want = fa_ref.blockwise_attention(q, k, v, scale=0.25, window=window,
                                           block_kv=64)
     assert torch.equal(got, want)
-    serve = attention(q, k, v, window=window)
-    assert torch.equal(serve, fa_ref.flash_attention(
+    serve = attention(q, k, v, window=window, block_kv=64)
+    assert torch.equal(serve, want)
+    kernel_fn = fa_ref.flash_attention(
         q.reshape(2, s, 16), k.reshape(1, s, 16), v.reshape(1, s, 16),
-        scale=0.25, window=window).reshape(1, 2, s, 16))
+        scale=0.25, window=window).reshape(1, 2, s, 16)
+    assert torch.allclose(serve, kernel_fn, rtol=0, atol=1e-5)
 
 
 def test_checkpoint_recomputes_the_functions_from_their_inputs():

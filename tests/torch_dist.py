@@ -260,3 +260,126 @@ def two_ranks(rank, world, ckpt_dir):
         "straight": elastic_drill(rank, world, None, 10, False, (2, 1)),
         "flush": geometry_flush(rank, world, 48),
     }
+
+
+# -- tensor parallelism over "model" ------------------------------------------
+
+class CollectiveLog:
+    """A dispatch mode recording every functional collective as (kind,
+    the mesh dim names of its group) -- ``model``, ``data`` -- so a test
+    tells a ``model`` all-reduce from a ``data`` one."""
+
+    def __init__(self, mesh):
+        self.groups = {mesh.get_group(n).group_name: n
+                       for n in mesh.mesh_dim_names if mesh.size(
+                           mesh.mesh_dim_names.index(n)) > 1}
+        self.calls: list = []
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        log = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kind = func.__name__.split(".")[0]
+                if func.namespace == "_c10d_functional" and kind not in (
+                        "wait_tensor", "_wrap_tensor_autograd"):
+                    group = [a for a in args if isinstance(a, str)][-1]
+                    log.calls.append((kind, log.groups.get(group, group)))
+                return func(*args, **(kwargs or {}))
+        self._mode = Mode()
+        self._mode.__enter__()
+        del torch
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+    def count(self, kind: str, axis: str) -> int:
+        return sum(1 for k, a in self.calls if k.startswith(kind)
+                   and a == axis)
+
+
+def serve_split(rank, world, arch, shape, prompt, gen, n_seq=2):
+    """``serve_batch`` of a reduced ``arch`` with the parameters placed by
+    ``params_specs`` on a ``shape`` mesh, ``n_seq`` prompts: the tokens,
+    every step's logits, the cache's k placements and the collectives of
+    the prefill (by kind and axis)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    cfg = configs.get(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    mesh = _mesh(shape)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (n_seq, prompt)).astype(np.int32)
+    params = elastic.place(params, mesh, sharding.params_specs(params, mesh))
+    trace, log = {}, CollectiveLog(mesh)
+    with sharding.mesh_context(mesh), torch.no_grad():
+        with log:     # the prefill alone (one decode step would follow)
+            from repro_torch.launch.serve import serve_inputs
+            batch, _, enc_len = serve_inputs(cfg, torch.from_numpy(
+                prompts).long())
+            cache = model.init_cache(n_seq, prompt + 1, enc_len,
+                                     device="cpu")
+            cache = elastic.place(cache, mesh, sharding.cache_specs(
+                cache, cfg, mesh))
+            batch = elastic.place(batch, mesh, sharding.batch_specs(
+                batch, mesh, accum_dim=False))
+            lg, cache = model.prefill(params, batch, cache)
+        k = cache[0]["self"]["k"] if cfg.is_encdec else cache[0]["k"]
+        tokens = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                             model=model, trace=trace)
+    return (tokens, [full(x) for x in trace["logits"]],
+            str(tuple(k.placements)), log.calls)
+
+
+def split_argmax(rank, world, rows):
+    """``layers.greedy`` of ``rows`` (numpy, (B, V)) split over ``model``
+    on a (1, world) mesh, bit for bit, and the gathered argmax."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models.layers import greedy
+    mesh = _mesh((1, world))
+    x = distribute_tensor(torch.from_numpy(rows), mesh,
+                          (Replicate(), Shard(1)), src_data_rank=None)
+    return full(greedy(x)), full(x).argmax(-1)
+
+
+def tp_two_ranks(rank, world):
+    """Everything the tensor-parallel tests run on (1, 2): train steps of
+    reduced yi-6b, granite-moe-3b-a800m and whisper-medium, and the
+    planted argmax ties."""
+    ties = np.zeros((4, 8), np.float32)
+    ties[0, [2, 5]] = 3.0            # one in each shard: the lower wins
+    ties[1, [5, 6]] = 2.0            # two in the second shard
+    ties[2, [0, 1, 3]] = -1.0        # all but one at -1, max 0 at 2, 4..7
+    ties[3] = np.arange(8)[::-1]     # the max alone, in the first shard
+    return {
+        "yi": train_step(rank, world, "yi-6b", (1, 2)),
+        "granite": train_step(rank, world, "granite-moe-3b-a800m", (1, 2)),
+        "whisper": train_step(rank, world, "whisper-medium", (1, 2)),
+        "argmax": split_argmax(rank, world, ties),
+    }
+
+
+def tp_four_ranks(rank, world):
+    """Everything the tensor-parallel tests run on (2, 2): train steps of
+    the three reduced archs; ``serve_batch`` (a prefill and 4 decode
+    steps) of reduced yi-6b and whisper-medium against a head-sharded
+    cache, and of one yi-6b prompt, a batch the data axis does not
+    divide."""
+    return {
+        "yi": train_step(rank, world, "yi-6b", (2, 2)),
+        "granite": train_step(rank, world, "granite-moe-3b-a800m", (2, 2)),
+        "whisper": train_step(rank, world, "whisper-medium", (2, 2)),
+        "serve_yi": serve_split(rank, world, "yi-6b", (2, 2), 12, 4),
+        "serve_whisper": serve_split(rank, world, "whisper-medium", (2, 2),
+                                     12, 4),
+        "serve_yi_one": serve_split(rank, world, "yi-6b", (2, 2), 12, 4, 1),
+    }
