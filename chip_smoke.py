@@ -103,7 +103,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      the serve and read after the prefill and after the decode, each of
      ``rmsnorm_2d`` (5L+1 a pass), ``rope_3d`` (2L), ``flash_attention_3d``
      and ``ssd_intra`` (L, prefill only) and ``vecadd_2d`` (2L) held to
-     its expected count; served twice, tokens and logits bitwise equal;
+     its expected count; the serve runs as the compiled step
+     (``Model.prefill`` and ``Model.decode`` captured as CUDA graphs and
+     replayed), its first serve capturing and its second replaying only,
+     both bitwise equal to an ``eager=True`` serve (tokens and every
+     step's logits), with its launches, decode sizes equal at every
+     position and no synchronising call in the replayed loop
+     (``set_sync_debug_mode("error")``); eager, first and second
+     serves' prefill and decode ms, capture ms, host µs a replay and
+     peak memory printed; served twice, tokens and logits bitwise equal;
      then the same model on the plain versions
      (``dispatch.use_backend("ref")``) teacher-forced with the served
      tokens, every step's logits within ``logits_rtol`` (relative RMS)
@@ -374,7 +382,8 @@ from repro_torch.kernels.rope import ref as rope_ref  # noqa: E402
 from repro_torch.kernels.rope import rope as rope_k  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_k  # noqa: E402
-from repro_torch.launch.serve import serve_batch, serve_inputs  # noqa: E402
+from repro_torch.launch.serve import (release_graphs, serve_batch,  # noqa: E402
+                                      serve_inputs)
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -1997,9 +2006,14 @@ def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
     """Serve ``cfg`` from random weights (seed 0; ``weights``, the
     (params, init_s) of ``init_params``, if given): batch MODEL_BATCH, ``prompt``-token prompts
     (whisper-medium: ``prompt`` encoder frames), MODEL_GEN tokens through
-    ``serve_batch``, launch counts zeroed before it and read after the
-    prefill and after the decode; a second serve must give the same
-    tokens and logits bit for bit; then the same model on the plain
+    ``serve_batch``'s compiled step (CUDA graphs), launch counts zeroed
+    before it and read after the prefill and after the decode; held to
+    one ``eager=True`` serve of the same prompts (``compiled_gates``:
+    tokens and every step's logits bit for bit, the launches, decode
+    sizes that do not depend on the position), with
+    ``set_sync_debug_mode("error")`` from the first replay to the end of
+    the decode loop; a second serve (replays only, no capture) must give
+    the same tokens and logits bit for bit; then the same model on the plain
     versions (``use_backend("ref")``) teacher-forced with the kernel
     path's tokens.  Gates against the plain path, every step: the logits
     within ``logits_rtol(cfg)`` (relative RMS), and each greedy token
@@ -2029,40 +2043,43 @@ def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab_size,
                            (MODEL_BATCH, prompt)).astype(np.int32)
-    # warm-up (cuBLAS handles, the kernels' first launches), not counted;
-    # a VLM's warm-up prompt holds its patch prefix
+    # warm-up (cuBLAS handles, the kernels' first launches, a capture of
+    # its own key), not counted; a VLM's warm-up prompt holds its patch
+    # prefix
     serve_batch(cfg, params, prompts[:, :max(64, 2 * cfg.n_frontend_tokens)],
                 gen_tokens=2, model=model)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    trace = {}
-    t0 = time.perf_counter()
-    tokens = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
-                         model=model, trace=trace)
-    wall_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    total, sizes = _build.launch_counts(), _build.launch_sizes()
+    # the eager step (op by op from Python), the compiled step's reference
+    eager = serve_counted(cfg, params, prompts, model, eager=True)
+    # the compiled step's first serve of this key (the prefill and decode
+    # step 0 eager, both graphs captured, then replays) and its second
+    # (replays only), no synchronising call from the first replay on
+    first = serve_counted(cfg, params, prompts, model, sync_debug="error")
+    second = serve_counted(cfg, params, prompts, model, sync_debug="error")
+    tokens, trace, wall_s = first["tokens"], first["trace"], first["wall_s"]
+    peak, total, sizes = first["peak"], first["total"], first["sizes"]
     pre = trace["launches_prefill"]
-    dec = {k: total[k] - pre[k] for k in total}
     want_pre, want_dec = expected_launches(cfg, MODEL_GEN)
-    for kernel in MODEL_PATH_KERNELS:
-        if pre[kernel] != want_pre[kernel] or dec[kernel] != want_dec[kernel]:
-            raise SystemExit(f"{name}: {kernel} launched {pre[kernel]} + "
-                             f"{dec[kernel]}, expected {want_pre[kernel]} + "
-                             f"{want_dec[kernel]}")
+    for run in (first, second, eager):
+        pre_r = run["trace"]["launches_prefill"]
+        dec_r = {k: run["total"][k] - pre_r[k] for k in run["total"]}
+        for kernel in MODEL_PATH_KERNELS:
+            if pre_r[kernel] != want_pre[kernel] \
+                    or dec_r[kernel] != want_dec[kernel]:
+                raise SystemExit(
+                    f"{name} ({run['trace']['step']}): {kernel} launched "
+                    f"{pre_r[kernel]} + {dec_r[kernel]}, expected "
+                    f"{want_pre[kernel]} + {want_dec[kernel]}")
+    dec = {k: total[k] - pre[k] for k in total}
     require_launched(total, kernels, f"{name} serve")
     logits = trace["logits"]
     if tokens.shape != (MODEL_BATCH, MODEL_GEN) or not all(
             lg.shape == (MODEL_BATCH, cfg.vocab_size)
             and bool(torch.isfinite(lg).all()) for lg in logits):
         raise SystemExit(f"{name}: bad tokens or non-finite logits")
-    failures = []
+    failures = compiled_gates(first, second, eager)
+    again = second["trace"]
     # the second serve: the same bits (no atomics reorder an add)
-    again = {}
-    tokens2 = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
-                          model=model, trace=again)
-    repeat_bitwise = bool(np.array_equal(tokens2, tokens)) and all(
+    repeat_bitwise = bool(np.array_equal(second["tokens"], tokens)) and all(
         torch.equal(a, b) for a, b in zip(logits, again["logits"]))
     if not repeat_bitwise:
         failures.append("two serves differ")
@@ -2111,6 +2128,19 @@ def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
         "repeat_bitwise": repeat_bitwise,
         "repeat_prefill_ms": again["prefill_ms"],
         "repeat_decode_ms_per_token": float(np.median(again["decode_ms"])),
+        "repeat_decode_ms_steps": again["decode_ms"],
+        "repeat_wall_s": second["wall_s"],
+        "step": trace["step"], "capture_ms": trace["capture_ms"],
+        "replay_host_us": float(np.median(trace["replay_us"]
+                                          + again["replay_us"])),
+        "repeat_peak_memory_GB": second["peak"] / 1e9,
+        "eager_prefill_ms": eager["trace"]["prefill_ms"],
+        "eager_decode_ms_per_token": float(np.median(
+            eager["trace"]["decode_ms"])),
+        "eager_decode_ms_steps": eager["trace"]["decode_ms"],
+        "eager_wall_s": eager["wall_s"],
+        "eager_peak_memory_GB": eager["peak"] / 1e9,
+        "compiled_bitwise_vs_eager": True,
     }
     if int8:
         # the same model with a bfloat16 cache, teacher-forced with the
@@ -2131,9 +2161,59 @@ def model_phase(cfg, *, prompt: int = MODEL_PROMPT,
             "bf16_cache_bytes": bf16_bytes,
             "cache_bytes_ratio": cache_bytes / bf16_bytes})
         del bf16_logits
-    del logits, ref_logits, again
+    del logits, ref_logits, again, first, second, eager
+    release_graphs(model)
     torch.cuda.empty_cache()
     return total, sizes, summary
+
+
+def serve_counted(cfg, params: dict, prompts: np.ndarray, model,
+                  **kw) -> dict:
+    """One ``serve_batch`` of MODEL_GEN tokens with a trace, the launch
+    counts and the peak memory zeroed before it: {tokens, trace, wall_s,
+    peak (bytes), total (launches), sizes (``launch_sizes``)}."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    trace = {}
+    t0 = time.perf_counter()
+    tokens = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
+                         model=model, trace=trace, **kw)
+    wall_s = time.perf_counter() - t0
+    return {"tokens": tokens, "trace": trace, "wall_s": wall_s,
+            "peak": torch.cuda.max_memory_allocated(),
+            "total": _build.launch_counts(), "sizes": _build.launch_sizes()}
+
+
+def compiled_gates(first: dict, second: dict, eager: dict) -> list:
+    """The compiled step's gates (``serve_counted`` runs): both compiled
+    serves ran as CUDA graphs, the first captured and the second did
+    not; the first's tokens and every step's logits bit for bit the
+    eager serve's; each serve's decode steps launched the same sizes at
+    every position, the compiled step's the eager step's; the launches
+    by kernel equal to the eager serve's.  Returns the failures."""
+    failures = []
+    t1, t2, te = first["trace"], second["trace"], eager["trace"]
+    if t1["step"] != "cuda graph" or t2["step"] != "cuda graph" \
+            or te["step"] != "eager":
+        failures.append(f"steps {t1['step']}, {t2['step']}, {te['step']}")
+    if t1["capture_ms"] is None or t2["capture_ms"] is not None:
+        failures.append("the first compiled serve did not capture, or the "
+                        "second captured again")
+    if not (np.array_equal(first["tokens"], eager["tokens"]) and all(
+            torch.equal(a, b) for a, b in zip(t1["logits"], te["logits"]))):
+        failures.append("the compiled serve differs from the eager one")
+    for run in (first, second, eager):
+        steps = run["trace"]["decode_sizes"]
+        if any(s != steps[0] for s in steps) or steps[0] != \
+                te["decode_sizes"][0]:
+            failures.append(f"{run['trace']['step']} decode launch sizes "
+                            "depend on the position")
+    for run in (first, second):
+        if run["total"] != eager["total"]:
+            failures.append(f"launches {run['total']}, eager "
+                            f"{eager['total']}")
+    return failures
 
 
 def model_case(name: str, shape: tuple, dtype: torch.dtype,
@@ -2681,7 +2761,7 @@ def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
     _build.reset_launch_counts()
     plain = {}
     tokens = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
-                         model=model, trace=plain)
+                         model=model, trace=plain, eager=True)
     plain_counts = {k: _build.launch_counts()[k] for k in MODEL_PATH_KERNELS}
     mesh = mesh_mod.make_local_mesh()
     with mesh_mod.mesh_context(mesh):   # warm-up, not counted
@@ -2832,7 +2912,8 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
         if rank == 0:
             plain = {}
             result["plain_tokens"] = serve_batch(
-                cfg, full, prompts, gen_tokens=gen, model=model, trace=plain)
+                cfg, full, prompts, gen_tokens=gen, model=model, trace=plain,
+                eager=True)
             result["plain_prefill_ms"] = plain["prefill_ms"]
             result["plain_decode_ms"] = plain["decode_ms"]
             ref, _ = teacher_forced(model, full, prompts, first["tokens"],

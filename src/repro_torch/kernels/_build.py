@@ -27,9 +27,16 @@ launches (``launch_counts``/``reset_launch_counts``), so a run can show
 that its path went through the kernels; it also keeps the size
 arguments of its launches (``launch_sizes``), so a run can show that
 each shape its path launched was held against the plain version.
+
+A CUDA graph's capture records its launches without running them:
+inside ``record(counted=False)`` a launch adds nothing to the counts and
+is kept in the ``Recording`` instead, and each replay of the graph adds
+it (``Recording.replay``), so the counts after a run of replays equal
+the counts of the same steps run eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,6 +60,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 #: every CudaKernel ever made, by name (the launch-count registry)
 KERNELS: dict[str, "CudaKernel"] = {}
+#: the open ``record`` spans, outermost first
+_RECORDINGS: list["Recording"] = []
 
 
 def _nvcc() -> str:
@@ -168,8 +177,53 @@ class CudaKernel:
             rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: {torch.cuda.CudaError(rc)}")
-        self.launches += 1
-        self.sizes.add(args[self.n_ptrs:])
+        _note(self, args[self.n_ptrs:])
+
+
+def _note(kernel: CudaKernel, sizes: tuple) -> None:
+    """Count one launch of ``kernel``, unless a capture records it, and
+    note it in every open ``record`` span."""
+    for rec in _RECORDINGS:
+        rec.note(kernel.name, sizes)
+    if all(rec.counted for rec in _RECORDINGS):
+        kernel.launches += 1
+        kernel.sizes.add(sizes)
+
+
+class Recording:
+    """The kernel launches of one span, by kernel name: ``launches`` the
+    counts, ``sizes`` the distinct size arguments."""
+
+    def __init__(self, counted: bool):
+        self.counted = counted
+        self.launches: dict[str, int] = {}
+        self.sizes: dict[str, set[tuple]] = {}
+
+    def note(self, name: str, sizes: tuple) -> None:
+        """One launch of kernel ``name`` with ``sizes``."""
+        self.launches[name] = self.launches.get(name, 0) + 1
+        self.sizes.setdefault(name, set()).add(sizes)
+
+    def replay(self) -> None:
+        """Add the span's launches and sizes to the counts, as one replay
+        of a graph captured from it launches them."""
+        for name, n in self.launches.items():
+            KERNELS[name].launches += n
+            KERNELS[name].sizes |= self.sizes[name]
+
+
+@contextlib.contextmanager
+def record(counted: bool = True):
+    """Note every launch made inside in the ``Recording`` it yields.
+    ``counted=False`` is a CUDA graph's capture: a launch made inside is
+    recorded, not run, and adds nothing to ``launch_counts`` or
+    ``launch_sizes`` until the graph replays (``Recording.replay``)."""
+    rec = Recording(counted)
+    _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.remove(rec)
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:

@@ -55,6 +55,12 @@ def use_backend(name: str | None):
         _BACKEND = prev
 
 
+def default_backend() -> str | None:
+    """The backend ``use_backend`` set for ops whose call names none
+    (None: by device)."""
+    return _BACKEND
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device an entry point runs on: raises when CUDA is asked for
     and absent (no fallback to the CPU)."""

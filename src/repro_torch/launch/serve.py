@@ -26,16 +26,40 @@ and decodes greedily over the vocabulary split over ``model``
 ``--arch`` is mamba2-130m, as in the JAX launcher.  Without
 ``--device cpu`` it runs on the GPU and raises when there is none.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0.
+
+On one card the serve step is compiled, the port of the JAX launcher's
+``jax.jit(model.prefill)`` / ``jax.jit(model.decode)``: ``serve_batch``
+runs the prefill and every decode step as replays of two CUDA graphs
+(``torch.cuda.CUDAGraph``) captured from ``Model.prefill`` and
+``Model.decode``, every hand-written kernel inside them.  The decode
+step takes its position as a 0-d tensor, as the reference's traced
+``pos``, so one graph serves every position.  A ``CompiledServe`` is
+kept on the model for each key (batch, prompt length, ``max_len``,
+``enc_len``, the frontend stubs' shapes, the parameter tensors'
+identities, the default backend and whether autotuning is on) with its
+static inputs, its cache (reset in place each serve) and both graphs;
+the first serve of a key runs the prefill and decode step 0 eagerly on
+the graphs' stream -- real results, and the warm-up the capture needs
+-- then captures both and replays the decode for the rest; later
+serves replay both.  A capture or a replay that fails raises: nothing
+runs the eager step behind the caller's back.  The step runs eagerly
+(op by op from Python) on the CPU, under an ambient mesh or with
+DTensor parameters (gloo's collectives and DTensor's dispatch cannot
+be captured), and when the caller passes ``eager=True`` -- the
+reference the compiled step is held to bit for bit (``--eager`` on the
+command line).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.autotune import cache as tuning
 from repro_torch.distributed import elastic, sharding
 from repro_torch.kernels import _build, dispatch
 from repro_torch.models import build
@@ -95,31 +119,204 @@ def serve_inputs(cfg, prompts: torch.Tensor) -> tuple[dict, int, int]:
     return batch, (1 if cfg.is_encdec else s), (s if cfg.is_encdec else 0)
 
 
-def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
-                model=None, trace: dict | None = None) -> np.ndarray:
-    """prompts (B, S_prompt) integers -> generated tokens (B, gen_tokens)
-    as a numpy int32 array; runs where the parameters lie.
+def _named(tree, name: str = ""):
+    """(leaf name, tensor) of every tensor in a tree of dicts and lists
+    (a cache, the parameters)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _named(v, name)
+    else:
+        yield name, tree
 
-    With a ``trace`` dict, it also records ``prefill_ms`` and
-    ``decode_ms`` (a list, one a step; CUDA events on the card, the host
-    clock on the CPU, named in ``clock``), ``logits`` (the prefill's and
-    every decode step's, float32 (B, V) each) and ``launches_prefill``
-    (the kernel launch counts just after the prefill was enqueued)."""
+
+def _reset(cache: list) -> None:
+    """Set a cache to ``init_cache``'s state in place: ``kpos`` -1 (every
+    slot empty), every other tensor 0."""
+    for name, t in _named(cache):
+        if name == "kpos":
+            t.fill_(-1)
+        else:
+            t.zero_()
+
+
+class CompiledServe:
+    """The compiled serve step of one key: the static inputs (the prompts,
+    the frontend stubs, the current token ``tok`` (B,) and ``pos``, a 0-d
+    int64), the cache, and once captured the prefill and decode CUDA
+    graphs, one memory pool for both, with the kernel launches of each
+    replay (``_build.Recording``) and the logits each writes.
+
+    ``prefill`` resets the cache, runs ``Model.prefill`` on the static
+    batch, writes the greedy token into ``tok`` and sets ``pos`` to the
+    first decode position; ``decode`` runs ``Model.decode`` at ``tok`` and
+    ``pos``, writes the next greedy token into ``tok`` and advances
+    ``pos``.  Both read and write only these tensors, so a graph captured
+    from either replays them at any position.  The model is passed in,
+    not kept: the model keeps this object (``Model.serve_graphs``)."""
+
+    def __init__(self, model, params: dict, b: int, s: int, max_len: int,
+                 device: torch.device):
+        self.params = params     # holds the key's parameter ids valid
+        self.prompts = torch.zeros((b, s), dtype=torch.int64, device=device)
+        self.batch, self.pos0, enc_len = serve_inputs(model.cfg, self.prompts)
+        self.cache = model.init_cache(b, max_len, enc_len, device=device)
+        self.tok = torch.zeros((b,), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" \
+            else None    # the graphs' stream (the steps run anywhere)
+        self.graphs: tuple | None = None
+        self.records: tuple | None = None
+        self.logits: tuple | None = None
+
+    def prefill(self, model) -> torch.Tensor:
+        """The prefill step (see the class); returns its logits."""
+        _reset(self.cache)
+        logits, _ = model.prefill(self.params, self.batch, self.cache)
+        self.tok.copy_(greedy(logits))
+        self.pos.fill_(self.pos0)
+        return logits
+
+    def decode(self, model) -> torch.Tensor:
+        """The decode step (see the class); returns its logits."""
+        logits, _ = model.decode(self.params, self.tok, self.pos, self.cache)
+        self.tok.copy_(greedy(logits))
+        self.pos.add_(1)
+        return logits
+
+    def eager(self, step, model) -> torch.Tensor:
+        """Run ``step`` eagerly on the graphs' stream, after the current
+        stream's work and before its next: the first serve's real
+        prefill and step 0, and the warm-up of everything the capture
+        records (cuBLAS's handle and workspace on that stream, each
+        kernel's first-launch set-up)."""
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            logits = step(model)
+        cur.wait_stream(self.stream)
+        logits.record_stream(cur)
+        return logits
+
+    def capture(self, model) -> None:
+        """Capture the prefill and the decode step, in that order, into
+        two graphs sharing one pool.  A capture runs nothing: the cache,
+        ``tok`` and ``pos`` keep their values, and the kernels it records
+        count only when a graph replays."""
+        pool = torch.cuda.graph_pool_handle()
+        graphs, records, logits = [], [], []
+        for step in (self.prefill, self.decode):
+            g = torch.cuda.CUDAGraph()
+            with _build.record(counted=False) as rec, \
+                    torch.cuda.graph(g, pool=pool, stream=self.stream):
+                logits.append(step(model))
+            graphs.append(g)
+            records.append(rec)
+        self.graphs, self.records = tuple(graphs), tuple(records)
+        self.logits = tuple(logits)
+
+    def replay(self, i: int, host_us: list) -> torch.Tensor:
+        """Replay graph ``i`` (0 the prefill, 1 the decode step) on the
+        current stream, count its launches, and return the logits it
+        wrote (overwritten by its next replay); the host µs of the
+        replay call go on ``host_us``."""
+        t0 = time.perf_counter()
+        self.graphs[i].replay()
+        host_us.append((time.perf_counter() - t0) * 1e6)
+        self.records[i].replay()
+        return self.logits[i]
+
+
+def compiled_key(cfg, params: dict, b: int, s: int, max_len: int) -> tuple:
+    """The key of a ``CompiledServe``: batch, prompt length, ``max_len``,
+    ``enc_len``, the frontend stubs' shapes, the identities of the
+    parameter tensors, the default backend (``dispatch.use_backend``) and
+    whether autotuning is on (the launch knobs are looked up at
+    capture)."""
+    batch, _, enc_len = serve_inputs(
+        cfg, torch.empty((b, s), dtype=torch.int64, device="meta"))
+    stubs = tuple((k, tuple(v.shape)) for k, v in batch.items()
+                  if k != "tokens")
+    return (b, s, max_len, enc_len, stubs,
+            tuple(id(t) for _, t in _named(params)),
+            dispatch.default_backend(), tuning.enabled())
+
+
+def release_graphs(model) -> None:
+    """Free every compiled serve step kept on ``model``: graphs, static
+    buffers and caches."""
+    model.serve_graphs.clear()
+
+
+@contextlib.contextmanager
+def _sync_debug(mode: str | None):
+    """``torch.cuda.set_sync_debug_mode(mode)`` inside (unchanged for
+    None), the previous mode restored after."""
+    if mode is None:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _sizes(rec) -> dict:
+    return {k: frozenset(v) for k, v in rec.sizes.items()}
+
+
+def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
+                model=None, trace: dict | None = None, eager: bool = False,
+                sync_debug: str | None = None) -> np.ndarray:
+    """prompts (B, S_prompt) integers -> generated tokens (B, gen_tokens)
+    as a numpy int32 array; runs where the parameters lie: on one card
+    as replays of the compiled step (the module's docstring; kept on
+    ``model``, so pass the same model to serve a key again without a
+    capture), eagerly on the CPU, on a mesh or with ``eager=True``.
+
+    With a ``trace`` dict, it also records ``step`` ("cuda graph" or
+    "eager"), ``prefill_ms`` and ``decode_ms`` (a list, one a step; CUDA
+    events on the card, the host clock on the CPU, named in ``clock``),
+    ``logits`` (the prefill's and every decode step's, float32 (B, V)
+    each), ``launches_prefill`` (the kernel launch counts just after the
+    prefill was enqueued), ``decode_sizes`` (each decode step's launch
+    sizes by kernel), and for the compiled step ``capture_ms`` (the
+    host ms of both captures; None when the key was captured before)
+    and ``replay_us`` (the host µs of each replay call).
+    ``sync_debug`` is ``torch.cuda.set_sync_debug_mode``'s mode from the
+    compiled step's first replay to the end of its decode loop ("error"
+    raises at any call there that synchronises with the host)."""
+    if gen_tokens < 1:
+        raise ValueError(f"gen_tokens must be at least 1, got {gen_tokens}")
     model = model or build(cfg)
     dev = params["embed"].device
+    prompts = np.asarray(prompts)
+    mesh = sharding.ambient_mesh()
+    if eager or dev.type != "cuda" or mesh is not None or any(
+            sharding.is_dtensor(t) for _, t in _named(params)):
+        return _serve_eager(cfg, model, params, prompts, gen_tokens, trace,
+                            dev, mesh)
+    return _serve_compiled(cfg, model, params, prompts, gen_tokens, trace,
+                           dev, sync_debug)
+
+
+def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
+    """The serve step op by op from Python."""
     b, s = prompts.shape
-    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                             device=dev)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
     batch, pos, enc_len = serve_inputs(cfg, tokens)
     cache = model.init_cache(b, s + gen_tokens, enc_len, device=dev)
-    mesh = sharding.ambient_mesh()
     if mesh is not None and sharding.is_dtensor(params["embed"]):
         batch = elastic.place(batch, mesh, sharding.batch_specs(
             batch, mesh, accum_dim=False))
         cache = elastic.place(cache, mesh, sharding.cache_specs(
             cache, cfg, mesh))
     clock = _Clock(dev)
-    logits_seen = []
+    logits_seen, sizes = [], []
 
     t0 = clock.start()
     logits, cache = model.prefill(params, batch, cache)
@@ -132,8 +329,10 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
     for i in range(gen_tokens):
         out.append(tok)
         t0 = clock.start()
-        logits, cache = model.decode(params, tok, pos + i, cache)
+        with _build.record() as rec:
+            logits, cache = model.decode(params, tok, pos + i, cache)
         clock.stop(t0)
+        sizes.append(_sizes(rec))
         logits_seen.append(logits)
         tok = greedy(logits)
     gen = torch.stack(out, dim=1)
@@ -142,8 +341,68 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
     gen = gen.to(torch.int32).cpu().numpy()
     if trace is not None:
         ms = clock.ms()
-        trace.update(prefill_ms=ms[0], decode_ms=ms[1:], logits=logits_seen,
+        trace.update(step="eager", prefill_ms=ms[0], decode_ms=ms[1:],
+                     logits=logits_seen, decode_sizes=sizes,
                      clock="cuda events" if clock.cuda else "host")
+    return gen
+
+
+def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
+                    sync_debug):
+    """The serve step as replays of the key's CUDA graphs (captured at
+    the key's first serve, after its eager prefill and step 0)."""
+    b, s = prompts.shape
+    key = compiled_key(cfg, params, b, s, s + gen_tokens)
+    cs = model.serve_graphs.get(key)
+    if cs is None:
+        cs = model.serve_graphs[key] = CompiledServe(
+            model, params, b, s, s + gen_tokens, dev)
+    cs.prompts.copy_(torch.as_tensor(prompts, dtype=torch.int64))
+    clock = _Clock(dev)
+    keep = trace is not None
+    logits_seen, sizes, out, host_us = [], [], [], []
+    capture_ms, first = None, cs.graphs is None
+
+    def note_prefill(logits):
+        if keep:
+            trace["launches_prefill"] = _build.launch_counts()
+            logits_seen.append(logits if first else logits.clone())
+
+    if first:
+        t0 = clock.start()
+        note_prefill(cs.eager(cs.prefill, model))
+        clock.stop(t0)
+        out.append(cs.tok.clone())
+        t0 = clock.start()
+        with _build.record() as rec:
+            logits = cs.eager(cs.decode, model)
+        clock.stop(t0)
+        sizes.append(_sizes(rec))
+        logits_seen.append(logits)
+        c0 = time.perf_counter()
+        cs.capture(model)
+        capture_ms = (time.perf_counter() - c0) * 1e3
+    with _sync_debug(sync_debug):
+        if not first:
+            t0 = clock.start()
+            logits = cs.replay(0, [])
+            clock.stop(t0)
+            note_prefill(logits)
+        for _ in range(1 if first else 0, gen_tokens):
+            out.append(cs.tok.clone())
+            t0 = clock.start()
+            logits = cs.replay(1, host_us)
+            clock.stop(t0)
+            sizes.append(_sizes(cs.records[1]))
+            if keep:
+                logits_seen.append(logits.clone())
+    gen = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+    if keep:
+        ms = clock.ms()
+        trace.update(step="cuda graph", prefill_ms=ms[0], decode_ms=ms[1:],
+                     logits=logits_seen, decode_sizes=sizes,
+                     capture_ms=capture_ms, replay_us=host_us,
+                     clock="cuda events")
     return gen
 
 
@@ -157,6 +416,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--eager", action="store_true",
+                    help="run the serve step op by op, not as CUDA graphs")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch)
@@ -168,11 +429,13 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    trace = {}
     t0 = time.time()
     gen = serve_batch(cfg, params, prompts, gen_tokens=args.gen_tokens,
-                      model=model)
+                      model=model, trace=trace, eager=args.eager)
     dt = time.time() - t0
-    print(f"[serve] {cfg.name} on {dev}: generated {gen.shape} in {dt:.2f}s "
+    print(f"[serve] {cfg.name} on {dev} ({trace['step']}): generated "
+          f"{gen.shape} in {dt:.2f}s "
           f"({args.batch * args.gen_tokens / dt:.1f} tok/s)")
     print(gen[:2])
 

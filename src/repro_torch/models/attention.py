@@ -20,7 +20,13 @@ product once, where the JAX package keeps a transposed view.  Caches are
 updated in place (the JAX package returns new arrays): a decode step
 writes one slot instead of copying the cache (a sharded cache, a
 DTensor, takes each write on the rank whose shard holds the slot:
-``sharding.write_at``).  A linear cache may hold
+``sharding.write_at``).  ``decode_step``'s ``pos`` is a Python int or a
+0-d int64 tensor on the step's device, the JAX package's traced scalar:
+from a tensor every position-dependent value -- the RoPE tables, the
+query's position, the slot written and its ``kpos`` -- is computed on
+the device, nothing is read back to the host and no Python branch looks
+at the position, so one captured CUDA graph serves every position
+(``launch.serve``).  A linear cache may hold
 int8 keys and values with a float32 scale a (slot, head)
 (``kv_cache_dtype="int8"``); an int8 ring raises
 ``errors.Int8RingCacheError``, as the JAX package cannot decode one.
@@ -248,10 +254,21 @@ def _cache_kv(cache: dict, which: str) -> torch.Tensor:
     return x
 
 
+def position_range(start, s: int, device: torch.device) -> torch.Tensor:
+    """The absolute positions start .. start + s - 1, (s,) int64 on
+    ``device``: ``start`` a Python int or a 0-d int64 tensor on
+    ``device``, which is never read back to the host."""
+    if isinstance(start, torch.Tensor):
+        return start + torch.arange(s, device=device)
+    return torch.arange(start, start + s, device=device)
+
+
 def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                  start: int) -> dict:
+                  start) -> dict:
     s = k_new.shape[2]
-    at = slice(start, start + s)
+    positions = position_range(start, s, cache["kpos"].device)
+    at = positions if isinstance(start, torch.Tensor) \
+        else slice(start, start + s)
     if cache["k"].dtype == torch.int8:
         for name, val in (("k", k_new), ("v", v_new)):
             q, scale = _quantize(val)
@@ -260,18 +277,16 @@ def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     else:
         write_at(cache["k"], 2, at, k_new.to(cache["k"].dtype))
         write_at(cache["v"], 2, at, v_new.to(cache["v"].dtype))
-    write_at(cache["kpos"], 0, at, torch.arange(
-        start, start + s, dtype=torch.int32, device=cache["kpos"].device))
+    write_at(cache["kpos"], 0, at, positions.to(torch.int32))
     return cache
 
 
 def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                start: int, window: int) -> dict:
+                start, window: int) -> dict:
     if cache["k"].dtype == torch.int8:   # no scales: refuse, never truncate
         raise Int8RingCacheError("int8 cache", window, cache["kpos"].shape[0])
     s = k_new.shape[2]
-    positions = torch.arange(start, start + s, dtype=torch.int32,
-                             device=cache["kpos"].device)
+    positions = position_range(start, s, cache["kpos"].device).to(torch.int32)
     if s >= window:      # only the last `window` entries survive
         k_new, v_new = k_new[:, :, -window:], v_new[:, :, -window:]
         positions = positions[-window:]
@@ -326,15 +341,16 @@ def prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
 
 
 def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                pos: int):
-    """One token x (B, 1, d) at absolute position ``pos``: writes slot
-    ``pos % window`` of a ring (``pos`` of a linear cache) and attends."""
+                pos):
+    """One token x (B, 1, d) at absolute position ``pos`` (an int or a
+    0-d int64 tensor on x's device): writes slot ``pos % window`` of a
+    ring (``pos`` of a linear cache) and attends."""
     if _split(params):
         local = _local_cache(cache)
         return sharding.tp_block(
             lambda p, h: decode_step(p, h, cfg, local, pos)[0],
             params, x, rows_like=cache["k"]), cache
-    positions = torch.tensor([pos], device=x.device)
+    positions = position_range(pos, 1, x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
     window = cfg.window
     ring = window is not None and cache["kpos"].shape[0] == window

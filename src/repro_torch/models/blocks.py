@@ -197,14 +197,15 @@ def _write_cross(cache: dict, kv: dict, cfg: ModelConfig) -> None:
 
 def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
             start: int = 0, enc_out: torch.Tensor | None = None):
-    """Prompt pass filling the cache (an enc-dec decoder layer's against
-    the encoder output ``enc_out``).  Returns (x, new_cache)."""
+    """Prompt pass filling the cache in place (an enc-dec decoder layer's
+    against the encoder output ``enc_out``).  Returns (x, the cache)."""
     if cfg.family == "ssm":
         h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
         delta, new_cache = ssm_mod.forward(p["ssm"], h, cfg,
                                            conv_tail=cache["conv"],
                                            return_state=True)
-        return residual_add(x, delta.to(x.dtype)), new_cache
+        return residual_add(x, delta.to(x.dtype)), \
+            ssm_mod.write_cache(cache, new_cache)
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     if cfg.family == "hybrid":
         a, attn_cache = attn.prefill(p["attn"], h, cfg, cache["attn"],
@@ -213,7 +214,8 @@ def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
                                        conv_tail=cache["ssm"]["conv"],
                                        return_state=True)
         x = residual_add(x, _hybrid_delta(p, a, s, cfg).to(x.dtype))
-        new_cache = {"attn": attn_cache, "ssm": ssm_cache}
+        new_cache = {"attn": attn_cache,
+                     "ssm": ssm_mod.write_cache(cache["ssm"], ssm_cache)}
     elif "cross" in p:
         a, self_cache = attn.prefill(p["attn"], h, cfg, cache["self"],
                                      start=start)
@@ -235,8 +237,9 @@ def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
     return x, new_cache
 
 
-def decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, pos: int):
-    """One-token step.  Returns (x, new_cache)."""
+def decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, pos):
+    """One-token step at ``pos`` (an int or a 0-d int64 tensor on x's
+    device), the cache written in place.  Returns (x, the cache)."""
     if cfg.family == "ssm":
         h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
         delta, new_cache = ssm_mod.decode_step(p["ssm"], h, cfg, cache)

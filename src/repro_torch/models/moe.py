@@ -101,6 +101,13 @@ class Routing:
     capacity: int
 
 
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(ids, n)`` (int64) without its range check, which reads
+    the ids back to the host on the CPU: the decode step's ops are the
+    same at every position, with no host read (``launch.serve``)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
+
+
 def route(router: torch.Tensor, x: torch.Tensor,
           cfg: ModelConfig) -> Routing:
     """Route x (B, S, d) -- a decode step's tokens as one group -- in
@@ -117,13 +124,13 @@ def route(router: torch.Tensor, x: torch.Tensor,
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
-    frac = F.one_hot(expert_ids, e).to(torch.float32).mean(dim=(0, 1, 2))
+    frac = _one_hot(expert_ids, e).to(torch.float32).mean(dim=(0, 1, 2))
     aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
 
     ids = expert_ids.reshape(b, sk)
     order = torch.sort(ids, dim=-1, stable=True).indices
     sid = torch.gather(ids, -1, order)
-    counts = F.one_hot(ids, e).sum(dim=1)
+    counts = _one_hot(ids, e).sum(dim=1)
     starts = torch.cumsum(counts, dim=-1) - counts
     pos = torch.arange(sk, device=dev)[None] - torch.gather(starts, -1, sid)
     keep = pos < c

@@ -11,6 +11,9 @@ B/C group, state size n = cfg.ssm_state.
 Cache (decode), per layer:
     state (B, h, p, n)    -- the SSM state, float32
     conv  (B, w-1, di+2n) -- the causal conv's tail
+Both are written in place (``write_cache``): the prefill's final state
+and tail, then each decode step's, go into the tensors ``init_cache``
+made, so a CUDA graph replayed over the cache reads the step before's.
 
 Differences from the JAX package, none in the function computed:
   * one code path: the kernel for CUDA tensors, its plain version on the
@@ -205,9 +208,19 @@ def init_cache(cfg: ModelConfig, batch: int, device: torch.device) -> dict:
     }
 
 
+def write_cache(cache: dict, new: dict) -> dict:
+    """Store ``new``'s state and conv tail in ``cache``'s own tensors, in
+    place; returns ``cache``."""
+    for name in ("state", "conv"):
+        cache[name].copy_(new[name])
+    return cache
+
+
 def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache: dict):
-    """One token x (B, 1, d) against the recurrent state."""
+    """One token x (B, 1, d) against the recurrent state; the new state
+    and conv tail are written into ``cache`` in place, and ``cache`` is
+    returned."""
     proj = x @ params["in_proj"]
     z, xbc, dt_raw = _split(proj, cfg)
     w = params["conv_w"]
@@ -233,4 +246,4 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(-1, 1, di)
     y = k_rmsnorm(y * F.silu(z.float()), params["norm_gain"], eps=cfg.norm_eps)
     out = y.to(x.dtype) @ params["out_proj"]
-    return out, {"state": state, "conv": new_conv}
+    return out, write_cache(cache, {"state": state, "conv": new_conv})

@@ -80,6 +80,9 @@ class Model:
             raise ValueError(f"unknown model family {cfg.family!r} "
                              f"({cfg.name}); one of {SERVED_FAMILIES}")
         self.cfg = cfg
+        #: the compiled serve steps of ``launch.serve`` by key (their CUDA
+        #: graphs, static buffers and cache), freed with the model
+        self.serve_graphs: dict = {}
 
     @property
     def _role(self) -> str:
@@ -205,7 +208,9 @@ class Model:
     def prefill(self, params: dict, batch: dict, cache: list):
         """Prompt pass over ``batch["tokens"]`` (B, S) (and the batch's
         ``patches`` or ``frames``).  Returns the last position's logits
-        (B, V) float32 and the filled cache."""
+        (B, V) float32 and the cache, every layer's written in place (the
+        attention k/v/kpos, the SSM state and conv tail, the enc-dec
+        cross keys and values)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         enc_out = (self._encode(params, batch["frames"]) if cfg.is_encdec
@@ -217,16 +222,19 @@ class Model:
             new_cache.append(c)
         return self._head(params, x[:, -1:]), new_cache
 
-    def decode(self, params: dict, tokens: torch.Tensor, pos: int,
+    def decode(self, params: dict, tokens: torch.Tensor, pos,
                cache: list):
-        """One step: tokens (B,) at absolute position ``pos``.  Returns
-        logits (B, V) float32 and the cache."""
+        """One step: tokens (B,) at absolute position ``pos``, a Python
+        int or a 0-d int64 tensor on the tokens' device (the JAX
+        launcher's traced scalar: nothing reads it back to the host, so
+        ``launch.serve`` captures one CUDA graph for every position).
+        Returns logits (B, V) float32 and the cache, written in place."""
         cfg = self.cfg
         x = embed(gathered(params["embed"], keep_model=True),
                   tokens[:, None])
         if cfg.pos_embed == "sinusoidal":
             p = sinusoidal_positions(
-                torch.full((1,), pos, device=x.device), cfg.d_model)
+                attn_mod.position_range(pos, 1, x.device), cfg.d_model)
             x = x + replicate_as(p[None].to(x.dtype), x)
         new_cache = []
         for lp, c in zip(params["layers"], cache):

@@ -10,7 +10,9 @@ to the plain path and to per-request ``apply``/``project`` (the scene
 graph's ``submit_scene`` lanes too); the reduced MoE, enc-dec and VLM
 models through the kernels (flash attention also at whisper-medium's and
 internvl2-76b's serve shapes), an int8-cache decode step against the
-CPU's, and ``moe_ffn`` deterministic on the card.
+CPU's, ``moe_ffn`` deterministic on the card, and the compiled serve
+step (CUDA graphs of ``Model.prefill``/``decode``) of every family bit
+for bit the eager one.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -2014,3 +2016,50 @@ def test_model_kernel_on_a_dtensor_launches_on_the_local_shard(cuda_device,
     out.float().sum().backward()
     assert grad.backward_counts() == {name: 1}
     assert isinstance(leaf.grad, DTensor)
+
+
+@pytest.mark.parametrize("arch, kv", [
+    ("hymba-1.5b", "bfloat16"), ("h2o-danube-1.8b", "bfloat16"),
+    ("mamba2-130m", "bfloat16"), ("granite-moe-3b-a800m", "bfloat16"),
+    ("granite-moe-3b-a800m", "int8"), ("whisper-medium", "bfloat16"),
+    ("internvl2-76b", "bfloat16")])
+def test_compiled_serve_is_bitwise_the_eager_serve_on_card(cuda_device, arch,
+                                                           kv):
+    """The compiled serve step (CUDA graphs of ``Model.prefill`` and
+    ``Model.decode``) of each reduced family: its first serve captures,
+    and its tokens, every step's logits and its kernel launches equal
+    the ``eager=True`` serve's; a second serve of the same key replays
+    without a capture and gives the same bits and launches again, with
+    no synchronising call in its replays; each decode step launches the
+    same sizes at every position."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.serve import release_graphs, serve_batch
+    from repro_torch.models import build
+    cfg = dataclasses.replace(configs.get(arch).reduced(), kv_cache_dtype=kv)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = np.random.default_rng(68).integers(0, cfg.vocab_size, (4, 40))
+    runs = []
+    for eager in (True, False, False):
+        _build.reset_launch_counts()
+        trace = {}
+        toks = serve_batch(cfg, params, prompts, gen_tokens=6, model=model,
+                           trace=trace, eager=eager,
+                           sync_debug=None if eager else "error")
+        runs.append((toks, trace, _build.launch_counts()))
+    (te, eager, ce), (t1, first, c1), (t2, second, c2) = runs
+    assert eager["step"] == "eager"
+    assert first["step"] == second["step"] == "cuda graph"
+    assert first["capture_ms"] is not None and second["capture_ms"] is None
+    assert len(model.serve_graphs) == 1
+    for toks, trace, counts in runs[1:]:
+        assert np.array_equal(toks, te) and counts == ce
+        assert trace["launches_prefill"] == eager["launches_prefill"]
+        assert all(torch.equal(a, b)
+                   for a, b in zip(trace["logits"], eager["logits"]))
+        assert all(s == eager["decode_sizes"][0]
+                   for s in trace["decode_sizes"] + eager["decode_sizes"])
+    assert sum(ce.values()) > 0
+    release_graphs(model)
+    assert not model.serve_graphs
