@@ -151,14 +151,23 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      within ``logits_rtol`` (0.109) of the same step under
      ``use_backend("ref")``, every gradient present and finite; step 1
      twice from the same state bit for bit; three steps of
-     ``launch.train.train_loop``, three finite losses; in every step each
-     model kernel's launches (twice a pass's layers under "dots", whose
-     backward recomputes each layer's kernels, plus the final norm) and
-     plain backwards (``kernels.grad.backward_counts``, one a forward
-     launch) exactly ``expected_train_launches``; the step's ms, tokens/s,
-     peak memory and forward/backward/optimizer/plain-backward ms from
-     CUDA events (``train_phase``); it runs after the serves and before
-     the chaos, async and autotune phases;
+     ``launch.train.train_loop`` through the compiled step (step 1
+     eager, then one CUDA graph of the whole step replayed, no
+     synchronising call in a replayed step's enqueue) and the same three
+     with ``eager=True``, bit for bit at every step (loss, gradient norm,
+     every parameter and optimizer leaf's digests), three finite losses;
+     in every step each model kernel's launches (twice a pass's layers
+     under "dots", whose backward recomputes each layer's kernels, plus
+     the final norm) and plain backwards (``kernels.grad.backward_counts``,
+     one a forward launch) exactly ``expected_train_launches``, replays
+     included; both loops' ms a step, tokens/s and peak memory, the
+     capture ms and host µs a replay, the eager loop's
+     forward/backward/optimizer/plain-backward ms from CUDA events; the
+     trained weights served after steps 2 and 3 of the compiled loop,
+     the second serve without a capture, its tokens an ``eager=True``
+     serve's, ``memory_allocated`` flat within 1 % (``train_phase``); it
+     runs after the serves and before the chaos, async and autotune
+     phases;
   8i. serve on a 1x2 mesh (yi-6b): full width (32 layers, 6.06 B
      parameters, random weights from seed 0) on a ("data", "model") mesh
      of (1, 2), two processes sharing the card in one gloo group (NCCL
@@ -2436,16 +2445,31 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
           AdamW state and batch: the same loss and parameters bit for
           bit;
       (c) three steps of ``launch.train.train_loop`` (``AdamWConfig(
-          total_steps=3, warmup_steps=1)``): every step's launches and
-          plain backwards as in (a), three finite losses (printed, not
-          required to fall), the step's ms (CUDA events; the median of
-          steps 2-3), tokens/s, the peak memory, and each step's forward,
-          backward (recomputation included) and optimizer ms and its
-          plain backwards' ms (CUDA events around each Function's vjp);
-      (d) the distinct sizes of (c)'s launches, for the shape checks.
+          total_steps=3, warmup_steps=1)``) through the compiled step:
+          step 1 eager over ``CompiledTrain``'s buffers, a capture of the
+          whole step as one CUDA graph, steps 2-3 replays with no
+          synchronising call in their enqueue (``sync_debug="error"``):
+          every step's launches and plain backwards, replays included,
+          as in (a), three finite losses (printed, not required to
+          fall), the step's ms (CUDA events; the median of steps 2-3),
+          tokens/s, capture ms, host µs a replay and the peak memory
+          (before the serves); after step 2 the live weights serve the
+          hymba serve's prompts (batch 4, 2048 tokens, 16 generated: a
+          capture), after step 3 again -- the key hits, no capture --
+          with the tokens of an ``eager=True`` serve of the same weights
+          and ``memory_allocated`` within 1 % of after the first serve;
+      (d) the distinct sizes of (c)'s launches, for the shape checks;
+      (e) the same three steps with ``eager=True`` (the functional step
+          op by op): every step's loss, gradient norm and the digests of
+          every parameter and optimizer leaf equal to (c)'s, its
+          launches and plain backwards as in (a), its ms a step,
+          tokens/s and peak memory, and each step's forward, backward
+          (recomputation included) and optimizer ms and its plain
+          backwards' ms (CUDA events around each Function's vjp).
 
     The summary carries the card's name and power limit beside its
-    figures.  Returns (each step's launches, the sizes, the summary)."""
+    figures.  Returns ((c)'s steps with their launches, the sizes, the
+    summary, (c)'s step 1 for phase 8g)."""
     cfg = dataclasses.replace(configs.get(HYMBA_ARCH), remat="dots")
     model = build(cfg)
     batch, accum = _train_batch(cfg, device)
@@ -2517,60 +2541,140 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
     del params, opt_state, p1, p2
     torch.cuda.empty_cache()
 
-    # (c) three steps of train_loop
-    steps, sizes, timing, step1 = [], {}, {}, {}
+    # (c) three steps of the compiled train_loop, the trained weights
+    # served after steps 2 and 3; (e) the same three steps eager
+    serve_model, served = build(cfg), {}
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT)).astype(np.int32)
 
-    def on_step(i, metrics):
-        torch.cuda.synchronize()
-        got, bwd = counted(f"train_loop step {i + 1}")
+    def serve_trained(i: int, params) -> None:
+        """After step 2 serve the live weights (a capture); after step 3
+        serve them again (a replay: the key's tensors were updated in
+        place) and once with ``eager=True``."""
         if i == 1:
-            step1["ms2"] = metrics["ms"]
-        if i == 0:   # what phase 8g holds its mesh step against
-            step1.update(loss=metrics["loss"],
-                         grad_norm=float(metrics["grad_norm"]),
-                         ms=metrics["ms"], launches=got,
-                         plain_backwards=bwd,
-                         params=leaf_digests(metrics["params"]),
-                         opt_state=leaf_digests(metrics["opt_state"]))
-        steps.append({"step": i + 1, "loss": metrics["loss"],
-                      "ms": metrics["ms"], "lr": metrics["lr"],
-                      "grad_norm": float(metrics["grad_norm"]),
-                      "launches": got, "plain_backwards": bwd,
-                      "spans": len(spans)})
-        for k, v in _build.launch_sizes().items():
-            sizes.setdefault(k, set()).update(v)
+            served["train_peak"] = torch.cuda.max_memory_allocated()
+        if i not in (1, 2):
+            return
+        trace = {}
+        tokens = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
+                             model=serve_model, trace=trace)
+        del trace["logits"]
+        torch.cuda.synchronize()
+        served[i] = {"tokens": tokens, "step": trace["step"],
+                     "capture_ms": trace["capture_ms"],
+                     "allocated": torch.cuda.memory_allocated(),
+                     "prefill_ms": trace["prefill_ms"],
+                     "decode_ms": float(np.median(trace["decode_ms"]))}
+        if i == 2:
+            served["eager_tokens"] = serve_batch(
+                cfg, params, prompts, gen_tokens=MODEL_GEN,
+                model=serve_model, eager=True)
+
+    def loop(eager: bool) -> dict:
+        what = "eager" if eager else "compiled"
+        steps, sizes, timing, digests = [], {}, {}, []
+
+        def on_step(i, metrics):
+            torch.cuda.synchronize()
+            got, bwd = counted(f"{what} train_loop step {i + 1}")
+            digests.append((metrics["loss"], float(metrics["grad_norm"]),
+                            leaf_digests(metrics["params"]),
+                            leaf_digests(metrics["opt_state"])))
+            steps.append({"step": i + 1, "loss": metrics["loss"],
+                          "ms": metrics["ms"], "lr": metrics["lr"],
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "launches": got, "plain_backwards": bwd,
+                          "spans": len(spans)})
+            for k, v in _build.launch_sizes().items():
+                sizes.setdefault(k, set()).update(v)
+            if not eager:
+                serve_trained(i, metrics["params"])
+            _build.reset_launch_counts()
+            grad.reset_backward_counts()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         grad.reset_backward_counts()
+        trace = {}
+        t0 = time.perf_counter()
+        with grad.timed() as spans:
+            _, history = train_loop(
+                cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, micro_per_shard=TRAIN_MICRO,
+                opt_cfg=opt_cfg, seed=SEED, device=device, on_step=on_step,
+                timing=timing, log_every=1, eager=eager, trace=trace,
+                sync_debug=None if eager else "error")
+            wall_s = time.perf_counter() - t0
+            peak = served.get("train_peak") if not eager else None
+            peak = peak or torch.cuda.max_memory_allocated()
+            bounds_ = [0] + [row.pop("spans") for row in steps]
+            split = len(timing.get("optimizer", ()))   # steps run op by op
+            for i, row in enumerate(steps[:split]):
+                row["plain_backward_ms"] = grad.elapsed_ms(
+                    spans[bounds_[i]:bounds_[i + 1]])
+                for part in ("forward", "backward", "optimizer"):
+                    per = accum if part != "optimizer" else 1
+                    row[f"{part}_ms"] = sum(
+                        a.elapsed_time(b)
+                        for a, b in timing[part][i * per:(i + 1) * per])
+                row["plain_backward_share"] = \
+                    row["plain_backward_ms"] / row["ms"]
+        if len(history) != TRAIN_STEPS or not all(math.isfinite(x)
+                                                  for x in history):
+            failures.append(f"{what} losses {history}: not {TRAIN_STEPS} "
+                            "finite ones")
+        later = steps[1:]
+        step_ms = float(np.median([r["ms"] for r in later]))
+        out = {"step": trace["step"], "losses": history, "step_ms": step_ms,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               "peak_memory_GB": peak / 1e9, "wall_s": wall_s,
+               "capture_ms": trace["capture_ms"],
+               "replay_host_us": trace["replay_us"], "steps": steps}
+        if eager:
+            for key in ("forward_ms", "backward_ms", "optimizer_ms",
+                        "plain_backward_ms", "plain_backward_share"):
+                out[key] = float(np.median([r[key] for r in later]))
+        torch.cuda.empty_cache()
+        return {"summary": out, "sizes": sizes, "digests": digests}
 
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    grad.reset_backward_counts()
-    t0 = time.perf_counter()
-    with grad.timed() as spans:
-        _, history = train_loop(
-            cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-            seq_len=TRAIN_SEQ, micro_per_shard=TRAIN_MICRO, opt_cfg=opt_cfg,
-            seed=SEED, device=device, on_step=on_step, timing=timing,
-            log_every=1)
-        wall_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        bounds_ = [0] + [row.pop("spans") for row in steps]
-        for i, row in enumerate(steps):
-            row["plain_backward_ms"] = grad.elapsed_ms(
-                spans[bounds_[i]:bounds_[i + 1]])
-            for part in ("forward", "backward", "optimizer"):
-                per = accum if part != "optimizer" else 1
-                row[f"{part}_ms"] = sum(a.elapsed_time(b) for a, b in
-                                        timing[part][i * per:(i + 1) * per])
-            row["plain_backward_share"] = row["plain_backward_ms"] / row["ms"]
-    if len(history) != TRAIN_STEPS or not all(math.isfinite(x)
-                                              for x in history):
-        failures.append(f"losses {history}: not {TRAIN_STEPS} finite ones")
+    compiled = loop(eager=False)
+    release_graphs(serve_model)    # the served weights go with it
+    eager = loop(eager=True)
+    steps, sizes = compiled["summary"]["steps"], compiled["sizes"]
+    if compiled["summary"]["step"] != "cuda graph" \
+            or eager["summary"]["step"] != "eager":
+        failures.append(f"steps {compiled['summary']['step']}, "
+                        f"{eager['summary']['step']}")
+    off = [i + 1 for i, (a, b) in enumerate(zip(compiled["digests"],
+                                                 eager["digests"])) if a != b]
+    if off or len(compiled["digests"]) != len(eager["digests"]):
+        failures.append(f"compiled steps {off} differ from the eager loop's "
+                        "(loss, gradient norm, parameters, optimizer state)")
+    if len(compiled["summary"]["replay_host_us"]) != TRAIN_STEPS - 1:
+        failures.append("the compiled loop did not replay its later steps")
+    if served[1]["capture_ms"] is None or served[2]["capture_ms"] is not None \
+            or served[2]["step"] != "cuda graph":
+        failures.append("the serve after a compiled train step captured "
+                        "again, or the first serve did not capture")
+    if not np.array_equal(served[2]["tokens"], served["eager_tokens"]):
+        failures.append("the serve after a compiled train step differs from "
+                        "an eager serve of the same weights")
+    grew = served[2]["allocated"] / served[1]["allocated"] - 1
+    if abs(grew) > 0.01:
+        failures.append(f"memory_allocated moved {grew:.4f} between the "
+                        "serves around a compiled train step")
+    step1 = {"loss": compiled["digests"][0][0],
+             "grad_norm": compiled["digests"][0][1],
+             "ms": steps[0]["ms"], "ms2": steps[1]["ms"],
+             "launches": steps[0]["launches"],
+             "plain_backwards": steps[0]["plain_backwards"],
+             "params": compiled["digests"][0][2],
+             "opt_state": compiled["digests"][0][3]}
     if failures:
         raise SystemExit("train (hymba-1.5b): " + "; ".join(failures))
-    later = steps[1:]
-    step_ms = float(np.median([r["ms"] for r in later]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    c, e = compiled["summary"], eager["summary"]
     summary = {
         "phase": f"train ({cfg.name})", "arch": cfg.name,
         "layers": cfg.n_layers, "params": n_params,
@@ -2586,17 +2690,27 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
         "launches_step1": launches_a, "plain_backwards_step1": backwards_a,
         "expected_launches": want_launch,
         "expected_plain_backwards": want_bwd,
-        "repeat_bitwise": repeat_bitwise, "losses": history,
-        "compression_int8": compress, "step_ms": step_ms,
-        "tokens_per_s": tokens / step_ms * 1e3,
-        "forward_ms": float(np.median([r["forward_ms"] for r in later])),
-        "backward_ms": float(np.median([r["backward_ms"] for r in later])),
-        "optimizer_ms": float(np.median([r["optimizer_ms"] for r in later])),
-        "plain_backward_ms": float(np.median(
-            [r["plain_backward_ms"] for r in later])),
-        "plain_backward_share": float(np.median(
-            [r["plain_backward_share"] for r in later])),
-        "peak_memory_GB": peak / 1e9, "wall_s": wall_s, "steps": steps,
+        "repeat_bitwise": repeat_bitwise, "losses": c["losses"],
+        "compression_int8": compress,
+        "compiled_bitwise_eager": True, "step_ms": c["step_ms"],
+        "tokens_per_s": c["tokens_per_s"], "capture_ms": c["capture_ms"],
+        "replay_host_us": c["replay_host_us"],
+        "peak_memory_GB": c["peak_memory_GB"], "compiled": c,
+        "eager_step_ms": e["step_ms"],
+        "eager_tokens_per_s": e["tokens_per_s"],
+        "eager_peak_memory_GB": e["peak_memory_GB"], "eager": e,
+        "forward_ms": e["forward_ms"], "backward_ms": e["backward_ms"],
+        "optimizer_ms": e["optimizer_ms"],
+        "plain_backward_ms": e["plain_backward_ms"],
+        "plain_backward_share": e["plain_backward_share"],
+        "serve_after_train": {
+            "captures": [served[1]["capture_ms"], served[2]["capture_ms"]],
+            "allocated_GB": [served[1]["allocated"] / 1e9,
+                             served[2]["allocated"] / 1e9],
+            "allocated_rel_change": grew,
+            "prefill_ms": [served[1]["prefill_ms"], served[2]["prefill_ms"]],
+            "decode_ms": [served[1]["decode_ms"], served[2]["decode_ms"]],
+            "tokens_equal_eager": True},
         "card": card_line()}
     torch.cuda.empty_cache()
     return steps, sizes, summary, step1

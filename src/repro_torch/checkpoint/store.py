@@ -205,11 +205,16 @@ class CheckpointManager:
         """Save ``tree`` as step ``step`` when ``step`` is a multiple of
         the interval (after the previous async save ends); the copy to
         the host happens here, the write on a daemon thread unless
-        ``blocking``.  Returns whether it saved."""
+        ``blocking``.  ``tree`` may be live tensors that the next step
+        overwrites in place (``launch.train``'s compiled step donates
+        the parameters and the optimizer state): the snapshot is taken
+        before this returns, so the saved step is this one.  Returns
+        whether it saved."""
         if step % self.interval:
             return False
         self.wait()
-        # snapshot on the caller's thread: the next step replaces the tensors
+        # snapshot on the caller's thread: the next step overwrites the
+        # tensors in place (the compiled step) or replaces them
         host_tree = _unflatten(tree, iter(_snapshot(v)
                                           for _, v in _tree_items(tree)))
         self._rank = _rank_of(tree)

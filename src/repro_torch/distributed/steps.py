@@ -7,7 +7,10 @@ value-and-grad, otherwise a loop sums each micro-batch's gradients in
 float32 and divides by ``accum``.  The optimizer runs in float32
 (``optim.adamw_update``).  The steps are functional, as the
 reference's: they return new parameters and state and leave the old
-ones as they were.  On a mesh the parameters, the optimizer state and
+ones as they were; ``make_train_step_`` is the same step in place,
+the reference's jitted step with its parameters and state donated
+(``launch.train.CompiledTrain`` captures it as one CUDA graph).  On a
+mesh the parameters, the optimizer state and
 the batch are DTensors (``launch.train.train_loop(mesh=)``): the model
 gathers each layer's parameters for use, and DTensor's autograd reduces
 every gradient back to its parameter's shards over the fsdp axes (in
@@ -21,7 +24,7 @@ import contextlib
 import torch
 
 from repro_torch.models.transformer import Model
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_update, adamw_update_
 from repro_torch.optim.adamw import leaves, tree_map
 
 
@@ -99,6 +102,25 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, accum_steps: int):
         return new_params, new_opt, {"loss": loss, **om}
 
     return train_step
+
+
+def make_train_step_(model: Model, opt_cfg: AdamWConfig, accum_steps: int):
+    """``train_step_(params, opt_state, batch, scalars, timing=None)`` ->
+    {"loss", "grad_norm"}: ``make_train_step``'s step with the parameters
+    and the optimizer's tensors updated in place (``adamw_update_``, the
+    reference's donation) and the step's (lr, 1 - b1**t, 1 - b2**t) read
+    from the 0-d tensors ``scalars``; every device op reads and writes
+    only its arguments, so a CUDA graph captured from it replays any
+    step.  ``opt_state["step"]`` stays the caller's to advance."""
+    def train_step_(params, opt_state, batch, scalars,
+                    timing: dict | None = None):
+        loss, grads = value_and_grad(model, params, batch, accum_steps,
+                                     timing=timing)
+        with _span(timing, "optimizer"):
+            gnorm = adamw_update_(grads, opt_state, params, opt_cfg, scalars)
+        return {"loss": loss, "grad_norm": gnorm}
+
+    return train_step_
 
 
 def make_prefill_step(model: Model):

@@ -24,7 +24,11 @@ Under non-reentrant activation checkpointing the saved inputs are
 recomputed by the checkpoint, which launches the kernel again; the
 Functions save nothing else.  ``backward_counts`` counts the plain
 backwards by kernel, as ``_build.launch_counts`` counts the launches,
-and ``timed`` collects CUDA-event spans around them on the card.
+and ``timed`` collects CUDA-event spans around them on the card.  A
+CUDA graph's capture runs nothing: inside ``record()`` a plain backward
+is kept in the ``Recording`` instead of counted, with no span, and each
+replay of the graph adds it (``Recording.replay``), as
+``_build.record(counted=False)`` does for the launches.
 """
 from __future__ import annotations
 
@@ -37,6 +41,32 @@ _BACKWARDS: Counter = Counter()
 #: the (start, end) CUDA events of each plain backward while ``timed``
 #: collects them, None otherwise
 _SPANS: list | None = None
+#: the open captures' ``Recording``s (``record``)
+_CAPTURES: list = []
+
+
+class Recording:
+    """The plain backwards of one captured span, by kernel name."""
+
+    def __init__(self):
+        self.backwards: Counter = Counter()
+
+    def replay(self) -> None:
+        """Add the span's plain backwards to the counts, as one replay of
+        a graph captured from it runs them."""
+        _BACKWARDS.update(self.backwards)
+
+
+@contextlib.contextmanager
+def record():
+    """A CUDA graph's capture: a plain backward recorded inside is noted
+    in the ``Recording`` this yields, not counted and not timed."""
+    rec = Recording()
+    _CAPTURES.append(rec)
+    try:
+        yield rec
+    finally:
+        _CAPTURES.remove(rec)
 
 
 def wanted(*tensors: torch.Tensor) -> bool:
@@ -94,7 +124,7 @@ class _KernelFunction(torch.autograd.Function):
         inputs = ctx.saved_tensors
         needs = ctx.needs_input_grad[3:]
         span = None
-        if _SPANS is not None and inputs[0].is_cuda:
+        if _SPANS is not None and inputs[0].is_cuda and not _CAPTURES:
             span = (torch.cuda.Event(enable_timing=True),
                     torch.cuda.Event(enable_timing=True))
             span[0].record()
@@ -111,7 +141,10 @@ class _KernelFunction(torch.autograd.Function):
         if span is not None:
             span[1].record()
             _SPANS.append(span)
-        _BACKWARDS[ctx.name] += 1
+        for rec in _CAPTURES:
+            rec.backwards[ctx.name] += 1
+        if not _CAPTURES:
+            _BACKWARDS[ctx.name] += 1
         return (None, None, None,
                 *(next(got) if need else None for need in needs))
 

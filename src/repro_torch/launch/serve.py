@@ -34,15 +34,21 @@ runs the prefill and every decode step as replays of two CUDA graphs
 ``Model.decode``, every hand-written kernel inside them.  The decode
 step takes its position as a 0-d tensor, as the reference's traced
 ``pos``, so one graph serves every position.  A ``CompiledServe`` is
-kept on the model for each key (batch, prompt length, ``max_len``,
-``enc_len``, the frontend stubs' shapes, the parameter tensors'
-identities, the default backend and whether autotuning is on) with its
-static inputs, its cache (reset in place each serve) and both graphs;
-the first serve of a key runs the prefill and decode step 0 eagerly on
-the graphs' stream -- real results, and the warm-up the capture needs
--- then captures both and replays the decode for the rest; later
-serves replay both.  A capture or a replay that fails raises: nothing
-runs the eager step behind the caller's back.  The step runs eagerly
+kept on the model for each shape key (batch, prompt length,
+``max_len``, ``enc_len``, the frontend stubs' shapes, the default
+backend and whether autotuning is on) with its static inputs, its cache
+(reset in place each serve), both graphs and the parameter tensors it
+captured; the first serve of a key runs the prefill and decode step 0
+eagerly on the graphs' stream -- real results, and the warm-up the
+capture needs -- then captures both and replays the decode for the
+rest; later serves of the same parameter tensors replay both, and read
+their current values (``launch.train``'s compiled step updates them in
+place).  A serve of the key with other parameter tensors releases the
+entry (its graphs, pool, cache and parameters) and captures anew, so a
+model holds at most one compiled serve a shape key.  Every compiled
+step of a device runs on one side stream (``graph_stream``).  A capture
+or a replay that fails raises: nothing runs the eager step behind the
+caller's back.  The step runs eagerly
 (op by op from Python) on the CPU, under an ambient mesh or with
 DTensor parameters (gloo's collectives and DTensor's dispatch cannot
 be captured), and when the caller passes ``eager=True`` -- the
@@ -66,7 +72,7 @@ from repro_torch.models import build
 from repro_torch.models.layers import greedy
 
 
-class _Clock:
+class Clock:
     """Elapsed ms of a span: CUDA events on the card (the device's time,
     read after one synchronise at the end), the host clock on the CPU."""
 
@@ -142,6 +148,22 @@ def _reset(cache: list) -> None:
             t.zero_()
 
 
+#: the graphs' stream of each device (``graph_stream``)
+_STREAMS: dict = {}
+
+
+def graph_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream every compiled step on ``device`` warms up and
+    captures on, one a device: what the warm-up makes for a stream and
+    keeps for the stream's life (cuBLAS's workspace, 32 MiB on an H100)
+    is then made once, not once a capture."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
+
+
 class CompiledServe:
     """The compiled serve step of one key: the static inputs (the prompts,
     the frontend stubs, the current token ``tok`` (B,) and ``pos``, a 0-d
@@ -159,13 +181,13 @@ class CompiledServe:
 
     def __init__(self, model, params: dict, b: int, s: int, max_len: int,
                  device: torch.device):
-        self.params = params     # holds the key's parameter ids valid
+        self.params = params     # the tensors the graphs read
         self.prompts = torch.zeros((b, s), dtype=torch.int64, device=device)
         self.batch, self.pos0, enc_len = serve_inputs(model.cfg, self.prompts)
         self.cache = model.init_cache(b, max_len, enc_len, device=device)
         self.tok = torch.zeros((b,), dtype=torch.int64, device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" \
+        self.stream = graph_stream(device) if device.type == "cuda" \
             else None    # the graphs' stream (the steps run anywhere)
         self.graphs: tuple | None = None
         self.records: tuple | None = None
@@ -217,6 +239,14 @@ class CompiledServe:
         self.graphs, self.records = tuple(graphs), tuple(records)
         self.logits = tuple(logits)
 
+    def holds(self, params: dict) -> bool:
+        """Whether ``params`` are the parameter tensors this step reads
+        (the same objects, leaf by leaf)."""
+        mine = [t for _, t in _named(self.params)]
+        theirs = [t for _, t in _named(params)]
+        return len(mine) == len(theirs) and all(
+            a is b for a, b in zip(mine, theirs))
+
     def replay(self, i: int, host_us: list) -> torch.Tensor:
         """Replay graph ``i`` (0 the prefill, 1 the decode step) on the
         current stream, count its launches, and return the logits it
@@ -229,19 +259,34 @@ class CompiledServe:
         return self.logits[i]
 
 
-def compiled_key(cfg, params: dict, b: int, s: int, max_len: int) -> tuple:
-    """The key of a ``CompiledServe``: batch, prompt length, ``max_len``,
-    ``enc_len``, the frontend stubs' shapes, the identities of the
-    parameter tensors, the default backend (``dispatch.use_backend``) and
-    whether autotuning is on (the launch knobs are looked up at
-    capture)."""
+def compiled_key(cfg, b: int, s: int, max_len: int) -> tuple:
+    """The shape key of a ``CompiledServe``: batch, prompt length,
+    ``max_len``, ``enc_len``, the frontend stubs' shapes, the default
+    backend (``dispatch.use_backend``) and whether autotuning is on (the
+    launch knobs are looked up at capture)."""
     batch, _, enc_len = serve_inputs(
         cfg, torch.empty((b, s), dtype=torch.int64, device="meta"))
     stubs = tuple((k, tuple(v.shape)) for k, v in batch.items()
                   if k != "tokens")
-    return (b, s, max_len, enc_len, stubs,
-            tuple(id(t) for _, t in _named(params)),
-            dispatch.default_backend(), tuning.enabled())
+    return (b, s, max_len, enc_len, stubs, dispatch.default_backend(),
+            tuning.enabled())
+
+
+def compiled_serve(model, params: dict, b: int, s: int, max_len: int,
+                   device: torch.device) -> CompiledServe:
+    """The model's ``CompiledServe`` of this shape key for ``params``: the
+    kept one when it reads these parameter tensors; otherwise the kept
+    one, if any, is released first (graphs, pool, cache, its parameters)
+    and a new one, not yet captured, takes its place."""
+    key = compiled_key(model.cfg, b, s, max_len)
+    cs = model.serve_graphs.get(key)
+    if cs is not None and not cs.holds(params):
+        del model.serve_graphs[key]
+        cs = None
+    if cs is None:
+        cs = model.serve_graphs[key] = CompiledServe(model, params, b, s,
+                                                     max_len, device)
+    return cs
 
 
 def release_graphs(model) -> None:
@@ -251,7 +296,7 @@ def release_graphs(model) -> None:
 
 
 @contextlib.contextmanager
-def _sync_debug(mode: str | None):
+def sync_debug_mode(mode: str | None):
     """``torch.cuda.set_sync_debug_mode(mode)`` inside (unchanged for
     None), the previous mode restored after."""
     if mode is None:
@@ -315,7 +360,7 @@ def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
             batch, mesh, accum_dim=False))
         cache = elastic.place(cache, mesh, sharding.cache_specs(
             cache, cfg, mesh))
-    clock = _Clock(dev)
+    clock = Clock(dev)
     logits_seen, sizes = [], []
 
     t0 = clock.start()
@@ -352,13 +397,9 @@ def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
     """The serve step as replays of the key's CUDA graphs (captured at
     the key's first serve, after its eager prefill and step 0)."""
     b, s = prompts.shape
-    key = compiled_key(cfg, params, b, s, s + gen_tokens)
-    cs = model.serve_graphs.get(key)
-    if cs is None:
-        cs = model.serve_graphs[key] = CompiledServe(
-            model, params, b, s, s + gen_tokens, dev)
+    cs = compiled_serve(model, params, b, s, s + gen_tokens, dev)
     cs.prompts.copy_(torch.as_tensor(prompts, dtype=torch.int64))
-    clock = _Clock(dev)
+    clock = Clock(dev)
     keep = trace is not None
     logits_seen, sizes, out, host_us = [], [], [], []
     capture_ms, first = None, cs.graphs is None
@@ -382,7 +423,7 @@ def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
         c0 = time.perf_counter()
         cs.capture(model)
         capture_ms = (time.perf_counter() - c0) * 1e3
-    with _sync_debug(sync_debug):
+    with sync_debug_mode(sync_debug):
         if not first:
             t0 = clock.start()
             logits = cs.replay(0, [])

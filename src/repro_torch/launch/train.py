@@ -21,6 +21,22 @@ Without ``--device cpu`` it runs on the GPU and raises when there is
 none.  Weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; the batches are ``data.SyntheticLMData``'s.
 
+On one card the train step is compiled, the port of the JAX launcher's
+``jax.jit(step_fn, donate_argnums=(0, 1))``: ``CompiledTrain`` holds the
+parameters and the optimizer state, updated in place (the reference
+donates them), the batch buffers and the step's learning rate and bias
+corrections as 0-d tensors.  The first step runs eagerly on the graph's
+stream over those buffers -- a real step, and the warm-up the capture
+needs -- then the whole step (every micro-batch's forward and backward,
+the plain vjps of ``kernels.grad``, the float32 accumulation, the global
+norm and clip, the AdamW update) is captured as one CUDA graph, and
+every later step copies its batch in, refills the three scalars from
+the host and replays it.  A capture or a replay that fails raises:
+nothing runs the eager step behind the caller's back.  The CPU, a mesh
+(DTensor's dispatch and gloo's collectives cannot be captured) and
+``eager=True`` (``--eager``) run the functional step op by op from
+Python, the reference the compiled step is held to bit for bit.
+
 Sharded training (``--mesh``), SPMD, one process a device:
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -51,10 +67,107 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     load_checkpoint)
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.distributed import elastic, sharding
-from repro_torch.distributed.steps import make_train_step
-from repro_torch.kernels import dispatch
+from repro_torch.distributed.steps import make_train_step, make_train_step_
+from repro_torch.kernels import _build, dispatch, grad
+from repro_torch.launch.serve import Clock, graph_stream, sync_debug_mode
 from repro_torch.models import build
-from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim import AdamWConfig, adamw_init, schedule
+
+
+class CompiledTrain:
+    """The compiled train step on one card (the module's docstring): the
+    parameters and optimizer state it updates in place, the static
+    inputs -- ``batch`` (leaves (accum, micro, ...)) and ``scalars``, the
+    step's (lr, 1 - b1**t, 1 - b2**t) as 0-d float32 tensors -- and once
+    captured the step's CUDA graph, with the kernel launches and plain
+    backwards of each replay (``_build.Recording``,
+    ``grad.Recording``) and the loss and gradient norm it writes.
+
+    ``run`` is the step op by op over these buffers (on the card on the
+    graph's stream, after the current stream's work); ``capture``
+    records the same ops into the graph, ``replay`` runs them.  The step
+    reads and writes only these tensors, so one graph replays every
+    step.  On the CPU there is no graph: ``run`` alone is the step."""
+
+    def __init__(self, model, opt_cfg: AdamWConfig, accum: int, params,
+                 opt_state: dict):
+        dev = params["embed"].device
+        self.params, self.opt_state, self.opt_cfg = params, opt_state, opt_cfg
+        self.batch: dict | None = None    # made at the first ``load``
+        self.scalars = tuple(torch.zeros((), dtype=torch.float32, device=dev)
+                             for _ in range(3))
+        self.step_fn = make_train_step_(model, opt_cfg, accum)
+        self.stream = graph_stream(dev) if dev.type == "cuda" else None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.records: tuple | None = None
+        self.out: dict | None = None
+
+    def load(self, batch: dict) -> float:
+        """Copy a step's batch (host tensors; on the card through pinned
+        memory, with no host sync) into the static buffers and fill the
+        scalars for the next step, ``opt_state["step"] + 1``; returns
+        its learning rate."""
+        if self.batch is None:
+            self.batch = {k: torch.empty(v.shape, dtype=v.dtype,
+                                         device=self.scalars[0].device)
+                          for k, v in batch.items()}
+        for k, v in batch.items():
+            if self.stream is not None and not v.is_pinned():
+                v = v.pin_memory()
+            self.batch[k].copy_(v, non_blocking=True)
+        vals = schedule(self.opt_state["step"] + 1, self.opt_cfg)
+        for t, x in zip(self.scalars, vals):
+            t.fill_(x)
+        return vals[0]
+
+    def run(self, timing: dict | None = None) -> dict:
+        """The step op by op over the static buffers -- on the card the
+        first step, and the warm-up of what the capture records (cuBLAS's
+        handle and workspace on the graph's stream, the autograd
+        thread's, each kernel's first launch) -- then the state's step
+        advanced.  Returns {"loss", "grad_norm"}."""
+        if self.stream is None:
+            out = self.step_fn(self.params, self.opt_state, self.batch,
+                               self.scalars, timing)
+        else:
+            cur = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                out = self.step_fn(self.params, self.opt_state, self.batch,
+                                   self.scalars, timing)
+            cur.wait_stream(self.stream)
+            for t in out.values():
+                t.record_stream(cur)
+        self.opt_state["step"] += 1
+        return out
+
+    def capture(self) -> float:
+        """Capture the step into one CUDA graph of its own memory pool,
+        after the eager step's cached blocks are given back
+        (``torch.cuda.graph`` synchronises and empties the cache); a
+        capture runs nothing.  Returns the capture's host ms."""
+        t0 = time.perf_counter()
+        g = torch.cuda.CUDAGraph()
+        with _build.record(counted=False) as launches, \
+                grad.record() as backwards, \
+                torch.cuda.graph(g, stream=self.stream):
+            out = self.step_fn(self.params, self.opt_state, self.batch,
+                               self.scalars)
+        self.graph, self.records, self.out = g, (launches, backwards), out
+        return (time.perf_counter() - t0) * 1e3
+
+    def replay(self, host_us: list) -> dict:
+        """Replay the graph on the current stream, count its launches and
+        plain backwards, advance the state's step; returns fresh copies of
+        the loss and gradient norm it wrote.  The host µs of the replay
+        call go on ``host_us``."""
+        t0 = time.perf_counter()
+        self.graph.replay()
+        host_us.append((time.perf_counter() - t0) * 1e6)
+        for rec in self.records:
+            rec.replay()
+        self.opt_state["step"] += 1
+        return {k: v.clone() for k, v in self.out.items()}
 
 
 def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
@@ -62,16 +175,30 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                ckpt_interval: int = 50, resume: bool = False,
                opt_cfg: AdamWConfig | None = None, log_every: int = 10,
                seed: int = 0, device: str | torch.device = "cuda",
-               on_step=None, timing: dict | None = None, mesh=None):
+               on_step=None, timing: dict | None = None, mesh=None,
+               eager: bool = False, trace: dict | None = None,
+               sync_debug: str | None = None):
     """Train ``cfg`` from step 0 (or the latest checkpoint with
     ``resume``) to ``steps``; shared by the CLI, the smoke run and the
     tests.  ``on_step(step, metrics)``, if given, is called after every
     step (metrics: ``loss``, ``lr``, ``grad_norm``, ``ms``, and the
-    step's new ``params`` and ``opt_state``); ``timing``, a dict,
-    collects the steps' CUDA-event spans (``make_train_step``).  With
-    ``mesh`` (a ``DeviceMesh``) the step runs sharded over it under
-    ``mesh_context``; None is the one-device path.  Returns (params,
-    history of losses)."""
+    step's ``params`` and ``opt_state``).  On one card the step is
+    compiled (the module's docstring) and the parameters and state are
+    donated: ``on_step`` sees the live tensors, which the next step
+    overwrites, so it copies what it keeps (a checkpoint's snapshot is
+    taken before the next step).  ``eager=True``, the CPU and a mesh run
+    the functional step.  ``timing``, a dict, collects the steps'
+    CUDA-event spans (``make_train_step``: each micro-batch's forward
+    and backward, the optimizer) of the steps run op by op -- on the
+    compiled path only the first.  ``trace``, a dict, gets ``step``
+    ("cuda graph" or "eager"), ``capture_ms`` (host; None without a
+    capture) and ``replay_us`` (the host µs of each replay call).
+    ``sync_debug`` is ``torch.cuda.set_sync_debug_mode``'s mode over
+    each replayed step's enqueue (its batch's copy, the scalars, the
+    replay); the loop's own read of each step's loss, as the
+    reference's, stays outside.  With ``mesh`` (a ``DeviceMesh``) the
+    step runs sharded over it under ``mesh_context``; None is the
+    one-device path.  Returns (params, history of losses)."""
     dev = dispatch.resolve_device(device)
     model = build(cfg)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps,
@@ -99,18 +226,51 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
         opt_state = elastic.place(opt_state, mesh,
                                   sharding.opt_specs(opt_state, pspecs))
 
+    compiled = None
+    if not eager and dev.type == "cuda" and mesh is None:
+        compiled = CompiledTrain(model, opt_cfg, accum, params, opt_state)
     step_fn = make_train_step(model, opt_cfg, accum)
-    history = []
+    history, host_us, capture_ms = [], [], None
     scope = (sharding.mesh_context(mesh) if mesh is not None
              else contextlib.nullcontext())
     with scope:
         for step in range(start_step, steps):
-            params, opt_state = _step(
-                step, steps, step_fn, data, params, opt_state, accum, micro,
-                dev, mesh, manager, on_step, timing, log_every, history)
+            batch = _host_batch(data, step, accum, micro)
+            clock = Clock(dev)
+            began = clock.start()
+            if compiled is None:
+                batch = {k: v.to(dev) for k, v in batch.items()}
+                if mesh is not None:
+                    batch = elastic.place(batch, mesh, sharding.batch_specs(
+                        batch, mesh, accum_dim=True))
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch, timing)
+            elif compiled.graph is None:
+                lr = compiled.load(batch)
+                metrics = {**compiled.run(timing), "lr": lr}
+            else:
+                with sync_debug_mode(sync_debug):
+                    lr = compiled.load(batch)
+                    metrics = {**compiled.replay(host_us), "lr": lr}
+            clock.stop(began)
+            _finish(step, steps, metrics, clock.ms()[0], params, opt_state,
+                    manager, on_step, log_every, history)
+            if compiled is not None and compiled.graph is None \
+                    and step + 1 < steps:
+                capture_ms = compiled.capture()
     if manager:
         manager.wait()
+    if trace is not None:
+        trace.update(step="eager" if compiled is None else "cuda graph",
+                     capture_ms=capture_ms, replay_us=host_us)
     return params, history
+
+
+def _host_batch(data, step: int, accum: int, micro: int) -> dict:
+    """Step ``step``'s global batch as host tensors, each leaf (accum,
+    micro, ...)."""
+    return {k: torch.from_numpy(np.reshape(v, (accum, micro) + v.shape[1:]))
+            for k, v in data.global_batch(step).items()}
 
 
 def _value(t) -> float:
@@ -118,29 +278,10 @@ def _value(t) -> float:
     return float(t.full_tensor() if sharding.is_dtensor(t) else t)
 
 
-def _step(step, steps, step_fn, data, params, opt_state, accum, micro, dev,
-          mesh, manager, on_step, timing, log_every, history):
-    """One step of ``train_loop``: the batch, the step, its metrics."""
-    raw = data.global_batch(step)
-    batch = {k: torch.from_numpy(np.reshape(v, (accum, micro)
-                                            + v.shape[1:])).to(dev)
-             for k, v in raw.items()}
-    if mesh is not None:
-        batch = elastic.place(batch, mesh, sharding.batch_specs(
-            batch, mesh, accum_dim=True))
-    if dev.type == "cuda":
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        t0.record()
-    else:
-        w0 = time.perf_counter()
-    params, opt_state, metrics = step_fn(params, opt_state, batch,
-                                         timing)
-    if dev.type == "cuda":
-        t1.record()
-        t1.synchronize()
-        ms = t0.elapsed_time(t1)
-    else:
-        ms = (time.perf_counter() - w0) * 1e3
+def _finish(step, steps, metrics, ms, params, opt_state, manager, on_step,
+            log_every, history) -> None:
+    """A step's loss into the history, its checkpoint, ``on_step`` and
+    its log line."""
     loss = _value(metrics["loss"])
     history.append(loss)
     if manager:
@@ -153,7 +294,6 @@ def _step(step, steps, step_fn, data, params, opt_state, accum, micro, dev,
               f"lr {float(metrics['lr']):.2e} "
               f"gnorm {_value(metrics['grad_norm']):.2f} "
               f"({ms:.0f} ms/step)", flush=True)
-    return params, opt_state
 
 
 def main(argv=None) -> None:
@@ -174,6 +314,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="the GPU unless cpu is asked for")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the train step op by op, not as a CUDA graph")
     ap.add_argument("--mesh", choices=["local", "production", "multipod"],
                     default=None, help="train sharded: a (data, model) "
                     "mesh over the torchrun world, or the reference's "
@@ -195,7 +337,7 @@ def main(argv=None) -> None:
                seq_len=args.seq_len, micro_per_shard=args.micro_per_shard,
                ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
                resume=args.resume == "auto", seed=args.seed,
-               device=args.device, mesh=mesh)
+               device=args.device, mesh=mesh, eager=args.eager)
 
 
 if __name__ == "__main__":

@@ -153,10 +153,13 @@ class Model:
                              f"{REMAT_POLICIES}")
         if remat == "none" or not torch.is_grad_enabled():
             return body(x)
+        # no forward draws random numbers: no RNG state is saved and
+        # restored around the recomputation, eager or under a capture
         if remat == "full":
-            return checkpoint(body, x, use_reentrant=False)
+            return checkpoint(body, x, use_reentrant=False,
+                              preserve_rng_state=False)
         return checkpoint(body, x, use_reentrant=False,
-                          context_fn=_dots_context)
+                          preserve_rng_state=False, context_fn=_dots_context)
 
     def forward(self, params: dict, batch: dict):
         """Full-sequence logits: (logits (B, S, V) float32, aux), aux the

@@ -10,6 +10,14 @@ corrections, weight decay on masters of 2 or more dims only (norm gains
 and biases exempt) -- not ``torch.optim.AdamW``, whose decay and
 clipping differ.  The parameters come back in their own dtype.
 
+The step's learning rate and bias corrections are computed on the host
+(``schedule``) and read by the update as 0-d float32 tensors on the
+device, the reference's traced scalars: the same launched code serves
+every step, so a CUDA graph of the update replays with the three
+refilled.  ``adamw_update`` returns new tensors, as the
+reference's function does; ``adamw_update_`` writes the same bits into
+the state and the parameters, as its jitted step with donated buffers.
+
 A list in the tree counts as one more dim of its leaves: the port's
 lists of per-layer dicts are the JAX package's layer-stacked arrays, one
 axis longer, so a layer's (d,) norm gain is a 2-dim master there and
@@ -79,21 +87,30 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-@torch.no_grad()
-def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
-    """One AdamW step.  Returns (new_params, new_opt_state, metrics):
-    the parameters in their own dtype, the new float32 state, and
-    ``{"lr": float, "grad_norm": float32 tensor}``."""
-    step = opt_state["step"] + 1
+def schedule(step: int, cfg: AdamWConfig) -> tuple[float, float, float]:
+    """The host's numbers of AdamW step ``step`` (1 the first): the
+    learning rate (``warmup_cosine``) and the bias corrections ``1 -
+    b1**step`` and ``1 - b2**step``, each in float32 arithmetic, as the
+    reference computes them inside its jitted step."""
     lr = warmup_cosine(step, peak_lr=cfg.peak_lr,
                        warmup_steps=cfg.warmup_steps,
                        total_steps=cfg.total_steps)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
-                        max=1.0)
     step32 = torch.tensor(step, dtype=torch.float32)
     b1c, b2c = (float(1 - torch.pow(torch.tensor(b, dtype=torch.float32),
                                     step32)) for b in (cfg.b1, cfg.b2))
+    return lr, b1c, b2c
+
+
+def _update(grads, opt_state: dict, params, cfg: AdamWConfig,
+            scalars: tuple, leaf):
+    """The update of every leaf, one at a time: ``leaf(old, new)`` takes
+    the leaf's (m, v, master, parameter) and its new float32 (m, v,
+    master) as they are made.  Returns (the global gradient norm, the
+    tree of ``leaf``'s results)."""
+    lr, b1c, b2c = scalars
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
+                        max=1.0)
 
     def upd(g, m, v, master, ndim):
         g = g.float() * scale
@@ -104,19 +121,49 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
             update = update + cfg.weight_decay * master
         return m, v, master - lr * update
 
-    def walk(g, m, v, w, lists: int):
+    def walk(g, m, v, w, p, lists: int):
         if isinstance(g, dict):
-            return {k: walk(g[k], m[k], v[k], w[k], lists) for k in g}
+            return {k: walk(g[k], m[k], v[k], w[k], p[k], lists) for k in g}
         if isinstance(g, list):
-            return [walk(*leaf, lists + 1) for leaf in zip(g, m, v, w)]
-        return upd(g, m, v, w, w.dim() + lists)
+            return [walk(*x, lists + 1) for x in zip(g, m, v, w, p)]
+        return leaf((m, v, w, p), upd(g, m, v, w, w.dim() + lists))
 
-    out = walk(grads, opt_state["m"], opt_state["v"], opt_state["master"], 0)
-    new_m, new_v, new_master = (_unzip(out, i) for i in range(3))
-    new_params = tree_map(lambda w, p: w.to(p.dtype, copy=True), new_master,
-                          params)
+    return gnorm, walk(grads, opt_state["m"], opt_state["v"],
+                       opt_state["master"], params, 0)
+
+
+@torch.no_grad()
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
+    """One AdamW step.  Returns (new_params, new_opt_state, metrics):
+    the parameters in their own dtype, the new float32 state, and
+    ``{"lr": float, "grad_norm": float32 tensor}``."""
+    step = opt_state["step"] + 1
+    host = schedule(step, cfg)
+    dev = leaves(grads)[0].device
+    scalars = tuple(torch.full((), x, dtype=torch.float32, device=dev)
+                    for x in host)
+    gnorm, out = _update(
+        grads, opt_state, params, cfg, scalars,
+        lambda old, new: (*new, new[2].to(old[3].dtype, copy=True)))
+    new_m, new_v, new_master, new_params = (_unzip(out, i) for i in range(4))
     new_state = {"step": step, "master": new_master, "m": new_m, "v": new_v}
-    return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
+    return new_params, new_state, {"lr": host[0], "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def adamw_update_(grads, opt_state: dict, params, cfg: AdamWConfig,
+                  scalars: tuple) -> torch.Tensor:
+    """``adamw_update`` in place, the reference's donation: each leaf's
+    new ``m``, ``v`` and ``master`` are copied into the state's tensors
+    and the master, cast, into the parameter's, leaf by leaf (the
+    temporaries are one leaf's), by the same expressions, so the bits
+    are ``adamw_update``'s.  ``opt_state["step"]``, a host int, is the
+    caller's to advance: a CUDA graph captured from this replays it.
+    Returns the global gradient norm."""
+    def put(old, new):
+        for t, x in zip(old, (*new, new[2])):
+            t.copy_(x)
+    return _update(grads, opt_state, params, cfg, scalars, put)[0]
 
 
 def _unzip(tree, i: int):

@@ -338,7 +338,8 @@ def test_compiled_steps_over_static_buffers_equal_the_eager_serve(arch):
         assert int(cs.pos) == cs.pos0 + gen
         assert np.array_equal(torch.stack(toks, 1).numpy(), want)
         assert all(torch.equal(a, b) for a, b in zip(logits, trace["logits"]))
-    key = serve.compiled_key(cfg, params, BATCH, PROMPT, PROMPT + gen)
-    assert key == serve.compiled_key(cfg, params, BATCH, PROMPT, PROMPT + gen)
-    assert key != serve.compiled_key(cfg, dict(params, embed=params[
-        "embed"].clone()), BATCH, PROMPT, PROMPT + gen)
+    key = serve.compiled_key(cfg, BATCH, PROMPT, PROMPT + gen)
+    assert key == serve.compiled_key(cfg, BATCH, PROMPT, PROMPT + gen)
+    assert key != serve.compiled_key(cfg, BATCH, PROMPT, PROMPT + gen + 1)
+    assert cs.holds(params) and not cs.holds(dict(params, embed=params[
+        "embed"].clone()))

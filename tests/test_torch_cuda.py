@@ -10,9 +10,12 @@ to the plain path and to per-request ``apply``/``project`` (the scene
 graph's ``submit_scene`` lanes too); the reduced MoE, enc-dec and VLM
 models through the kernels (flash attention also at whisper-medium's and
 internvl2-76b's serve shapes), an int8-cache decode step against the
-CPU's, ``moe_ffn`` deterministic on the card, and the compiled serve
-step (CUDA graphs of ``Model.prefill``/``decode``) of every family bit
-for bit the eager one.
+CPU's, ``moe_ffn`` deterministic on the card, the compiled serve step
+(CUDA graphs of ``Model.prefill``/``decode``) of every family bit for
+bit the eager one, and the compiled train step (one CUDA graph of
+forward, backward and the in-place AdamW) bit for bit the eager loop,
+with a serve between train steps holding one compiled serve a shape
+key.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -2063,3 +2066,171 @@ def test_compiled_serve_is_bitwise_the_eager_serve_on_card(cuda_device, arch,
     assert sum(ce.values()) > 0
     release_graphs(model)
     assert not model.serve_graphs
+
+
+# -- the compiled train step (one CUDA graph of forward, backward, AdamW) --------
+
+def _train_run(cfg, eager: bool, steps: int = 3) -> dict:
+    """``train_loop`` of ``steps`` steps of ``cfg`` on the card, 4 rows of
+    64 tokens, 2 micro-batches: each step's loss, gradient norm,
+    parameters and optimizer leaves (copies), launches and plain
+    backwards, and the trace."""
+    from repro_torch.kernels import grad
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaves
+    rows = []
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        rows.append({
+            "loss": metrics["loss"], "grad_norm": metrics["grad_norm"].clone(),
+            "params": [t.clone() for t in leaves(metrics["params"])],
+            "opt": [t.clone() if isinstance(t, torch.Tensor) else t
+                    for t in leaves(metrics["opt_state"])],
+            "launches": {k: v for k, v in _build.launch_counts().items() if v},
+            "backwards": grad.backward_counts()})
+        _build.reset_launch_counts()
+        grad.reset_backward_counts()
+    _build.reset_launch_counts()
+    grad.reset_backward_counts()
+    trace = {}
+    train_loop(cfg, steps=steps, global_batch=4, seq_len=64,
+               micro_per_shard=2, opt_cfg=AdamWConfig(total_steps=steps,
+                                                      warmup_steps=2),
+               device="cuda", on_step=on_step, log_every=100, eager=eager,
+               trace=trace, sync_debug=None if eager else "error")
+    return {"rows": rows, "trace": trace}
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-moe-3b-a800m",
+                                  "whisper-medium"])
+def test_compiled_train_loop_is_bitwise_the_eager_loop_on_card(cuda_device,
+                                                               arch):
+    """Three steps of the reduced hybrid, MoE and enc-dec models: the
+    compiled loop (step 1 eager over the static buffers, a capture, two
+    replays with no synchronising call in their enqueue) gives every
+    step's loss, gradient norm, parameters and optimizer leaves bit for
+    bit the ``eager=True`` loop's, and the same launches and plain
+    backwards at every step, replays included; hymba's are
+    ``expected_train_launches``' counts."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(arch).reduced(), remat="dots")
+    eager, compiled = _train_run(cfg, True), _train_run(cfg, False)
+    assert eager["trace"]["step"] == "eager"
+    assert compiled["trace"]["step"] == "cuda graph"
+    assert compiled["trace"]["capture_ms"] is not None
+    assert len(compiled["trace"]["replay_us"]) == 2
+    for a, b in zip(eager["rows"], compiled["rows"]):
+        assert a["loss"] == b["loss"]
+        assert torch.equal(a["grad_norm"], b["grad_norm"])
+        assert all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+        assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                   for x, y in zip(a["opt"], b["opt"]))
+        assert a["launches"] == b["launches"] and a["launches"]
+        assert a["backwards"] == b["backwards"]
+    if cfg.family == "hybrid":
+        L = cfg.n_layers
+        fwd = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
+               "flash_attention_3d": L, "ssd_intra": L, "vecadd_2d": 2 * L}
+        for row in compiled["rows"]:
+            assert row["launches"] == {k: 2 * (2 * v - (k == "rmsnorm_2d"))
+                                       for k, v in fwd.items()}
+            assert row["backwards"] == {k: 2 * v for k, v in fwd.items()}
+
+
+def _serve_twice_around(cfg, model, params, step) -> tuple:
+    """Serve, ``step()``, serve again (compiled, 4 prompts of 40 tokens, 6
+    tokens): (both traces, ``memory_allocated`` after each serve, the
+    second's tokens and an ``eager=True`` serve's on the parameters
+    then)."""
+    from repro_torch.launch.serve import serve_batch
+    prompts = np.random.default_rng(69).integers(0, cfg.vocab_size, (4, 40))
+    traces, mem = [{}, {}], []
+    serve_batch(cfg, params(), prompts, gen_tokens=6, model=model,
+                trace=traces[0])
+    del traces[0]["logits"]
+    torch.cuda.synchronize()
+    mem.append(torch.cuda.memory_allocated())
+    step()
+    toks = serve_batch(cfg, params(), prompts, gen_tokens=6, model=model,
+                       trace=traces[1])
+    del traces[1]["logits"]
+    torch.cuda.synchronize()
+    mem.append(torch.cuda.memory_allocated())
+    want = serve_batch(cfg, params(), prompts, gen_tokens=6, model=model,
+                       eager=True)
+    return traces, mem, toks, want
+
+
+def test_serve_after_eager_train_steps_keeps_memory_flat(cuda_device):
+    """Serving between two functional train steps (new parameter tensors
+    each step) releases the first compiled serve before capturing the
+    second: one entry a shape key, ``memory_allocated`` after the second
+    serve within 1 % of after the first, and the tokens the ``eager=True``
+    serve's."""
+    from repro_torch import configs
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = configs.get("hymba-1.5b").reduced()
+    model = build(cfg)
+    st = {"params": model.init(torch.Generator(cuda_device).manual_seed(0))}
+    st["opt"] = adamw_init(st["params"])
+    rng = np.random.default_rng(70)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 64)))
+    batch = {"tokens": toks.to(cuda_device),
+             "labels": toks.roll(-1, dims=-1).to(cuda_device)}
+    step_fn = make_train_step(model, AdamWConfig(), 2)
+
+    def step():
+        st["params"], st["opt"], _ = step_fn(st["params"], st["opt"], batch)
+    step()
+    traces, mem, got, want = _serve_twice_around(
+        cfg, model, lambda: st["params"], step)
+    assert traces[0]["capture_ms"] is not None
+    assert traces[1]["capture_ms"] is not None     # new tensors: captured
+    assert len(model.serve_graphs) == 1
+    assert abs(mem[1] - mem[0]) <= 0.01 * mem[0], mem
+    assert np.array_equal(got, want)
+
+
+def test_serve_after_a_compiled_train_step_hits_its_key(cuda_device):
+    """The compiled train step updates the parameters in place, so a serve
+    after a replayed step finds its key and replays without a capture,
+    reads the new values (its tokens the ``eager=True`` serve's on them)
+    and leaves ``memory_allocated`` within 1 % of after the first serve."""
+    from repro_torch import configs
+    from repro_torch.launch.train import CompiledTrain
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+    cfg = configs.get("hymba-1.5b").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(cuda_device).manual_seed(1))
+    rng = np.random.default_rng(71)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 64)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=-1)}
+    ct = CompiledTrain(model, AdamWConfig(total_steps=4, warmup_steps=1), 2,
+                       params, adamw_init(params))
+    ct.load(batch)
+    ct.run()
+    ct.capture()
+    host_us = []
+
+    def step():
+        ct.load(batch)
+        ct.replay(host_us)
+    step()
+    before = [t.clone() for t in leaves(ct.params)]
+    traces, mem, got, want = _serve_twice_around(cfg, model,
+                                                 lambda: ct.params, step)
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(before, leaves(ct.params)))
+    assert traces[0]["capture_ms"] is not None
+    assert traces[1]["capture_ms"] is None and traces[1]["step"] == \
+        "cuda graph"
+    assert len(model.serve_graphs) == 1 and len(host_us) == 2
+    assert abs(mem[1] - mem[0]) <= 0.01 * mem[0], mem
+    assert np.array_equal(got, want)

@@ -20,7 +20,12 @@ Prints JSON lines, each beside the card's name and power limit:
     the device ms by kind -- the hand-written kernels by name, cuBLAS
     products, and the rest (the plain vjps' and the recomputation's
     elementwise and reduction kernels) -- with the top 15 device ops and
-    the top 15 host ops by self time.
+    the top 15 host ops by self time; then the same split of one
+    replayed train step (``launch.train.CompiledTrain``: the train
+    phase's 4 x 2048 tokens in 2 micro-batches, forward, backward and
+    the in-place AdamW as one CUDA graph, after its eager first step,
+    its capture and one replay), with the capture's host ms and the host
+    µs of the replay call.
 
 Needs one CUDA device.
 """
@@ -40,7 +45,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
+from repro_torch.launch.train import CompiledTrain  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.adamw import leaves, tree_map  # noqa: E402
 
 ARCH, SEQ, MICRO, SEED = "hymba-1.5b", 2048, 2, 0
@@ -97,6 +104,69 @@ def busy_ms(intervals: list) -> float:
     return total / 1e3
 
 
+def split(prof, span_ms: float, line: str, what: str) -> dict:
+    """The profile line of a traced span: busy against span ms, launches,
+    device ms by kind, the top device and host ops."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kind, intervals = {}, []
+    for e in events:
+        dur = e.time_range.end - e.time_range.start
+        intervals.append((e.time_range.start, e.time_range.end))
+        k = kind(e.name)
+        by_kind[k] = by_kind.get(k, 0.0) + dur / 1e3
+    ka = prof.key_averages()
+    top_dev = sorted(ka, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:15]
+    top_host = sorted(ka, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:15]
+    busy = busy_ms(intervals)
+    return {
+        "profile": what, "span_ms": span_ms, "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / span_ms,
+        "device_launches": len(events),
+        "device_ms_by_kind": by_kind,
+        "top_device_ops": [{"name": e.key[:90], "calls": e.count,
+                            "self_device_ms": e.self_device_time_total / 1e3}
+                           for e in top_dev],
+        "top_host_ops": [{"name": e.key[:90], "calls": e.count,
+                          "self_host_ms": e.self_cpu_time_total / 1e3}
+                         for e in top_host],
+        "card": line}
+
+
+def replayed_step(base, params, line: str) -> dict:
+    """``split`` of one replayed train step, the capture's host ms and the
+    replay call's host µs beside it (updates ``params`` in place)."""
+    raw = SyntheticLMData(DataConfig(vocab_size=base.vocab_size,
+                                     seq_len=SEQ, global_batch=2 * MICRO,
+                                     seed=SEED)).global_batch(0)
+    batch = {k: torch.from_numpy(v.reshape((2, MICRO) + v.shape[1:]))
+             for k, v in raw.items()}
+    ct = CompiledTrain(build(dataclasses.replace(base, remat="dots")),
+                       AdamWConfig(total_steps=4, warmup_steps=1), 2,
+                       params, adamw_init(params))
+    ct.load(batch)
+    ct.run()
+    capture_ms = ct.capture()
+    host_us = []
+    ct.load(batch)
+    ct.replay(host_us)   # the first replay uploads the graph
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ct.load(batch)
+        ct.replay(host_us)
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    return {**split(prof, span_ms, line, "replayed train step, remat dots, "
+                    "2 micro-batches, AdamW in place"),
+            "capture_ms": capture_ms, "replay_host_us": host_us[-1],
+            "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA device", file=sys.stderr)
@@ -144,33 +214,12 @@ def main() -> int:
         torch.autograd.grad(loss, leaves(ps))
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_kind, intervals = {}, []
-    for e in events:
-        dur = e.time_range.end - e.time_range.start
-        intervals.append((e.time_range.start, e.time_range.end))
-        k = kind(e.name)
-        by_kind[k] = by_kind.get(k, 0.0) + dur / 1e3
-    ka = prof.key_averages()
-    top_dev = sorted(ka, key=lambda e: e.self_device_time_total,
-                     reverse=True)[:15]
-    top_host = sorted(ka, key=lambda e: e.self_cpu_time_total,
-                      reverse=True)[:15]
-    busy = busy_ms(intervals)
-    print(json.dumps({
-        "profile": "forward + backward, remat dots, one micro-batch",
-        "span_ms": span_ms, "device_busy_ms": busy,
-        "device_idle_share": 1 - busy / span_ms,
-        "device_launches": len(events),
-        "device_ms_by_kind": by_kind,
-        "top_device_ops": [{"name": e.key[:90], "calls": e.count,
-                            "self_device_ms": e.self_device_time_total / 1e3}
-                           for e in top_dev],
-        "top_host_ops": [{"name": e.key[:90], "calls": e.count,
-                          "self_host_ms": e.self_cpu_time_total / 1e3}
-                         for e in top_host],
-        "card": line}), flush=True)
+    print(json.dumps(split(prof, span_ms, line, "forward + backward, "
+                           "remat dots, one micro-batch")), flush=True)
+    del ps, model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(json.dumps(replayed_step(base, params, line)), flush=True)
     print(line, flush=True)
     return 0
 
