@@ -180,8 +180,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      teacher-forced) under ``model_phase``'s rules (envelope 0.077), two
      mesh serves bitwise, each rank's launches exactly
      ``expected_launches`` and its collectives exactly
-     ``tp_collectives`` (all-reduces only); the kernels at the ranks'
-     shapes are checked in phase 9;
+     ``tp_collectives`` (all-reduces only); then hymba-1.5b on the same
+     mesh (full width, 1.59 B), whose 25/5 heads and 32 001-row
+     vocabulary the axis does not divide (``sharding.attn_layout``):
+     attention on the prompt's sequence split (1536-token prompts, 768
+     positions a rank, ``flash_attention_3d`` with ``q_offset``), decode
+     against the ring cache split by slots (the prefill fills both
+     ranks' slots, the 4 decode steps write slots 512-515 of rank 1), the
+     SSM decode split on its state's head dim, the head on split tokens,
+     under the same gates (envelope 0.109), its all-reduces exactly
+     ``tp_collectives`` and its gathers recorded (gloo's functional
+     all-gather of CUDA tensors runs on host copies,
+     ``GlooCudaCollectives``; yi's run issues none and runs without it);
+     the kernels at the ranks' shapes are checked in phase 9;
   9. each kernel at the path's shapes (flat 2**24 points for d = 2 and 3,
      the flat kernels also at the median and the largest request of the
      served workload -- the sizes per-request ``apply``/``project`` hand
@@ -521,8 +532,23 @@ TUNE_ITERS = 10
 #: a (1, 2) mesh of two processes sharing the card over gloo (NCCL
 #: refuses two ranks on one device); the ranks' group timeout, seconds
 TP_ARCH, TP_MESH, TP_TIMEOUT = "yi-6b", (1, 2), 600
+#: phase 8i's second run: hymba-1.5b, whose 25/5 heads and vocabulary of
+#: 32 001 a 2-wide ``model`` axis does not divide -- attention on the
+#: sequence split (``sharding.attn_layout``), decode against the cache
+#: split by slots, the SSM decode split on its state's head dim, the head
+#: on split tokens -- on the same mesh, generating 4 tokens (a decode
+#: step's all-gathers through host copies and its 160 all-reduces over
+#: gloo take ~1.7 s on that transport); 1536-token prompts: the prefill's ring keeps positions 512-1535, slots
+#: on both ranks, and the decode's positions 1536-1539 take slots 512-515
+#: of the 1024, which rank 1 owns
+TP_HYBRID_ARCH, TP_HYBRID_PROMPT, TP_HYBRID_GEN = "hymba-1.5b", 1536, 4
+#: the functional collectives that gloo runs wrong on CUDA tensors in the
+#: card's PyTorch build, by op name (``tools/torch_gloo_probe.py`` on the
+#: card, PERF.md): phase 8i's transport moves these to host copies
+GLOO_CUDA_HOST_OPS = ("all_gather_into_tensor",)
 #: each phase 8i rank's progress (and, if it hangs, its threads' stacks)
-TP_LOG = os.path.join(ROOT, "chiprun_out", "chip_smoke_tp_rank{rank}.log")
+TP_LOG = os.path.join(ROOT, "chiprun_out",
+                      "chip_smoke_tp_{arch}_rank{rank}.log")
 #: the kernels the hybrid serving path launches
 MODEL_PATH_KERNELS = ["rmsnorm_2d", "rope_3d", "flash_attention_3d",
                       "ssd_intra", "vecadd_2d"]
@@ -2228,13 +2254,15 @@ def compiled_gates(first: dict, second: dict, eager: dict) -> list:
 def model_case(name: str, shape: tuple, dtype: torch.dtype,
                rng: np.random.Generator, size: str, *, window=None,
                pos0: int = 0, t: int | None = None, causal: bool = True,
-               check_only: bool = False, misaligned: bool = False) -> dict:
+               q_offset: int = 0, check_only: bool = False,
+               misaligned: bool = False) -> dict:
     """Check one model kernel against its plain version on the card at a
     path shape (rope_3d bit for bit, its tables from position ``pos0``;
     the others within ``torch_bounds``; ``rmsnorm_2d``'s and ``rope_3d``'s
     x one element off 16-byte alignment if ``misaligned``; flash
     attention's (BHq, BHkv, S, D) queries against ``t`` keys, S if None,
-    ``causal`` or not), then time it
+    ``causal`` or not, the queries from position ``q_offset``), then time
+    it
     unless ``check_only`` beside its
     plain version, one
     PyTorch call where one computes the function (``rms_norm``,
@@ -2288,13 +2316,16 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
         q, k, v = randn(bhq, s, d), randn(bhkv, t, d), randn(bhkv, t, d)
         scale = d ** -0.5
         run = lambda: fa_k.flash_attention_3d(        # noqa: E731
-            q, k, v, scale=scale, causal=causal, window=window)
+            q, k, v, scale=scale, causal=causal, window=window,
+            q_offset=q_offset)
         plain = lambda: fa_ref.flash_attention(        # noqa: E731
-            q, k, v, scale=scale, causal=causal, window=window)
+            q, k, v, scale=scale, causal=causal, window=window,
+            q_offset=q_offset)
         b = MODEL_BATCH if bhq % MODEL_BATCH == 0 else 1
         q4 = q.view(b, bhq // b, s, d)
         k4, v4 = k.view(b, bhkv // b, t, d), v.view(b, bhkv // b, t, d)
-        qp, kp = torch.arange(s, device=dev), torch.arange(t, device=dev)
+        qp = q_offset + torch.arange(s, device=dev)
+        kp = torch.arange(t, device=dev)
         mask = kp[None, :] <= qp[:, None] if causal else \
             torch.ones((s, t), dtype=torch.bool, device=dev)
         if window is not None:
@@ -2360,7 +2391,7 @@ def model_case(name: str, shape: tuple, dtype: torch.dtype,
            "pos0": pos0, "misaligned": misaligned, "within_bound": True,
            "max_abs_err": err}
     if name == "flash_attention_3d":
-        row.update(t=t, causal=causal)
+        row.update(t=t, causal=causal, q_offset=q_offset)
     if check_only:
         emit(row)
         return row
@@ -2919,32 +2950,107 @@ def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
             "card": card_line()}
 
 
-def tp_collectives(cfg, gen: int) -> dict:
-    """The collectives of one ``serve_batch`` on a mesh whose ``model``
-    axis splits every head, hidden column and vocabulary row (and a data
-    axis of 1): a pass (the prefill and each decode step) all-reduces the
-    embedding's masked rows, each layer's attention output and MLP
-    output (``wo``'s and ``w_down``'s partial sums), and the greedy pick
-    its best logit and then its index -- (1 + gen)(2L + 3) all-reduces,
-    nothing else."""
-    return {"all_reduce": (1 + gen) * (2 * cfg.n_layers + 3)}
+def tp_collectives(cfg, gen: int, width: int = TP_MESH[1]) -> dict:
+    """The all-reduces over ``model`` of one ``serve_batch`` on a mesh of
+    a ``model`` axis of ``width`` and a data axis of 1: a pass (the
+    prefill and each decode step) all-reduces, where ``model`` divides
+    the vocabulary, the embedding's masked rows and the greedy pick's
+    best logit and then its index (3; a whole vocabulary splits the
+    head's tokens and gathers the logits instead); a layer's attention
+    output (``wo``'s partial sums) -- in a decode step against a cache
+    split by slots (``model`` not dividing the kv heads) also the scores'
+    max and the sums of exponentials with the value partial sums (3) --
+    its MLP output, and in a decode step its SSM output (``out_proj``'s
+    partial sums).  yi-6b: (1 + gen)(2L + 3); hymba-1.5b: 2L + gen 5L."""
+    L = cfg.n_layers
+    fixed = 3 if cfg.vocab_size % width == 0 else 0
+    mlp = 1 if cfg.d_ff else 0
+    by_slots = cfg.n_kv_heads % width != 0
+    prefill = fixed + L * (1 + mlp)
+    decode = fixed + L * ((3 if by_slots else 1) + mlp
+                          + (cfg.family in ("ssm", "hybrid")))
+    return {"all_reduce": prefill + gen * decode}
 
 
 def vocab_gathered(logits, mesh) -> torch.Tensor:
-    """Logits split over ``model`` by vocabulary, whole on the host: each
-    rank's shard moved to the host and all-gathered there (gloo's
-    all-gather of CUDA tensors kills the process in torch 2.11; its
-    all-reduce, all the serve needs, works)."""
+    """Logits split over ``model`` by vocabulary (or whole there, a
+    vocabulary ``model`` does not divide), whole on the host: each rank's
+    shard moved to the host and all-gathered there (gloo's functional
+    all-gather of CUDA tensors kills the process in torch 2.11)."""
     import torch.distributed as dist
     local = logits.to_local().cpu()
+    if not sharding.vocab_split(logits):
+        return local
     parts = [torch.empty_like(local)
              for _ in range(mesh.size(sharding.model_dim(mesh)))]
     dist.all_gather(parts, local, group=mesh.get_group("model"))
     return torch.cat(parts, dim=-1)
 
 
+class GlooCudaCollectives:
+    """Phase 8i's transport for a run that gathers, a dispatch mode: its
+    two processes share the card over ``gloo``, and the functional
+    collectives named in ``ops`` (``GLOO_CUDA_HOST_OPS``: those that
+    ``tools/torch_gloo_probe.py`` finds gloo runs wrong on CUDA tensors
+    on the card -- its functional all-gather kills the process) run on
+    host copies of their tensors, are waited for, and their results come
+    back to the card (an in-place one's into its tensor): the same
+    values, the same calls for ``CommDebugMode`` (entered inside this
+    mode) to count.  Every other op, the all-reduces among them, runs as
+    it is, the port waiting for it as over NCCL (the CPU gloo tests fail
+    on a functional collective left unwaited).  A transport of this
+    two-process emulation only."""
+
+    def __init__(self, ops):
+        self.ops = tuple(ops)
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        ops = self.ops
+
+        def host(a):
+            if isinstance(a, torch.Tensor) and a.is_cuda:
+                return a.cpu()
+            if isinstance(a, (list, tuple)):
+                return type(a)(host(x) for x in a)
+            return a
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = func.__name__.split(".")[0]
+                cuda = [a for a in args if isinstance(a, torch.Tensor)
+                        and a.is_cuda] + [x for a in args
+                                          if isinstance(a, (list, tuple))
+                                          for x in a
+                                          if isinstance(x, torch.Tensor)
+                                          and x.is_cuda]
+                if any(t.__name__ == "DTensor" for t in types):
+                    # DTensor's dispatch runs outside this handler, so
+                    # the collectives it issues come back through here
+                    return NotImplemented
+                if func.namespace not in ("_c10d_functional", "_dtensor") \
+                        or name not in ops or not cuda:
+                    return func(*args, **kwargs)
+                dev = cuda[0].device
+                out = func(*host(args), **host(kwargs))
+                wait = torch.ops._c10d_functional.wait_tensor
+                if isinstance(out, (list, tuple)):
+                    return type(out)(wait(o).to(dev) for o in out)
+                out = wait(out).to(dev)
+                if name.endswith("_"):          # in place: into its tensor
+                    return args[0].copy_(out)
+                return out
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
 def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
-            device: str, out) -> None:
+            device: str, host_ops: tuple, out) -> None:
     """One rank of phase 8i: join the gloo group, place ``cfg``'s random
     weights (seed SEED) on the (1, 2) mesh by ``params_specs``, serve
     twice through ``serve_batch`` under ``mesh_context`` (the launches,
@@ -2956,10 +3062,12 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
     import faulthandler
     import traceback
 
+    import contextlib
+
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
     os.makedirs(os.path.dirname(TP_LOG), exist_ok=True)
-    log = open(TP_LOG.format(rank=rank), "w")
+    log = open(TP_LOG.format(rank=rank, arch=cfg.name), "w")
     # a rank that hangs writes every thread's stack to its log
     faulthandler.enable(file=log)
     faulthandler.dump_traceback_later(TP_TIMEOUT - 60, file=log)
@@ -2986,7 +3094,9 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
         rng = np.random.default_rng(SEED)
         prompts = rng.integers(0, cfg.vocab_size,
                                (MODEL_BATCH, prompt)).astype(np.int32)
-        with mesh_mod.mesh_context(mesh):   # warm-up, not counted
+        transport = GlooCudaCollectives(host_ops) \
+            if device == "cuda" and host_ops else contextlib.nullcontext()
+        with transport, mesh_mod.mesh_context(mesh):   # warm-up
             serve_batch(cfg, params, prompts[:, :64], gen_tokens=2,
                         model=model)
         note("warm-up served")
@@ -2994,15 +3104,18 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
         for _ in range(2):
             _build.reset_launch_counts()
             trace = {}
-            with mesh_mod.mesh_context(mesh), CommDebugMode() as comm:
+            with transport, mesh_mod.mesh_context(mesh), \
+                    CommDebugMode() as comm:
                 tokens = serve_batch(cfg, params, prompts, gen_tokens=gen,
                                      model=model, trace=trace)
             total = _build.launch_counts()
             pre = trace["launches_prefill"]
+            with transport:
+                logits = [vocab_gathered(lg, mesh) for lg in
+                          trace["logits"]]
             runs.append({
                 "tokens": tokens,
-                "logits": [vocab_gathered(lg, mesh) for lg in
-                           trace["logits"]],
+                "logits": logits,
                 "launches_prefill": {k: pre[k] for k in MODEL_PATH_KERNELS},
                 "launches_decode": {k: total[k] - pre[k]
                                     for k in MODEL_PATH_KERNELS},
@@ -3053,7 +3166,8 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
 
 
 def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
-                   gen: int = MODEL_GEN, device: str = "cuda") -> tuple:
+                   gen: int = MODEL_GEN, device: str = "cuda",
+                   host_ops: tuple = ()) -> tuple:
     """Phase 8i: ``cfg`` (yi-6b at full width, random weights from seed
     SEED) served on a (1, 2) mesh of two processes sharing the card, one
     gloo group, its ``model`` axis splitting the attention heads (32/4 ->
@@ -3066,8 +3180,10 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
     (``logits_gates``); two mesh serves bit for bit equal on each rank;
     each rank's launches exactly ``expected_launches``; each rank's
     collectives (``CommDebugMode``) exactly ``tp_collectives``.  Records
-    prefill and decode ms beside the serve without a mesh.  Returns (rank
-    0's launches, the kernel sizes either rank launched, the summary)."""
+    prefill and decode ms beside the serve without a mesh.  ``host_ops``:
+    the functional collectives ``GlooCudaCollectives`` moves to the host
+    on the card (none: no transport).  Returns (rank 0's launches, the
+    kernel sizes either rank launched, the summary)."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3082,7 +3198,7 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
     with tempfile.TemporaryDirectory() as tmp:
         procs = [ctx.Process(target=tp_rank, args=(
             r, world, os.path.join(tmp, "store"), cfg, prompt, gen, device,
-            q)) for r in range(world)]
+            host_ops, q)) for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.perf_counter() + TP_TIMEOUT
@@ -3113,8 +3229,9 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
     name = f"serve on a {TP_MESH[0]}x{TP_MESH[1]} mesh ({cfg.name})"
     if errors:
         logs = "".join(f"\nrank {r}'s log:\n" + open(
-            TP_LOG.format(rank=r)).read()[-3000:] for r in range(world)
-            if os.path.exists(TP_LOG.format(rank=r)))
+            TP_LOG.format(rank=r, arch=cfg.name)).read()[-3000:]
+            for r in range(world)
+            if os.path.exists(TP_LOG.format(rank=r, arch=cfg.name)))
         raise SystemExit(f"{name}: " + "\n".join(errors) + logs)
     wall_s = time.perf_counter() - t0
     r0 = results[0]
@@ -3126,6 +3243,12 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
         "serve without a mesh", failures)
     want_pre, want_dec = expected_launches(cfg, gen)
     want_comm = tp_collectives(cfg, gen)
+    width = TP_MESH[1]
+    layout = sharding.attn_layout(cfg, width)
+    # where every split is Megatron's, the all-reduces are all there is;
+    # otherwise the gathers of the other layouts and of DTensor's
+    # sequence split of the SSM branch are recorded beside them
+    only_reduces = layout == "heads" and cfg.vocab_size % width == 0
     kernels = path_kernels(cfg)
     for rank, r in sorted(results.items()):
         if not r["repeat_bitwise"]:
@@ -3139,13 +3262,23 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
                     f"{want_dec[k]}")
         for comm in (r["collectives"], r["repeat_collectives"]):
             got = {k: v for k, v in comm.items() if v}
-            if got != want_comm:
+            if got.get("all_reduce") != want_comm["all_reduce"] or (
+                    only_reduces and got != want_comm):
                 failures.append(f"rank {rank}: collectives {got}, "
-                                f"expected {want_comm}")
+                                f"expected {want_comm}" + (
+                                    "" if only_reduces else " all-reduces"))
     if r0["tokens"].shape != (MODEL_BATCH, gen) or not all(
             lg.shape == (MODEL_BATCH, cfg.vocab_size)
             and bool(torch.isfinite(lg).all()) for lg in logits):
         failures.append("bad tokens or non-finite logits")
+    owners = None
+    if cfg.n_kv_heads % width:      # the cache split by slots: the ranks
+        slots = prompt + gen        # whose slots the decode steps wrote
+        slots = cfg.window if cfg.window and cfg.window < slots else slots
+        owners = sorted({p % slots // -(-slots // width)
+                         for p in range(prompt, prompt + gen)})
+        if owners == [0]:
+            failures.append("the decode wrote no slot past rank 0's")
     if failures:
         raise SystemExit(f"{name}: " + "; ".join(failures))
     sizes = {k: set().union(*(r["sizes"][k] for r in results.values()))
@@ -3153,10 +3286,19 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
     summary = {
         "phase": name, "arch": cfg.name, "mesh": "x".join(map(str, TP_MESH)),
         "ranks": world, "backend": "gloo", "device": device,
-        "heads_per_rank": [cfg.n_heads // TP_MESH[1],
-                           cfg.n_kv_heads // TP_MESH[1]],
-        "d_ff_per_rank": cfg.d_ff // TP_MESH[1],
-        "vocab_per_rank": cfg.vocab_size // TP_MESH[1],
+        "attention_layout": layout,
+        "heads_per_rank": {"heads": [cfg.n_heads // width,
+                                     cfg.n_kv_heads // width],
+                           "groups": [cfg.n_heads // width, 1],
+                           "sequence": [cfg.n_heads, cfg.n_kv_heads]}[layout],
+        "positions_per_rank": -(-prompt // width) if layout == "sequence"
+        else prompt,
+        "cache_split": "kv heads" if cfg.n_kv_heads % width == 0
+        else "slots", "decode_slot_owners": owners,
+        "d_ff_per_rank": cfg.d_ff // width,
+        "vocab_per_rank": cfg.vocab_size // width
+        if cfg.vocab_size % width == 0 else
+        f"{cfg.vocab_size} (whole; the head splits the tokens)",
         "local_params": [results[r]["local_params"] for r in sorted(results)],
         "batch": MODEL_BATCH, "prompt": prompt, "gen_tokens": gen,
         "prefill_ms": r0["prefill_ms"],
@@ -3706,8 +3848,13 @@ def main() -> int:
     emit(summary)
     del gweights
     torch.cuda.empty_cache()
-    # phase 8i: yi-6b split over a 2-wide model axis, two processes
+    # phase 8i: yi-6b split over a 2-wide model axis, two processes; then
+    # hymba-1.5b, whose heads and vocabulary the axis does not divide
     tp_counts, tp_sizes, summary = tp_serve_phase()
+    emit(summary)
+    hy_tp_counts, hy_tp_sizes, summary = tp_serve_phase(
+        configs.get(TP_HYBRID_ARCH), prompt=TP_HYBRID_PROMPT,
+        gen=TP_HYBRID_GEN, host_ops=GLOO_CUDA_HOST_OPS)
     emit(summary)
     whisper_counts, whisper_sizes, summary = model_phase(
         configs.get(WHISPER_ARCH), prompt=WHISPER_FRAMES)
@@ -4082,6 +4229,54 @@ def main() -> int:
                         ((rows_n, yd), "yi-6b mesh prefill residual add")):
         yi_tp.setdefault("vecadd_2d", {})[size] = eager_case(
             "vecadd_2d", shape, bf16, rng, size)
+    # ... and its hymba-1.5b run: every head on each rank, the prompt's
+    # 1536 positions split 768 a rank (queries; keys from window - 1
+    # before, here from position 0: rank 0's 768 keys, rank 1's 1536 with
+    # its queries at offset 768), the SSM's 6 chunks 3 a rank, the SSM
+    # branch's norms on its 3072 rows; decode on whole rows (the kernels'
+    # decode shapes are the serve without a mesh's)
+    hcfg = configs.get(TP_HYBRID_ARCH)
+    hq, hkv = MODEL_BATCH * hcfg.n_heads, MODEL_BATCH * hcfg.n_kv_heads
+    hd, hdm, half = hcfg.head_dim, hcfg.d_model, TP_HYBRID_PROMPT // tp
+    hrows = MODEL_BATCH * TP_HYBRID_PROMPT
+    hchunks = hrows // hcfg.ssm_chunk // tp
+    hks = max(0, half - hcfg.window + 1)     # rank 1's first key
+    hlast = TP_HYBRID_PROMPT + TP_HYBRID_GEN - 1
+    hy_tp = {}
+    for name, shape, dtype, size, pos0, t, q_off in (
+            ("rmsnorm_2d", (MODEL_BATCH, hdm), bf16, "hymba mesh decode", 0,
+             None, 0),
+            ("rmsnorm_2d", (MODEL_BATCH, hcfg.ssm_inner), f32,
+             "hymba mesh decode SSM gated norm", 0, None, 0),
+            ("rmsnorm_2d", (hrows, hdm), bf16, "hymba mesh prefill", 0,
+             None, 0),
+            ("rmsnorm_2d", (hrows // tp, hdm), bf16,
+             "hymba mesh prefill SSM branch gain", 0, None, 0),
+            ("rmsnorm_2d", (hrows // tp, hcfg.ssm_inner), f32,
+             "hymba mesh prefill SSM gated norm", 0, None, 0),
+            ("rope_3d", (hkv, 1, hd), bf16, "hymba mesh decode k", hlast,
+             None, 0),
+            ("rope_3d", (hq, 1, hd), bf16, "hymba mesh decode q", hlast,
+             None, 0),
+            ("rope_3d", (hkv, TP_HYBRID_PROMPT, hd), bf16,
+             "hymba mesh prefill k", 0, None, 0),
+            ("rope_3d", (hq, half, hd), bf16, "hymba mesh prefill q", 0,
+             None, 0),
+            ("flash_attention_3d", (hq, hkv, half, hd), bf16,
+             "hymba mesh prefill rank 0", 0, half, 0),
+            ("flash_attention_3d", (hq, hkv, half, hd), bf16,
+             "hymba mesh prefill rank 1", 0, 2 * half - hks, half - hks),
+            ("ssd_intra", (hchunks, hcfg.ssm_chunk, hcfg.ssm_heads,
+                           hcfg.ssm_headdim, hcfg.ssm_state), bf16,
+             "hymba mesh prefill", 0, None, 0)):
+        hy_tp.setdefault(name, {})[size] = model_case(
+            name, shape, dtype, rng, size, window=hcfg.window, pos0=pos0,
+            t=t, q_offset=q_off)
+    for shape, size in (((MODEL_BATCH, hdm),
+                         "hymba mesh decode residual add"),
+                        ((hrows, hdm), "hymba mesh prefill residual add")):
+        hy_tp.setdefault("vecadd_2d", {})[size] = eager_case(
+            "vecadd_2d", shape, bf16, rng, size)
     # every size the serves and the training launched a kernel with was
     # checked above
     checked = _build.launch_sizes()
@@ -4089,7 +4284,8 @@ def main() -> int:
                     f"{GRANITE_ARCH} int8 KV cache": int8_sizes,
                     WHISPER_ARCH: whisper_sizes, VLM_ARCH: vlm_sizes,
                     f"{HYMBA_ARCH} training": train_sizes,
-                    f"{TP_ARCH} on a 1x2 mesh": tp_sizes}
+                    f"{TP_ARCH} on a 1x2 mesh": tp_sizes,
+                    f"{TP_HYBRID_ARCH} on a 1x2 mesh": hy_tp_sizes}
     for arch, served in served_sizes.items():
         for name in MODEL_PATH_KERNELS:
             missed = served[name] - checked[name]
@@ -4148,6 +4344,8 @@ def main() -> int:
                         "launches_whisper": whisper_counts[name],
                         "launches_internvl2": vlm_counts[name],
                         "launches_yi_mesh_rank0": tp_counts.get(name, 0),
+                        "launches_hymba_mesh_rank0": hy_tp_counts.get(name,
+                                                                      0),
                         "launches_train": train_counts[name],
                         "launches_scene": scene_counts[name],
                         "launches_chaos_soak": soak_counts[name],
@@ -4191,12 +4389,15 @@ def main() -> int:
             granite_counts[name]
     for arch, timed, counts_arch in (("whisper", whisper, whisper_counts),
                                      ("internvl2", internvl2, vlm_counts),
-                                     ("yi_mesh_rank0", yi_tp, tp_counts)):
+                                     ("yi_mesh_rank0", yi_tp, tp_counts),
+                                     ("hymba_mesh_rank0", hy_tp,
+                                      hy_tp_counts)):
         for name, by_size in timed.items():
             kernels[list(KERNELS).index(name)][arch] = {
                 "launches": counts_arch[name],
                 "rows": {size: {k: r.get(k) for k in (
-                    "shape", "t", "causal", "dtype", "max_abs_err", "ms",
+                    "shape", "t", "causal", "q_offset", "dtype",
+                    "max_abs_err", "ms",
                     "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "composite_ms", "copy_ms")}
                     for size, r in by_size.items()}}

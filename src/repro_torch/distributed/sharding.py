@@ -18,7 +18,12 @@ d, ff).  The rules therefore match a leaf's *name* (``wq``, ``w_gate``,
 shard is the reference's shard with the layer axis dropped.
 
 KV caches: heads shard over ``model`` when divisible; otherwise the
-cache *length* dim does (sequence-sharded decode).
+cache *length* dim does (sequence-sharded decode).  ``attn_layout`` says
+how attention's full-sequence work splits over ``model`` for a config
+(by heads, by query heads with their kv group, or by the sequence); the
+local bodies gather activations over ``model`` (``stack_on_model``,
+``cols_on_model``) and end in a row product's partial sum
+(``rows_on_model``), never gathering a weight.
 
 ``constrain`` is the activation constraint: a no-op for a plain tensor
 and off a mesh; on a DTensor it redistributes to the named placements.
@@ -383,6 +388,14 @@ def split_on_model(t) -> bool:
         and t.placements[j].is_shard()
 
 
+def vocab_split(t) -> bool:
+    """Whether ``t`` (logits) is split over ``model`` on its last dim
+    (a table split by vocabulary gives them so)."""
+    if not split_on_model(t):
+        return False
+    return t.placements[model_dim(t.device_mesh)].dim == t.dim() - 1
+
+
 def with_model(where: tuple, mesh, placement) -> tuple:
     """``where`` (placements) with ``placement`` on the ``model`` dim."""
     j = model_dim(mesh)
@@ -404,9 +417,13 @@ def rows_of(t, mesh) -> tuple:
 def model_offset(t, dim: int) -> int:
     """This rank's first global index along ``dim`` of a DTensor split
     along ``dim`` over ``model`` alone (a vocabulary-split table or
-    logit)."""
+    logit, a cache split by slots); 0 where ``model`` does not split
+    ``dim``."""
     j = model_dim(t.device_mesh)
-    return t.device_mesh.get_coordinate()[j] * t.to_local().shape[dim]
+    p = t.placements[j] if j is not None else None
+    if p is None or not p.is_shard() or p.dim != dim:
+        return 0
+    return model_rank(t.device_mesh) * t.to_local().shape[dim]
 
 
 def tp_map(fn, args: tuple, where: tuple, out_where):
@@ -495,14 +512,163 @@ def col_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         from torch.distributed import _functional_collectives as funcol
         mesh, dims = _CONTRACTING[-1]
         for i in dims:
-            y = funcol.all_reduce(y, "sum", (mesh, i))
-            y = y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) \
-                else y
+            y = _wait(funcol.all_reduce(y, "sum", (mesh, i)))
     return y
 
 
+def attn_layout(cfg: "ModelConfig", width: int) -> str:
+    """How a ``model`` axis of ``width`` splits attention's full-sequence
+    work, the reference's col/row specs whatever the head counts:
+
+      * ``"heads"``: it divides both head counts (or is 1) -- each rank
+        its query and kv heads;
+      * ``"groups"``: it divides the query heads and each rank's query
+        heads share one kv head (yi-6b's 32/4 on 8) -- each rank its
+        query heads and the kv head of their group, whose ``wk``/``wv``
+        columns sit on the width/Hkv ranks that share it;
+      * ``"sequence"``: it does not divide the query heads (hymba's 25)
+        -- each rank the queries of its positions, the sequence split
+        the SSM branch takes.
+
+    Wherever it does not divide the kv heads the cache is split by slots
+    (``cache_specs``) and a decode attends over each rank's slots."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if width == 1 or (hq % width == 0 and hkv % width == 0):
+        return "heads"
+    if hq % width == 0 and (hq // hkv) % (hq // width) == 0:
+        return "groups"
+    return "sequence"
+
+
+def model_rank(mesh) -> int:
+    """This rank's index on ``mesh``'s ``model`` axis (0 without one)."""
+    j = model_dim(mesh)
+    return 0 if j is None else mesh.get_coordinate()[j]
+
+
+def _wait(t):
+    from torch.distributed import _functional_collectives as funcol
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def stack_on_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Inside a local body: every ``model`` rank's ``t`` stacked in rank
+    order, (width, *t.shape) -- an all-gather (differentiable: its
+    backward reduce-scatters)."""
+    from torch.distributed import _functional_collectives as funcol
+    j = model_dim(mesh)
+    if j is None or mesh.size(j) == 1:
+        return t[None]
+    t = t.contiguous()[None]
+    # the *_single names are newer torch's, the *_tensor ones older's
+    if torch.is_grad_enabled() and t.requires_grad:
+        gather = getattr(funcol, "all_gather_single_autograd", None) \
+            or funcol.all_gather_tensor_autograd
+        return _ContiguousGrad.apply(_wait(gather(t, 0, (mesh, j))))
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    return _wait(gather(t, 0, (mesh, j)))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on its gradient contiguous: an
+    all-gather's backward (a reduce-scatter) takes only contiguous
+    gradients in some torch releases (2.11), and the gathered parts are
+    read through strided slices."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def gather_on_model(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Inside a local body: the ``model`` ranks' ``t`` joined along
+    ``dim`` in rank order (``stack_on_model``)."""
+    s = stack_on_model(t, mesh)
+    if s.shape[0] == 1:
+        return t
+    dim = dim % t.dim()
+    return s.movedim(0, dim).reshape(
+        *t.shape[:dim], s.shape[0] * t.shape[dim], *t.shape[dim + 1:])
+
+
+def reduce_on_model(t: torch.Tensor, op: str, mesh) -> torch.Tensor:
+    """Inside a local body without autograd: ``t`` all-reduced (``op``:
+    sum, max) over ``model``."""
+    from torch.distributed import _functional_collectives as funcol
+    j = model_dim(mesh)
+    if j is None or mesh.size(j) == 1:
+        return t
+    return _wait(funcol.all_reduce(t, op, (mesh, j)))
+
+
+def _part(n: int, width: int, rank: int) -> tuple[int, int, int]:
+    """(first, end, chunk) of rank's even ceil-sized part of ``n``."""
+    c = -(-n // width)
+    return min(rank * c, n), min((rank + 1) * c, n), c
+
+
+def cols_on_model(x: torch.Tensor, ws: list, splits: list, mesh) -> list:
+    """Inside a local body: the whole products ``x @ w`` for each (w,
+    split) pair, each rank computing its part of the columns -- a leaf
+    split over ``model`` its local columns, a whole one its own even
+    slice of them -- and the parts gathered over ``model`` at once (one
+    ``stack_on_model``).  The contractions go through ``col_product``
+    (the fsdp axes' split, where a ``tp_block`` set one)."""
+    j = model_dim(mesh)
+    width = 1 if j is None else mesh.size(j)
+    rank = model_rank(mesh)
+    parts, full = [], []
+    for w, split in zip(ws, splits):
+        n = w.shape[-1] * (width if split else 1)
+        if split or width == 1:
+            y = col_product(x, w)
+        else:
+            lo, hi, c = _part(n, width, rank)
+            y = torch.nn.functional.pad(col_product(x, w[..., lo:hi]),
+                                        (0, c - (hi - lo)))
+        parts.append(y)
+        full.append(n)
+    if width == 1:
+        return parts
+    sizes = [p.shape[-1] for p in parts]
+    s = stack_on_model(torch.cat(parts, dim=-1), mesh)   # (w, ..., sum)
+    out, at = [], 0
+    for size, n in zip(sizes, full):
+        piece = s[..., at:at + size].movedim(0, -2)      # (..., w, size)
+        out.append(piece.reshape(*piece.shape[:-2], width * size)[..., :n])
+        at += size
+    return out
+
+
+def rows_on_model(y: torch.Tensor, w: torch.Tensor, split: bool,
+                  mesh) -> torch.Tensor:
+    """Inside a local body: this rank's partial sum of ``y @ w`` for a
+    whole ``y`` (..., K) -- its rows of a ``w`` split over ``model`` by
+    rows (its local shard), or its own even slice of a whole ``w`` --
+    summed over ``model`` by the caller (a ``Partial`` output)."""
+    j = model_dim(mesh)
+    width = 1 if j is None else mesh.size(j)
+    rank = model_rank(mesh)
+    if split:
+        lo, hi = rank * w.shape[0], (rank + 1) * w.shape[0]
+    elif width == 1:
+        return y @ w
+    else:
+        lo, hi, _ = _part(w.shape[0], width, rank)
+        w = w[lo:hi]
+    # the rows' slice as one (tokens, K/w) product: a strided slice would
+    # make matmul broadcast w over the leading dims
+    out = y[..., lo:hi].reshape(-1, hi - lo) @ w
+    return out.reshape(*y.shape[:-1], w.shape[-1])
+
+
 def tp_block(body, params: dict, x, *, rows_like=None, extra=(),
-             split_out=None):
+             split_out=None, partial: bool | None = None):
     """``body(params, x, *extra tensors)`` on each rank's shard of a block
     whose col and row leaves are split over ``model`` (and over the fsdp
     axes where ``contraction_split``): x whole on ``model``, split on its
@@ -511,14 +677,18 @@ def tp_block(body, params: dict, x, *, rows_like=None, extra=(),
     so.  By default the body ends in a row product: its partial sums
     over ``model`` are all-reduced (and, with the contraction split, its
     slices of d gathered over fsdp) and the output comes back on x's
-    rows.  ``split_out``: the output's placement on ``model`` instead (a
-    col product's heads or vocabulary), kept as it is."""
+    rows; ``partial`` says whether the body's output is a partial sum
+    over ``model`` (by default: whether the first leaf is split there).
+    ``split_out``: the output's placement on ``model`` instead (a col
+    product's heads or vocabulary), kept as it is."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     w = next(v for v in params.values() if is_dtensor(v))
     mesh = w.device_mesh
     rows = rows_of(x if rows_like is None else rows_like, mesh)
+    if partial is None:
+        partial = split_on_model(w)
     out = with_model(rows, mesh, split_out if split_out is not None else
-                     Partial() if split_on_model(w) else Replicate())
+                     Partial() if partial else Replicate())
     x_where, dims = rows, ()
     if split_on_fsdp(w):
         dims = fsdp_dims(mesh)
@@ -661,13 +831,25 @@ def write_at(dest, dim: int, index, value) -> None:
         if p.is_shard() and p.dim == dim:
             index_ = index_ * mesh.size(j) + coord[j]
             parts *= mesh.size(j)
+    write_local(local, dim, index_ * -(-dest.shape[dim] // parts), index,
+                value)
+
+
+def write_local(local: torch.Tensor, dim: int, lo: int, index,
+                value) -> None:
+    """``write_at`` on a plain local shard whose first global position
+    along ``dim`` is ``lo``: the entries of ``value`` (whole along
+    ``dim``) whose positions ``index`` (a slice or a 1-D integer tensor)
+    fall in the shard are written there in place."""
     n = local.shape[dim]
-    lo = index_ * -(-dest.shape[dim] // parts)
     if isinstance(index, slice):
-        pos = torch.arange(index.start or 0, index.stop,
-                           device=local.device)
-    else:
-        pos = index.to(local.device)
+        start = index.start or 0
+        a, b = max(start, lo), min(index.stop, lo + n)
+        if a < b:
+            local.narrow(dim, a - lo, b - a).copy_(
+                value.narrow(dim, a - start, b - a))
+        return
+    pos = index.to(local.device)
     # which new entry lands on each local slot, by shapes alone (no
     # data-dependent indexing: the dry-run traces this on fake tensors)
     hit = (pos[None, :] - lo) == torch.arange(n, device=local.device)[:, None]

@@ -101,17 +101,24 @@ def attention(q, k, v, *, scale: float, causal: bool = True,
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def banded_swa_attention(q, k, v, *, scale: float, window: int) -> torch.Tensor:
-    """Sliding-window causal self-attention from position 0 as banded
-    block attention: each ``window``-sized query block attends to its own
-    and the previous key block, O(S * 2W) scores instead of O(S * T).
-    Needs T == S; q/k/v widened to float32 for the products (a bfloat16
-    product is exact in float32), the probabilities cast to v's dtype
-    before the float32 value sum, out in q's dtype."""
+def banded_swa_attention(q, k, v, *, scale: float, window: int,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Sliding-window causal self-attention as banded block attention:
+    each ``window``-sized query block attends to its own and the previous
+    key block, O(S * 2W) scores instead of O(S * T).  The queries stand
+    at ``q_offset`` + i (0 <= ``q_offset`` < ``window``) and the keys run
+    from position 0 to the last query, T == ``q_offset`` + S: the first
+    query block's previous block holds the ``q_offset`` keys before it,
+    zeros in front (from position 0, none).  q/k/v widened to float32 for
+    the products (a bfloat16 product is exact in float32), the
+    probabilities cast to v's dtype before the float32 value sum, out in
+    q's dtype."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    if t != s:
-        raise ValueError(f"banded attention needs T == S, got {t} and {s}")
+    if t != q_offset + s or not 0 <= q_offset < window:
+        raise ValueError(f"banded attention needs T == q_offset + S and "
+                         f"q_offset below the window, got T {t}, S {s}, "
+                         f"q_offset {q_offset}, window {window}")
     k = _expand_kv(k, hq // hkv)
     v = _expand_kv(v, hq // hkv)
     win = window
@@ -121,17 +128,24 @@ def banded_swa_attention(q, k, v, *, scale: float, window: int) -> torch.Tensor:
                    for x in (q, k, v))
     nb = q.shape[2] // win
     from repro_torch.distributed.sharding import constrain
+    own = (k[:, :, q_offset:], v[:, :, q_offset:]) if q_offset else (k, v)
     qb, kb, vb = (constrain(x.reshape(b, hq, nb, win, d), "batch", None,
-                            "model", None, None) for x in (q, k, v))
+                            "model", None, None) for x in (q, *own))
     zero = torch.zeros((b, hq, 1, win, d), dtype=k.dtype, device=k.device)
-    kband = torch.cat([torch.cat([zero, kb[:, :, :-1]], dim=2), kb], dim=3)
-    vband = torch.cat([torch.cat([zero, vb[:, :, :-1]], dim=2), vb], dim=3)
+    if q_offset:    # the block before the first: the keys before it
+        kfirst, vfirst = (torch.cat([zero[:, :, 0, q_offset:],
+                                     x[:, :, :q_offset]], dim=2)[:, :, None]
+                          for x in (k, v))
+    else:
+        kfirst = vfirst = zero
+    kband = torch.cat([torch.cat([kfirst, kb[:, :, :-1]], dim=2), kb], dim=3)
+    vband = torch.cat([torch.cat([vfirst, vb[:, :, :-1]], dim=2), vb], dim=3)
     logits = torch.matmul(qb.float(), kband.float().transpose(-1, -2)) \
         * scale                                          # (B,H,nb,win,2win)
     ii = torch.arange(win, device=q.device)
     jj = torch.arange(2 * win, device=q.device)
     mask = (jj[None, :] <= win + ii[:, None]) & (jj[None, :] > ii[:, None])
-    first = jj[None, :] >= win                           # block 0: no prev
+    first = jj[None, :] >= win - q_offset     # block 0: the keys it has
     mask = torch.where(torch.arange(nb, device=q.device)[:, None, None] == 0,
                        mask[None] & first[None], mask[None])
     if pad:   # padded keys at the tail must not be attended
@@ -195,11 +209,15 @@ def autodiff_attention(q, k, v, *, scale: float, causal: bool = True,
     """The training path's attention, the JAX ``ref`` backend's choice:
     ``banded_swa_attention`` for causal sliding-window self-attention
     from position 0 (S > 1, T == S, window < S, window a multiple of
-    128), else ``blockwise_attention`` with ``block_kv``."""
+    128) -- and, on a rank of the sequence split, of a query block whose
+    keys start ``q_offset`` < ``window`` positions before it (T ==
+    ``q_offset`` + S) --, else ``blockwise_attention`` with ``block_kv``."""
     s = q.shape[2]
-    if (causal and window is not None and q_offset == 0 and s > 1
-            and k.shape[2] == s and window < s and window % 128 == 0):
-        return banded_swa_attention(q, k, v, scale=scale, window=window)
+    if (causal and window is not None and 0 <= q_offset < window and s > 1
+            and k.shape[2] == q_offset + s and window < s
+            and window % 128 == 0):
+        return banded_swa_attention(q, k, v, scale=scale, window=window,
+                                    q_offset=q_offset)
     return blockwise_attention(q, k, v, scale=scale, causal=causal,
                                window=window, q_offset=q_offset,
                                block_kv=block_kv)

@@ -7,8 +7,13 @@ starts a *fake* process group of 256 (16x16) or 512 (2x16x16) ranks in
 this one process (``torch.testing``'s ``FakeStore``; its collectives
 move nothing), builds the cell's step over ``FakeTensorMode`` stand-ins
 placed by the sharding rules (``launch/cells.py``), and runs it once
-under ``hlo_analysis.DispatchTrace``, which counts rank 0's local ops --
-every rank's, since the mesh is uniform.  A train cell traces one
+under ``hlo_analysis.DispatchTrace``, which counts one rank's local ops.
+Rank 0 stands for every rank where each runs the same local shapes.
+Under attention's sequence layout (``sharding.attn_layout``: ``model``
+does not divide the query heads) a rank past the first attends with the
+``window`` - 1 keys before its positions, so the last rank of the
+``model`` axis is traced too and the record is the busier rank's, by
+FLOPs (``flops_by_rank`` holds both).  A train cell traces one
 micro-batch and multiplies it by the accumulation steps.  The roofline
 divides by H100 datasheet constants (``roofline.py``): host analysis,
 not card measurements.
@@ -33,30 +38,69 @@ from repro_torch.configs.shapes import SHAPES, applicability
 from repro_torch.launch import cells
 
 
-def fake_world(n: int) -> None:
+def fake_world(n: int, rank: int = 0) -> None:
     """Make the default process group a fake one of ``n`` ranks (this
-    process rank 0), replacing any fake group of another size."""
+    process ``rank``), replacing any fake group of another size or rank."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
-        if dist.get_backend() == "fake" and dist.get_world_size() == n:
+        if dist.get_backend() == "fake" and dist.get_world_size() == n \
+                and dist.get_rank() == rank:
             return
         if dist.get_backend() != "fake":
             raise RuntimeError("a real process group is running; the "
                                "dry-run needs its own fake one")
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+        _forget_meshes()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=n)
 
 
-def fake_mesh(shape, axes):
-    """A ``DeviceMesh`` of ``shape`` over a fake world of its size."""
+def _forget_meshes() -> None:
+    """Empty DTensor's caches of sharding propagation and redistribution
+    plans: they key a mesh by its shape and dim names, not its process
+    groups, so after a new world they would hand back the old world's
+    meshes, whose groups are gone."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cached in (prop.propagate_op_sharding,
+                   getattr(prop, "_propagate_tensor_meta_cached", None)):
+        if hasattr(cached, "cache_clear"):
+            cached.cache_clear()
+    for clear in (getattr(_redistribute, "clear_redistribute_planner_cache",
+                          None),     # and the C++ dispatch's cache
+                  getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None)):
+        if clear is not None:
+            clear()
+
+
+def fake_mesh(shape, axes, rank: int = 0):
+    """A ``DeviceMesh`` of ``shape`` over a fake world of its size, seen
+    from ``rank``."""
     from torch.distributed.device_mesh import init_device_mesh
     n = 1
     for s in shape:
         n *= s
-    fake_world(n)
+    fake_world(n, rank)
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def traced_ranks(cfg, mesh) -> tuple:
+    """The ranks whose local ops stand for the mesh: rank 0, and under
+    attention's sequence layout also the last rank of the ``model`` axis
+    (every rank past the first runs the same shapes, its queries offset
+    by ``window`` - 1 earlier keys)."""
+    from repro_torch.distributed import sharding
+    j = sharding.model_dim(mesh)
+    width = sharding.model_width(mesh)
+    if not cfg.n_heads or sharding.attn_layout(cfg, width) != "sequence":
+        return (0,)
+    at = [0] * mesh.ndim
+    at[j] = width - 1
+    return (0, int(mesh.mesh[tuple(at)]))
 
 
 def mesh_name(mesh) -> str:
@@ -115,11 +159,21 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     if not ok:
         rec.update(status="SKIP", reason=why)
         return rec
-    t0 = time.time()
-    cell = cells.build_cell(arch, shape, mesh, kv_int8=kv_int8)
-    t_build = time.time() - t0
-    ana, mem = trace_cell(cell)
-    t_trace = time.time() - t0 - t_build
+    t_build = t_trace = 0.0
+    traced = {}
+    ranks = traced_ranks(cfg, mesh)
+    for r in ranks:
+        m = mesh if r == 0 else fake_mesh(mesh.shape, mesh.mesh_dim_names,
+                                          rank=r)
+        t0 = time.time()
+        cell = cells.build_cell(arch, shape, m, kv_int8=kv_int8)
+        t1 = time.time()
+        traced[r] = (cell, *trace_cell(cell))
+        t_build, t_trace = t_build + t1 - t0, t_trace + time.time() - t1
+    if len(ranks) > 1:    # the caller's world again
+        fake_world(mesh.size(), 0)
+    busiest = max(traced, key=lambda r: traced[r][1]["flops"])
+    cell, ana, mem = traced[busiest]
     roof = roofline.roofline_terms(
         {"flops": ana["flops"], "bytes accessed": ana["hbm_bytes"]},
         roofline.CollectiveStats(ana["collective_bytes"],
@@ -131,6 +185,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         kind=cell.spec.kind,
         n_params=cell.meta["n_params"],
         accum_steps=cell.meta.get("accum_steps"),
+        rank=busiest,
+        flops_by_rank={r: traced[r][1]["flops"] for r in ranks},
         build_s=t_build,
         trace_s=t_trace,
         bytes_per_device=mem,

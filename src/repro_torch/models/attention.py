@@ -32,19 +32,34 @@ int8 keys and values with a float32 scale a (slot, head)
 ``errors.Int8RingCacheError``, as the JAX package cannot decode one.
 
 On a mesh whose ``model`` axis splits ``wq``/``wk``/``wv`` by columns and
-``wo`` by rows (``blocks.for_use`` keeps the split when ``model`` divides
-both head counts), every entry mode runs Megatron's split: one
-``sharding.tp_block`` a call, plain tensors inside, ``_qkv``, RoPE, the
-flash kernel and ``_merge_heads`` at the rank's n_heads/tp query and
-n_kv_heads/tp kv heads (read off the local weights' widths, so the GQA
-group is unchanged), ``wo``'s local product a partial sum reduced over
-``model`` once.  The prefill and the decode read and write the rank's
-shard of the head-split cache that ``sharding.cache_specs`` lays out --
-exactly its local heads -- in place.  Where the batch does not split
-over the fsdp axes (a batch-1 decode), the projections also keep their
-fsdp shards and the fsdp axes split their contracted dim
-(``sharding.col_product``).  Where a head count does not divide, the
-weights come whole over ``model`` and the DTensor ops run as they are.
+``wo`` by rows (the reference's specs, whatever the head counts), every
+entry mode runs on each rank's local shards in one ``sharding.tp_block``
+a call, plain tensors inside, ``wo``'s local product a partial sum
+reduced over ``model`` once, by the layout of ``sharding.attn_layout``:
+
+  * ``"heads"`` (``model`` divides both head counts): Megatron's split,
+    ``_qkv``, RoPE, the flash kernel and ``_merge_heads`` at the rank's
+    n_heads/tp query and n_kv_heads/tp kv heads (read off the local
+    weights' widths, so the GQA group is unchanged); the prefill and the
+    decode read and write the rank's shard of the head-split cache --
+    exactly its local heads -- in place;
+  * ``"groups"`` and ``"sequence"`` (``_split_full``): each rank projects
+    its columns of q, k and v and gathers k and v whole over ``model``
+    (activations, never a weight); ``"groups"`` attends with its query
+    heads against the kv head of their group, ``"sequence"`` with its
+    positions' queries against the keys from ``window`` - 1 before
+    (``q_offset``), the outputs gathered back over the sequence;
+  * a decode against the cache split by slots (``model`` not dividing
+    the kv heads: ``_split_decode``): the token's q, k and v gathered
+    whole, the new k/v written by the slot's owner, each rank's scores
+    over its slots, the max and then the sums of exponentials and the
+    value partial sums all-reduced over ``model``.
+
+Where the batch does not split over the fsdp axes (a batch-1 decode),
+the projections also keep their fsdp shards and the fsdp axes split
+their contracted dim (``sharding.col_product``).  The enc-dec
+cross-attention keeps the heads split only (``blocks.for_use`` gathers
+it whole otherwise).
 """
 from __future__ import annotations
 
@@ -121,6 +136,128 @@ def _split(params: dict) -> bool:
     return sharding.split_on_model(w) or sharding.split_on_fsdp(w)
 
 
+def _layout(params: dict, cfg: ModelConfig) -> str | None:
+    """The split the projections take on a mesh (``sharding.
+    attn_layout``), or None off one (and where ``model`` does not split
+    ``wq``: the DTensor ops run as they are)."""
+    wq = params["wq"]
+    if not (sharding.split_on_model(wq) or sharding.split_on_fsdp(wq)):
+        return None
+    return sharding.attn_layout(cfg, sharding.model_width(wq.device_mesh))
+
+
+def _splits(params: dict) -> dict:
+    """Which leaves ``model`` splits (the rest come whole)."""
+    return {k: sharding.split_on_model(v) for k, v in params.items()}
+
+
+def _rope_heads(t: torch.Tensor, n_heads: int, cfg: ModelConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    """(B, S, H*D) -> (B, H, S, D), rotated at ``positions`` where the
+    config uses RoPE."""
+    t = _split_heads(t, n_heads, cfg.head_dim)
+    if cfg.pos_embed != "rope":
+        return t
+    cos, sin = rope_ref.rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                                    torch.float32)
+    return k_rope(t, cos, sin)
+
+
+def _cache_slots(cache: dict) -> tuple[dict, int]:
+    """(the rank's local cache tensors, views the local body writes in
+    place; its first slot): a cache split by slots over ``model``
+    (``sharding.cache_specs`` where ``model`` does not divide the kv
+    heads) or whole there, ``kpos`` whole."""
+    k = cache["k"]
+    if any(p.is_shard() and p.dim == 1 for p in k.placements):
+        raise ValueError("a cache split by kv heads is read by the heads "
+                         "layout, not by slots")
+    return ({name: v.to_local() for name, v in cache.items()},
+            sharding.model_offset(k, 2))
+
+
+def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, start,
+                 cfg: ModelConfig, lo: int | None = None) -> dict:
+    """Write k/v (B, Hkv, S, D) at ``start`` as a ring or linearly (the
+    layout ``cache["kpos"]``'s length says); ``lo``: the cache's k/v are
+    a local shard of slots from ``lo`` (``kpos`` whole)."""
+    if cfg.window is not None and cache["kpos"].shape[0] == cfg.window:
+        return _write_ring(cache, k, v, start, cfg.window, lo)
+    return _write_linear(cache, k.to(cfg.activation_dtype),
+                         v.to(cfg.activation_dtype), start, lo)
+
+
+def _split_full(params: dict, x: torch.Tensor, cfg: ModelConfig, layout: str,
+                *, causal: bool, block_kv: int, cache: dict | None = None,
+                start: int = 0) -> torch.Tensor:
+    """Full-sequence attention (and a prefill's cache writes) on a mesh
+    whose ``model`` axis does not divide both head counts, each rank on
+    its local shards in one ``sharding.tp_block``:
+
+      * every rank projects its columns of q, k and v (its local ``wq``/
+        ``wk``/``wv`` columns) and k and v are gathered whole over
+        ``model`` (one gather of the activations, never a weight);
+      * ``"groups"``: the rank's query heads (its ``wq`` columns) against
+        the kv head of their group;
+      * ``"sequence"``: q gathered too, the rank's positions' queries
+        (the sequence split, padded to whole parts, causal keys padded
+        with them) against the keys from ``window`` - 1 before its first
+        (``q_offset``: on the plain route banded as from position 0); the
+        outputs gathered back over the sequence;
+      * ``wo``: the rank's rows, a partial sum all-reduced once;
+      * a prefill writes every kept position's k/v into the rank's slots
+        of the slot-split cache (``_write_cache``).
+    """
+    mesh = params["wq"].device_mesh
+    width, rank = sharding.model_width(mesh), sharding.model_rank(mesh)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    split = _splits(params)
+    local, lo_c = _cache_slots(cache) if cache is not None else (None, 0)
+
+    def body(p, h):
+        b, s, _ = h.shape
+        positions = torch.arange(start, start + s, device=h.device)
+        if layout == "groups":
+            q = sharding.col_product(h, p["wq"])
+            k, v = sharding.cols_on_model(h, [p["wk"], p["wv"]],
+                                          [split["wk"], split["wv"]], mesh)
+        else:
+            q, k, v = sharding.cols_on_model(
+                h, [p["wq"], p["wk"], p["wv"]],
+                [split["wq"], split["wk"], split["wv"]], mesh)
+        k = _rope_heads(k, hkv, cfg, positions)
+        v = _split_heads(v, hkv, cfg.head_dim)
+        if local is not None:
+            _write_cache(local, k, v, start, cfg, lo_c)
+        if layout == "groups":
+            qpr = hq // width
+            kv = slice(rank * qpr // (hq // hkv), rank * qpr // (hq // hkv) + 1)
+            q = _rope_heads(q, qpr, cfg, positions)
+            out = k_attention(q, k[:, kv], v[:, kv], causal=causal,
+                              window=cfg.window, block_kv=block_kv)
+            return _merge_heads(out) @ p["wo"]     # the rank's heads' rows
+        sl = -(-s // width)                 # the rank's positions
+        lo = rank * sl
+        q = torch.nn.functional.pad(q, (0, 0, 0, width * sl - s))
+        q = _rope_heads(q[:, lo:lo + sl], hq, cfg, position_range(
+            start + lo, sl, h.device))
+        ks, ke = 0, s
+        if causal:     # the keys up to the rank's last query, padded as q
+            k, v = (torch.nn.functional.pad(t, (0, 0, 0, width * sl - s))
+                    for t in (k, v))
+            ke = lo + sl
+            if cfg.window is not None:
+                ks = max(0, lo - cfg.window + 1)
+        out = k_attention(q, k[:, :, ks:ke], v[:, :, ks:ke], causal=causal,
+                          window=cfg.window, q_offset=lo - ks,
+                          block_kv=block_kv)
+        o = sharding.gather_on_model(_merge_heads(out), 1, mesh)[:, :s]
+        return sharding.rows_on_model(o, p["wo"], split["wo"], mesh)
+    rows_like = cache["k"] if cache is not None else None
+    return sharding.tp_block(body, params, x, rows_like=rows_like,
+                             partial=True)
+
+
 def _heads_where(like, mesh) -> tuple:
     """Placements of a (B, H, T, D) tensor split by heads over ``model``
     and on its batch as ``like``."""
@@ -145,10 +282,14 @@ def attend(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """x (B, S, d) attending over itself without a cache -> (B, S, d);
     ``causal=False`` for the enc-dec encoder; ``block_kv`` is the
     training path's KV block (the JAX package's default)."""
-    if _split(params):
+    layout = _layout(params, cfg)
+    if layout == "heads":
         return sharding.tp_block(
             lambda p, h: attend(p, h, cfg, causal=causal, block_kv=block_kv),
             params, x)
+    if layout is not None:
+        return _split_full(params, x, cfg, layout, causal=causal,
+                           block_kv=block_kv)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
@@ -263,26 +404,36 @@ def position_range(start, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(start, start + s, device=device)
 
 
+def _kv_writer(lo: int | None):
+    """The k/v write: ``write_at`` on the cache's tensors, or with ``lo``
+    on a local shard of slots from ``lo`` (``write_local``)."""
+    if lo is None:
+        return write_at
+    return lambda dest, dim, index, value: sharding.write_local(
+        dest, dim, lo, index, value)
+
+
 def _write_linear(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                  start) -> dict:
+                  start, lo: int | None = None) -> dict:
     s = k_new.shape[2]
     positions = position_range(start, s, cache["kpos"].device)
     at = positions if isinstance(start, torch.Tensor) \
         else slice(start, start + s)
+    write = _kv_writer(lo)
     if cache["k"].dtype == torch.int8:
         for name, val in (("k", k_new), ("v", v_new)):
             q, scale = _quantize(val)
-            write_at(cache[name], 2, at, q)
-            write_at(cache[name + "scale"], 2, at, scale)
+            write(cache[name], 2, at, q)
+            write(cache[name + "scale"], 2, at, scale)
     else:
-        write_at(cache["k"], 2, at, k_new.to(cache["k"].dtype))
-        write_at(cache["v"], 2, at, v_new.to(cache["v"].dtype))
+        write(cache["k"], 2, at, k_new.to(cache["k"].dtype))
+        write(cache["v"], 2, at, v_new.to(cache["v"].dtype))
     write_at(cache["kpos"], 0, at, positions.to(torch.int32))
     return cache
 
 
 def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                start, window: int) -> dict:
+                start, window: int, lo: int | None = None) -> dict:
     if cache["k"].dtype == torch.int8:   # no scales: refuse, never truncate
         raise Int8RingCacheError("int8 cache", window, cache["kpos"].shape[0])
     s = k_new.shape[2]
@@ -291,17 +442,18 @@ def _write_ring(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         k_new, v_new = k_new[:, :, -window:], v_new[:, :, -window:]
         positions = positions[-window:]
     slots = (positions % window).long()
-    write_at(cache["k"], 2, slots, k_new.to(cache["k"].dtype))
-    write_at(cache["v"], 2, slots, v_new.to(cache["v"].dtype))
+    write = _kv_writer(lo)
+    write(cache["k"], 2, slots, k_new.to(cache["k"].dtype))
+    write(cache["v"], 2, slots, v_new.to(cache["v"].dtype))
     write_at(cache["kpos"], 0, slots, positions)
     return cache
 
 
-def _cached_attention(q: torch.Tensor, cache: dict, qpos: torch.Tensor,
-                      window: int | None) -> torch.Tensor:
-    """Attend q (B, Hq, S, D) over the cache slots by their absolute
-    positions (linear, ring and int8 layouts alike), in float32."""
-    kpos = cache["kpos"]
+def _cached_logits(q: torch.Tensor, cache: dict, kpos: torch.Tensor,
+                   qpos: torch.Tensor, window: int | None):
+    """q (B, Hq, S, D) against the cache's k over the slots whose
+    absolute positions are ``kpos``: (the masked float32 scores, the
+    values expanded to the query heads)."""
     group = q.shape[1] // cache["k"].shape[1]
     mask = (kpos >= 0)[None, :] & (kpos[None, :] <= qpos[:, None])
     if window is not None:
@@ -312,8 +464,58 @@ def _cached_attention(q: torch.Tensor, cache: dict, qpos: torch.Tensor,
     logits = logits * (q.shape[-1] ** -0.5)
     logits = torch.where(mask[None, None], logits,
                          torch.full((), -1e30, device=q.device))
+    return logits, v
+
+
+def _cached_attention(q: torch.Tensor, cache: dict, qpos: torch.Tensor,
+                      window: int | None) -> torch.Tensor:
+    """Attend q (B, Hq, S, D) over the cache slots by their absolute
+    positions (linear, ring and int8 layouts alike), in float32."""
+    logits, v = _cached_logits(q, cache, cache["kpos"], qpos, window)
     p = torch.softmax(logits, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def _split_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  cache: dict, pos) -> torch.Tensor:
+    """One token against a cache split by slots over ``model`` (the
+    reference's sequence-sharded decode), each rank on its local shards
+    in one ``sharding.tp_block``: its columns of q, k and v gathered
+    whole over ``model`` (one token's worth), the new k/v written by the
+    rank that owns the slot, scores over the rank's slots with the max
+    all-reduced over ``model``, then the sums of exponentials and the
+    value partial sums all-reduced together; ``wo``'s rows of the rank,
+    a partial sum all-reduced once.  ``pos`` stays on the device."""
+    mesh = params["wq"].device_mesh
+    split = _splits(params)
+    local, lo = _cache_slots(cache)
+    n = local["k"].shape[2]
+    by_slots = n != cache["k"].shape[2]
+
+    def body(p, h):
+        positions = position_range(pos, 1, h.device)
+        q, k, v = sharding.cols_on_model(
+            h, [p["wq"], p["wk"], p["wv"]],
+            [split["wq"], split["wk"], split["wv"]], mesh)
+        q = _rope_heads(q, cfg.n_heads, cfg, positions)
+        k = _rope_heads(k, cfg.n_kv_heads, cfg, positions)
+        _write_cache(local, k, _split_heads(v, cfg.n_kv_heads, cfg.head_dim),
+                     pos, cfg, lo)
+        logits, vv = _cached_logits(q, local, local["kpos"][lo:lo + n],
+                                    positions, cfg.window)
+        m = logits.amax(dim=-1, keepdim=True)
+        if by_slots:
+            m = sharding.reduce_on_model(m, "max", mesh)
+        e = torch.exp(logits - m)
+        lv = torch.cat([e.sum(dim=-1, keepdim=True),
+                        torch.matmul(e, vv.float())], dim=-1)
+        if by_slots:
+            lv = sharding.reduce_on_model(lv, "sum", mesh)
+        out = (lv[..., 1:] / lv[..., :1]).to(q.dtype)
+        return sharding.rows_on_model(_merge_heads(out), p["wo"],
+                                      split["wo"], mesh)
+    return sharding.tp_block(body, params, x, rows_like=cache["k"],
+                             partial=True)
 
 
 def prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
@@ -321,22 +523,22 @@ def prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     """Process a prompt x (B, S, d): fill the cache, return the
     per-position outputs (B, S, d) and the cache; ``block_kv`` is the
     plain path's KV block (the JAX package's prefill default)."""
-    if _split(params):
+    layout = _layout(params, cfg)
+    if layout == "heads":
         local = _local_cache(cache)
         return sharding.tp_block(
             lambda p, h: prefill(p, h, cfg, local, start, block_kv)[0],
             params, x, rows_like=cache["k"]), cache
+    if layout is not None:
+        return _split_full(params, x, cfg, layout, causal=True,
+                           block_kv=block_kv, cache=cache,
+                           start=start), cache
     b, s, _ = x.shape
     positions = torch.arange(start, start + s, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
     out = k_attention(q, k, v, causal=True, window=cfg.window, q_offset=0,
                       block_kv=block_kv)
-    ring = cfg.window is not None and cache["kpos"].shape[0] == cfg.window
-    if ring:
-        cache = _write_ring(cache, k, v, start, cfg.window)
-    else:
-        cache = _write_linear(cache, k.to(cfg.activation_dtype),
-                              v.to(cfg.activation_dtype), start)
+    cache = _write_cache(cache, k, v, start, cfg)
     return _merge_heads(out) @ params["wo"], cache
 
 
@@ -345,19 +547,16 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     """One token x (B, 1, d) at absolute position ``pos`` (an int or a
     0-d int64 tensor on x's device): writes slot ``pos % window`` of a
     ring (``pos`` of a linear cache) and attends."""
-    if _split(params):
+    layout = _layout(params, cfg)
+    if layout == "heads":
         local = _local_cache(cache)
         return sharding.tp_block(
             lambda p, h: decode_step(p, h, cfg, local, pos)[0],
             params, x, rows_like=cache["k"]), cache
+    if layout is not None:
+        return _split_decode(params, x, cfg, cache, pos), cache
     positions = position_range(pos, 1, x.device)
     q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
-    window = cfg.window
-    ring = window is not None and cache["kpos"].shape[0] == window
-    if ring:
-        cache = _write_ring(cache, k, v, pos, window)
-    else:
-        cache = _write_linear(cache, k.to(cfg.activation_dtype),
-                              v.to(cfg.activation_dtype), pos)
-    out = _cached_attention(q, cache, positions, window)
+    cache = _write_cache(cache, k, v, pos, cfg)
+    out = _cached_attention(q, cache, positions, cfg.window)
     return _merge_heads(out) @ params["wo"], cache

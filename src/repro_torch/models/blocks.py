@@ -33,13 +33,17 @@ of the encoder output), the enc-dec decoder's cross-attention.
 ``for_use`` readies a layer's parameters on a mesh: the sub-blocks that
 split over ``model`` as the reference's specs lay them out keep their
 ``model`` shards (``sharding.gathered(keep_model=True)``) -- attention
-when ``model`` divides both head counts, the SwiGLU MLP when it divides
-``d_ff`` (the leaves' sanitized specs), the MoE experts -- and the rest
-come whole: the SSM, and attention whose heads do not divide (hymba's
-25/5 heads; kv 8 on a 16-wide axis).  A batch the fsdp axes do not
-divide (a batch-1 decode) keeps attention's and the MLP's fsdp shards
-as well: the fsdp axes split their contractions, as XLA splits the
-reference's.
+under each layout of ``sharding.attn_layout`` (by heads where ``model``
+divides both head counts; by query heads and their kv group where it
+divides the query heads, yi-6b's 32/4 on 8; by the sequence where it
+does not, hymba's 25/5 heads), the SwiGLU MLP where it divides ``d_ff``
+(the leaves' sanitized specs), the MoE experts, and in a decode step
+the SSM's ``in_proj``/``out_proj`` (``ssm.decode_step`` splits its
+state on the head dim) -- and the rest come whole: the full-sequence
+SSM, which splits the sequence instead.  A batch the fsdp axes do not
+divide (a batch-1 decode) keeps attention's, the MLP's and the decode
+step's SSM's fsdp shards as well: the fsdp axes split their
+contractions, as XLA splits the reference's.
 """
 from __future__ import annotations
 
@@ -87,26 +91,23 @@ def init(generator: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def heads_split(cfg: ModelConfig, width: int) -> bool:
-    """Whether a ``model`` axis of ``width`` splits attention by heads."""
-    return width > 1 and bool(cfg.n_kv_heads) \
-        and cfg.n_heads % width == 0 and cfg.n_kv_heads % width == 0
-
-
-def for_use(p: dict, cfg: ModelConfig, x=None) -> dict:
+def for_use(p: dict, cfg: ModelConfig, x=None, *,
+            decode: bool = False) -> dict:
     """One layer's parameters gathered for use under the ambient mesh,
-    fed ``x``: attention (self and cross) whose heads ``model`` divides,
-    the MLP and the MoE experts over the fsdp axes only, keeping their
-    ``model`` shards; the rest whole.  Where the fsdp axes split the
-    contractions instead of x's batch (``sharding.contraction_split``),
-    attention and the MLP keep their fsdp shards too.  Plain tensors come
-    back as they are."""
+    fed ``x``: attention under every layout of ``sharding.attn_layout``
+    (cross-attention where ``model`` divides its heads), the MLP, the
+    MoE experts and, in a ``decode`` step, the SSM over the fsdp axes
+    only, keeping their ``model`` shards; the rest whole.  Where the
+    fsdp axes split the contractions instead of x's batch
+    (``sharding.contraction_split``), attention, the MLP and the decode
+    step's SSM keep their fsdp shards too.  Plain tensors come back as
+    they are."""
     width = sharding.model_width()
-    heads = heads_split(cfg, width)
-    split = ("mlp", "moe") + (("attn", "cross") if heads else ())
-    # attention's local body reads its cache whole on model or split by
-    # heads, never split by sequence
-    fsdp = ("mlp",) + (("attn", "cross") if heads or width == 1 else ()) \
+    heads = width == 1 or sharding.attn_layout(cfg, width) == "heads"
+    split = ("mlp", "moe", "attn") + (("cross",) if heads else ()) \
+        + (("ssm",) if decode else ())
+    fsdp = ("mlp", "attn") + (("cross",) if heads else ()) \
+        + (("ssm",) if decode else ()) \
         if sharding.contraction_split(x) else ()
     return {k: sharding.gathered(v, keep_model=k in split,
                                  keep_fsdp=k in fsdp) for k, v in p.items()}

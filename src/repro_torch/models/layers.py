@@ -102,7 +102,9 @@ def logits_head(x: torch.Tensor, table: torch.Tensor,
     widened exactly to float32, so the products and their sum are float32
     as with the JAX package's ``preferred_element_type``.  A table split
     over ``model`` gives each rank its vocabulary's logits, (..., V/tp),
-    split over ``model`` on the last dim."""
+    split over ``model`` on the last dim; a whole one (a vocabulary
+    ``model`` does not divide) splits the tokens instead
+    (``_token_split_head``)."""
     if sharding.split_on_model(table) or sharding.split_on_fsdp(table):
         from torch.distributed.tensor import Replicate, Shard
         split = Shard(x.dim() - 1) if sharding.split_on_model(table) \
@@ -110,10 +112,41 @@ def logits_head(x: torch.Tensor, table: torch.Tensor,
         return sharding.tp_block(
             lambda p, a: logits_head(a, p["table"], softcap),
             {"table": table}, x, split_out=split)
+    if sharding.is_dtensor(x) and sharding.model_width(x.device_mesh) > 1:
+        out = _token_split_head(x, table, softcap)
+        if out is not None:
+            return out
     out = sharding.col_product(x.float(), table.float().t())
     if softcap:
         out = torch.tanh(out / softcap) * softcap
     return out
+
+
+def _token_split_head(x: torch.Tensor, table: torch.Tensor, softcap: float):
+    """The head of a DTensor x against a table whole on ``model``, each
+    ``model`` rank on its part of the tokens (``sharding.tp_map``): of
+    the sequence of a (B, S, d) x whose S ``model`` divides -- the logits
+    come back split there (the training loss reduces them so) -- else
+    of its local batch rows, the logits gathered back whole over
+    ``model`` (the serving steps' (B, 1, d)); None where neither
+    divides."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    width = sharding.model_width(mesh)
+    rows = sharding.rows_of(x, mesh)
+    local_b = x.shape[0] // sharding.axis_size(mesh, tuple(
+        n for i, n in enumerate(mesh.mesh_dim_names)
+        if rows[i].is_shard()))
+    if x.dim() == 3 and x.shape[1] > 1 and x.shape[1] % width == 0:
+        where = sharding.with_model(rows, mesh, Shard(1))
+        return sharding.tp_map(lambda a, t: logits_head(a, t, softcap),
+                               (x, table), (where, None), where)
+    if local_b % width:
+        return None
+    return sharding.tp_map(
+        lambda a, t: sharding.gather_on_model(logits_head(a, t, softcap), 0,
+                                              mesh),
+        (x, table), (sharding.with_model(rows, mesh, Shard(0)), None), rows)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -122,7 +155,7 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     rank's best is reduced to the global best (an all-reduce max), then
     the lowest index holding it (an all-reduce min) -- bit for bit the
     argmax of the gathered logits."""
-    if not sharding.split_on_model(logits):
+    if not sharding.vocab_split(logits):
         return torch.argmax(logits, dim=-1)
     from torch.distributed.tensor import Partial
     mesh = logits.device_mesh
@@ -189,19 +222,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token-mean cross entropy in float32 with a z-loss (``z_loss *
     logsumexp**2`` a token); labels below 0 are masked out and the
     denominator is floored at 1."""
-    if sharding.split_on_model(logits):
-        lse, gold = _vocab_split_lse_gold(logits.float(), labels)
+    if sharding.vocab_split(logits):
+        nll = _nll(*_vocab_split_lse_gold(logits.float(), labels), z_loss)
+    elif sharding.split_on_model(logits):    # tokens split over model
+        where = tuple(logits.placements)
+        nll = sharding.tp_map(
+            lambda lg, y: _nll(*_lse_gold(lg.float(), y), z_loss),
+            (logits, labels), (None, where), where)
     else:
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels.clamp_min(0).long()[..., None])[..., 0]
-    nll = lse - gold
-    if z_loss:
-        nll = nll + z_loss * lse ** 2
+        nll = _nll(*_lse_gold(logits.float(), labels), z_loss)
     mask = (labels >= 0).float()
     denom = torch.clamp_min(mask.sum(), 1.0)
     return (nll * mask).sum() / denom
+
+
+def _nll(lse: torch.Tensor, gold: torch.Tensor, z_loss: float):
+    """A token's loss: logsumexp less the gold logit, plus the z-loss."""
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    return nll
+
+
+def _lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, the gold logit) of float32 logits a token."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    return lse, gold
 
 
 def _vocab_split_lse_gold(logits: torch.Tensor, labels: torch.Tensor):

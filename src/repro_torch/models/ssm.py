@@ -31,16 +31,20 @@ Differences from the JAX package, none in the function computed:
     ``ssd_intra`` call and the inter-chunk output, which flatten the
     (batch, sequence) rows split on both, run on each rank's local rows
     (``sharding.local_call``), so no DTensor op flattens a doubly-split
-    dim.
+    dim;
+  * a decode step on a mesh (``_split_step``) splits ``in_proj``'s
+    product by columns and the state on its head dim over ``model``,
+    as the reference's specs lay them out, moving one token's worth
+    between the ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import (any_dtensor, constrain,
-                                              local_call, on_shards,
-                                              whole_on_model)
+                                              local_call, on_shards)
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import ssd_intra
 from repro_torch.models.config import ModelConfig
@@ -112,8 +116,12 @@ def _split(proj: torch.Tensor, cfg: ModelConfig):
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
-    """Zero-pad dim 1 (the sequence) of a (B, S, ...) tensor by ``pad``."""
-    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    """Zero-pad dim 1 (the sequence) of a (B, S, ...) tensor by ``pad``;
+    a DTensor on its local shards, the sequence made whole first
+    (``on_shards``: DTensor's own pad strategy gives a 2-D mesh's output
+    one placement in torch 2.11)."""
+    return on_shards(lambda a: F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)),
+                     t, (1,))
 
 
 def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk: int):
@@ -220,7 +228,10 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 cache: dict):
     """One token x (B, 1, d) against the recurrent state; the new state
     and conv tail are written into ``cache`` in place, and ``cache`` is
-    returned."""
+    returned.  A cache on a mesh (DTensors placed by ``sharding.
+    cache_specs``) runs ``_split_step``."""
+    if sharding.is_dtensor(cache["state"]):
+        return _split_step(params, x, cfg, cache), cache
     proj = x @ params["in_proj"]
     z, xbc, dt_raw = _split(proj, cfg)
     w = params["conv_w"]
@@ -236,10 +247,7 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"][None])  # (B, h)
     a = -torch.exp(params["A_log"])[None]                  # (1, h)
     decay = torch.exp(dt * a)                              # (B, h)
-    # the einsums below flatten (h, p); DTensor cannot propagate a
-    # model-split p through that flattening, so the state is made whole
-    # on model first (batch-split only)
-    state = whole_on_model(cache["state"]) * decay[:, :, None, None] + \
+    state = cache["state"] * decay[:, :, None, None] + \
         torch.einsum("bhp,bn,bh->bhpn", xs, b_in, dt)
     y = torch.einsum("bn,bhpn->bhp", c_in, state) + \
         params["D"][None, :, None] * xs
@@ -247,3 +255,64 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = k_rmsnorm(y * F.silu(z.float()), params["norm_gain"], eps=cfg.norm_eps)
     out = y.to(x.dtype) @ params["out_proj"]
     return out, write_cache(cache, {"state": state, "conv": new_conv})
+
+
+def _split_step(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                cache: dict) -> torch.Tensor:
+    """The decode step on each rank's local shards, one ``sharding.
+    tp_block``, with the reference's layout over ``model``: ``in_proj``
+    split by columns, the state (B, h, p, n) on ``p`` and the conv tail
+    on its channels (``cache_specs``), ``out_proj`` by rows.  Three
+    slicings of the channels meet here; what crosses ranks is one
+    token's worth, never a weight or the state: the projection's columns
+    (z, xBC and dt) gathered whole, the conv outputs of each rank's
+    channels gathered whole (B and C among them), the state's output
+    gathered over ``p`` for the gated norm (the ``rmsnorm_2d`` kernel on
+    whole rows of ``di``), then ``out_proj``'s partial sums all-reduced
+    once.  The state update and ``y`` are independent in ``p``."""
+    mesh = cache["state"].device_mesh
+    in_split = sharding.split_on_model(params["in_proj"])
+    out_split = sharding.split_on_model(params["out_proj"])
+    state, conv = cache["state"].to_local(), cache["conv"].to_local()
+    p_lo = sharding.model_offset(cache["state"], 2)
+    c_lo = sharding.model_offset(cache["conv"], 2)
+    by_p = state.shape[2] != cfg.ssm_headdim
+    by_ch = conv.shape[2] != cache["conv"].shape[2]
+
+    def body(prm, h1):
+        (proj,) = sharding.cols_on_model(h1, [prm["in_proj"]], [in_split],
+                                         mesh)
+        z, xbc, dt_raw = _split(proj, cfg)
+        w = prm["conv_w"]
+        ch = slice(c_lo, c_lo + conv.shape[2])
+        xfull = torch.cat([conv.to(xbc.dtype), xbc[..., ch]], dim=1)
+        conv_out = torch.einsum("bwc,wc->bc", xfull[:, -w.shape[0]:],
+                                w[:, ch])
+        xbc1 = F.silu(conv_out + prm["conv_b"][ch][None].to(conv_out.dtype))
+        if w.shape[0] > 1:
+            conv.copy_(xfull[:, 1:])
+        if by_ch:
+            xbc1 = sharding.gather_on_model(xbc1, -1, mesh)
+        di, n, hh = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+        pp = state.shape[2]
+        xs = xbc1[..., :di].reshape(-1, hh, cfg.ssm_headdim)[
+            :, :, p_lo:p_lo + pp].float()
+        b_in = xbc1[..., di:di + n].float()
+        c_in = xbc1[..., di + n:].float()
+        dt = F.softplus(dt_raw[:, 0].float() + prm["dt_bias"][None])
+        a = -torch.exp(prm["A_log"])[None]
+        decay = torch.exp(dt * a)
+        new = state * decay[:, :, None, None] + \
+            torch.einsum("bhp,bn,bh->bhpn", xs, b_in, dt)
+        y = torch.einsum("bn,bhpn->bhp", c_in, new) + \
+            prm["D"][None, :, None] * xs
+        state.copy_(new)
+        if by_p:
+            y = sharding.gather_on_model(y, 2, mesh)
+        y = y.reshape(-1, 1, di)
+        y = k_rmsnorm(y * F.silu(z.float()), prm["norm_gain"],
+                      eps=cfg.norm_eps)
+        return sharding.rows_on_model(y.to(h1.dtype), prm["out_proj"],
+                                      out_split, mesh)
+    return sharding.tp_block(body, params, x, rows_like=cache["state"],
+                             partial=True)

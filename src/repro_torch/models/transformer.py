@@ -241,8 +241,8 @@ class Model:
             x = x + replicate_as(p[None].to(x.dtype), x)
         new_cache = []
         for lp, c in zip(params["layers"], cache):
-            x, c = blocks.decode(blocks.for_use(lp, cfg, x), x, cfg, c,
-                                 pos)
+            x, c = blocks.decode(blocks.for_use(lp, cfg, x, decode=True),
+                                 x, cfg, c, pos)
             new_cache.append(c)
         return self._head(params, x), new_cache
 

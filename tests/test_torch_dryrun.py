@@ -21,9 +21,16 @@ analytic counts against the JAX package's.
     ``prefill_32k`` on (8, 1) (banded sliding-window attention),
     whisper-medium ``prefill_32k`` on (4, 2) (enc-dec on a mesh) and
     h2o-danube-1.8b ``long_500k`` on (8, 1) (one sequence: the data
-    axis splits the dense contractions);
+    axis splits the dense contractions); and where ``model`` does not
+    divide the heads (``sharding.attn_layout``): yi-6b ``prefill_32k``
+    and ``decode_32k`` on (1, 8) (query heads split with their kv group;
+    a cache split by slots), mamba2-130m ``decode_32k`` on (2, 4) (the
+    SSM decode split on its state's head dim), hymba-1.5b
+    ``decode_32k`` on (2, 4), ``long_500k`` on (4, 2) and
+    ``prefill_32k`` on (2, 4) (attention on the sequence split, the
+    slot-split ring cache, the head on split tokens);
     hymba-1.5b ``prefill_32k`` traces on (4, 2) (its SSM's sequence
-    split; its 25/5 heads keep attention whole).
+    split, which attention now takes too).
 """
 import json
 import os
@@ -220,7 +227,13 @@ PARITY_CELLS = [("yi-6b", "decode_32k", (4, 2)),
                 ("phi3-mini-3.8b", "prefill_32k", (2, 4)),
                 ("h2o-danube-1.8b", "prefill_32k", (8, 1)),
                 ("whisper-medium", "prefill_32k", (4, 2)),
-                ("h2o-danube-1.8b", "long_500k", (8, 1))]
+                ("h2o-danube-1.8b", "long_500k", (8, 1)),
+                ("yi-6b", "prefill_32k", (1, 8)),
+                ("yi-6b", "decode_32k", (1, 8)),
+                ("mamba2-130m", "decode_32k", (2, 4)),
+                ("hymba-1.5b", "decode_32k", (2, 4)),
+                ("hymba-1.5b", "long_500k", (4, 2)),
+                ("hymba-1.5b", "prefill_32k", (2, 4))]
 FLOPS_RTOL = 1.03
 
 

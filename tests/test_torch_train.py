@@ -1,6 +1,7 @@
 """The port's training path against the JAX package's, on the CPU: the
 loss (``layers.cross_entropy``), the training path's attention
-(``blockwise_attention``, ``banded_swa_attention``), ``Model.loss`` and
+(``blockwise_attention``, ``banded_swa_attention``, also from a query
+offset as on a rank of the sequence split), ``Model.loss`` and
 the gradient of every parameter for each family at ``reduced()``
 (yi-6b and h2o-danube-1.8b dense, the second with a sliding window;
 granite-moe-3b-a800m MoE; mamba2-130m SSM; hymba-1.5b hybrid;
@@ -173,6 +174,25 @@ def test_banded_swa_attention_matches_reference(s, window):
         lambda q, k, v: jax_fa_ref.banded_swa_attention(q, k, v, scale=0.25,
                                                         window=window),
         shapes, s)
+
+
+@pytest.mark.parametrize("s,window,q_offset", [
+    (256, 128, 127), (300, 128, 100), (384, 256, 255), (200, 128, 5)])
+def test_banded_attention_from_a_query_offset_matches_reference(
+        s, window, q_offset):
+    """A rank of the sequence split: queries from ``q_offset`` against the
+    keys from position 0 (T = q_offset + S), banded through
+    ``autodiff_attention`` as the reference's blockwise attention with
+    the same offset: window - 1 keys before (127, 255), fewer (100, 5), a
+    padded tail (300, 200); values and the vjp."""
+    t = s + q_offset
+    shapes = ((1, 4, s, 16), (1, 2, t, 16), (1, 2, t, 16))
+    kw = dict(scale=0.25, causal=True, window=window, q_offset=q_offset)
+    _attention_case(
+        lambda q, k, v: fa_ref.autodiff_attention(q, k, v, **kw),
+        lambda q, k, v: jax_fa_ref.blockwise_attention(q, k, v, block_kv=64,
+                                                       **kw),
+        shapes, s + 7 * q_offset)
 
 
 @pytest.mark.parametrize("t,causal,window,q_offset", [

@@ -3,7 +3,9 @@
 the test's temporary directory, a 60 s timeout), runs one scenario of
 this module in each and returns rank 0's result, joining every process
 within a deadline and killing what is left.  Each scenario builds its
-own mesh; the results are numpy arrays and Python numbers.
+own mesh; the results are numpy arrays and Python numbers.  A rank fails
+if any functional collective it issued was never waited for (the work
+registry is not empty at the scenario's end).
 
 Imported by the spawned ranks, so nothing here runs at import.
 """
@@ -61,6 +63,12 @@ def _rank_main(scenario, rank, world, store, q, args):
             "gloo", store=dist.FileStore(store, world), rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=60))
         out = globals()[scenario](rank, world, *args)
+        # every functional collective the scenario issued was waited for:
+        # over NCCL a result read unwaited is a race
+        unwaited = torch._C._distributed_c10d._get_work_registry_size()
+        if unwaited:
+            raise AssertionError(f"{scenario}: {unwaited} functional "
+                                 f"collectives never waited for")
         q.put((rank, True, out))
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
@@ -70,6 +78,27 @@ def _rank_main(scenario, rank, world, store, q, args):
 
 
 # -- helpers ------------------------------------------------------------------
+
+#: reduced configs whose head counts a 2-wide ``model`` axis does not
+#: divide, by name: hymba's shape (5 query heads, 1 kv head, a window of
+#: 8 below the 16 served positions -- a ring cache -- the SSM branch and
+#: an odd vocabulary, as hymba's 32 001: the sequence layout, the
+#: slot-split ring, the split SSM decode and the head on split tokens)
+#: and a dense one (4 query heads, 1 kv head, a linear cache: the groups
+#: layout and the slot-split linear cache)
+UNEVEN = {"hymba-5q1kv": ("hymba-1.5b", dict(n_heads=5, n_kv_heads=1,
+                                              window=8, vocab_size=255)),
+          "yi-4q1kv": ("yi-6b", dict(n_kv_heads=1))}
+
+
+def reduced(arch: str):
+    """The reduced config of ``arch``, or of an ``UNEVEN`` name."""
+    import dataclasses
+    from repro_torch import configs
+    if arch in UNEVEN:
+        base, kw = UNEVEN[arch]
+        return dataclasses.replace(configs.get(base).reduced(), **kw)
+    return configs.get(arch).reduced()
 
 def full(t):
     """A (possibly DTensor) tensor as a numpy array."""
@@ -87,9 +116,8 @@ def train_one(arch: str, steps: int, mesh=None, *, global_batch: int = 8,
               seq_len: int = 32, micro_per_shard: int = 2, **kw):
     """``train_loop`` on a reduced ``arch``: (losses, each step's global
     norm, the last parameters as numpy arrays)."""
-    from repro_torch import configs
     from repro_torch.launch.train import train_loop
-    cfg = configs.get(arch).reduced()
+    cfg = reduced(arch)
     norms, last = [], {}
 
     def on_step(i, m):
@@ -102,9 +130,16 @@ def train_one(arch: str, steps: int, mesh=None, *, global_batch: int = 8,
     return history, norms, leaf_arrays(last["params"])
 
 
+#: every mesh this process made: DTensor's cached sharding propagation
+#: may hand back an earlier mesh of the same shape, whose groups a
+#: ``CollectiveLog`` must name too
+_MADE: list = []
+
+
 def _mesh(shape, axes=("data", "model")):
     from repro_torch.launch.mesh import make_mesh
-    return make_mesh(shape, axes)
+    _MADE.append(make_mesh(shape, axes))
+    return _MADE[-1]
 
 
 # -- scenarios ----------------------------------------------------------------
@@ -267,13 +302,15 @@ def two_ranks(rank, world, ckpt_dir):
 class CollectiveLog:
     """A dispatch mode recording every functional collective as (kind,
     the mesh dim names of its group) -- ``model``, ``data`` -- so a test
-    tells a ``model`` all-reduce from a ``data`` one."""
+    tells a ``model`` all-reduce from a ``data`` one; ``shapes`` holds
+    each call's input shape, in the same order."""
 
     def __init__(self, mesh):
-        self.groups = {mesh.get_group(n).group_name: n
-                       for n in mesh.mesh_dim_names if mesh.size(
-                           mesh.mesh_dim_names.index(n)) > 1}
+        self.groups = {m.get_group(n).group_name: n
+                       for m in (*_MADE, mesh) for n in m.mesh_dim_names
+                       if m.size(m.mesh_dim_names.index(n)) > 1}
         self.calls: list = []
+        self.shapes: list = []
 
     def __enter__(self):
         import torch
@@ -287,6 +324,7 @@ class CollectiveLog:
                         "wait_tensor", "_wrap_tensor_autograd"):
                     group = [a for a in args if isinstance(a, str)][-1]
                     log.calls.append((kind, log.groups.get(group, group)))
+                    log.shapes.append(tuple(getattr(args[0], "shape", ())))
                 return func(*args, **(kwargs or {}))
         self._mode = Mode()
         self._mode.__enter__()
@@ -301,17 +339,21 @@ class CollectiveLog:
                    and a == axis)
 
 
-def serve_split(rank, world, arch, shape, prompt, gen, n_seq=2):
-    """``serve_batch`` of a reduced ``arch`` with the parameters placed by
-    ``params_specs`` on a ``shape`` mesh, ``n_seq`` prompts: the tokens,
-    every step's logits, the cache's k placements and the collectives of
-    the prefill (by kind and axis)."""
+def serve_split(rank, world, arch, shape, prompt, gen, n_seq=2,
+                log_decode=False):
+    """``serve_batch`` of a reduced ``arch`` (or an ``UNEVEN`` name) with
+    the parameters placed by ``params_specs`` on a ``shape`` mesh,
+    ``n_seq`` prompts: the tokens, every step's logits, the cache's k
+    placements and the collectives of the prefill (by kind and axis).
+    ``log_decode``: then also ``gen`` greedy decode steps after that
+    prefill, their collectives with each call's input shape, and the
+    local shapes of every projection weight, cache leaf and SSM state
+    shard a rank holds."""
     import torch
-    from repro_torch import configs
     from repro_torch.distributed import elastic, sharding
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build
-    cfg = configs.get(arch).reduced()
+    cfg = reduced(arch)
     model = build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     mesh = _mesh(shape)
@@ -325,18 +367,38 @@ def serve_split(rank, world, arch, shape, prompt, gen, n_seq=2):
             from repro_torch.launch.serve import serve_inputs
             batch, _, enc_len = serve_inputs(cfg, torch.from_numpy(
                 prompts).long())
-            cache = model.init_cache(n_seq, prompt + 1, enc_len,
-                                     device="cpu")
+            cache = model.init_cache(
+                n_seq, prompt + (gen if log_decode else 1), enc_len,
+                device="cpu")
             cache = elastic.place(cache, mesh, sharding.cache_specs(
                 cache, cfg, mesh))
             batch = elastic.place(batch, mesh, sharding.batch_specs(
                 batch, mesh, accum_dim=False))
             lg, cache = model.prefill(params, batch, cache)
-        k = cache[0]["self"]["k"] if cfg.is_encdec else cache[0]["k"]
+        if log_decode:
+            from repro_torch.models.layers import greedy
+            dec = CollectiveLog(mesh)
+            with dec:       # greedy: no logit is gathered
+                tok = greedy(lg)
+                for i in range(gen):
+                    lg, cache = model.decode(params, tok, prompt + i, cache)
+                    tok = greedy(lg)
+        c0 = cache[0]["attn"] if cfg.family == "hybrid" else cache[0]
+        k = c0["self"]["k"] if cfg.is_encdec else c0["k"]
         tokens = serve_batch(cfg, params, prompts, gen_tokens=gen,
                              model=model, trace=trace)
-    return (tokens, [full(x) for x in trace["logits"]],
-            str(tuple(k.placements)), log.calls)
+    out = (tokens, [full(x) for x in trace["logits"]],
+           str(tuple(k.placements)), log.calls)
+    if not log_decode:
+        return out
+    names = ("wq", "wk", "wv", "wo", "in_proj", "out_proj")
+    held = {tuple(t.to_local().shape) for lp in params["layers"]
+            for sub in lp.values() if isinstance(sub, dict)
+            for n, t in sub.items() if n in names}
+    from repro_torch.optim.adamw import leaves
+    held |= {tuple(t.to_local().shape) for t in leaves(cache)
+             if t.dim() > 1}
+    return out + (list(zip(dec.calls, dec.shapes)), held)
 
 
 def split_argmax(rank, world, rows):
@@ -351,21 +413,72 @@ def split_argmax(rank, world, rows):
     return full(greedy(x)), full(x).argmax(-1)
 
 
-def tp_two_ranks(rank, world):
+def serve_reference_params(rank, world, name, shape, path):
+    """``serve_batch`` of an ``UNEVEN`` config on a ``shape`` mesh with
+    the JAX package's parameters and prompts from the npz at ``path``
+    (its parameters by "/"-joined key under "params/", "prompts", and
+    "tokens" for the generated length): the tokens and every step's
+    logits."""
+    import torch
+    from repro_torch.convert import model_params_from_reference
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    cfg = reduced(name)
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if key.startswith("params/"):
+                *outer, leaf = key.split("/")[1:]
+                node = tree
+                for k in outer:
+                    node = node.setdefault(k, {})
+                node[leaf] = z[key]
+        prompts, gen = z["prompts"], z["tokens"].shape[1]
+    params = model_params_from_reference(cfg, tree, device="cpu")
+    mesh = _mesh(shape)
+    params = elastic.place(params, mesh, sharding.params_specs(params, mesh))
+    trace = {}
+    with sharding.mesh_context(mesh), torch.no_grad():
+        tokens = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                             model=build(cfg), trace=trace)
+    return tokens, [full(x) for x in trace["logits"]]
+
+
+def tp_two_ranks(rank, world, jax_ref):
     """Everything the tensor-parallel tests run on (1, 2): train steps of
-    reduced yi-6b, granite-moe-3b-a800m and whisper-medium, and the
-    planted argmax ties."""
+    reduced yi-6b, granite-moe-3b-a800m and whisper-medium and of the two
+    ``UNEVEN`` configs, ``serve_batch`` of the ``UNEVEN`` configs with
+    their decode's collectives, the planted argmax ties, and, unless it
+    is None, ``jax_ref`` = (an ``UNEVEN`` name, the npz of the JAX
+    package's serve of it) served with the JAX package's parameters."""
     ties = np.zeros((4, 8), np.float32)
     ties[0, [2, 5]] = 3.0            # one in each shard: the lower wins
     ties[1, [5, 6]] = 2.0            # two in the second shard
     ties[2, [0, 1, 3]] = -1.0        # all but one at -1, max 0 at 2, 4..7
     ties[3] = np.arange(8)[::-1]     # the max alone, in the first shard
-    return {
+    out = {
         "yi": train_step(rank, world, "yi-6b", (1, 2)),
         "granite": train_step(rank, world, "granite-moe-3b-a800m", (1, 2)),
         "whisper": train_step(rank, world, "whisper-medium", (1, 2)),
         "argmax": split_argmax(rank, world, ties),
+        **uneven(rank, world, (1, 2)),
     }
+    if jax_ref:
+        out["jax_" + jax_ref[0]] = serve_reference_params(
+            rank, world, jax_ref[0], (1, 2), jax_ref[1])
+    return out
+
+
+def uneven(rank, world, shape) -> dict:
+    """A train step and a logged serve of each ``UNEVEN`` config on a
+    ``shape`` mesh, by name and "serve_" + name."""
+    out = {}
+    for name in UNEVEN:
+        out[name] = train_step(rank, world, name, shape)
+        out["serve_" + name] = serve_split(rank, world, name, shape, 12, 4,
+                                           log_decode=True)
+    return out
 
 
 def tp_four_ranks(rank, world):
@@ -373,7 +486,7 @@ def tp_four_ranks(rank, world):
     the three reduced archs; ``serve_batch`` (a prefill and 4 decode
     steps) of reduced yi-6b and whisper-medium against a head-sharded
     cache, and of one yi-6b prompt, a batch the data axis does not
-    divide."""
+    divide; the ``UNEVEN`` configs' train steps and logged serves."""
     return {
         "yi": train_step(rank, world, "yi-6b", (2, 2)),
         "granite": train_step(rank, world, "granite-moe-3b-a800m", (2, 2)),
@@ -382,4 +495,5 @@ def tp_four_ranks(rank, world):
         "serve_whisper": serve_split(rank, world, "whisper-medium", (2, 2),
                                      12, 4),
         "serve_yi_one": serve_split(rank, world, "yi-6b", (2, 2), 12, 4, 1),
+        **uneven(rank, world, (2, 2)),
     }
