@@ -168,10 +168,28 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
      serve's, ``memory_allocated`` flat within 1 % (``train_phase``); it
      runs after the serves and before the chaos, async and autotune
      phases;
+  8g. train on a 1x1 mesh (after 8f): 8f's ``train_loop`` on
+     ``make_local_mesh()`` over a one-rank NCCL group, twice: 2 steps
+     with ``eager=True`` (the functional mesh step, DTensor's dispatch op
+     by op: the eager mesh baseline, its collectives counted), then 3
+     steps through the compiled mesh step (``launch.mesh.compiled_route``:
+     step 1 the in-place step eager over DTensor buffers, one CUDA graph
+     captured, steps 2-3 replays with no synchronising call in their
+     enqueue); every step's loss, gradient norm and parameter and
+     optimizer leaf digests bit for bit 8f's at that step, its launches
+     and plain backwards ``expected_train_launches``
+     (``mesh_train_phase``);
+  8h. serve on a 1x1 mesh (after 8b): granite's serve under
+     ``mesh_context(make_local_mesh())``, eagerly (bit for bit the serve
+     without a mesh, the MoE mesh path L x (1 + 16) times) and then
+     compiled, a capturing and a replayed serve, each bit for bit the
+     eager mesh serve with its launches (``mesh_serve_phase``);
   8i. serve on a 1x2 mesh (yi-6b): full width (32 layers, 6.06 B
      parameters, random weights from seed 0) on a ("data", "model") mesh
      of (1, 2), two processes sharing the card in one gloo group (NCCL
-     refuses two ranks on one device), the weights placed by
+     refuses two ranks on one device; gloo's host collectives keep the
+     serve on the eager route, which its line records and gates), the
+     weights placed by
      ``params_specs``: each rank holds and runs 16 of the 32 query and 2
      of the 4 kv heads, 5 504 of the 11 008 hidden columns and 32 000 of
      the 64 000 vocabulary rows (``tp_serve_phase``); the hymba serve's
@@ -348,6 +366,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2500,7 +2519,8 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
 
     The summary carries the card's name and power limit beside its
     figures.  Returns ((c)'s steps with their launches, the sizes, the
-    summary, (c)'s step 1 for phase 8g)."""
+    summary, (c)'s and (e)'s steps for phase 8g: their digests and ms,
+    (c)'s capture ms, host µs a replay and peak)."""
     cfg = dataclasses.replace(configs.get(HYMBA_ARCH), remat="dots")
     model = build(cfg)
     batch, accum = _train_batch(cfg, device)
@@ -2695,13 +2715,14 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
     if abs(grew) > 0.01:
         failures.append(f"memory_allocated moved {grew:.4f} between the "
                         "serves around a compiled train step")
-    step1 = {"loss": compiled["digests"][0][0],
-             "grad_norm": compiled["digests"][0][1],
-             "ms": steps[0]["ms"], "ms2": steps[1]["ms"],
-             "launches": steps[0]["launches"],
-             "plain_backwards": steps[0]["plain_backwards"],
-             "params": compiled["digests"][0][2],
-             "opt_state": compiled["digests"][0][3]}
+    loop_8f = {"digests": compiled["digests"],
+               "eager_digests": eager["digests"],
+               "ms": [r["ms"] for r in steps],
+               "eager_ms": [r["ms"] for r in eager["summary"]["steps"]],
+               "step_ms": compiled["summary"]["step_ms"],
+               "capture_ms": compiled["summary"]["capture_ms"],
+               "replay_host_us": compiled["summary"]["replay_host_us"],
+               "peak_memory_GB": compiled["summary"]["peak_memory_GB"]}
     if failures:
         raise SystemExit("train (hymba-1.5b): " + "; ".join(failures))
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2744,7 +2765,7 @@ def train_phase(device: str = "cuda") -> tuple[list, dict, dict]:
             "tokens_equal_eager": True},
         "card": card_line()}
     torch.cuda.empty_cache()
-    return steps, sizes, summary, step1
+    return steps, sizes, summary, loop_8f
 
 
 def leaf_digests(tree) -> list:
@@ -2792,111 +2813,196 @@ def compression_check(grads) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def mesh_train_phase(step1: dict, device: str = "cuda") -> dict:
-    """Phase 8g: step 1 of phase 8f's ``train_loop`` again -- the same
-    seed, batch, ``AdamWConfig`` and remat -- on a 1x1 mesh
-    (``make_local_mesh()`` over a one-rank NCCL group): parameters,
-    optimizer state and batch are DTensors, the model gathers each
-    layer's parameters, DTensor's autograd reduces the gradients.
-    Gates: the loss, the global gradient norm and the digests of every
-    parameter and optimizer leaf after the step equal phase 8f's step 1
-    bit for bit; every parameter leaf is a DTensor with the placements of
-    ``params_specs``; the launches and plain backwards equal phase 8f's
-    per-step counts.  A second step, ungated, gives the mesh step's ms
-    once DTensor's sharding propagation is cached.  Records both steps'
-    ms beside 8f's steps 1 and 2 and the collectives (``CommDebugMode``)
-    and redistributions counted over the two steps."""
+def mesh_train_phase(loop_8f: dict, device: str = "cuda") -> dict:
+    """Phase 8g: phase 8f's ``train_loop`` again -- the same seed, batch,
+    ``AdamWConfig`` and remat -- on a 1x1 mesh (``make_local_mesh()``
+    over a one-rank NCCL group), where parameters, optimizer state and
+    batch are DTensors placed by ``params_specs``, ``opt_specs`` and
+    ``batch_specs``, twice:
+
+      (a) ``eager=True``, 2 steps: the functional mesh step
+          (``make_train_step``: DTensor's dispatch op by op, the model
+          gathering each layer's parameters, DTensor's autograd reducing
+          the gradients, ``adamw_update`` over DTensors, the batch placed
+          by ``elastic.place`` every step) -- the route of ``--eager``
+          and of every gloo mesh.  Its step 2 is the eager mesh baseline;
+          the collectives are counted over both steps (``CommDebugMode``);
+      (b) the compiled mesh step (``launch.mesh.compiled_route``), 3
+          steps: step 1 runs the in-place step (``make_train_step_``,
+          ``adamw_update_``) eagerly over static DTensor buffers on the
+          graph's stream (the capture's warm-up), then one CUDA graph of
+          the whole step is captured and steps 2-3 replay it, with no
+          synchronising call in a replayed step's enqueue
+          (``sync_debug="error"``).
+
+    Gates: (a) "eager" and (b) "cuda graph" with two replays; at every
+    step of both the loss, the global gradient norm and the digests of
+    every parameter and optimizer leaf equal phase 8f's at that step bit
+    for bit ((a) against 8f's ``eager=True`` loop, (b) against its
+    compiled loop; 8f gates the two equal); every parameter leaf a
+    DTensor with the placements of ``params_specs``; every step's
+    launches and plain backwards, replays included, exactly
+    ``expected_train_launches``.  Records each step's ms beside 8f's,
+    (a)'s step-2 ms, (b)'s replayed step's ms, its capture ms, host µs a
+    replay and peak memory, (a)'s peak and collectives, and the
+    redistributions counted in each (a host counter: in (b) step 1 and
+    the capture; a replay runs no Python)."""
     from torch.distributed.tensor.debug import CommDebugMode
     cfg = dataclasses.replace(configs.get(HYMBA_ARCH), remat="dots")
     accum = elastic.replan_accum(TRAIN_BATCH, TRAIN_MICRO)
     want_launch, want_bwd = expected_train_launches(cfg, accum)
     mesh = mesh_mod.make_local_mesh()
-    failures, got = [], {}
+    failures = []
 
-    def on_step(i, metrics):
-        torch.cuda.synchronize()
-        if i == 1:
-            got["ms2"] = metrics["ms"]
-            return
-        got.update(
-            launches={k: _build.launch_counts()[k]
-                      for k in MODEL_PATH_KERNELS},
-            plain_backwards=grad.backward_counts(), loss=metrics["loss"],
-            grad_norm=float(metrics["grad_norm"].full_tensor()),
-            ms=metrics["ms"])
-        params = metrics["params"]
-        specs = sharding.sanitize_specs(
-            params, sharding.params_specs(params, mesh), mesh)
-        wrong = [name for (name, p), (_, spec) in
-                 zip(_named(params), _named(specs))
-                 if not sharding.is_dtensor(p) or tuple(p.placements)
-                 != sharding.placements(spec, mesh)]
-        if wrong:
-            failures.append(f"parameters not placed by params_specs: "
-                            f"{wrong[:5]}")
-        got["params"] = leaf_digests(params)
-        got["opt_state"] = leaf_digests(metrics["opt_state"])
+    def run(eager: bool, steps: int, comm=None) -> dict:
+        what = "eager mesh" if eager else "compiled mesh"
+        rows = []
 
-    _build.reset_launch_counts()
-    grad.reset_backward_counts()
-    sharding.reset_redistribution_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with CommDebugMode() as comm:
-        train_loop(cfg, steps=2, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                   micro_per_shard=TRAIN_MICRO,
-                   opt_cfg=AdamWConfig(total_steps=TRAIN_STEPS,
-                                       warmup_steps=1),
-                   seed=SEED, device=device, on_step=on_step, mesh=mesh,
-                   log_every=1)
-    wall_s = time.perf_counter() - t0
-    for key in ("loss", "grad_norm"):
-        if got[key] != step1[key]:
-            failures.append(f"{key} {got[key]}, phase 8f's step 1 "
-                            f"{step1[key]}")
-    for key in ("params", "opt_state"):
-        off = [i for i, (a, b) in enumerate(zip(got[key], step1[key]))
-               if a != b]
-        if off or len(got[key]) != len(step1[key]):
-            failures.append(f"{key} leaves {off[:8]} differ from phase "
-                            f"8f's step 1")
-    if got["launches"] != want_launch or got["plain_backwards"] != want_bwd:
-        failures.append(f"launches {got['launches']} and plain backwards "
-                        f"{got['plain_backwards']}, expected {want_launch} "
-                        f"and {want_bwd}")
+        def on_step(i, metrics):
+            torch.cuda.synchronize()
+            params = metrics["params"]
+            rows.append({
+                "step": i + 1, "ms": metrics["ms"],
+                "launches": {k: _build.launch_counts()[k]
+                             for k in MODEL_PATH_KERNELS},
+                "plain_backwards": grad.backward_counts(),
+                "digests": (metrics["loss"],
+                            float(metrics["grad_norm"].full_tensor()),
+                            leaf_digests(params),
+                            leaf_digests(metrics["opt_state"]))})
+            _build.reset_launch_counts()
+            grad.reset_backward_counts()
+            if i:
+                return
+            specs = sharding.sanitize_specs(
+                params, sharding.params_specs(params, mesh), mesh)
+            wrong = [name for (name, p), (_, spec) in
+                     zip(_named(params), _named(specs))
+                     if not sharding.is_dtensor(p) or tuple(p.placements)
+                     != sharding.placements(spec, mesh)]
+            if wrong:
+                failures.append(f"{what}: parameters not placed by "
+                                f"params_specs: {wrong[:5]}")
+
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        grad.reset_backward_counts()
+        sharding.reset_redistribution_counts()
+        torch.cuda.reset_peak_memory_stats()
+        trace = {}
+        t0 = time.perf_counter()
+        with comm if comm is not None else contextlib.nullcontext():
+            train_loop(cfg, steps=steps, global_batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, micro_per_shard=TRAIN_MICRO,
+                       opt_cfg=AdamWConfig(total_steps=TRAIN_STEPS,
+                                           warmup_steps=1),
+                       seed=SEED, device=device, on_step=on_step, mesh=mesh,
+                       log_every=1, trace=trace, eager=eager,
+                       sync_debug=None if eager else "error")
+        wall_s = time.perf_counter() - t0
+        want = loop_8f["eager_digests" if eager else "digests"]
+        if len(rows) != steps:
+            failures.append(f"{what}: {len(rows)} steps, not {steps}")
+        for row, ref in zip(rows, want):
+            got, i = row["digests"], row["step"]
+            for j, key in enumerate(("loss", "gradient norm")):
+                if got[j] != ref[j]:
+                    failures.append(f"{what} step {i}: {key} {got[j]}, "
+                                    f"phase 8f's {ref[j]}")
+            for j, key in ((2, "parameter"), (3, "optimizer")):
+                off = [n for n, (a, b) in enumerate(zip(got[j], ref[j]))
+                       if a != b]
+                if off or len(got[j]) != len(ref[j]):
+                    failures.append(f"{what} step {i}: {key} leaves "
+                                    f"{off[:8]} differ from phase 8f's")
+            if row["launches"] != want_launch or \
+                    row["plain_backwards"] != want_bwd:
+                failures.append(f"{what} step {i}: launches "
+                                f"{row['launches']} and plain backwards "
+                                f"{row['plain_backwards']}, expected "
+                                f"{want_launch} and {want_bwd}")
+        out = {"rows": rows, "trace": trace, "wall_s": wall_s,
+               "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+               "redistributions": sharding.redistribution_counts()}
+        torch.cuda.empty_cache()
+        return out
+
+    comm = CommDebugMode()
+    eager = run(True, 2, comm)
+    compiled = run(False, TRAIN_STEPS)
+    trace = compiled["trace"]
+    if eager["trace"]["step"] != "eager":
+        failures.append(f"eager mesh loop: step {eager['trace']['step']!r}")
+    if trace["step"] != "cuda graph" or len(trace["replay_us"]) != \
+            TRAIN_STEPS - 1:
+        failures.append(f"compiled mesh loop: step {trace['step']!r} with "
+                        f"{len(trace['replay_us'])} replays, expected a "
+                        f"CUDA graph replayed {TRAIN_STEPS - 1} times")
     if failures:
         raise SystemExit("train on a mesh (hymba-1.5b): "
                          + "; ".join(failures))
-    torch.cuda.empty_cache()
+    rows = compiled["rows"]
+    ms = [r["ms"] for r in rows]
+    eager_ms = [r["ms"] for r in eager["rows"]]
+    step_ms = float(np.median(ms[1:]))
     return {"phase": "train on a mesh (hymba-1.5b)", "mesh": "1x1",
             "mesh_dims": list(mesh.mesh_dim_names), "backend": "nccl",
-            "loss": got["loss"], "grad_norm": got["grad_norm"],
-            "bitwise_vs_8f_step1": True, "leaves_compared":
-            len(got["params"]) + len(got["opt_state"]),
-            "launches": got["launches"],
-            "plain_backwards": got["plain_backwards"],
-            "step_ms": got["ms"], "step1_ms_8f": step1["ms"],
-            "step2_ms": got["ms2"], "step2_ms_8f": step1["ms2"],
-            "wall_s": wall_s,
-            "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
-            "collectives": {str(k): v for k, v in
-                            comm.get_comm_counts().items()},
-            "collectives_total": comm.get_total_counts(),
-            "redistributions": sharding.redistribution_counts(),
+            "step": trace["step"],
+            "route": "compiled: an NCCL mesh (launch.mesh.compiled_route); "
+                     "eager=True for the eager mesh loop",
+            "losses": [r["digests"][0] for r in rows],
+            "grad_norms": [r["digests"][1] for r in rows],
+            "bitwise_vs_8f_every_step": True, "leaves_compared":
+            len(rows[0]["digests"][2]) + len(rows[0]["digests"][3]),
+            "launches_per_step": rows[-1]["launches"],
+            "plain_backwards_per_step": rows[-1]["plain_backwards"],
+            "step_ms": step_ms, "step_ms_8f_compiled": loop_8f["step_ms"],
+            "step_ms_rel_8f": step_ms / loop_8f["step_ms"],
+            "eager_mesh_step_ms": eager_ms[1],
+            "eager_mesh_steps_ms": eager_ms,
+            "eager_mesh_steps_ms_8f_eager": loop_8f["eager_ms"][:2],
+            "in_place_mesh_step1_ms": ms[0], "steps_ms": ms,
+            "steps_ms_8f": loop_8f["ms"],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+            "capture_ms": trace["capture_ms"],
+            "capture_ms_8f": loop_8f["capture_ms"],
+            "replay_host_us": trace["replay_us"],
+            "replay_host_us_8f": loop_8f["replay_host_us"],
+            "peak_memory_GB": compiled["peak_memory_GB"],
+            "peak_memory_GB_8f": loop_8f["peak_memory_GB"],
+            "eager_mesh_peak_memory_GB": eager["peak_memory_GB"],
+            "wall_s": compiled["wall_s"], "eager_mesh_wall_s": eager["wall_s"],
+            "collectives_eager_mesh": {str(k): v for k, v in
+                                       comm.get_comm_counts().items()},
+            "collectives_total_eager_mesh": comm.get_total_counts(),
+            "redistributions": compiled["redistributions"],
+            "redistributions_eager_mesh": eager["redistributions"],
             "card": card_line()}
 
 
 def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
     """Phase 8h: the granite serve (``MODEL_BATCH`` prompts of
     ``MODEL_PROMPT`` tokens, ``MODEL_GEN`` greedy tokens, the same
-    weights) without a mesh and then under ``mesh_context(
-    make_local_mesh())``, where every MoE layer takes the mesh path
-    (``local_map`` on the 1x1 mesh's shards, one all-reduce of y over
-    ``model``).  Gates: logits and tokens bit for bit equal to the serve
-    without a mesh; the MoE mesh-path counter L x (1 + MODEL_GEN); each
-    model kernel's launches equal to the serve's without a mesh.
-    Records the prefill and decode ms of both and the collectives and
-    redistributions counted."""
+    weights) without a mesh (``eager=True``) and then under
+    ``mesh_context(make_local_mesh())``, a one-rank NCCL group, where
+    every MoE layer takes the mesh path (``local_map`` on the 1x1 mesh's
+    shards, one all-reduce of y over ``model``): first eagerly
+    (``eager=True``, after an uncounted warm-up), then twice through the
+    compiled mesh step (``launch.mesh.compiled_route``): the first serve
+    runs the prefill and step 0 eagerly and captures, the second replays
+    both graphs.  Gates: the eager mesh serve's logits and tokens bit
+    for bit the serve's without a mesh, its launches the same, its MoE
+    mesh-path counter L x (1 + MODEL_GEN) (a host counter: it ticks on
+    an eager step, so the compiled serves' would count their eager steps
+    and captures; it is gated on the eager serve alone); both compiled
+    serves "cuda graph", the first capturing and the second not, their
+    logits and tokens bit for bit the eager mesh serve's, their launches
+    after the prefill and in all (a replay's counted by its recording)
+    and every decode step's launch sizes the eager mesh serve's, with no
+    synchronising call in their replays (``sync_debug="error"``).
+    Records the prefill and decode ms of all three (the compiled ones:
+    the second, replayed serve), the capture ms, and the collectives and
+    redistributions counted in the eager mesh serve."""
     from torch.distributed.tensor.debug import CommDebugMode
     params = weights[0]
     model = build(cfg)
@@ -2910,7 +3016,8 @@ def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
     plain_counts = {k: _build.launch_counts()[k] for k in MODEL_PATH_KERNELS}
     mesh = mesh_mod.make_local_mesh()
     with mesh_mod.mesh_context(mesh):   # warm-up, not counted
-        serve_batch(cfg, params, prompts[:, :64], gen_tokens=2, model=model)
+        serve_batch(cfg, params, prompts[:, :64], gen_tokens=2, model=model,
+                    eager=True)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     moe_mod.reset_mesh_calls()
@@ -2918,9 +3025,10 @@ def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
     meshed = {}
     with mesh_mod.mesh_context(mesh), CommDebugMode() as comm:
         tokens_m = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
-                               model=model, trace=meshed)
+                               model=model, trace=meshed, eager=True)
     counts = {k: _build.launch_counts()[k] for k in MODEL_PATH_KERNELS}
     calls, want_calls = moe_mod.mesh_calls(), cfg.n_layers * (1 + MODEL_GEN)
+    redistributions = sharding.redistribution_counts()
     failures = []
     same = bool(np.array_equal(tokens, tokens_m)) and all(
         torch.equal(a, b) for a, b in zip(plain["logits"], meshed["logits"]))
@@ -2932,21 +3040,65 @@ def mesh_serve_phase(cfg, weights: tuple, device: str = "cuda") -> dict:
                         f"{want_calls}")
     if counts != plain_counts:
         failures.append(f"launches {counts}, without a mesh {plain_counts}")
+    compiled = []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        trace = {}
+        with mesh_mod.mesh_context(mesh):
+            toks = serve_batch(cfg, params, prompts, gen_tokens=MODEL_GEN,
+                               model=model, trace=trace, sync_debug="error")
+        torch.cuda.synchronize()
+        compiled.append((toks, trace, {k: _build.launch_counts()[k]
+                                       for k in MODEL_PATH_KERNELS}))
+    pre_m = {k: meshed["launches_prefill"][k] for k in MODEL_PATH_KERNELS}
+    for i, (toks, trace, total) in enumerate(compiled):
+        what = ("first (capturing)", "second (replayed)")[i]
+        if trace["step"] != "cuda graph" or (
+                trace["capture_ms"] is None) != bool(i):
+            failures.append(f"{what} compiled mesh serve: step "
+                            f"{trace['step']!r}, capture_ms "
+                            f"{trace['capture_ms']}")
+        if not np.array_equal(toks, tokens_m) or not all(
+                torch.equal(a, b)
+                for a, b in zip(trace["logits"], meshed["logits"])):
+            failures.append(f"{what} compiled mesh serve: logits or tokens "
+                            "differ from the eager mesh serve")
+        pre = {k: trace["launches_prefill"][k] for k in MODEL_PATH_KERNELS}
+        if pre != pre_m or total != counts or \
+                trace["decode_sizes"] != meshed["decode_sizes"]:
+            failures.append(f"{what} compiled mesh serve: launches {pre} + "
+                            f"{total}, eager mesh {pre_m} + {counts}, or "
+                            "other decode sizes")
     if failures:
         raise SystemExit(f"serve on a mesh ({cfg.name}): "
                          + "; ".join(failures))
+    first, second = compiled[0][1], compiled[1][1]
+    release_graphs(model)
     return {"phase": f"serve on a mesh ({cfg.name})", "mesh": "1x1",
-            "bitwise_vs_no_mesh": True, "moe_mesh_calls": calls,
+            "backend": "nccl", "step": second["step"],
+            "route": "compiled: an NCCL mesh (launch.mesh.compiled_route); "
+                     "eager=True for the eager mesh serve",
+            "bitwise_vs_no_mesh": True,
+            "compiled_bitwise_vs_eager_mesh": True, "moe_mesh_calls": calls,
             "launches": counts,
-            "prefill_ms": meshed["prefill_ms"],
+            "launches_per_decode_step": {
+                k: (counts[k] - pre_m[k]) // MODEL_GEN
+                for k in MODEL_PATH_KERNELS},
+            "prefill_ms": second["prefill_ms"],
+            "prefill_ms_eager_mesh": meshed["prefill_ms"],
             "prefill_ms_no_mesh": plain["prefill_ms"],
-            "decode_ms_per_token": float(np.median(meshed["decode_ms"])),
+            "prefill_ms_first_compiled_eager": first["prefill_ms"],
+            "decode_ms_per_token": float(np.median(second["decode_ms"])),
+            "decode_ms_per_token_eager_mesh": float(
+                np.median(meshed["decode_ms"])),
             "decode_ms_per_token_no_mesh": float(
                 np.median(plain["decode_ms"])),
-            "collectives": {str(k): v for k, v in
-                            comm.get_comm_counts().items()},
-            "collectives_total": comm.get_total_counts(),
-            "redistributions": sharding.redistribution_counts(),
+            "capture_ms": first["capture_ms"],
+            "replay_host_us": float(np.median(second["replay_us"])),
+            "collectives_eager_mesh": {str(k): v for k, v in
+                                       comm.get_comm_counts().items()},
+            "collectives_total_eager_mesh": comm.get_total_counts(),
+            "redistributions_eager_mesh": redistributions,
             "card": card_line()}
 
 
@@ -3062,8 +3214,6 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
     import faulthandler
     import traceback
 
-    import contextlib
-
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
     os.makedirs(os.path.dirname(TP_LOG), exist_ok=True)
@@ -3123,12 +3273,12 @@ def tp_rank(rank: int, world: int, store: str, cfg, prompt: int, gen: int,
                 "collectives": {str(k).split(".")[-1]: v for k, v in
                                 comm.get_comm_counts().items()},
                 "prefill_ms": trace["prefill_ms"],
-                "decode_ms": trace["decode_ms"]})
+                "decode_ms": trace["decode_ms"], "step": trace["step"]})
             note(f"served: prefill {trace['prefill_ms']} ms")
         first, second = runs
         result = {k: first[k] for k in (
             "tokens", "launches_prefill", "launches_decode", "sizes",
-            "collectives", "prefill_ms", "decode_ms")}
+            "collectives", "prefill_ms", "decode_ms", "step")}
         result["repeat_bitwise"] = bool(np.array_equal(
             first["tokens"], second["tokens"])) and all(
             torch.equal(a, b) for a, b in zip(first["logits"],
@@ -3253,6 +3403,9 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
     for rank, r in sorted(results.items()):
         if not r["repeat_bitwise"]:
             failures.append(f"rank {rank}: two mesh serves differ")
+        if r["step"] != "eager":    # gloo's route (launch.mesh)
+            failures.append(f"rank {rank}: a gloo mesh serve ran "
+                            f"{r['step']!r}, not 'eager'")
         for k in kernels:
             if (r["launches_prefill"][k], r["launches_decode"][k]) != (
                     want_pre[k], want_dec[k]):
@@ -3286,6 +3439,9 @@ def tp_serve_phase(cfg=None, *, prompt: int = MODEL_PROMPT,
     summary = {
         "phase": name, "arch": cfg.name, "mesh": "x".join(map(str, TP_MESH)),
         "ranks": world, "backend": "gloo", "device": device,
+        "step": r0["step"],
+        "route": "eager: gloo's collectives run on the host, where no CUDA "
+                 "graph sees them (launch.mesh.compiled_route)",
         "attention_layout": layout,
         "heads_per_rank": {"heads": [cfg.n_heads // width,
                                      cfg.n_kv_heads // width],
@@ -3864,10 +4020,10 @@ def main() -> int:
     emit(summary)
     # training, after the serves and before the chaos, async and autotune
     # phases (the soak leaves the process's host pages slow, PERF.md 7)
-    train_steps, train_sizes, summary, step1 = train_phase()
+    train_steps, train_sizes, summary, loop_8f = train_phase()
     emit(summary)
-    emit(mesh_train_phase(step1))
-    del step1
+    emit(mesh_train_phase(loop_8f))
+    del loop_8f
     train_counts = {k: sum(r["launches"].get(k, 0) for r in train_steps)
                     for k in KERNELS}
 

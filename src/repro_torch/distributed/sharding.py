@@ -800,6 +800,20 @@ def _from_local(local: torch.Tensor, mesh, where: tuple):
                               stride=tuple(reversed(stride)))
 
 
+def local_part(full: torch.Tensor, like) -> torch.Tensor:
+    """The part of ``full`` (a whole tensor, the same on every rank) that
+    this rank holds of ``like``, a DTensor of ``full``'s shape: a view of
+    its local shard's slice, which a static buffer's ``to_local()`` takes
+    in place (no new DTensor, no collective)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, like.device_mesh, like.placements)
+    for d, (n, o) in enumerate(zip(shape, offset)):
+        full = full.narrow(d, o, n)
+    return full
+
+
 def write_at(dest, dim: int, index, value) -> None:
     """``dest[..., index, ...] = value`` along ``dim`` in place, ``index``
     a slice or a 1-D integer tensor of global positions.  A DTensor

@@ -23,6 +23,7 @@ import contextlib
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.transformer import Model
 from repro_torch.optim import AdamWConfig, adamw_update, adamw_update_
 from repro_torch.optim.adamw import leaves, tree_map
@@ -56,6 +57,19 @@ def micro_grads(model: Model, params, mb: dict, *,
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+def placed_as(g, p):
+    """A gradient ``g`` with its parameter ``p``'s placements, as the
+    accumulator of ``grad_accumulator`` holds it: a DTensor gradient that
+    autograd left elsewhere -- a replicated parameter's ``Partial(sum)``
+    over the data axes, its per-rank sums -- redistributed (the
+    all-reduce or reduce-scatter), so AdamW's state keeps ``opt_specs``'
+    placements; a plain tensor as it is."""
+    if not sharding.is_dtensor(g) or tuple(g.placements) == tuple(
+            p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def grad_accumulator(params):
     """float32 zeros of every parameter (a DTensor's keep its placement)."""
     return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
@@ -81,7 +95,8 @@ def value_and_grad(model: Model, params, batch: dict, accum_steps: int, *,
         loss, grads = micro_grads(model, params,
                                   {k: v[0] for k, v in batch.items()},
                                   timing=timing)
-        return loss, tree_map(lambda g: g.float(), grads)
+        return loss, tree_map(lambda g, p: placed_as(g.float(), p), grads,
+                              params)
     gacc = grad_accumulator(params)
     losses = [accumulate(model, params, {k: v[i] for k, v in batch.items()},
                          gacc, timing=timing) for i in range(accum_steps)]

@@ -9,6 +9,8 @@ environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``...) or else as a
 world of 1 on a ``HashStore``, with ``nccl`` on the card and ``gloo`` on
 the CPU and an explicit timeout.  ``mesh_context`` sets the ambient mesh
 that ``sharding.ambient_mesh()`` returns, as ``jax.sharding.set_mesh``.
+``compiled_route`` is the one rule both launchers follow to choose
+between their CUDA graphs and their eager step.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import mesh_context
 
-__all__ = ["ensure_process_group", "make_local_mesh", "make_mesh",
-           "make_production_mesh", "mesh_context", "world_device"]
+__all__ = ["compiled_route", "ensure_process_group", "make_local_mesh",
+           "make_mesh", "make_production_mesh", "mesh_context",
+           "world_device"]
 
 #: the timeout every process group of the port is started with
 TIMEOUT = datetime.timedelta(seconds=60)
@@ -33,6 +36,22 @@ def world_device() -> str:
     if dist.is_initialized() and dist.get_backend() == "nccl":
         return "cuda"
     return "cpu"
+
+
+def compiled_route(params, mesh, eager: bool) -> bool:
+    """Whether a launcher runs its step as replays of CUDA graphs
+    (``launch.serve.CompiledServe``, ``launch.train.CompiledTrain``), the
+    port of the reference's ``jax.jit``: the parameters on the card,
+    ``eager`` false, and no mesh or a mesh whose every dimension's group
+    is ``nccl``.  A capture records the kernels that DTensor's host-side
+    dispatch enqueues and NCCL's collectives, which run on the card's
+    streams; gloo runs its collectives on the host, where no graph sees
+    them, so a gloo mesh (the CPU's, two ranks sharing one card) stays
+    eager, as do the CPU and ``eager=True``."""
+    if eager or params["embed"].device.type != "cuda":
+        return False
+    return mesh is None or all(dist.get_backend(mesh.get_group(i)) == "nccl"
+                               for i in range(mesh.ndim))
 
 
 def ensure_process_group(backend: str | None = None,

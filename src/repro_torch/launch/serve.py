@@ -27,33 +27,39 @@ and decodes greedily over the vocabulary split over ``model``
 ``--device cpu`` it runs on the GPU and raises when there is none.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0.
 
-On one card the serve step is compiled, the port of the JAX launcher's
-``jax.jit(model.prefill)`` / ``jax.jit(model.decode)``: ``serve_batch``
-runs the prefill and every decode step as replays of two CUDA graphs
-(``torch.cuda.CUDAGraph``) captured from ``Model.prefill`` and
-``Model.decode``, every hand-written kernel inside them.  The decode
-step takes its position as a 0-d tensor, as the reference's traced
-``pos``, so one graph serves every position.  A ``CompiledServe`` is
-kept on the model for each shape key (batch, prompt length,
-``max_len``, ``enc_len``, the frontend stubs' shapes, the default
-backend and whether autotuning is on) with its static inputs, its cache
-(reset in place each serve), both graphs and the parameter tensors it
-captured; the first serve of a key runs the prefill and decode step 0
-eagerly on the graphs' stream -- real results, and the warm-up the
-capture needs -- then captures both and replays the decode for the
-rest; later serves of the same parameter tensors replay both, and read
-their current values (``launch.train``'s compiled step updates them in
-place).  A serve of the key with other parameter tensors releases the
-entry (its graphs, pool, cache and parameters) and captures anew, so a
-model holds at most one compiled serve a shape key.  Every compiled
-step of a device runs on one side stream (``graph_stream``).  A capture
-or a replay that fails raises: nothing runs the eager step behind the
-caller's back.  The step runs eagerly
-(op by op from Python) on the CPU, under an ambient mesh or with
-DTensor parameters (gloo's collectives and DTensor's dispatch cannot
-be captured), and when the caller passes ``eager=True`` -- the
-reference the compiled step is held to bit for bit (``--eager`` on the
-command line).
+The serve step is compiled, the port of the JAX launcher's
+``jax.jit(model.prefill)`` / ``jax.jit(model.decode)`` (on a mesh, with
+``in_shardings``): ``serve_batch`` runs the prefill and every decode
+step as replays of two CUDA graphs (``torch.cuda.CUDAGraph``) captured
+from ``Model.prefill`` and ``Model.decode``, every hand-written kernel
+inside them.  The decode step takes its position as a 0-d tensor, as
+the reference's traced ``pos``, so one graph serves every position.  A
+``CompiledServe`` is kept on the model for each shape key (batch,
+prompt length, ``max_len``, ``enc_len``, the frontend stubs' shapes,
+the default backend, whether autotuning is on, and the ambient mesh's
+shape and dimension names) with its static inputs, its cache (reset in
+place each serve), both graphs and the parameter tensors it captured;
+the first serve of a key runs the prefill and decode step 0 eagerly on
+the graphs' stream -- real results, and the warm-up the capture needs
+(on a mesh also the NCCL communicators') -- then captures both and
+replays the decode for the rest; later serves of the same parameter
+tensors replay both, and read their current values (``launch.train``'s
+compiled step updates them in place).  A serve of the key with other
+parameter tensors releases the entry (its graphs, pool, cache and
+parameters) and captures anew, so a model holds at most one compiled
+serve a shape key.  Every compiled step of a device runs on one side
+stream (``graph_stream``).  A capture or a replay that fails raises:
+nothing runs the eager step behind the caller's back.
+
+The route is ``launch.mesh.compiled_route``: parameters on the card and
+no mesh, or a mesh whose groups are NCCL -- there DTensor parameters get
+a static batch, cache and ``tok`` placed as the eager serve places its
+batch and cache, and the graphs record the kernels DTensor's dispatch
+enqueues and NCCL's collectives.  The step runs eagerly (op by op from
+Python) on the CPU, on a gloo mesh (gloo's collectives run on the host,
+where no graph sees them) and when the caller passes ``eager=True`` --
+the reference the compiled step is held to bit for bit (``--eager`` on
+the command line); ``trace["step"]`` says which ran.
 """
 from __future__ import annotations
 
@@ -68,6 +74,7 @@ from repro_torch import configs
 from repro_torch.autotune import cache as tuning
 from repro_torch.distributed import elastic, sharding
 from repro_torch.kernels import _build, dispatch
+from repro_torch.launch.mesh import compiled_route
 from repro_torch.models import build
 from repro_torch.models.layers import greedy
 
@@ -140,8 +147,9 @@ def _named(tree, name: str = ""):
 
 def _reset(cache: list) -> None:
     """Set a cache to ``init_cache``'s state in place: ``kpos`` -1 (every
-    slot empty), every other tensor 0."""
+    slot empty), every other tensor 0 (a DTensor's local shard)."""
     for name, t in _named(cache):
+        t = t.to_local() if sharding.is_dtensor(t) else t
         if name == "kpos":
             t.fill_(-1)
         else:
@@ -164,12 +172,38 @@ def graph_stream(device: torch.device) -> torch.cuda.Stream:
     return _STREAMS[index]
 
 
+def _placed(cfg, params: dict, mesh, batch: dict, cache: list, *rows):
+    """A serve's batch, cache and any further batch-like tensors
+    ``rows`` placed on ``mesh`` for DTensor parameters (``batch_specs``,
+    ``cache_specs``: each rank its shards, no data moved); as they are
+    for plain parameters or without a mesh."""
+    if mesh is None or not sharding.is_dtensor(params["embed"]):
+        return (batch, cache, *rows)
+    return (elastic.place(batch, mesh, sharding.batch_specs(
+                batch, mesh, accum_dim=False)),
+            elastic.place(cache, mesh, sharding.cache_specs(cache, cfg, mesh)),
+            *(elastic.place(t, mesh, sharding.batch_specs(t, mesh,
+                                                          accum_dim=False))
+              for t in rows))
+
+
+def record_stream(t: torch.Tensor, stream: torch.cuda.Stream) -> None:
+    """``t.record_stream(stream)``; a DTensor's on its local tensor, which
+    holds its memory (DTensor has no rule for the op)."""
+    (t.to_local() if sharding.is_dtensor(t) else t).record_stream(stream)
+
+
 class CompiledServe:
     """The compiled serve step of one key: the static inputs (the prompts,
     the frontend stubs, the current token ``tok`` (B,) and ``pos``, a 0-d
     int64), the cache, and once captured the prefill and decode CUDA
     graphs, one memory pool for both, with the kernel launches of each
-    replay (``_build.Recording``) and the logits each writes.
+    replay (``_build.Recording``) and the logits each writes.  With
+    DTensor parameters on ``mesh`` the batch, the cache and ``tok`` are
+    DTensors placed as ``_serve_eager`` places them (``batch_specs``,
+    ``cache_specs``; ``tok`` as a batch); ``pos`` stays a plain 0-d
+    tensor, the same on every rank, which the model uses inside its
+    local bodies or DTensor replicates as a scalar.
 
     ``prefill`` resets the cache, runs ``Model.prefill`` on the static
     batch, writes the greedy token into ``tok`` and sets ``pos`` to the
@@ -180,18 +214,30 @@ class CompiledServe:
     not kept: the model keeps this object (``Model.serve_graphs``)."""
 
     def __init__(self, model, params: dict, b: int, s: int, max_len: int,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.params = params     # the tensors the graphs read
         self.prompts = torch.zeros((b, s), dtype=torch.int64, device=device)
         self.batch, self.pos0, enc_len = serve_inputs(model.cfg, self.prompts)
         self.cache = model.init_cache(b, max_len, enc_len, device=device)
         self.tok = torch.zeros((b,), dtype=torch.int64, device=device)
+        self.batch, self.cache, self.tok = _placed(
+            model.cfg, params, mesh, self.batch, self.cache, self.tok)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.stream = graph_stream(device) if device.type == "cuda" \
             else None    # the graphs' stream (the steps run anywhere)
         self.graphs: tuple | None = None
         self.records: tuple | None = None
         self.logits: tuple | None = None
+
+    def load(self, prompts) -> None:
+        """Copy a serve's prompts (B, S) into ``prompts``, which the
+        batch's tokens view; a placed batch's tokens take this rank's
+        rows of them into their local shard."""
+        self.prompts.copy_(torch.as_tensor(prompts, dtype=torch.int64))
+        tokens = self.batch["tokens"]
+        if sharding.is_dtensor(tokens):
+            tokens.to_local().copy_(sharding.local_part(
+                self.prompts[:, :tokens.shape[1]], tokens))
 
     def prefill(self, model) -> torch.Tensor:
         """The prefill step (see the class); returns its logits."""
@@ -219,7 +265,7 @@ class CompiledServe:
         with torch.cuda.stream(self.stream):
             logits = step(model)
         cur.wait_stream(self.stream)
-        logits.record_stream(cur)
+        record_stream(logits, cur)
         return logits
 
     def capture(self, model) -> None:
@@ -259,33 +305,37 @@ class CompiledServe:
         return self.logits[i]
 
 
-def compiled_key(cfg, b: int, s: int, max_len: int) -> tuple:
+def compiled_key(cfg, b: int, s: int, max_len: int, mesh=None) -> tuple:
     """The shape key of a ``CompiledServe``: batch, prompt length,
     ``max_len``, ``enc_len``, the frontend stubs' shapes, the default
-    backend (``dispatch.use_backend``) and whether autotuning is on (the
-    launch knobs are looked up at capture)."""
+    backend (``dispatch.use_backend``), whether autotuning is on (the
+    launch knobs are looked up at capture) and the mesh's shape and
+    dimension names (None without one), so a serve without a mesh and
+    one on a mesh never share graphs."""
     batch, _, enc_len = serve_inputs(
         cfg, torch.empty((b, s), dtype=torch.int64, device="meta"))
     stubs = tuple((k, tuple(v.shape)) for k, v in batch.items()
                   if k != "tokens")
+    where = None if mesh is None else (tuple(mesh.shape),
+                                       tuple(mesh.mesh_dim_names))
     return (b, s, max_len, enc_len, stubs, dispatch.default_backend(),
-            tuning.enabled())
+            tuning.enabled(), where)
 
 
 def compiled_serve(model, params: dict, b: int, s: int, max_len: int,
-                   device: torch.device) -> CompiledServe:
+                   device: torch.device, mesh=None) -> CompiledServe:
     """The model's ``CompiledServe`` of this shape key for ``params``: the
     kept one when it reads these parameter tensors; otherwise the kept
     one, if any, is released first (graphs, pool, cache, its parameters)
     and a new one, not yet captured, takes its place."""
-    key = compiled_key(model.cfg, b, s, max_len)
+    key = compiled_key(model.cfg, b, s, max_len, mesh)
     cs = model.serve_graphs.get(key)
     if cs is not None and not cs.holds(params):
         del model.serve_graphs[key]
         cs = None
     if cs is None:
         cs = model.serve_graphs[key] = CompiledServe(model, params, b, s,
-                                                     max_len, device)
+                                                     max_len, device, mesh)
     return cs
 
 
@@ -318,10 +368,15 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
                 model=None, trace: dict | None = None, eager: bool = False,
                 sync_debug: str | None = None) -> np.ndarray:
     """prompts (B, S_prompt) integers -> generated tokens (B, gen_tokens)
-    as a numpy int32 array; runs where the parameters lie: on one card
-    as replays of the compiled step (the module's docstring; kept on
-    ``model``, so pass the same model to serve a key again without a
-    capture), eagerly on the CPU, on a mesh or with ``eager=True``.
+    as a numpy int32 array; runs where the parameters lie: on the card,
+    without a mesh or on an NCCL one (``compiled_route``; the mesh is the
+    ambient one, else the DTensor parameters'), as replays of the
+    compiled step (the module's docstring; kept on ``model``, so pass the
+    same model to serve a key again without a capture), eagerly on the
+    CPU, on a gloo mesh or with ``eager=True``.  The compiled step of
+    DTensor parameters places its buffers on the ambient mesh: with no
+    ``mesh_context`` it raises ``ValueError`` rather than capture over
+    unplaced buffers.
 
     With a ``trace`` dict, it also records ``step`` ("cuda graph" or
     "eager"), ``prefill_ms`` and ``decode_ms`` (a list, one a step; CUDA
@@ -341,12 +396,17 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
     dev = params["embed"].device
     prompts = np.asarray(prompts)
     mesh = sharding.ambient_mesh()
-    if eager or dev.type != "cuda" or mesh is not None or any(
-            sharding.is_dtensor(t) for _, t in _named(params)):
+    unplaced = mesh is None and sharding.is_dtensor(params["embed"])
+    on = params["embed"].device_mesh if unplaced else mesh
+    if not compiled_route(params, on, eager):
         return _serve_eager(cfg, model, params, prompts, gen_tokens, trace,
                             dev, mesh)
+    if unplaced:
+        raise ValueError("serve_batch: the compiled step of DTensor "
+                         "parameters places its buffers on the ambient mesh; "
+                         "serve them under mesh_context(mesh)")
     return _serve_compiled(cfg, model, params, prompts, gen_tokens, trace,
-                           dev, sync_debug)
+                           dev, sync_debug, mesh)
 
 
 def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
@@ -355,11 +415,7 @@ def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
     tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
     batch, pos, enc_len = serve_inputs(cfg, tokens)
     cache = model.init_cache(b, s + gen_tokens, enc_len, device=dev)
-    if mesh is not None and sharding.is_dtensor(params["embed"]):
-        batch = elastic.place(batch, mesh, sharding.batch_specs(
-            batch, mesh, accum_dim=False))
-        cache = elastic.place(cache, mesh, sharding.cache_specs(
-            cache, cfg, mesh))
+    batch, cache = _placed(cfg, params, mesh, batch, cache)
     clock = Clock(dev)
     logits_seen, sizes = [], []
 
@@ -393,12 +449,12 @@ def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
 
 
 def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
-                    sync_debug):
+                    sync_debug, mesh):
     """The serve step as replays of the key's CUDA graphs (captured at
     the key's first serve, after its eager prefill and step 0)."""
     b, s = prompts.shape
-    cs = compiled_serve(model, params, b, s, s + gen_tokens, dev)
-    cs.prompts.copy_(torch.as_tensor(prompts, dtype=torch.int64))
+    cs = compiled_serve(model, params, b, s, s + gen_tokens, dev, mesh)
+    cs.load(prompts)
     clock = Clock(dev)
     keep = trace is not None
     logits_seen, sizes, out, host_us = [], [], [], []
@@ -437,7 +493,10 @@ def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
             sizes.append(_sizes(cs.records[1]))
             if keep:
                 logits_seen.append(logits.clone())
-    gen = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+    gen = torch.stack(out, dim=1)
+    if sharding.is_dtensor(gen):
+        gen = gen.full_tensor()
+    gen = gen.to(torch.int32).cpu().numpy()
     if keep:
         ms = clock.ms()
         trace.update(step="cuda graph", prefill_ms=ms[0], decode_ms=ms[1:],

@@ -21,21 +21,29 @@ Without ``--device cpu`` it runs on the GPU and raises when there is
 none.  Weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; the batches are ``data.SyntheticLMData``'s.
 
-On one card the train step is compiled, the port of the JAX launcher's
-``jax.jit(step_fn, donate_argnums=(0, 1))``: ``CompiledTrain`` holds the
-parameters and the optimizer state, updated in place (the reference
-donates them), the batch buffers and the step's learning rate and bias
-corrections as 0-d tensors.  The first step runs eagerly on the graph's
-stream over those buffers -- a real step, and the warm-up the capture
-needs -- then the whole step (every micro-batch's forward and backward,
-the plain vjps of ``kernels.grad``, the float32 accumulation, the global
-norm and clip, the AdamW update) is captured as one CUDA graph, and
-every later step copies its batch in, refills the three scalars from
-the host and replays it.  A capture or a replay that fails raises:
-nothing runs the eager step behind the caller's back.  The CPU, a mesh
-(DTensor's dispatch and gloo's collectives cannot be captured) and
+The train step is compiled, the port of the JAX launcher's
+``jax.jit(step_fn, in_shardings=..., donate_argnums=(0, 1))``:
+``CompiledTrain`` holds the parameters and the optimizer state, updated
+in place (the reference donates them), the batch buffers and the step's
+learning rate and bias corrections as 0-d tensors.  The first step runs
+eagerly on the graph's stream over those buffers -- a real step, and the
+warm-up the capture needs (on a mesh also the NCCL communicators') --
+then the whole step (every micro-batch's forward and backward, the plain
+vjps of ``kernels.grad``, the float32 accumulation, the global norm and
+clip, the AdamW update) is captured as one CUDA graph, and every later
+step copies its batch in, refills the three scalars from the host and
+replays it.  A capture or a replay that fails raises: nothing runs the
+eager step behind the caller's back.  The route is
+``launch.mesh.compiled_route``: parameters on the card and no mesh, or a
+mesh whose groups are NCCL -- there the parameters, the optimizer state
+and the batch buffers are DTensors placed by ``params_specs``,
+``opt_specs`` and ``batch_specs``, each step's batch copied into every
+rank's local rows, and the graph records the kernels DTensor's dispatch
+enqueues and NCCL's collectives.  The CPU, a gloo mesh (gloo's
+collectives run on the host, where no graph sees them) and
 ``eager=True`` (``--eager``) run the functional step op by op from
-Python, the reference the compiled step is held to bit for bit.
+Python, the reference the compiled step is held to bit for bit;
+``trace["step"]`` says which ran.
 
 Sharded training (``--mesh``), SPMD, one process a device:
 
@@ -69,16 +77,19 @@ from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.distributed import elastic, sharding
 from repro_torch.distributed.steps import make_train_step, make_train_step_
 from repro_torch.kernels import _build, dispatch, grad
-from repro_torch.launch.serve import Clock, graph_stream, sync_debug_mode
+from repro_torch.launch.mesh import compiled_route
+from repro_torch.launch.serve import (Clock, graph_stream, record_stream,
+                                     sync_debug_mode)
 from repro_torch.models import build
 from repro_torch.optim import AdamWConfig, adamw_init, schedule
 
 
 class CompiledTrain:
-    """The compiled train step on one card (the module's docstring): the
-    parameters and optimizer state it updates in place, the static
-    inputs -- ``batch`` (leaves (accum, micro, ...)) and ``scalars``, the
-    step's (lr, 1 - b1**t, 1 - b2**t) as 0-d float32 tensors -- and once
+    """The compiled train step (the module's docstring): the parameters
+    and optimizer state it updates in place, the static inputs --
+    ``batch`` (leaves (accum, micro, ...); on ``mesh`` DTensors placed by
+    ``batch_specs``) and ``scalars``, the step's (lr, 1 - b1**t, 1 -
+    b2**t) as 0-d float32 tensors -- and once
     captured the step's CUDA graph, with the kernel launches and plain
     backwards of each replay (``_build.Recording``,
     ``grad.Recording``) and the loss and gradient norm it writes.
@@ -90,9 +101,10 @@ class CompiledTrain:
     step.  On the CPU there is no graph: ``run`` alone is the step."""
 
     def __init__(self, model, opt_cfg: AdamWConfig, accum: int, params,
-                 opt_state: dict):
+                 opt_state: dict, mesh=None):
         dev = params["embed"].device
         self.params, self.opt_state, self.opt_cfg = params, opt_state, opt_cfg
+        self.mesh = mesh
         self.batch: dict | None = None    # made at the first ``load``
         self.scalars = tuple(torch.zeros((), dtype=torch.float32, device=dev)
                              for _ in range(3))
@@ -104,17 +116,27 @@ class CompiledTrain:
 
     def load(self, batch: dict) -> float:
         """Copy a step's batch (host tensors; on the card through pinned
-        memory, with no host sync) into the static buffers and fill the
-        scalars for the next step, ``opt_state["step"] + 1``; returns
-        its learning rate."""
+        memory, with no host sync) into the static buffers -- on a mesh
+        each rank's rows into its local shards -- and fill the scalars
+        for the next step, ``opt_state["step"] + 1``; returns its
+        learning rate."""
         if self.batch is None:
             self.batch = {k: torch.empty(v.shape, dtype=v.dtype,
                                          device=self.scalars[0].device)
                           for k, v in batch.items()}
+            if self.mesh is not None:
+                self.batch = elastic.place(self.batch, self.mesh,
+                                           sharding.batch_specs(
+                                               self.batch, self.mesh,
+                                               accum_dim=True))
         for k, v in batch.items():
+            dst = self.batch[k]
+            if sharding.is_dtensor(dst):
+                v, dst = sharding.local_part(v, dst).contiguous(), \
+                    dst.to_local()
             if self.stream is not None and not v.is_pinned():
                 v = v.pin_memory()
-            self.batch[k].copy_(v, non_blocking=True)
+            dst.copy_(v, non_blocking=True)
         vals = schedule(self.opt_state["step"] + 1, self.opt_cfg)
         for t, x in zip(self.scalars, vals):
             t.fill_(x)
@@ -137,7 +159,7 @@ class CompiledTrain:
                                    self.scalars, timing)
             cur.wait_stream(self.stream)
             for t in out.values():
-                t.record_stream(cur)
+                record_stream(t, cur)
         self.opt_state["step"] += 1
         return out
 
@@ -182,12 +204,13 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     ``resume``) to ``steps``; shared by the CLI, the smoke run and the
     tests.  ``on_step(step, metrics)``, if given, is called after every
     step (metrics: ``loss``, ``lr``, ``grad_norm``, ``ms``, and the
-    step's ``params`` and ``opt_state``).  On one card the step is
-    compiled (the module's docstring) and the parameters and state are
-    donated: ``on_step`` sees the live tensors, which the next step
-    overwrites, so it copies what it keeps (a checkpoint's snapshot is
-    taken before the next step).  ``eager=True``, the CPU and a mesh run
-    the functional step.  ``timing``, a dict, collects the steps'
+    step's ``params`` and ``opt_state``).  On the card, without a mesh
+    or on an NCCL one (``compiled_route``), the step is compiled (the
+    module's docstring) and the parameters and state are donated:
+    ``on_step`` sees the live tensors, which the next step overwrites,
+    so it copies what it keeps (a checkpoint's snapshot is taken before
+    the next step).  ``eager=True``, the CPU and a gloo mesh run the
+    functional step.  ``timing``, a dict, collects the steps'
     CUDA-event spans (``make_train_step``: each micro-batch's forward
     and backward, the optimizer) of the steps run op by op -- on the
     compiled path only the first.  ``trace``, a dict, gets ``step``
@@ -227,8 +250,9 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                                   sharding.opt_specs(opt_state, pspecs))
 
     compiled = None
-    if not eager and dev.type == "cuda" and mesh is None:
-        compiled = CompiledTrain(model, opt_cfg, accum, params, opt_state)
+    if compiled_route(params, mesh, eager):
+        compiled = CompiledTrain(model, opt_cfg, accum, params, opt_state,
+                                 mesh)
     step_fn = make_train_step(model, opt_cfg, accum)
     history, host_us, capture_ms = [], [], None
     scope = (sharding.mesh_context(mesh) if mesh is not None

@@ -15,7 +15,9 @@ CPU's, ``moe_ffn`` deterministic on the card, the compiled serve step
 bit the eager one, and the compiled train step (one CUDA graph of
 forward, backward and the in-place AdamW) bit for bit the eager loop,
 with a serve between train steps holding one compiled serve a shape
-key.
+key; on one-rank NCCL groups, functional collectives captured and
+replayed, the compiled mesh serve and train steps bit for bit their
+eager mesh runs, and a failed mesh capture raising.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so it also runs on a GPU machine
@@ -2070,11 +2072,17 @@ def test_compiled_serve_is_bitwise_the_eager_serve_on_card(cuda_device, arch,
 
 # -- the compiled train step (one CUDA graph of forward, backward, AdamW) --------
 
-def _train_run(cfg, eager: bool, steps: int = 3) -> dict:
-    """``train_loop`` of ``steps`` steps of ``cfg`` on the card, 4 rows of
-    64 tokens, 2 micro-batches: each step's loss, gradient norm,
-    parameters and optimizer leaves (copies), launches and plain
-    backwards, and the trace."""
+def _local(t):
+    """A tensor's copy; a DTensor's local shard's."""
+    from repro_torch.distributed import sharding
+    return (t.to_local() if sharding.is_dtensor(t) else t).clone()
+
+
+def _train_run(cfg, eager: bool, steps: int = 3, mesh=None) -> dict:
+    """``train_loop`` of ``steps`` steps of ``cfg`` on the card (on
+    ``mesh`` if given), 4 rows of 64 tokens, 2 micro-batches: each step's
+    loss, gradient norm, parameters and optimizer leaves (copies of the
+    local shards), launches and plain backwards, and the trace."""
     from repro_torch.kernels import grad
     from repro_torch.launch.train import train_loop
     from repro_torch.optim import AdamWConfig
@@ -2084,9 +2092,9 @@ def _train_run(cfg, eager: bool, steps: int = 3) -> dict:
     def on_step(i, metrics):
         torch.cuda.synchronize()
         rows.append({
-            "loss": metrics["loss"], "grad_norm": metrics["grad_norm"].clone(),
-            "params": [t.clone() for t in leaves(metrics["params"])],
-            "opt": [t.clone() if isinstance(t, torch.Tensor) else t
+            "loss": metrics["loss"], "grad_norm": _local(metrics["grad_norm"]),
+            "params": [_local(t) for t in leaves(metrics["params"])],
+            "opt": [_local(t) if isinstance(t, torch.Tensor) else t
                     for t in leaves(metrics["opt_state"])],
             "launches": {k: v for k, v in _build.launch_counts().items() if v},
             "backwards": grad.backward_counts()})
@@ -2099,7 +2107,7 @@ def _train_run(cfg, eager: bool, steps: int = 3) -> dict:
                micro_per_shard=2, opt_cfg=AdamWConfig(total_steps=steps,
                                                       warmup_steps=2),
                device="cuda", on_step=on_step, log_every=100, eager=eager,
-               trace=trace, sync_debug=None if eager else "error")
+               trace=trace, sync_debug=None if eager else "error", mesh=mesh)
     return {"rows": rows, "trace": trace}
 
 
@@ -2118,6 +2126,20 @@ def test_compiled_train_loop_is_bitwise_the_eager_loop_on_card(cuda_device,
     from repro_torch import configs
     cfg = dataclasses.replace(configs.get(arch).reduced(), remat="dots")
     eager, compiled = _train_run(cfg, True), _train_run(cfg, False)
+    _same_steps(eager, compiled)
+    if cfg.family == "hybrid":
+        L = cfg.n_layers
+        fwd = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
+               "flash_attention_3d": L, "ssd_intra": L, "vecadd_2d": 2 * L}
+        for row in compiled["rows"]:
+            assert row["launches"] == {k: 2 * (2 * v - (k == "rmsnorm_2d"))
+                                       for k, v in fwd.items()}
+            assert row["backwards"] == {k: 2 * v for k, v in fwd.items()}
+
+
+def _same_steps(eager: dict, compiled: dict) -> None:
+    """The compiled loop's run (``_train_run``) is the eager loop's bit
+    for bit at every step, launches and plain backwards included."""
     assert eager["trace"]["step"] == "eager"
     assert compiled["trace"]["step"] == "cuda graph"
     assert compiled["trace"]["capture_ms"] is not None
@@ -2130,14 +2152,6 @@ def test_compiled_train_loop_is_bitwise_the_eager_loop_on_card(cuda_device,
                    for x, y in zip(a["opt"], b["opt"]))
         assert a["launches"] == b["launches"] and a["launches"]
         assert a["backwards"] == b["backwards"]
-    if cfg.family == "hybrid":
-        L = cfg.n_layers
-        fwd = {"rmsnorm_2d": 5 * L + 1, "rope_3d": 2 * L,
-               "flash_attention_3d": L, "ssd_intra": L, "vecadd_2d": 2 * L}
-        for row in compiled["rows"]:
-            assert row["launches"] == {k: 2 * (2 * v - (k == "rmsnorm_2d"))
-                                       for k, v in fwd.items()}
-            assert row["backwards"] == {k: 2 * v for k, v in fwd.items()}
 
 
 def _serve_twice_around(cfg, model, params, step) -> tuple:
@@ -2234,3 +2248,185 @@ def test_serve_after_a_compiled_train_step_hits_its_key(cuda_device):
     assert len(model.serve_graphs) == 1 and len(host_us) == 2
     assert abs(mem[1] - mem[0]) <= 0.01 * mem[0], mem
     assert np.array_equal(got, want)
+
+
+# -- the compiled mesh step: one-rank NCCL groups ---------------------------------
+
+def test_functional_collectives_replay_in_a_cuda_graph_on_nccl(cuda_device):
+    """``funcol.all_reduce`` and ``all_gather_tensor`` called directly on
+    the size-1 groups of a 1x1 NCCL mesh (which ``reduce_on_model`` and
+    the rest skip): run once on a side stream (the communicators'
+    warm-up), captured into a CUDA graph on it, and replayed on new
+    values of their input, with no synchronising call in the replay:
+    the values right after it, and no work left unwaited."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    from repro_torch.distributed.sharding import _wait
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import sync_debug_mode
+    mesh = make_local_mesh()
+    assert all(dist.get_backend(mesh.get_group(i)) == "nccl"
+               for i in range(mesh.ndim))
+    x = torch.arange(8, dtype=torch.float32, device=cuda_device)
+
+    def step():
+        return (_wait(funcol.all_reduce(x * 2, "sum", (mesh, 1))),
+                _wait(funcol.all_gather_tensor(x + 1, 0, (mesh, 0))))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a, b = step()
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(a, x * 2) and torch.equal(b, x + 1)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        a, b = step()
+    x.copy_(torch.arange(8, dtype=torch.float32, device=cuda_device) * 3)
+    with sync_debug_mode("error"):
+        g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, x * 2) and torch.equal(b, x + 1)
+    assert torch._C._distributed_c10d._get_work_registry_size() == 0
+
+
+@pytest.mark.parametrize("arch, placed", [
+    ("hymba-1.5b", True), ("granite-moe-3b-a800m", True),
+    ("granite-moe-3b-a800m", False), ("whisper-medium", True)])
+def test_compiled_mesh_serve_is_bitwise_the_eager_mesh_serve_on_card(
+        cuda_device, arch, placed):
+    """``serve_batch`` under ``mesh_context`` of a 1x1 NCCL mesh, with the
+    parameters placed by ``params_specs`` (or plain, the MoE mesh path
+    alone): the compiled route (its first serve captures, its second
+    replays without a capture, no synchronising call in their replays)
+    gives the ``eager=True`` mesh serve's tokens, every step's logits,
+    launches and decode sizes bit for bit; one graph entry, keyed by the
+    mesh's shape and dimension names."""
+    from repro_torch import configs
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.mesh import make_local_mesh, mesh_context
+    from repro_torch.launch.serve import release_graphs, serve_batch
+    from repro_torch.models import build
+    cfg = configs.get(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    mesh = make_local_mesh()
+    if placed:
+        params = elastic.place(params, mesh,
+                               sharding.params_specs(params, mesh))
+    prompts = np.random.default_rng(72).integers(0, cfg.vocab_size, (4, 40))
+    runs = []
+    with mesh_context(mesh):
+        for eager in (True, False, False):
+            _build.reset_launch_counts()
+            trace = {}
+            toks = serve_batch(cfg, params, prompts, gen_tokens=6,
+                               model=model, trace=trace, eager=eager,
+                               sync_debug=None if eager else "error")
+            torch.cuda.synchronize()
+            runs.append((toks, trace, _build.launch_counts()))
+    (te, eager, ce), (_, first, _), (_, second, _) = runs
+    assert eager["step"] == "eager"
+    assert first["step"] == second["step"] == "cuda graph"
+    assert first["capture_ms"] is not None and second["capture_ms"] is None
+    for toks, trace, counts in runs[1:]:
+        assert np.array_equal(toks, te) and counts == ce
+        assert trace["launches_prefill"] == eager["launches_prefill"]
+        assert all(torch.equal(_local(a), _local(b))
+                   for a, b in zip(trace["logits"], eager["logits"]))
+        assert trace["decode_sizes"] == eager["decode_sizes"]
+    assert sum(ce.values()) > 0
+    (key,) = model.serve_graphs
+    assert key[-1] == ((1, 1), ("data", "model"))
+    release_graphs(model)
+
+
+def test_compiled_serve_of_dtensor_parameters_needs_the_ambient_mesh(
+        cuda_device):
+    """``serve_batch`` of parameters placed on a 1x1 NCCL mesh with no
+    ``mesh_context``: the compiled route, which places its buffers on the
+    ambient mesh, raises and keeps no graphs; under ``mesh_context`` the
+    compiled serve gives the eager mesh serve's tokens."""
+    from repro_torch import configs
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.mesh import make_local_mesh, mesh_context
+    from repro_torch.launch.serve import release_graphs, serve_batch
+    from repro_torch.models import build
+    cfg = configs.get("granite-moe-3b-a800m").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    mesh = make_local_mesh()
+    params = elastic.place(params, mesh, sharding.params_specs(params, mesh))
+    prompts = np.random.default_rng(74).integers(0, cfg.vocab_size, (2, 16))
+    with pytest.raises(ValueError, match="mesh_context"):
+        serve_batch(cfg, params, prompts, gen_tokens=3, model=model)
+    assert not model.serve_graphs
+    trace = {}
+    with mesh_context(mesh):
+        want = serve_batch(cfg, params, prompts, gen_tokens=3, model=model,
+                           eager=True)
+        got = serve_batch(cfg, params, prompts, gen_tokens=3, model=model,
+                          trace=trace)
+    assert want.shape == (2, 3)
+    assert trace["step"] == "cuda graph" and np.array_equal(got, want)
+    release_graphs(model)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-moe-3b-a800m"])
+def test_compiled_mesh_train_loop_is_bitwise_the_eager_mesh_loop_on_card(
+        cuda_device, arch):
+    """Three ``train_loop`` steps of the reduced hybrid and MoE models on
+    a 1x1 NCCL mesh: the compiled route (step 1 eager over DTensor
+    buffers, a capture, two replays with no synchronising call in their
+    enqueue) gives every step's loss, gradient norm, parameters and
+    optimizer leaves bit for bit the ``eager=True`` mesh loop's, and the
+    same launches and plain backwards at every step, replays
+    included."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = dataclasses.replace(configs.get(arch).reduced(), remat="dots")
+    mesh = make_local_mesh()
+    _same_steps(_train_run(cfg, True, mesh=mesh),
+                _train_run(cfg, False, mesh=mesh))
+
+
+def test_a_failed_mesh_capture_raises_and_serves_nothing_eagerly(
+        cuda_device, monkeypatch):
+    """A host read planted in the serve step under capture (the greedy
+    pick reads its logits' sum while the stream captures) on a 1x1 NCCL
+    mesh: ``serve_batch`` raises and returns no eager result; the card
+    serves again once the read is gone.  Last in the file: the failed
+    capture leaves its stream's capture aborted."""
+    from repro_torch import configs
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh, mesh_context
+    from repro_torch.models import build
+    cfg = configs.get("granite-moe-3b-a800m").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    mesh = make_local_mesh()
+    params = elastic.place(params, mesh, sharding.params_specs(params, mesh))
+    prompts = np.random.default_rng(73).integers(0, cfg.vocab_size, (2, 16))
+    greedy = serve.greedy
+
+    def reading(logits):
+        if torch.cuda.is_current_stream_capturing():
+            float(_local(logits).sum())
+        return greedy(logits)
+    monkeypatch.setattr(serve, "greedy", reading)
+    trace = {}
+    with mesh_context(mesh), pytest.raises(RuntimeError):
+        serve.serve_batch(cfg, params, prompts, gen_tokens=3, model=model,
+                          trace=trace)
+    assert "step" not in trace
+    monkeypatch.setattr(serve, "greedy", greedy)
+    serve.release_graphs(model)
+    torch.cuda.synchronize()
+    with mesh_context(mesh):
+        want = serve.serve_batch(cfg, params, prompts, gen_tokens=3,
+                                 model=model, eager=True)
+        got = serve.serve_batch(cfg, params, prompts, gen_tokens=3,
+                                model=model, trace=trace)
+    assert trace["step"] == "cuda graph" and np.array_equal(got, want)
+    serve.release_graphs(model)

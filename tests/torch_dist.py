@@ -420,22 +420,13 @@ def serve_reference_params(rank, world, name, shape, path):
     "tokens" for the generated length): the tokens and every step's
     logits."""
     import torch
-    from repro_torch.convert import model_params_from_reference
     from repro_torch.distributed import elastic, sharding
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build
     cfg = reduced(name)
-    tree: dict = {}
+    params = _reference_params(name, path)
     with np.load(path) as z:
-        for key in z.files:
-            if key.startswith("params/"):
-                *outer, leaf = key.split("/")[1:]
-                node = tree
-                for k in outer:
-                    node = node.setdefault(k, {})
-                node[leaf] = z[key]
         prompts, gen = z["prompts"], z["tokens"].shape[1]
-    params = model_params_from_reference(cfg, tree, device="cpu")
     mesh = _mesh(shape)
     params = elastic.place(params, mesh, sharding.params_specs(params, mesh))
     trace = {}
@@ -497,3 +488,255 @@ def tp_four_ranks(rank, world):
         "serve_yi_one": serve_split(rank, world, "yi-6b", (2, 2), 12, 4, 1),
         **uneven(rank, world, (2, 2)),
     }
+
+
+# -- the compiled mesh step ---------------------------------------------------
+
+#: the compiled mesh train step's run: 3 steps, 4 rows of 32 tokens, two
+#: rows a micro-batch and shard (2 micro-batches accumulated where "data"
+#: is 1, one where it is 2), a warmup over two steps (every step's
+#: learning rate differs)
+MESH_TRAIN = dict(steps=3, global_batch=4, seq_len=32, micro_per_shard=2)
+
+
+def _mesh_opt():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                       total_steps=MESH_TRAIN["steps"])
+
+
+def compiled_train_rows(cfg, mesh, params=None, seed: int = 0) -> list:
+    """``launch.train.CompiledTrain`` over DTensor parameters, optimizer
+    state and batch on ``mesh``, placed as ``train_loop`` places them, its
+    step run op by op over the static buffers (what a card captures once
+    and replays) for ``MESH_TRAIN``'s steps: each step's (loss, global
+    norm, every parameter and optimizer leaf as numpy arrays).
+    ``params``: the initial parameters (by default ``Model.init``'s from
+    ``seed``, as ``train_loop``'s)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.train import CompiledTrain, _host_batch
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    run = MESH_TRAIN
+    model = build(cfg)
+    accum = elastic.replan_accum(run["global_batch"], run["micro_per_shard"],
+                                 mesh)
+    data = SyntheticLMData(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq_len"],
+        global_batch=run["global_batch"], seed=seed, frontend=cfg.frontend,
+        n_frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model))
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(seed))
+    opt_state = adamw_init(params)
+    pspecs = sharding.params_specs(params, mesh)
+    params = elastic.place(params, mesh, pspecs)
+    opt_state = elastic.place(opt_state, mesh,
+                              sharding.opt_specs(opt_state, pspecs))
+    ct = CompiledTrain(model, _mesh_opt(), accum, params, opt_state, mesh)
+    rows = []
+    with sharding.mesh_context(mesh):
+        for step in range(run["steps"]):
+            ct.load(_host_batch(data, step, accum,
+                                run["global_batch"] // accum))
+            out = ct.run()
+            rows.append((float(full(out["loss"])),
+                         float(full(out["grad_norm"])),
+                         [a.copy() for a in leaf_arrays(ct.params)],
+                         [a.copy() for a in leaf_arrays(ct.opt_state)]))
+    assert ct.params is params and all(
+        sharding.is_dtensor(t) for t in ct.batch.values())
+    return rows
+
+
+def eager_train_rows(cfg, mesh) -> list:
+    """``train_loop(..., mesh=mesh, eager=True)`` on ``MESH_TRAIN``'s run:
+    each step's (loss, global norm, parameters, optimizer leaves), as
+    ``compiled_train_rows`` (each step's are new tensors)."""
+    from repro_torch.launch.train import train_loop
+    rows, trace = [], {}
+
+    def on_step(i, m):
+        rows.append((m["loss"], float(full(m["grad_norm"])),
+                     leaf_arrays(m["params"]), leaf_arrays(m["opt_state"])))
+    train_loop(cfg, device="cpu", mesh=mesh, on_step=on_step,
+               log_every=1000, opt_cfg=_mesh_opt(), eager=True, trace=trace,
+               **MESH_TRAIN)
+    assert trace["step"] == "eager"
+    return rows
+
+
+def compiled_mesh_train(rank, world, arch, shape):
+    """A reduced ``arch`` on a ``shape`` mesh: (the compiled step's rows,
+    the eager loop's rows)."""
+    cfg = reduced(arch)
+    mesh = _mesh(shape)
+    return compiled_train_rows(cfg, mesh), eager_train_rows(cfg, mesh)
+
+
+def compiled_mesh_serve(rank, world, arch, shape, prompt=12, gen=4):
+    """``serve_batch`` of a reduced ``arch`` (or an ``UNEVEN`` name) with
+    DTensor parameters under ``mesh_context`` of a ``shape`` gloo mesh --
+    the eager route -- and ``launch.serve.CompiledServe``'s prefill and
+    tensor-``pos`` decode steps over its placed static buffers, twice
+    (the cache reset in place): (the eager tokens and logits, each
+    compiled serve's tokens and logits, the static buffers' placements
+    against the eager serve's specs)."""
+    import torch
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch.serve import CompiledServe, serve_batch
+    from repro_torch.models import build
+    cfg = reduced(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    mesh = _mesh(shape)
+    params = elastic.place(params, mesh, sharding.params_specs(params, mesh))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, prompt)).astype(np.int32)
+    trace = {}
+    with sharding.mesh_context(mesh), torch.no_grad():
+        tokens = serve_batch(cfg, params, prompts, gen_tokens=gen,
+                             model=model, trace=trace)
+        cs = CompiledServe(model, params, 2, prompt, prompt + gen,
+                           torch.device("cpu"), mesh)
+        runs = []
+        for _ in range(2):
+            cs.load(prompts)
+            logits, toks = [full(cs.prefill(model))], []
+            for _ in range(gen):
+                toks.append(full(cs.tok).copy())
+                logits.append(full(cs.decode(model)))
+            runs.append((np.stack(toks, 1).astype(np.int32), logits))
+    cache_specs = sharding.sanitize_specs(
+        cs.cache, sharding.cache_specs(cs.cache, cfg, mesh), mesh)
+    from repro_torch.optim.adamw import leaves
+    placed = all(sharding.is_dtensor(t) and tuple(t.placements)
+                 == sharding.placements(s, mesh) for t, s in
+                 zip(leaves(cs.cache), _spec_leaves(cache_specs)))
+    placed &= sharding.is_dtensor(cs.tok) and not sharding.is_dtensor(
+        cs.pos) and all(sharding.is_dtensor(t) for t in cs.batch.values())
+    return ((tokens, [full(x) for x in trace["logits"]], trace["step"]),
+            runs, placed, int(cs.pos))
+
+
+def _spec_leaves(tree) -> list:
+    """The specs (tuples) of a spec tree, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _spec_leaves(v)]
+    if isinstance(tree, list):
+        return [s for v in tree for s in _spec_leaves(v)]
+    return [tree]
+
+
+def route_cases(rank, world):
+    """``launch.mesh.compiled_route`` under this gloo world: (parameters
+    on the card with no mesh, on a gloo mesh, with ``eager=True``; the
+    CPU's parameters with no mesh), a card's parameters stood in for by
+    their device alone."""
+    import types
+    import torch
+    from repro_torch.launch.mesh import compiled_route
+    card = {"embed": types.SimpleNamespace(device=torch.device("cuda", 0))}
+    cpu = {"embed": torch.zeros(1)}
+    mesh = _mesh((world, 1))
+    return (compiled_route(card, None, False), compiled_route(card, mesh, False),
+            compiled_route(card, None, True), compiled_route(cpu, None, False))
+
+
+def compiled_mesh_trains(rank, world, shape):
+    """The train step of reduced hymba and granite on a ``shape`` mesh, by
+    arch."""
+    return {arch: compiled_mesh_train(rank, world, arch, shape)
+            for arch in ("hymba-1.5b", "granite-moe-3b-a800m")}
+
+
+def jax_port_rows(arch: str, path: str, shape) -> list:
+    """The compiled step's rows (``compiled_train_rows``) of a reduced
+    ``arch`` on a ``shape`` mesh from the JAX package's parameters in the
+    npz at ``path`` (``_reference_params``), once the file is there (the
+    caller writes it meanwhile)."""
+    import time
+    waited = time.monotonic() + 120
+    while not os.path.exists(path):
+        if time.monotonic() > waited:
+            raise TimeoutError(f"{path} was not written within 120 s")
+        time.sleep(0.2)
+    return compiled_train_rows(reduced(arch), _mesh(shape),
+                               _reference_params(arch, path))
+
+
+def compiled_mesh_serves(rank, world, jax_run=None):
+    """The rest of the compiled-mesh tests, on 2 ranks: the route
+    predicate, a step at accum 1 on (2, 1) (``accum_one_placements``),
+    the serves of the two ``UNEVEN`` configs (yi's "groups", hymba's
+    "sequence" with the slot-split ring) and of reduced whisper on (1,
+    2), and with ``jax_run`` = (arch, npz path) the compiled step on (1,
+    2) from the JAX package's parameters (``jax_port_rows``)."""
+    out = {"route": route_cases(rank, world),
+           "accum_one": accum_one_placements(rank, world)}
+    for arch in ("yi-4q1kv", "hymba-5q1kv", "whisper-medium"):
+        out[arch] = compiled_mesh_serve(rank, world, arch, (1, 2))
+    if jax_run is not None:
+        out["jax_port"] = jax_port_rows(*jax_run, (1, world))
+    return out
+
+
+def accum_one_placements(rank, world, arch="hymba-1.5b"):
+    """One eager ``train_loop`` step of a reduced ``arch`` with one
+    micro-batch (accum 1) on a (world, 1) mesh, where autograd leaves a
+    replicated parameter's gradient ``Partial`` over "data": (the names
+    of the parameter and optimizer leaves whose placements left
+    ``params_specs``' / ``opt_specs``', the loss)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.train import train_loop
+    cfg = reduced(arch)
+    mesh = _mesh((world, 1))
+    off, losses = [], []
+
+    def on_step(i, m):
+        losses.append(m["loss"])
+        pspecs = sharding.sanitize_specs(
+            m["params"], sharding.params_specs(m["params"], mesh), mesh)
+        for key, tree in (("params", m["params"]),
+                          *((k, m["opt_state"][k])
+                            for k in ("master", "m", "v"))):
+            sharding.tree_map_with_path(
+                lambda path, t, spec, key=key: off.append(f"{key}/{path}")
+                if tuple(t.placements) != sharding.placements(spec, mesh)
+                else None, tree, pspecs)
+    train_loop(cfg, steps=1, global_batch=world, seq_len=32,
+               micro_per_shard=1, device="cpu", mesh=mesh, on_step=on_step,
+               log_every=1000, eager=True)
+    return off, losses
+
+
+def spawn_all(runs: list, tmp_path, deadline: float = 240) -> list:
+    """``spawn`` of each (scenario, world, *args) in ``runs`` at once, one
+    thread and one store directory under ``tmp_path`` each: their rank-0
+    results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    dirs = [os.path.join(str(tmp_path), f"run{i}") for i in range(len(runs))]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = [pool.submit(spawn, name, world, d, *args,
+                               deadline=deadline)
+                   for d, (name, world, *args) in zip(dirs, runs)]
+        return [f.result() for f in futures]
+
+
+def _reference_params(arch: str, path: str) -> dict:
+    """The port's parameters of a reduced ``arch`` from an npz of the JAX
+    package's, by "/"-joined key under "params/"."""
+    from repro_torch.convert import model_params_from_reference
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if key.startswith("params/"):
+                *outer, leaf = key.split("/")[1:]
+                node = tree
+                for k in outer:
+                    node = node.setdefault(k, {})
+                node[leaf] = z[key]
+    return model_params_from_reference(reduced(arch), tree, device="cpu")
