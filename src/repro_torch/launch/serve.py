@@ -77,18 +77,24 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.launch.mesh import compiled_route
 from repro_torch.models import build
 from repro_torch.models.layers import greedy
+from repro_torch.obs import steps
+from repro_torch.obs import trace as obs_trace
 
 
 class Clock:
     """Elapsed ms of a span: CUDA events on the card (the device's time,
-    read after one synchronise at the end), the host clock on the CPU."""
+    read after one synchronise at the end), the host clock on the CPU;
+    nothing when ``on`` is false (a serve without a ``trace``)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, on: bool = True):
         self.cuda = device.type == "cuda"
+        self.on = on
         self.spans: list = []
 
     def start(self):
         """Open a span."""
+        if not self.on:
+            return None
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -97,6 +103,8 @@ class Clock:
 
     def stop(self, begin) -> None:
         """Close the span opened by ``start``."""
+        if not self.on:
+            return
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -214,7 +222,7 @@ class CompiledServe:
     not kept: the model keeps this object (``Model.serve_graphs``)."""
 
     def __init__(self, model, params: dict, b: int, s: int, max_len: int,
-                 device: torch.device, mesh=None):
+                 device: torch.device, mesh=None, spans: bool = False):
         self.params = params     # the tensors the graphs read
         self.prompts = torch.zeros((b, s), dtype=torch.int64, device=device)
         self.batch, self.pos0, enc_len = serve_inputs(model.cfg, self.prompts)
@@ -228,6 +236,11 @@ class CompiledServe:
         self.graphs: tuple | None = None
         self.records: tuple | None = None
         self.logits: tuple | None = None
+        #: with ``spans``, the prefill's and the decode step's layer spans
+        #: (``obs.steps``): recorded by each eager run and by the capture,
+        #: whose graphs then hold their events
+        self.spans = (steps.StepSpans(device), steps.StepSpans(device)) \
+            if spans else None
 
     def load(self, prompts) -> None:
         """Copy a serve's prompts (B, S) into ``prompts``, which the
@@ -241,17 +254,20 @@ class CompiledServe:
 
     def prefill(self, model) -> torch.Tensor:
         """The prefill step (see the class); returns its logits."""
-        _reset(self.cache)
+        with steps.region("reset"):
+            _reset(self.cache)
         logits, _ = model.prefill(self.params, self.batch, self.cache)
-        self.tok.copy_(greedy(logits))
-        self.pos.fill_(self.pos0)
+        with steps.region("greedy"):
+            self.tok.copy_(greedy(logits))
+            self.pos.fill_(self.pos0)
         return logits
 
     def decode(self, model) -> torch.Tensor:
         """The decode step (see the class); returns its logits."""
         logits, _ = model.decode(self.params, self.tok, self.pos, self.cache)
-        self.tok.copy_(greedy(logits))
-        self.pos.add_(1)
+        with steps.region("greedy"):
+            self.tok.copy_(greedy(logits))
+            self.pos.add_(1)
         return logits
 
     def eager(self, step, model) -> torch.Tensor:
@@ -275,10 +291,11 @@ class CompiledServe:
         count only when a graph replays."""
         pool = torch.cuda.graph_pool_handle()
         graphs, records, logits = [], [], []
-        for step in (self.prefill, self.decode):
+        for i, step in enumerate((self.prefill, self.decode)):
             g = torch.cuda.CUDAGraph()
             with _build.record(counted=False) as rec, \
-                    torch.cuda.graph(g, pool=pool, stream=self.stream):
+                    torch.cuda.graph(g, pool=pool, stream=self.stream), \
+                    _armed(self.spans, i):
                 logits.append(step(model))
             graphs.append(g)
             records.append(rec)
@@ -293,25 +310,37 @@ class CompiledServe:
         return len(mine) == len(theirs) and all(
             a is b for a, b in zip(mine, theirs))
 
-    def replay(self, i: int, host_us: list) -> torch.Tensor:
+    def replay(self, i: int, host_us: list | None = None) -> torch.Tensor:
         """Replay graph ``i`` (0 the prefill, 1 the decode step) on the
         current stream, count its launches, and return the logits it
         wrote (overwritten by its next replay); the host µs of the
-        replay call go on ``host_us``."""
+        replay call go on ``host_us`` when given."""
         t0 = time.perf_counter()
         self.graphs[i].replay()
-        host_us.append((time.perf_counter() - t0) * 1e6)
+        if host_us is not None:
+            host_us.append((time.perf_counter() - t0) * 1e6)
         self.records[i].replay()
         return self.logits[i]
 
 
-def compiled_key(cfg, b: int, s: int, max_len: int, mesh=None) -> tuple:
+def _armed(spans: tuple | None, i: int):
+    """Step ``i``'s layer spans (of ``spans``, the prefill's and the
+    decode step's ``obs.steps.StepSpans``) armed for the run or capture
+    inside; nothing without spans."""
+    return contextlib.nullcontext() if spans is None \
+        else steps.recording(spans[i])
+
+
+def compiled_key(cfg, b: int, s: int, max_len: int, mesh=None,
+                 spans: bool = False) -> tuple:
     """The shape key of a ``CompiledServe``: batch, prompt length,
     ``max_len``, ``enc_len``, the frontend stubs' shapes, the default
     backend (``dispatch.use_backend``), whether autotuning is on (the
-    launch knobs are looked up at capture) and the mesh's shape and
-    dimension names (None without one), so a serve without a mesh and
-    one on a mesh never share graphs."""
+    launch knobs are looked up at capture), whether the graphs hold
+    layer spans, so an untraced serve never replays their event nodes
+    and a traced one never replays graphs without them, and the mesh's
+    shape and dimension names (None without one), so a serve without a
+    mesh and one on a mesh never share graphs."""
     batch, _, enc_len = serve_inputs(
         cfg, torch.empty((b, s), dtype=torch.int64, device="meta"))
     stubs = tuple((k, tuple(v.shape)) for k, v in batch.items()
@@ -319,23 +348,24 @@ def compiled_key(cfg, b: int, s: int, max_len: int, mesh=None) -> tuple:
     where = None if mesh is None else (tuple(mesh.shape),
                                        tuple(mesh.mesh_dim_names))
     return (b, s, max_len, enc_len, stubs, dispatch.default_backend(),
-            tuning.enabled(), where)
+            tuning.enabled(), spans, where)
 
 
 def compiled_serve(model, params: dict, b: int, s: int, max_len: int,
-                   device: torch.device, mesh=None) -> CompiledServe:
+                   device: torch.device, mesh=None,
+                   spans: bool = False) -> CompiledServe:
     """The model's ``CompiledServe`` of this shape key for ``params``: the
     kept one when it reads these parameter tensors; otherwise the kept
     one, if any, is released first (graphs, pool, cache, its parameters)
     and a new one, not yet captured, takes its place."""
-    key = compiled_key(model.cfg, b, s, max_len, mesh)
+    key = compiled_key(model.cfg, b, s, max_len, mesh, spans)
     cs = model.serve_graphs.get(key)
     if cs is not None and not cs.holds(params):
         del model.serve_graphs[key]
         cs = None
     if cs is None:
-        cs = model.serve_graphs[key] = CompiledServe(model, params, b, s,
-                                                     max_len, device, mesh)
+        cs = model.serve_graphs[key] = CompiledServe(
+            model, params, b, s, max_len, device, mesh, spans)
     return cs
 
 
@@ -389,57 +419,121 @@ def serve_batch(cfg, params: dict, prompts, *, gen_tokens: int = 16,
     and ``replay_us`` (the host µs of each replay call).
     ``sync_debug`` is ``torch.cuda.set_sync_debug_mode``'s mode from the
     compiled step's first replay to the end of its decode loop ("error"
-    raises at any call there that synchronises with the host)."""
+    raises at any call there that synchronises with the host).
+
+    Tracing.  The serve's phases -- ``serve.batch`` around ``serve.load``,
+    ``serve.eager`` (a key's first prefill and step 0), ``serve.capture``,
+    ``serve.prefill``, one ``serve.decode_step`` a step and
+    ``serve.to_host`` -- are ``obs.steps.phase`` ranges: in
+    ``torch.profiler``'s trace while it records, spans of the installed
+    ``obs.Tracer`` while one is.  With a tracer installed and no mesh,
+    the steps also record their layer spans (``obs.steps``: on the card
+    CUDA events, event-record nodes of the graphs, which are then of
+    their own key) and the MoE layers' counts; after each step ran the
+    serve waits for the card and puts its spans into the tracer on
+    track "prefill" or "decode" (attributes ``step``, ``batch``,
+    ``prompt``, ``layer``), and at its end the counts into
+    ``tracer.metrics`` (``moe_routed_entries``, ``moe_dropped_entries``,
+    by ``phase``).  The mesh paths (``attention._split_decode``,
+    ``moe._moe_mesh``, ``sharding.tp_block``) record none."""
     if gen_tokens < 1:
         raise ValueError(f"gen_tokens must be at least 1, got {gen_tokens}")
-    model = model or build(cfg)
-    dev = params["embed"].device
-    prompts = np.asarray(prompts)
-    mesh = sharding.ambient_mesh()
-    unplaced = mesh is None and sharding.is_dtensor(params["embed"])
-    on = params["embed"].device_mesh if unplaced else mesh
-    if not compiled_route(params, on, eager):
-        return _serve_eager(cfg, model, params, prompts, gen_tokens, trace,
-                            dev, mesh)
-    if unplaced:
-        raise ValueError("serve_batch: the compiled step of DTensor "
-                         "parameters places its buffers on the ambient mesh; "
-                         "serve them under mesh_context(mesh)")
-    return _serve_compiled(cfg, model, params, prompts, gen_tokens, trace,
-                           dev, sync_debug, mesh)
+    with steps.phase("serve.batch"):
+        model = model or build(cfg)
+        dev = params["embed"].device
+        prompts = np.asarray(prompts)
+        mesh = sharding.ambient_mesh()
+        unplaced = mesh is None and sharding.is_dtensor(params["embed"])
+        on = params["embed"].device_mesh if unplaced else mesh
+        spans = obs_trace.active().enabled and on is None
+        if not compiled_route(params, on, eager):
+            return _serve_eager(cfg, model, params, prompts, gen_tokens,
+                                trace, dev, mesh, spans)
+        if unplaced:
+            raise ValueError("serve_batch: the compiled step of DTensor "
+                             "parameters places its buffers on the ambient "
+                             "mesh; serve them under mesh_context(mesh)")
+        return _serve_compiled(cfg, model, params, prompts, gen_tokens,
+                               trace, dev, sync_debug, mesh, spans)
 
 
-def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
-    """The serve step op by op from Python."""
-    b, s = prompts.shape
-    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
-    batch, pos, enc_len = serve_inputs(cfg, tokens)
-    cache = model.init_cache(b, s + gen_tokens, enc_len, device=dev)
-    batch, cache = _placed(cfg, params, mesh, batch, cache)
-    clock = Clock(dev)
-    logits_seen, sizes = [], []
+class _LayerSpans:
+    """One serve's layer spans into the installed tracer: ``recs``, the
+    prefill's and the decode step's ``obs.steps.StepSpans`` (None: the
+    serve records none), put on the tracer's clock by one anchor."""
 
-    t0 = clock.start()
-    logits, cache = model.prefill(params, batch, cache)
-    clock.stop(t0)
-    if trace is not None:
-        trace["launches_prefill"] = _build.launch_counts()
-    logits_seen.append(logits)
-    out = []
-    tok = greedy(logits)
-    for i in range(gen_tokens):
-        out.append(tok)
-        t0 = clock.start()
-        with _build.record() as rec:
-            logits, cache = model.decode(params, tok, pos + i, cache)
-        clock.stop(t0)
-        sizes.append(_sizes(rec))
-        logits_seen.append(logits)
-        tok = greedy(logits)
+    def __init__(self, recs, dev: torch.device, b: int, s: int):
+        self.recs = recs
+        if recs is not None:
+            self.tracer = obs_trace.active()
+            self.anchor = steps.Anchor(self.tracer, dev)
+            self.attrs = {"batch": b, "prompt": s}
+
+    def emit(self, i: int, step: int, graph: bool = False) -> None:
+        """Step ``i``'s spans of its last run (a replay of its graph or an
+        eager run), as step ``step`` of the serve."""
+        if self.recs is not None:
+            self.recs[i].emit(self.tracer, self.anchor, steps.TRACKS[i],
+                              step=step, graph=graph, **self.attrs)
+
+    def close(self) -> None:
+        """The device counts of the serve into the tracer."""
+        if self.recs is not None:
+            for rec, track in zip(self.recs, steps.TRACKS):
+                rec.take_counts(self.tracer, track)
+
+
+def _tokens(out: list) -> np.ndarray:
+    """The served tokens (B, G) as a numpy int32 array on the host."""
     gen = torch.stack(out, dim=1)
     if sharding.is_dtensor(gen):
         gen = gen.full_tensor()
-    gen = gen.to(torch.int32).cpu().numpy()
+    return gen.to(torch.int32).cpu().numpy()
+
+
+def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh,
+                 spans):
+    """The serve step op by op from Python."""
+    b, s = prompts.shape
+    with steps.phase("serve.load"):
+        tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+        batch, pos, enc_len = serve_inputs(cfg, tokens)
+        cache = model.init_cache(b, s + gen_tokens, enc_len, device=dev)
+        batch, cache = _placed(cfg, params, mesh, batch, cache)
+        layer_spans = _LayerSpans((steps.StepSpans(dev), steps.StepSpans(dev))
+                                  if spans else None, dev, b, s)
+    clock = Clock(dev, on=trace is not None)
+    logits_seen, sizes = [], []
+
+    with steps.phase("serve.prefill"):
+        with _armed(layer_spans.recs, 0):
+            t0 = clock.start()
+            logits, cache = model.prefill(params, batch, cache)
+            clock.stop(t0)
+            if trace is not None:
+                trace["launches_prefill"] = _build.launch_counts()
+            logits_seen.append(logits)
+            with steps.region("greedy"):
+                tok = greedy(logits)
+        layer_spans.emit(0, 0)
+    out = []
+    for i in range(gen_tokens):
+        with steps.phase("serve.decode_step", step=i):
+            out.append(tok)
+            with _armed(layer_spans.recs, 1):
+                t0 = clock.start()
+                with _build.record() as rec:
+                    logits, cache = model.decode(params, tok, pos + i, cache)
+                clock.stop(t0)
+                if trace is not None:
+                    sizes.append(_sizes(rec))
+                logits_seen.append(logits)
+                with steps.region("greedy"):
+                    tok = greedy(logits)
+            layer_spans.emit(1, i)
+    with steps.phase("serve.to_host"):
+        gen = _tokens(out)
+        layer_spans.close()
     if trace is not None:
         ms = clock.ms()
         trace.update(step="eager", prefill_ms=ms[0], decode_ms=ms[1:],
@@ -449,14 +543,17 @@ def _serve_eager(cfg, model, params, prompts, gen_tokens, trace, dev, mesh):
 
 
 def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
-                    sync_debug, mesh):
+                    sync_debug, mesh, spans):
     """The serve step as replays of the key's CUDA graphs (captured at
     the key's first serve, after its eager prefill and step 0)."""
     b, s = prompts.shape
-    cs = compiled_serve(model, params, b, s, s + gen_tokens, dev, mesh)
-    cs.load(prompts)
-    clock = Clock(dev)
+    with steps.phase("serve.load"):
+        cs = compiled_serve(model, params, b, s, s + gen_tokens, dev, mesh,
+                            spans)
+        cs.load(prompts)
+        layer_spans = _LayerSpans(cs.spans, dev, b, s)
     keep = trace is not None
+    clock = Clock(dev, on=keep)
     logits_seen, sizes, out, host_us = [], [], [], []
     capture_ms, first = None, cs.graphs is None
 
@@ -466,37 +563,46 @@ def _serve_compiled(cfg, model, params, prompts, gen_tokens, trace, dev,
             logits_seen.append(logits if first else logits.clone())
 
     if first:
-        t0 = clock.start()
-        note_prefill(cs.eager(cs.prefill, model))
-        clock.stop(t0)
-        out.append(cs.tok.clone())
-        t0 = clock.start()
-        with _build.record() as rec:
-            logits = cs.eager(cs.decode, model)
-        clock.stop(t0)
-        sizes.append(_sizes(rec))
-        logits_seen.append(logits)
-        c0 = time.perf_counter()
-        cs.capture(model)
-        capture_ms = (time.perf_counter() - c0) * 1e3
-    with sync_debug_mode(sync_debug):
-        if not first:
+        with steps.phase("serve.eager"):
             t0 = clock.start()
-            logits = cs.replay(0, [])
+            with _armed(cs.spans, 0):
+                note_prefill(cs.eager(cs.prefill, model))
             clock.stop(t0)
-            note_prefill(logits)
-        for _ in range(1 if first else 0, gen_tokens):
+            layer_spans.emit(0, 0)
             out.append(cs.tok.clone())
             t0 = clock.start()
-            logits = cs.replay(1, host_us)
+            with _build.record() as rec, _armed(cs.spans, 1):
+                logits = cs.eager(cs.decode, model)
             clock.stop(t0)
-            sizes.append(_sizes(cs.records[1]))
+            layer_spans.emit(1, 0)
             if keep:
-                logits_seen.append(logits.clone())
-    gen = torch.stack(out, dim=1)
-    if sharding.is_dtensor(gen):
-        gen = gen.full_tensor()
-    gen = gen.to(torch.int32).cpu().numpy()
+                sizes.append(_sizes(rec))
+                logits_seen.append(logits)
+        with steps.phase("serve.capture"):
+            c0 = time.perf_counter()
+            cs.capture(model)
+            capture_ms = (time.perf_counter() - c0) * 1e3
+    with sync_debug_mode(sync_debug):
+        if not first:
+            with steps.phase("serve.prefill"):
+                t0 = clock.start()
+                logits = cs.replay(0)
+                clock.stop(t0)
+                note_prefill(logits)
+                layer_spans.emit(0, 0, graph=True)
+        for i in range(1 if first else 0, gen_tokens):
+            with steps.phase("serve.decode_step", step=i):
+                out.append(cs.tok.clone())
+                t0 = clock.start()
+                logits = cs.replay(1, host_us if keep else None)
+                clock.stop(t0)
+                if keep:
+                    sizes.append(_sizes(cs.records[1]))
+                    logits_seen.append(logits.clone())
+                layer_spans.emit(1, i, graph=True)
+    with steps.phase("serve.to_host"):
+        gen = _tokens(out)
+        layer_spans.close()
     if keep:
         ms = clock.ms()
         trace.update(step="cuda graph", prefill_ms=ms[0], decode_ms=ms[1:],

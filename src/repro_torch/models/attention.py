@@ -76,6 +76,7 @@ from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.kernels.rope import ref as rope_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
+from repro_torch.obs import steps
 
 
 def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -533,13 +534,15 @@ def prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
         return _split_full(params, x, cfg, layout, causal=True,
                            block_kv=block_kv, cache=cache,
                            start=start), cache
-    b, s, _ = x.shape
-    positions = torch.arange(start, start + s, device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
-    out = k_attention(q, k, v, causal=True, window=cfg.window, q_offset=0,
-                      block_kv=block_kv)
-    cache = _write_cache(cache, k, v, start, cfg)
-    return _merge_heads(out) @ params["wo"], cache
+    with steps.region("attention"):
+        b, s, _ = x.shape
+        positions = torch.arange(start, start + s, device=x.device)
+        q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
+        with steps.region("attention.core"):
+            out = k_attention(q, k, v, causal=True, window=cfg.window,
+                              q_offset=0, block_kv=block_kv)
+        cache = _write_cache(cache, k, v, start, cfg)
+        return _merge_heads(out) @ params["wo"], cache
 
 
 def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
@@ -555,8 +558,10 @@ def decode_step(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict,
             params, x, rows_like=cache["k"]), cache
     if layout is not None:
         return _split_decode(params, x, cfg, cache, pos), cache
-    positions = position_range(pos, 1, x.device)
-    q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
-    cache = _write_cache(cache, k, v, pos, cfg)
-    out = _cached_attention(q, cache, positions, cfg.window)
-    return _merge_heads(out) @ params["wo"], cache
+    with steps.region("attention"):
+        positions = position_range(pos, 1, x.device)
+        q, k, v = _qkv(params, x, cfg, positions, cfg.pos_embed == "rope")
+        cache = _write_cache(cache, k, v, pos, cfg)
+        with steps.region("attention.core"):
+            out = _cached_attention(q, cache, positions, cfg.window)
+        return _merge_heads(out) @ params["wo"], cache

@@ -56,6 +56,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, mlp_init, residual_add, rmsnorm
+from repro_torch.obs import steps
 
 
 def init(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -118,10 +119,18 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig):
     the MoE load-balance term (0.0 for the SwiGLU MLP)."""
     if not cfg.d_ff:
         return None, 0.0
-    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    if cfg.n_experts:
-        return moe_mod.moe_ffn(p["moe"], h, cfg)
-    return mlp(p["mlp"], h), 0.0
+    h = _norm(x, p["mlp_norm"], cfg)
+    with steps.region("ffn"):
+        if cfg.n_experts:
+            return moe_mod.moe_ffn(p["moe"], h, cfg)
+        return mlp(p["mlp"], h), 0.0
+
+
+def _norm(x: torch.Tensor, gain: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """A sub-block's pre-norm, the ``norm`` span of a layer."""
+    with steps.region("norm"):
+        return rmsnorm(x, gain, cfg.norm_eps)
 
 
 def _hybrid_delta(p: dict, a: torch.Tensor, s: torch.Tensor,
@@ -201,33 +210,36 @@ def prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *,
     """Prompt pass filling the cache in place (an enc-dec decoder layer's
     against the encoder output ``enc_out``).  Returns (x, the cache)."""
     if cfg.family == "ssm":
-        h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
-        delta, new_cache = ssm_mod.forward(p["ssm"], h, cfg,
-                                           conv_tail=cache["conv"],
-                                           return_state=True)
-        return residual_add(x, delta.to(x.dtype)), \
-            ssm_mod.write_cache(cache, new_cache)
-    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        h = _norm(x, p["ssm_norm"], cfg)
+        with steps.region("ssm"):
+            delta, new_cache = ssm_mod.forward(p["ssm"], h, cfg,
+                                               conv_tail=cache["conv"],
+                                               return_state=True)
+            new_cache = ssm_mod.write_cache(cache, new_cache)
+        return residual_add(x, delta.to(x.dtype)), new_cache
+    h = _norm(x, p["attn_norm"], cfg)
     if cfg.family == "hybrid":
         a, attn_cache = attn.prefill(p["attn"], h, cfg, cache["attn"],
                                      start=start)
-        s, ssm_cache = ssm_mod.forward(p["ssm"], h, cfg,
-                                       conv_tail=cache["ssm"]["conv"],
-                                       return_state=True)
+        with steps.region("ssm"):
+            s, ssm_cache = ssm_mod.forward(p["ssm"], h, cfg,
+                                           conv_tail=cache["ssm"]["conv"],
+                                           return_state=True)
+            ssm_cache = ssm_mod.write_cache(cache["ssm"], ssm_cache)
         x = residual_add(x, _hybrid_delta(p, a, s, cfg).to(x.dtype))
-        new_cache = {"attn": attn_cache,
-                     "ssm": ssm_mod.write_cache(cache["ssm"], ssm_cache)}
+        new_cache = {"attn": attn_cache, "ssm": ssm_cache}
     elif "cross" in p:
         a, self_cache = attn.prefill(p["attn"], h, cfg, cache["self"],
                                      start=start)
         x = residual_add(x, a.to(x.dtype))
         if enc_out is None:
             raise ValueError("an enc-dec decoder layer needs enc_out")
-        cross_kv = attn.encode_kv(p["cross"], enc_out, cfg)
-        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-        x = residual_add(x, attn.cross_attend(p["cross"], h, cross_kv,
-                                              cfg).to(x.dtype))
-        _write_cross(cache["cross"], cross_kv, cfg)
+        h = _norm(x, p["cross_norm"], cfg)
+        with steps.region("cross_attention"):
+            cross_kv = attn.encode_kv(p["cross"], enc_out, cfg)
+            a = attn.cross_attend(p["cross"], h, cross_kv, cfg)
+            _write_cross(cache["cross"], cross_kv, cfg)
+        x = residual_add(x, a.to(x.dtype))
         new_cache = {"self": self_cache, "cross": cache["cross"]}
     else:
         a, new_cache = attn.prefill(p["attn"], h, cfg, cache, start=start)
@@ -242,22 +254,25 @@ def decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, pos):
     """One-token step at ``pos`` (an int or a 0-d int64 tensor on x's
     device), the cache written in place.  Returns (x, the cache)."""
     if cfg.family == "ssm":
-        h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
-        delta, new_cache = ssm_mod.decode_step(p["ssm"], h, cfg, cache)
+        h = _norm(x, p["ssm_norm"], cfg)
+        with steps.region("ssm"):
+            delta, new_cache = ssm_mod.decode_step(p["ssm"], h, cfg, cache)
         return residual_add(x, delta.to(x.dtype)), new_cache
-    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    h = _norm(x, p["attn_norm"], cfg)
     if cfg.family == "hybrid":
         a, attn_cache = attn.decode_step(p["attn"], h, cfg, cache["attn"], pos)
-        s, ssm_cache = ssm_mod.decode_step(p["ssm"], h, cfg, cache["ssm"])
+        with steps.region("ssm"):
+            s, ssm_cache = ssm_mod.decode_step(p["ssm"], h, cfg, cache["ssm"])
         x = residual_add(x, _hybrid_delta(p, a, s, cfg).to(x.dtype))
         new_cache = {"attn": attn_cache, "ssm": ssm_cache}
     elif "cross" in p:
         a, self_cache = attn.decode_step(p["attn"], h, cfg, cache["self"],
                                          pos)
         x = residual_add(x, a.to(x.dtype))
-        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-        x = residual_add(x, attn.cross_attend(p["cross"], h, cache["cross"],
-                                              cfg).to(x.dtype))
+        h = _norm(x, p["cross_norm"], cfg)
+        with steps.region("cross_attention"):
+            a = attn.cross_attend(p["cross"], h, cache["cross"], cfg)
+        x = residual_add(x, a.to(x.dtype))
         new_cache = {"self": self_cache, "cross": cache["cross"]}
     else:
         a, new_cache = attn.decode_step(p["attn"], h, cfg, cache, pos)

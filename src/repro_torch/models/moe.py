@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
+from repro_torch.obs import steps
 
 
 def init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -233,7 +234,12 @@ def _moe_local(router, w_gate, w_up, w_down, x: torch.Tensor,
                cfg: ModelConfig):
     """One shard's MoE FFN (all of it off a mesh)."""
     orig_b = x.shape[0]
-    r = route(router, x, cfg)
+    with steps.region("moe.route"):
+        r = route(router, x, cfg)
+        rec = steps.armed()
+        if rec is not None:
+            rec.count("moe_routed_entries", r.keep.numel())
+            rec.count("moe_dropped_entries", (~r.keep).sum())
     x = _grouped(x)
     b, s, d = x.shape
     e, k, c = cfg.n_experts, cfg.experts_per_token, r.capacity
@@ -243,31 +249,35 @@ def _moe_local(router, w_gate, w_up, w_down, x: torch.Tensor,
 
     # dispatch: token of each sorted entry into its slot; dropped
     # entries all land on the sentinel row, which nothing reads
-    stok = r.order // k
-    flat_dest = r.dest.reshape(-1)
-    xg = x.reshape(b * s, d).index_select(0, (brow * s + stok).reshape(-1))
-    buf = x.new_zeros((e * b * c + 1, d))
-    buf.index_copy_(0, flat_dest, xg)
-    xe = buf[:e * b * c].view(e, b * c, d)
+    with steps.region("moe.dispatch"):
+        stok = r.order // k
+        flat_dest = r.dest.reshape(-1)
+        xg = x.reshape(b * s, d).index_select(
+            0, (brow * s + stok).reshape(-1))
+        buf = x.new_zeros((e * b * c + 1, d))
+        buf.index_copy_(0, flat_dest, xg)
+        xe = buf[:e * b * c].view(e, b * c, d)
 
     # experts: SwiGLU, gate and up kept in float32 until silu(g) * u
-    h = F.silu(_bmm_f32(xe, w_gate)) * _bmm_f32(xe, w_up)
-    ye = torch.bmm(h.to(x.dtype), w_down).to(x.dtype)
-    yflat = torch.cat([ye.reshape(e * b * c, d), ye.new_zeros((1, d))])
+    with steps.region("moe.experts"):
+        h = F.silu(_bmm_f32(xe, w_gate)) * _bmm_f32(xe, w_up)
+        ye = torch.bmm(h.to(x.dtype), w_down).to(x.dtype)
+        yflat = torch.cat([ye.reshape(e * b * c, d), ye.new_zeros((1, d))])
 
     # combine: each token's k entries in ascending sorted position
-    sgate = torch.gather(r.gates.reshape(b, sk), -1, r.order)
-    weight = (sgate * r.keep).to(x.dtype)
-    inv = torch.empty_like(r.order).scatter_(
-        1, r.order, torch.arange(sk, device=dev).expand(b, sk))
-    at = torch.sort(inv.view(b, s, k), dim=-1).values.reshape(b, sk)
-    at = (brow * sk + at).reshape(-1)
-    contrib = yflat.index_select(0, flat_dest.index_select(0, at)) \
-        * weight.reshape(-1).index_select(0, at)[:, None]
-    contrib = contrib.view(b, s, k, d)
-    y = x.new_zeros((b, s, d))
-    for j in range(k):
-        y = y + contrib[:, :, j]
+    with steps.region("moe.combine"):
+        sgate = torch.gather(r.gates.reshape(b, sk), -1, r.order)
+        weight = (sgate * r.keep).to(x.dtype)
+        inv = torch.empty_like(r.order).scatter_(
+            1, r.order, torch.arange(sk, device=dev).expand(b, sk))
+        at = torch.sort(inv.view(b, s, k), dim=-1).values.reshape(b, sk)
+        at = (brow * sk + at).reshape(-1)
+        contrib = yflat.index_select(0, flat_dest.index_select(0, at)) \
+            * weight.reshape(-1).index_select(0, at)[:, None]
+        contrib = contrib.view(b, s, k, d)
+        y = x.new_zeros((b, s, d))
+        for j in range(k):
+            y = y + contrib[:, :, j]
     if orig_b != b:
         y = y.reshape(orig_b, 1, d)
     return y, r.aux

@@ -55,6 +55,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, embed, embed_init,
                                        logits_head, rmsnorm,
                                        sinusoidal_positions)
+from repro_torch.obs import steps
 
 #: the families this port serves and trains: every family of the JAX package
 SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
@@ -202,11 +203,13 @@ class Model:
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = rmsnorm(x, whole(params["final_norm"]), cfg.norm_eps)
-        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        table = gathered(table, keep_model=True,
-                         keep_fsdp=contraction_split(x))
-        return logits_head(x, table, cfg.logit_softcap)[:, 0]
+        with steps.region("head"):
+            x = rmsnorm(x, whole(params["final_norm"]), cfg.norm_eps)
+            table = params["embed"] if cfg.tie_embeddings \
+                else params["unembed"]
+            table = gathered(table, keep_model=True,
+                             keep_fsdp=contraction_split(x))
+            return logits_head(x, table, cfg.logit_softcap)[:, 0]
 
     def prefill(self, params: dict, batch: dict, cache: list):
         """Prompt pass over ``batch["tokens"]`` (B, S) (and the batch's
@@ -215,13 +218,17 @@ class Model:
         attention k/v/kpos, the SSM state and conv tail, the enc-dec
         cross keys and values)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
-        enc_out = (self._encode(params, batch["frames"]) if cfg.is_encdec
-                   else None)
+        with steps.region("embed"):
+            x = self._embed_inputs(params, batch)
+        enc_out = None
+        if cfg.is_encdec:
+            with steps.region("encoder"):
+                enc_out = self._encode(params, batch["frames"])
         new_cache = []
-        for lp, c in zip(params["layers"], cache):
-            x, c = blocks.prefill(blocks.for_use(lp, cfg, x), x, cfg, c,
-                                  start=0, enc_out=enc_out)
+        for i, (lp, c) in enumerate(zip(params["layers"], cache)):
+            with steps.region("layer", layer=i):
+                x, c = blocks.prefill(blocks.for_use(lp, cfg, x), x, cfg, c,
+                                      start=0, enc_out=enc_out)
             new_cache.append(c)
         return self._head(params, x[:, -1:]), new_cache
 
@@ -233,16 +240,18 @@ class Model:
         ``launch.serve`` captures one CUDA graph for every position).
         Returns logits (B, V) float32 and the cache, written in place."""
         cfg = self.cfg
-        x = embed(gathered(params["embed"], keep_model=True),
-                  tokens[:, None])
-        if cfg.pos_embed == "sinusoidal":
-            p = sinusoidal_positions(
-                attn_mod.position_range(pos, 1, x.device), cfg.d_model)
-            x = x + replicate_as(p[None].to(x.dtype), x)
+        with steps.region("embed"):
+            x = embed(gathered(params["embed"], keep_model=True),
+                      tokens[:, None])
+            if cfg.pos_embed == "sinusoidal":
+                p = sinusoidal_positions(
+                    attn_mod.position_range(pos, 1, x.device), cfg.d_model)
+                x = x + replicate_as(p[None].to(x.dtype), x)
         new_cache = []
-        for lp, c in zip(params["layers"], cache):
-            x, c = blocks.decode(blocks.for_use(lp, cfg, x, decode=True),
-                                 x, cfg, c, pos)
+        for i, (lp, c) in enumerate(zip(params["layers"], cache)):
+            with steps.region("layer", layer=i):
+                x, c = blocks.decode(blocks.for_use(lp, cfg, x, decode=True),
+                                     x, cfg, c, pos)
             new_cache.append(c)
         return self._head(params, x), new_cache
 

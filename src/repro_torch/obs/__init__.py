@@ -27,8 +27,10 @@ package, so it keeps its own.
   * ``obs.slo``      -- multi-window burn-rate alerting over the latency
     and rejection error budgets, deterministic under a virtual clock.
 
-``obs.bench_history`` reads committed ``BENCH_*.json`` records as a time
-series, with the directional drift check.
+  * ``obs.steps``    -- spans and counts of the model's layers inside the
+    serve step (CUDA events, event-record nodes of its graphs) and the
+    serve's phases as ``torch.profiler`` ranges; ``launch.serve`` records
+    them while a ``Tracer`` is installed.
 
 Quickstart::
 

@@ -54,6 +54,8 @@ import dataclasses
 import time
 import typing
 
+from repro_torch.obs.metrics import MetricsRegistry
+
 
 @dataclasses.dataclass
 class Span:
@@ -166,6 +168,13 @@ class Tracer:
         self.recorder = recorder
         self.spans: list[Span] = []
         self._stack: list[int] = []
+        #: the counters traced work adds at its span boundaries
+        #: (``obs.steps``: the serve step's MoE entries, by phase)
+        self.metrics = MetricsRegistry("trace")
+
+    def now(self) -> float:
+        """The tracer's clock."""
+        return self._now()
 
     # -- emission ------------------------------------------------------------
 

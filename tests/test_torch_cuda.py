@@ -2070,6 +2070,43 @@ def test_compiled_serve_is_bitwise_the_eager_serve_on_card(cuda_device, arch,
     assert not model.serve_graphs
 
 
+@pytest.mark.parametrize("arch, batch, prompt", [
+    ("hymba-1.5b", 32, 1024), ("granite-moe-3b-a800m", 8, 1536)])
+def test_layer_spans_in_graphs_keep_the_tokens_and_cover_each_replay(
+        cuda_device, arch, batch, prompt):
+    """With an ``obs.Tracer`` installed the compiled serve captures graphs
+    of their own key whose event-record nodes time the layer spans:
+    their tokens are bit for bit the plain graphs' (twice: the capture's
+    serve and a serve of replays only), and in every replay of the decode
+    step the top-level spans (``embed``, the ``layer``s, ``head``,
+    ``greedy``) cover at least 97 % of the time from its first event to
+    its last.  Four layers at the published widths, with a benchmark
+    cell's batch and one of its prompt lengths: a reduced model's decode
+    step takes under a millisecond, where the event nodes' own few µs
+    and a single launch bubble can be a tenth of it."""
+    import dataclasses
+    from repro_torch import configs, obs
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import build
+    from repro_torch.obs import steps
+    cfg = dataclasses.replace(configs.get(arch), n_layers=4)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(1))
+    prompts = np.random.default_rng(69).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    plain = [serve_batch(cfg, params, prompts, gen_tokens=8, model=model)
+             for _ in range(2)]
+    trc = obs.Tracer()
+    with obs.installed(trc):
+        spanned = [serve_batch(cfg, params, prompts, gen_tokens=8,
+                               model=model) for _ in range(2)]
+    assert all(np.array_equal(t, plain[0]) for t in plain + spanned)
+    assert sorted(key[-2] for key in model.serve_graphs) == [False, True]
+    replays = steps.summary(trc)[("decode", prompt, True)]
+    assert replays["steps"] == 7 + 8
+    assert replays["top_share"] >= 0.97, replays
+
+
 # -- the compiled train step (one CUDA graph of forward, backward, AdamW) --------
 
 def _local(t):

@@ -96,7 +96,7 @@ def test_import_loads_no_jax_or_repro():
                    "repro_torch.launch.mesh", "repro_torch.launch.cells",
                    "repro_torch.launch.dryrun", "repro_torch.hlo_analysis",
                    "repro_torch.roofline", "repro_torch.configs.shapes",
-                   "repro_torch.obs.bench_history"):
+                   "repro_torch.obs.steps"):
         assert module in names.split(), module
 
 
@@ -107,7 +107,6 @@ from repro_torch.launch import cells, dryrun, mesh
 from repro_torch.distributed import compression, elastic, sharding
 from repro_torch import hlo_analysis, roofline
 from repro_torch.configs import shapes
-from repro_torch.obs import bench_history
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "repro"
              or k.startswith("repro."))
